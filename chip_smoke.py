@@ -1,0 +1,566 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (lidar_layout_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py                    # every phase, as the acceptance run
+    python3 chip_smoke.py --phases device,build,kernels
+
+Phases (any failure exits non-zero before the final "ok" line):
+  device   require CUDA, print the card's name and power limit, turn TF32 off
+  build    compile every kernel in csrc/ with nvcc (in parallel), print ptxas
+  kernels  each kernel vs its plain PyTorch version at the flagship shapes,
+           float32 and bfloat16
+  slice    full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode on
+           the card (kernels) vs on the CPU (plain versions)
+  main     GenerationPipeline at full width, batch 16, bf16: generate(32) with
+           DPM-20 and with DDIM-50; checks outputs and the kernel launch counts
+  timing   per-kernel CUDA-event times at the main path's shapes beside the
+           plain version, one PyTorch library call and the card's bound
+  profile  (only when named) device time of one DPM-20 request by kernel family
+
+The weights are random, drawn from a seed (no trained checkpoint is used). It
+imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("device", "build", "kernels", "slice", "main", "timing")
+EXTRA_PHASES = ("profile",)   # run only when named in --phases
+N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
+# published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
+K1_SOURCE = "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu"
+K3_SOURCE = "lidar_layout_tpu_torch/csrc/group_norm.cu"
+K1_REPLACES = "lidar_layout_tpu/ops/pallas_attention.py:87"
+K3_REPLACES = "lidar_layout_tpu/ops/pallas_groupnorm.py:135"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
+
+
+def seed_weights(model, seed: int = 0):
+    """The tests' seeded weights (tests/torch_port_helpers.py): every
+    parameter at ~1/sqrt(fan_in), the zero-initialised output layers
+    included, and an N(0, 1) codebook."""
+    from torch_port_helpers import seed_weights as fill   # tests/ is on sys.path
+
+    return fill(model, seed)
+
+
+def unet_evals(model, steps: int) -> int:
+    """U-Net evals of one request: the uniform DDIM table of the JAX package
+    gives 21 timesteps for 20 steps and 52 for 50 over 1024 DDPM steps."""
+    from lidar_layout_tpu_torch.models.schedules import DDIMSchedule
+
+    return len(DDIMSchedule.create(model.schedule, steps).timesteps)
+
+
+def max_err(a, b):
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), float(b.float().abs().max())
+
+
+def device_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device milliseconds per call: the CUDA kernel (and copy) times
+    that torch.profiler records over ``reps`` calls, summed. Gaps between
+    launches, where the card waits for the host, are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / 1e3 / reps
+
+
+def cuda_time(fn, reps: int, warmup: int = 3) -> float:
+    """Mean wall milliseconds per call over ``reps`` back-to-back calls, from
+    CUDA events: the device time, or the host's launch rate where that is
+    slower."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class Smoke:
+    def __init__(self):
+        self.kernel_err = {"flash_attention": 0.0, "group_norm": 0.0}
+        self.launches = {}
+        self.shapes = None   # main-path kernel shapes and their launches per request
+
+    # ------------------------------------------------------------------ device
+    def device(self):
+        import torch
+
+        log("torch", torch.__version__, "cuda", torch.version.cuda, "python",
+            sys.version.split()[0])
+        log("card:", card_line(), "| devices:", torch.cuda.device_count())
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    # ------------------------------------------------------------------- build
+    def build(self):
+        from lidar_layout_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
+        logs = _build.build()
+        log(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(logs) or 'nothing (cached)'}")
+        for name, (sec, text) in sorted(logs.items()):
+            log(f"  {name}: nvcc {sec:.1f} s")
+            for line in text.splitlines():
+                if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+                    log("   ", line.strip())
+
+    # ----------------------------------------------------------------- kernels
+    def _check(self, name, got, want, atol, rtol, what):
+        import torch
+
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want)
+        ok = err <= atol + rtol * scale and bool(torch.isfinite(got.float()).all())
+        log(f"  {name} {what}: max_abs_err={err:.3e} max_rel_err={err / max(scale, 1e-30):.3e} "
+            f"(|ref|max {scale:.3e}, tol {atol:g}+{rtol:g}*|ref|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {what} disagrees with its plain version")
+        if got.dtype == torch.bfloat16:
+            self.kernel_err[name] = max(self.kernel_err[name], err)
+
+    def kernels(self):
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        # f32: the kernel and the plain version differ only in summation order;
+        # bf16: both round the output to bf16 and the kernel also rounds the
+        # unnormalised p to bf16 (the plain version rounds the normalised p)
+        tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+        log("K1 flash_attention vs _attend_ref:")
+        cases = [((16, 8, 2048, 32), False, False), ((16, 16, 512, 32), False, False),
+                 ((16, 32, 128, 32), False, False), ((16, 8, 2048, 32), True, False),
+                 ((4, 8, 1000, 32), False, True), ((2, 4, 333, 64), True, True),
+                 ((2, 2, 200, 128), False, True), ((2, 2, 130, 16), True, False)]
+        for dtype in (torch.float32, torch.bfloat16):
+            for (b, h, s, d), fused, masked in cases:
+                if fused:   # q, k, v as views of one (B, S, H, 3, D) projection
+                    qkv = torch.randn((b, s, h, 3, d), generator=gen, device=dev).to(dtype)
+                    q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+                else:
+                    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                               .to(dtype) for _ in range(3))
+                kb = None
+                if masked:  # key padding: the last ~quarter of keys of batch 0
+                    kb = torch.zeros((b, s), device=dev)
+                    kb[0, s - s // 4:] = -1e9
+                got = A.flash_attention(q, k, v, kb)
+                want = A._attend_ref(q, k, v, kb)
+                self._check("flash_attention", got, want, *tol[dtype],
+                            f"{(b, h, s, d)} {str(dtype)[6:]} fused={fused} kbias={masked}")
+
+        log("K3 group_norm vs _ref:")
+        shapes = self._main_shapes()["group_norm"]
+        for dtype in (torch.float32, torch.bfloat16):
+            for (bsz, c, hh, ww, groups) in sorted({k[:5] for k in shapes}):
+                x = (torch.randn((bsz, c, hh, ww), generator=gen, device=dev) * 2 + 0.3).to(dtype)
+                gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+                beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+                for act in (False, True):
+                    got = G.group_norm(x, gamma, beta, groups, 1e-6, act)
+                    want = G._ref(x, gamma, beta, groups, 1e-6, act)
+                    self._check("group_norm", got, want,
+                                *( (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)),
+                                f"{(bsz, c, hh, ww)} G={groups} {str(dtype)[6:]} act={act}")
+        # a large-mean group of 262K values, against float64 statistics. The
+        # kernel works on x minus the group's first element, which is exact
+        # here, so it is held to the f32 tolerance above; a mean formed near
+        # 300 in f32 would be off by up to half an ulp (1.5e-5), already
+        # 1.5e-4 of the std 0.1, and a one-pass E[x^2] - E[x]^2 in f32 would
+        # lose the variance (the ulp of 9e4 is ~8e-3, the variance 1e-2)
+        x = torch.randn((2, 128, 64, 1024), generator=gen, device=dev) * 0.1 + 300.0
+        gamma, beta = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+        xd = x.double().reshape(2, 32, -1)
+        mean = xd.mean(dim=2, keepdim=True)
+        ref64 = ((xd - mean) / torch.sqrt((xd - mean).square().mean(dim=2, keepdim=True)
+                                          + 1e-6)).reshape(x.shape).float()
+        self._check("group_norm", G.group_norm(x, gamma, beta, 32, 1e-6, False), ref64,
+                    1e-4, 1e-5, "(2, 128, 64, 1024) mean 300 std 0.1 f32 vs f64 statistics")
+
+    # --------------------------------------------------------- main-path shapes
+    def _main_shapes(self):
+        """Kernel calls of one DPM-20 request at batch 16, by shape: hooks on a
+        batch-16 U-Net eval and VQ decode record them once."""
+        if self.shapes is not None:
+            return self.shapes
+        import torch
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+        model, _ = flagship(dtype=torch.bfloat16)
+        seen = {"group_norm": collections.Counter(), "flash_attention": collections.Counter()}
+        phase = {"n": unet_evals(model, 20)}
+
+        def norm_hook(mod, args):
+            b, c, h, w = args[0].shape
+            seen["group_norm"][(b, c, h, w, mod.num_groups, mod.act)] += phase["n"]
+
+        def attn_hook(mod, args):
+            b, c, h, w = args[0].shape
+            seen["flash_attention"][(b, mod.num_heads, h * w, c // mod.num_heads)] += phase["n"]
+
+        hooks = []
+        for m in model.unet.modules():
+            if isinstance(m, Normalize):
+                hooks.append(m.register_forward_pre_hook(norm_hook))
+            elif isinstance(m, SelfAttentionBlock):
+                hooks.append(m.register_forward_pre_hook(attn_hook))
+        for m in model.first_stage_model.decoder.modules():
+            if isinstance(m, Normalize):
+                hooks.append(m.register_forward_pre_hook(norm_hook))
+        lh, lw, lc = model.cfg.latent_shape
+        with torch.inference_mode():
+            z = torch.randn((16, lh, lw, lc), device="cuda")
+            model.apply_model(z, torch.full((16,), 500, device="cuda"))   # x21 evals
+            phase["n"] = 1
+            model.decode_first_stage(z)
+        for hk in hooks:
+            hk.remove()
+        del model
+        torch.cuda.empty_cache()
+        self.shapes = seen
+        for name, cnt in seen.items():
+            log(f"main-path {name} launches per DPM-20 request (batch 16): "
+                f"{sum(cnt.values())} over {len(cnt)} shapes")
+        return seen
+
+    # ------------------------------------------------------------------- slice
+    def slice(self):
+        import torch
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.models.samplers import ddim_sample
+
+        model_gpu, _ = flagship(device="cuda")
+        seed_weights(model_gpu, 0)
+        model_cpu, _ = flagship(device="cpu")
+        model_cpu.load_state_dict({k: v.cpu() for k, v in model_gpu.state_dict().items()})
+        lh, lw, lc = model_gpu.cfg.latent_shape
+        x_T = torch.randn((1, lh, lw, lc), generator=torch.Generator().manual_seed(3))
+        out = {}
+        for name, model, dev in (("cuda", model_gpu, "cuda"), ("cpu", model_cpu, "cpu")):
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                z = ddim_sample(model, x_T.shape, steps=4, x_T=x_T, device=dev)
+                zq = model.first_stage_model.quantize((z / model.cfg.scale_factor)
+                                                      .permute(0, 3, 1, 2))[2]
+                img_own = model.decode_first_stage(z)
+                out[name] = (z.cpu(), zq.cpu(), img_own.cpu())
+            log(f"slice on {name}: {time.perf_counter() - t0:.1f} s")
+        with torch.inference_mode():   # the card's latent decoded on the CPU too
+            img_cpu_same = model_cpu.decode_first_stage(out["cuda"][0])
+        z_g, idx_g, img_g = out["cuda"]
+        z_c, idx_c, img_c = out["cpu"]
+        zerr, zscale = max_err(z_g, z_c)
+        agree = float((idx_g == idx_c).float().mean())
+        ierr, _ = max_err(img_g, img_cpu_same)
+        mask_g, mask_c = img_g > -1.0, img_cpu_same > -1.0
+        mask_agree = float((mask_g == mask_c).float().mean())
+        both = mask_g & mask_c
+        val_err = float((img_g - img_cpu_same).abs()[both].max()) if both.any() else 0.0
+        own_agree = float(((img_g > -1.0) == (img_c > -1.0)).float().mean())
+        log(f"slice: latent max_abs_err={zerr:.3e} (|z|max {zscale:.3e}); VQ index "
+            f"agreement {agree:.5f}; same-latent decode: image max_abs_err={ierr:.3e}, "
+            f"ray-drop mask agreement {mask_agree:.6f}, kept-pixel max_abs_err="
+            f"{val_err:.3e}; own-latent decode mask agreement {own_agree:.6f}")
+        # tolerances: f32 everywhere, TF32 off; the two devices sum in other
+        # orders, which a 4-step sampler amplifies to ~1e-4 of |z|. The VQ
+        # argmin can flip on a near-tie, so indices need only 99% agreement,
+        # and a decoded pixel next to 0 in the mask channel can flip ray-drop
+        if not (zerr <= 1e-3 * max(zscale, 1.0) and agree >= 0.99
+                and mask_agree >= 0.999 and val_err <= 1e-3 * max(1.0, float(img_g.abs().max()))):
+            raise AssertionError("card slice disagrees with the CPU slice")
+        if not bool(torch.isfinite(img_g).all()):
+            raise AssertionError("card slice image not finite")
+        del model_gpu, model_cpu
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------------- main
+    def main(self):
+        import torch
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+        from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+
+        model, image_shape = flagship(dtype=torch.bfloat16, device="cuda")
+        seed_weights(model, 0)
+        card = card_line()
+        n, batch = N_MAIN, BATCH
+        per_eval_attn = sum(1 for m in model.unet.modules()
+                            if type(m).__name__ == "SelfAttentionBlock")
+        unet_norms = sum(1 for m in model.unet.modules() if type(m).__name__ == "Normalize")
+        dec_norms = sum(1 for m in model.first_stage_model.decoder.modules()
+                        if type(m).__name__ == "Normalize")
+        for sampler, steps in (("dpm", 20), ("ddim", 50)):
+            pipe = GenerationPipeline(model, KITTI_GEOMETRY, sampler=sampler, steps=steps)
+            pipe.generate(batch, seed=99)        # warm-up (cuDNN plans, allocator)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.flash_attention.launches = 0
+            G.group_norm.launches = 0
+            res = pipe.generate(n, seed=0, batch=batch)
+            got = {"flash_attention": A.flash_attention.launches,
+                   "group_norm": G.group_norm.launches}
+            batches = n // batch
+            evals = unet_evals(model, steps)
+            want = {"flash_attention": batches * evals * per_eval_attn,
+                    "group_norm": batches * (evals * unet_norms + dec_norms)}
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            imgs = res.images
+            log(f"main {sampler}-{steps}: images {imgs.shape} finite="
+                f"{bool(np.isfinite(imgs).all())} clouds={len(res.clouds)} "
+                f"(median {int(np.median([len(c) for c in res.clouds]))} points); "
+                f"{res.samples_per_sec:.3f} samples/s; phases "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in res.phase_seconds.items())
+                + f"; peak memory {mem:.2f} GiB; launches {got} expected {want}; "
+                f"card {card}")
+            if imgs.shape != (n, *image_shape) or not np.isfinite(imgs).all() \
+                    or len(res.clouds) != n:
+                raise AssertionError(f"main {sampler}: bad output")
+            if got != want:
+                raise AssertionError(f"main {sampler}: launch counts {got} != {want}")
+            if sampler == "dpm":
+                self.launches = got
+        del model
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ timing
+    def timing(self):
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        shapes = self._main_shapes()
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        card = card_line()
+        totals = {}
+        saved = (A.flash_attention.launches, G.group_norm.launches)
+        log(f"timing on {card}: per call, device ms (torch.profiler kernel time, mean of "
+            f"back-to-back calls); 'events' is the wall time per call from CUDA events, "
+            f"which includes the host's launch rate")
+        # K1
+        tot = collections.Counter()
+        for (b, h, s, d), count in sorted(shapes["flash_attention"].items()):
+            q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            flops = 4 * b * h * s * s * d
+            nbytes = 4 * b * h * s * d * 2
+            t = {"ms": device_ms(lambda: A.flash_attention(q, k, v), 20),
+                 "events_ms": cuda_time(lambda: A.flash_attention(q, k, v), 20),
+                 "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 5),
+                 "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
+            bound_flops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            t["bound_ms"] = max(bound_flops, bound_bytes)
+            log(f"  K1 {(b, h, s, d)} bf16 x{count}/request: kernel {t['ms']:.4f} (events "
+                f"{t['events_ms']:.4f}) | plain "
+                f"{t['plain_ms']:.4f} | sdpa {t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
+                f"({'operations' if bound_flops >= bound_bytes else 'bytes'}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
+                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+            for key, val in t.items():
+                tot[key] += count * val * (N_MAIN // BATCH)
+            tot["bound_ops_ms"] += count * bound_flops * (N_MAIN // BATCH)
+            tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
+        totals["flash_attention"] = tot
+        # K3
+        tot = collections.Counter()
+        for (b, c, hh, ww, groups, act), count in sorted(shapes["group_norm"].items()):
+            x = torch.randn((b, c, hh, ww), generator=gen, device=dev).to(torch.bfloat16)
+            gamma = torch.ones(c, device=dev)
+            beta = torch.zeros(c, device=dev)
+            gl, bl = gamma.to(x.dtype), beta.to(x.dtype)
+
+            def lib():
+                y = F.group_norm(x, groups, gl, bl, 1e-6)
+                return F.silu(y) if act else y
+            nbytes = 2 * x.numel() * 2 + 2 * c * 4
+            ops = 15 * x.numel()
+            t = {"ms": device_ms(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act), 20),
+                 "events_ms": cuda_time(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act),
+                                        20),
+                 "plain_ms": device_ms(lambda: G._ref(x, gamma, beta, groups, 1e-6, act), 5),
+                 "library_ms": device_ms(lib, 20)}
+            bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_F32 * 1e3
+            t["bound_ms"] = max(bound_bytes, bound_ops)
+            log(f"  K3 {(b, c, hh, ww)} G={groups} act={act} bf16 x{count}/request: kernel "
+                f"{t['ms']:.4f} (events {t['events_ms']:.4f}) | plain {t['plain_ms']:.4f} | "
+                f"group_norm+silu "
+                f"{t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
+                f"({'bytes' if bound_bytes >= bound_ops else 'operations'}; "
+                f"{nbytes / 1e6:.1f} MB) | {nbytes / t['ms'] / 1e6:.0f} GB/s")
+            for key, val in t.items():
+                tot[key] += count * val * (N_MAIN // BATCH)
+            tot["bound_ops_ms"] += count * bound_ops * (N_MAIN // BATCH)
+            tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
+        totals["group_norm"] = tot
+        A.flash_attention.launches, G.group_norm.launches = saved
+        for name, tot in totals.items():
+            log(f"  {name} over the main DPM-20 run (generate({N_MAIN}), batch {BATCH}; "
+                f"sum over shapes of launches x time): kernel "
+                f"{tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain "
+                f"{tot['plain_ms']:.3f} | library "
+                f"{tot['library_ms']:.3f} | bound {tot['bound_ms']:.3f}")
+        self.totals = totals
+
+    # ----------------------------------------------------------------- profile
+    def profile(self):
+        """Device time of one DPM-20 request (batch 16, bf16) by kernel family,
+        from torch.profiler, beside the request's wall time."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+        from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+
+        model, _ = flagship(dtype=torch.bfloat16, device="cuda")
+        seed_weights(model, 0)
+        pipe = GenerationPipeline(model, KITTI_GEOMETRY)
+        pipe.generate(BATCH, seed=1)                  # warm-up
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = pipe.generate(BATCH, seed=2)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        families = (("K1 flash_attention", ("attn_fwd",)),
+                    ("K3 group_norm", ("group_norm_fwd",)),
+                    ("convolution / matmul (cuDNN, cuBLAS)",
+                     ("conv", "xmma", "gemm", "cudnn", "cutlass", "sm90", "implicit")),
+                    ("elementwise / copy / reduce (PyTorch)",
+                     ("elementwise", "vectorized", "reduce", "copy", "cat", "fill",
+                      "upsample", "index", "pool", "softmax")))
+        by_family, kernels = collections.Counter(), []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = ev.self_device_time_total
+            kernels.append((us, ev.count, ev.key))
+            name = ev.key.lower()
+            family = next((f for f, keys in families if any(k in name for k in keys)), "other")
+            by_family[family] += us
+        busy_ms = sum(by_family.values()) / 1e3
+        log(f"profile: one DPM-20 request, batch 16, bf16: wall {wall_ms:.1f} ms "
+            f"(profiler on; host phases {res.phase_seconds}), device busy {busy_ms:.1f} ms "
+            f"({100 * busy_ms / wall_ms:.1f}% of wall) in {sum(k[1] for k in kernels)} "
+            f"device activities")
+        if busy_ms == 0:
+            log("  the profiler saw no device time")
+            return
+        for family, us in by_family.most_common():
+            log(f"  {family}: {us / 1e3:.2f} ms ({100 * us / 1e3 / busy_ms:.1f}% of device time)")
+        for us, count, key in sorted(kernels, reverse=True)[:12]:
+            log(f"    {us / 1e3:9.2f} ms  x{count:<5d} {key[:110]}")
+        del model, pipe
+        torch.cuda.empty_cache()
+
+    def summary(self):
+        entries = []
+        for name, route_src, replaces in (("flash_attention", K1_SOURCE, K1_REPLACES),
+                                          ("group_norm", K3_SOURCE, K3_REPLACES)):
+            tot = getattr(self, "totals", {}).get(name, {})
+            bound_by = ("operations" if tot.get("bound_ops_ms", 0) >= tot.get("bound_bytes_ms", 0)
+                        else "bytes")
+            entries.append({
+                "name": name, "route": "cuda", "source": route_src,
+                "replaces": replaces, "launches": self.launches.get(name),
+                "max_abs_err": self.kernel_err[name],
+                "ms": tot.get("ms"), "plain_ms": tot.get("plain_ms"),
+                "bound_ms": tot.get("bound_ms"), "bound_by": bound_by,
+                "library_ms": tot.get("library_ms")})
+        return {"kernels": entries}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES + EXTRA_PHASES))
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES + EXTRA_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this check runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    try:
+        import lidar_layout_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
+        return 2
+
+    smoke = Smoke()
+    t_all = time.perf_counter()
+    for phase in PHASES + EXTRA_PHASES:
+        if phase not in phases and phase not in ("device", "build"):
+            continue
+        t0 = time.perf_counter()
+        log(f"=== phase {phase}")
+        getattr(smoke, phase)()
+        log(f"=== phase {phase} done in {time.perf_counter() - t0:.1f} s")
+    log(f"all phases: {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps(smoke.summary()))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,141 @@
+"""Latent diffusion over range-image latents (inference).
+
+Counterpart of ``lidar_layout_tpu/models/diffusion.py``: ``DiffusionConfig``
+and ``LatentDiffusion`` with ``apply_model``, ``encode_first_stage``,
+``decode_first_stage``, ``eps_from_model_out`` and ``predict_eps_from_x``.
+Latents at this API are NHWC (B, 16, 128, 8) and images (B, H, W, 1), as in
+the JAX package; the modules inside are NCHW.
+
+The state_dict uses the reference LatentDiffusion checkpoint prefixes,
+``model.diffusion_model.`` for the U-Net and ``first_stage_model.`` for the
+autoencoder.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..nn.blocks import Normalize
+from ..nn.quantize import VectorQuantizer
+from .autoencoder import AEConfig, VQModelInterface
+from .schedules import DiffusionSchedule, extract
+from .unet import UNetConfig, UNetModel
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """model.params block of the reference LiDM configs."""
+
+    timesteps: int = 1024
+    beta_schedule: str = "linear"
+    linear_start: float = 0.0015
+    linear_end: float = 0.0195
+    cosine_s: float = 8e-3
+    parameterization: str = "eps"       # "eps" | "x0"
+    loss_type: str = "l2"
+    l_simple_weight: float = 1.0
+    original_elbo_weight: float = 0.0
+    v_posterior: float = 0.0
+    learn_logvar: bool = False
+    logvar_init: float = 0.0
+    conditioning_key: Optional[str] = None
+    scale_factor: float = 1.0
+    scale_by_std: bool = False
+    cond_stage_trainable: bool = False
+    latent_shape: Tuple[int, int, int] = (16, 128, 8)  # (H, W, C) of z
+    split_ks: Optional[Tuple[int, int]] = None
+    split_stride: Optional[Tuple[int, int]] = None
+
+
+class DiffusionWrapper(nn.Module):
+    """Holds the U-Net under the reference's ``model.diffusion_model`` name."""
+
+    def __init__(self, unet: nn.Module):
+        super().__init__()
+        self.diffusion_model = unet
+
+
+class LatentDiffusion(nn.Module):
+    """U-Net + frozen VQ first stage. ``dtype`` is the activation and weight
+    dtype of the convs and linears; norms, the codebook and softmax stay f32."""
+
+    def __init__(self, cfg: DiffusionConfig, unet_cfg: UNetConfig,
+                 first_stage_cfg: Optional[AEConfig] = None, n_embed: int = 16384,
+                 embed_dim: int = 8, use_mask: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.conditioning_key is not None:
+            raise NotImplementedError("conditioning waits for its port (ROADMAP "
+                                      "queue 1, item 11)")
+        if cfg.split_ks is not None:
+            raise NotImplementedError("the split_ks patched path waits for the "
+                                      "foldunfold port (ROADMAP queue 1)")
+        self.cfg = cfg
+        self.schedule = DiffusionSchedule.create(
+            timesteps=cfg.timesteps, beta_schedule=cfg.beta_schedule,
+            linear_start=cfg.linear_start, linear_end=cfg.linear_end,
+            cosine_s=cfg.cosine_s, v_posterior=cfg.v_posterior,
+            parameterization=cfg.parameterization)
+        self.model = DiffusionWrapper(UNetModel(unet_cfg))
+        self.first_stage_model = (VQModelInterface(first_stage_cfg, n_embed=n_embed,
+                                                   embed_dim=embed_dim, use_mask=use_mask)
+                                  if first_stage_cfg is not None else None)
+        self.cast_(dtype)
+
+    @property
+    def unet(self) -> UNetModel:
+        return self.model.diffusion_model
+
+    def cast_(self, dtype: torch.dtype) -> "LatentDiffusion":
+        """Put conv/linear weights in ``dtype``; GroupNorm affines and the VQ
+        codebook stay float32."""
+        keep = {id(p) for m in self.modules() if isinstance(m, (Normalize, VectorQuantizer))
+                for p in m.parameters()}
+        for p in self.parameters():
+            p.data = p.data.float() if id(p) in keep else p.data.to(dtype)
+        self.dtype = dtype
+        return self
+
+    # -------------------------------------------------------- first stage io
+    def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 1) image -> scaled NHWC latent."""
+        if self.first_stage_model is None:
+            return x
+        z = self.first_stage_model.encode_latent(x.permute(0, 3, 1, 2).to(self.dtype))
+        return (self.cfg.scale_factor * z.float()).permute(0, 2, 3, 1)
+
+    def decode_first_stage(self, z: torch.Tensor,
+                           force_not_quantize: bool = False) -> torch.Tensor:
+        """NHWC latent -> (B, H, W, C) float32 image (ray-drop applied)."""
+        if self.first_stage_model is None:
+            return z
+        z = (z / self.cfg.scale_factor).permute(0, 3, 1, 2).to(self.dtype)
+        img = self.first_stage_model.decode_latent(z, force_not_quantize)
+        return img.float().permute(0, 2, 3, 1)
+
+    # ------------------------------------------------------------- the model
+    def apply_model(self, x_noisy: torch.Tensor, t: torch.Tensor,
+                    cond: Any = None) -> torch.Tensor:
+        """One U-Net eval: NHWC float32 latent in, NHWC float32 out."""
+        if cond is not None:
+            raise NotImplementedError("conditioning waits for its port (ROADMAP "
+                                      "queue 1, item 11)")
+        out = self.unet(x_noisy.permute(0, 3, 1, 2), t)
+        return out.permute(0, 2, 3, 1)
+
+    # ------------------------------------------------------------- sampling
+    def predict_eps_from_x(self, x_t: torch.Tensor, t: torch.Tensor,
+                           pred_x0: torch.Tensor) -> torch.Tensor:
+        s = self.schedule
+        return ((extract(s.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t - pred_x0)
+                / extract(s.sqrt_recipm1_alphas_cumprod, t, x_t.ndim))
+
+    def eps_from_model_out(self, x_t: torch.Tensor, t: torch.Tensor,
+                           out: torch.Tensor) -> torch.Tensor:
+        """Model output -> epsilon, whatever the parameterization."""
+        if self.cfg.parameterization == "eps":
+            return out
+        return self.predict_eps_from_x(x_t, t, out)

@@ -1,0 +1,120 @@
+"""Samplers: DDIM and DPM-Solver++(2M) over NHWC latents (inference).
+
+Counterpart of ``lidar_layout_tpu/models/samplers.py`` (``_cfg_apply``,
+``ddim_sample``, ``dpm_solver_sample``). The per-step tables come from numpy
+float64 exactly as in the JAX package, are cast to float32 there as JAX casts
+them, and each step's scalar arithmetic is done in np.float32 so that it
+rounds as the JAX scan does. The loop is a Python loop over eager torch ops.
+
+Both samplers take an optional ``x_T``, as the reference's
+``DDIMSampler.sample(x_T=...)``; without it they draw ``x_T`` from the
+caller's ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .diffusion import LatentDiffusion
+from .schedules import DDIMSchedule
+
+
+def _cfg_apply(model: LatentDiffusion, x: torch.Tensor, t: torch.Tensor, cond: Any,
+               uncond: Any, scale: float) -> torch.Tensor:
+    """Model eval with classifier-free guidance (one doubled batch)."""
+    if uncond is None or scale == 1.0:
+        return model.apply_model(x, t, cond)
+    out = model.apply_model(torch.cat([x, x]), torch.cat([t, t]),
+                            torch.cat([uncond, cond]))
+    e_uncond, e_cond = out.chunk(2)
+    return e_uncond + scale * (e_cond - e_uncond)
+
+
+def _initial(shape: Tuple[int, ...], x_T: Optional[torch.Tensor],
+             generator: Optional[torch.Generator], device) -> torch.Tensor:
+    device = resolve_device(device)
+    if x_T is not None:
+        if tuple(x_T.shape) != tuple(shape):
+            raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected {shape}")
+        return x_T.to(device=device, dtype=torch.float32)
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def _f32(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float64).astype(np.float32)
+
+
+def ddim_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int = 50,
+                eta: float = 0.0, cond: Any = None, uncond: Any = None,
+                cfg_scale: float = 1.0, temperature: float = 1.0,
+                method: str = "uniform", x_T: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                device="cuda") -> torch.Tensor:
+    """DDIM loop; returns the NHWC float32 latent. With eta > 0 each step's
+    noise is drawn from ``generator``."""
+    dsched = DDIMSchedule.create(model.schedule, steps, eta, method)
+    ts = dsched.timesteps[::-1]
+    a_t, a_prev = _f32(dsched.alphas[::-1]), _f32(dsched.alphas_prev[::-1])
+    sqrt_1ma, sigmas = _f32(dsched.sqrt_one_minus_alphas[::-1]), _f32(dsched.sigmas[::-1])
+
+    img = _initial(shape, x_T, generator, device)
+    b = shape[0]
+    for i, t_scalar in enumerate(ts):
+        t = torch.full((b,), int(t_scalar), dtype=torch.long, device=img.device)
+        out = _cfg_apply(model, img, t, cond, uncond, cfg_scale)
+        e_t = model.eps_from_model_out(img, t, out)
+        at, aprev, s1ma, sigma = a_t[i], a_prev[i], sqrt_1ma[i], sigmas[i]
+        pred_x0 = (img - float(s1ma) * e_t) / float(np.sqrt(at))
+        dir_coef = np.sqrt(np.maximum(np.float32(1.0) - aprev - sigma * sigma,
+                                      np.float32(0.0)))
+        img = float(np.sqrt(aprev)) * pred_x0 + float(dir_coef) * e_t
+        if sigma != 0.0:
+            noise = torch.randn(shape, generator=generator, device=img.device)
+            img = img + float(sigma) * noise * temperature
+    return img
+
+
+def dpm_solver_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int = 20,
+                      cond: Any = None, uncond: Any = None, cfg_scale: float = 1.0,
+                      method: str = "uniform", x_T: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      device="cuda") -> torch.Tensor:
+    """DPM-Solver++(2M) (Lu et al. 2022): second-order multistep in data-
+    prediction form, one model eval per step, first step first-order."""
+    dsched = DDIMSchedule.create(model.schedule, steps, 0.0, method)
+    acp_cur = dsched.alphas[::-1].copy()
+    acp_next = dsched.alphas_prev[::-1].copy()
+    alpha_c, sigma_c = np.sqrt(acp_cur), np.sqrt(1.0 - acp_cur)
+    alpha_n, sigma_n = np.sqrt(acp_next), np.sqrt(1.0 - acp_next)
+    lam_c = np.log(alpha_c / sigma_c)
+    lam_n = np.log(alpha_n / sigma_n)
+    h = lam_n - lam_c
+    h_prev = np.concatenate([h[:1], h[:-1]])  # unused at step 0
+    # h == 0 (duplicate clipped timesteps) is an identity step; a zero h_prev
+    # would blow up the 1/(2r) correction, so that step stays first-order
+    r = np.where(h != 0.0, h_prev / np.where(h == 0.0, 1.0, h), 1.0)
+    ms_ok = h_prev > 0.0
+    r = np.maximum(r, 1e-4)
+    ac_t, sc_t, an_t, sn_t, h_t, r_t = (_f32(a) for a in
+                                        (alpha_c, sigma_c, alpha_n, sigma_n, h, r))
+    ts = dsched.timesteps[::-1]
+
+    img = _initial(shape, x_T, generator, device)
+    b = shape[0]
+    x0_prev = None
+    for i, t_scalar in enumerate(ts):
+        t = torch.full((b,), int(t_scalar), dtype=torch.long, device=img.device)
+        out = _cfg_apply(model, img, t, cond, uncond, cfg_scale)
+        e_t = model.eps_from_model_out(img, t, out)
+        x0 = (img - float(sc_t[i]) * e_t) / float(ac_t[i])
+        if i > 0 and ms_ok[i]:
+            c2 = np.float32(1.0) / (np.float32(2.0) * r_t[i])
+            d = float(np.float32(1.0) + c2) * x0 - float(c2) * x0_prev
+        else:
+            d = x0
+        img = float(sn_t[i] / sc_t[i]) * img - float(an_t[i] * np.expm1(-h_t[i])) * d
+        x0_prev = x0
+    return img

@@ -1,0 +1,1 @@
+"""LiDAR geometry and the hand-written CUDA kernels with their plain versions."""

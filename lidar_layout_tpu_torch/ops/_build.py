@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels from ``csrc/*.cu`` and load them with ctypes.
+
+Each source compiles with ``nvcc`` into its own shared library with a plain C
+interface, on first use, into ``lidar_layout_tpu_torch/_build/`` (listed in
+``.gitignore``). A library's file name carries a hash of its source and flags,
+so an edited source is rebuilt and a stale one is never loaded. Nothing is
+built or imported when this module is imported: the CPU tests import every
+module and have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Callable, Dict, Iterable, Tuple
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SOURCE_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each source's C entry point and its argument types (pointers and the
+# stream as c_void_p, so ctypes never truncates them to 32 bits)
+SIGNATURES = {
+    "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 6 + [_I] * 5 + [_P]),
+    "group_norm": ("llt_group_norm_fwd", [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+}
+SOURCES = tuple(SIGNATURES)
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LAUNCHERS: Dict[str, Callable[..., int]] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists(DEFAULT_NVCC):
+        return DEFAULT_NVCC
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(put the CUDA toolkit's bin directory on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = SOURCE_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
+    """Compile every named source that is not built yet, all at once (one
+    ``nvcc`` process each). Returns {name: (seconds, compiler log)} for the
+    sources it compiled; raises RuntimeError if any compile fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
+        procs[name] = (tmp, time.perf_counter(),
+                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, t0, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = (time.perf_counter() - t0, out)
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, library_path(name))  # atomic for concurrent builders
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def launcher(name: str) -> Callable[..., int]:
+    """The C entry point of ``csrc/<name>.cu`` with its argument types set;
+    the source is built first if needed. It returns a CUDA error code."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        build([name])
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _LAUNCHERS[name] = fn
+    return fn
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C launcher returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

@@ -1,0 +1,142 @@
+"""Serving surface: generate range images and point clouds from a LiDM.
+
+Counterpart of ``lidar_layout_tpu/pipeline.py`` (``geometry_from_config``,
+``GenerationResult``, ``GenerationPipeline.from_config`` / ``.generate``):
+
+    pipe = GenerationPipeline.from_config("configs/lidar_diffusion/kitti/uncond_c2_p4.yaml")
+    out = pipe.generate(64, seed=0)          # out.images, out.clouds
+
+Each batch runs sample -> VQ decode -> reprojection on the device. Samplers
+are cached per (batch, sampler, steps, eta) key. ``from_run_dir`` waits for
+the checkpoint port.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .config import instantiate_from_config, load_yaml
+from .models import samplers as S
+from .models.diffusion import LatentDiffusion
+from .ops.lidar import KITTI_GEOMETRY, NUSCENES_GEOMETRY, LidarGeometry, range2pcd
+from .utils.device import resolve_device
+
+__all__ = ["GenerationPipeline", "GenerationResult", "geometry_from_config"]
+
+
+def geometry_from_config(cfg: Dict[str, Any], dataset: str = "64") -> LidarGeometry:
+    """Projection geometry from a config's data.params.dataset block, else the
+    per-dataset default."""
+    dset = (cfg or {}).get("data", {}).get("params", {}).get("dataset", {})
+    if dset:
+        return LidarGeometry(
+            size=tuple(dset.get("size", (64, 1024))),
+            fov=tuple(dset.get("fov", (3, -25))),
+            depth_range=tuple(dset.get("depth_range", (1.0, 56.0))),
+            depth_scale=dset.get("depth_scale", 5.84),
+            log_scale=dset.get("log_scale", True))
+    return KITTI_GEOMETRY if dataset == "64" else NUSCENES_GEOMETRY
+
+
+@dataclass
+class GenerationResult:
+    """``images``: (n, H, W, C) model-space range images; ``clouds``: per-scene
+    (k_i, 3) reprojected xyz; ``seconds``: wall time of the batches;
+    ``phase_seconds``: that time split into sample / decode / reproject."""
+    images: np.ndarray
+    clouds: List[np.ndarray]
+    seconds: float
+    phase_seconds: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def samples_per_sec(self) -> float:
+        return len(self.images) / max(self.seconds, 1e-9)
+
+
+@dataclass
+class GenerationPipeline:
+    """A LatentDiffusion model on its device plus its cached samplers."""
+    model: LatentDiffusion
+    geom: LidarGeometry
+    # DPM-Solver++(2M) at 20 steps is the serving default, as in the JAX package
+    sampler: str = "dpm"
+    steps: int = 20
+    eta: float = 0.0
+    _cache: Dict[Tuple, Callable] = field(default_factory=dict, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    @classmethod
+    def from_config(cls, cfg: Union[str, Dict[str, Any]],
+                    state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                    dataset: str = "64", bf16: bool = False, seed: int = 0,
+                    device: Union[str, torch.device] = "cuda",
+                    **kw) -> "GenerationPipeline":
+        """Build from a config path or dict, with the given reference-named
+        ``state_dict`` or fresh weights initialised under ``seed``."""
+        dev = resolve_device(device)
+        if isinstance(cfg, str):
+            cfg = load_yaml(cfg)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = instantiate_from_config(
+                cfg["model"], dtype=torch.bfloat16 if bf16 else torch.float32)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        return cls(model=model.to(dev).eval(), geom=geometry_from_config(cfg, dataset),
+                   **kw)
+
+    def _program(self, batch: int) -> Callable[[torch.Generator], torch.Tensor]:
+        key = (batch, self.sampler, self.steps, self.eta)
+        if key not in self._cache:
+            lh, lw, lc = self.model.cfg.latent_shape
+            shape = (batch, lh, lw, lc)
+            dev = self.device
+            if self.sampler == "ddim":
+                def draw(gen):
+                    return S.ddim_sample(self.model, shape, steps=self.steps,
+                                         eta=self.eta, generator=gen, device=dev)
+            elif self.sampler == "dpm":
+                def draw(gen):
+                    return S.dpm_solver_sample(self.model, shape, steps=self.steps,
+                                               generator=gen, device=dev)
+            else:
+                raise NotImplementedError(
+                    f"sampler {self.sampler!r} is not ported yet (ROADMAP queue 1)")
+            self._cache[key] = draw
+        return self._cache[key]
+
+    def generate(self, n: int, seed: int = 0, batch: int = 16) -> GenerationResult:
+        """Generate ``n`` scenes, ``batch`` at a time, from ``seed``."""
+        b = min(batch, n)
+        draw = self._program(b)
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        imgs_all, clouds = [], []
+        phases = {"sample": 0.0, "decode": 0.0, "reproject": 0.0}
+        with torch.inference_mode():
+            for _ in range((n + b - 1) // b):
+                t0 = time.perf_counter()
+                z = draw(gen)
+                sync()
+                t1 = time.perf_counter()
+                imgs = self.model.decode_first_stage(z)
+                sync()
+                t2 = time.perf_counter()
+                xyz, valid = range2pcd(imgs[..., 0], self.geom)
+                imgs_np, xyz_np, valid_np = (t.cpu().numpy() for t in (imgs, xyz, valid))
+                t3 = time.perf_counter()
+                phases["sample"] += t1 - t0
+                phases["decode"] += t2 - t1
+                phases["reproject"] += t3 - t2
+                imgs_all.append(imgs_np)
+                clouds.extend(pc[v] for pc, v in zip(xyz_np, valid_np))
+        return GenerationResult(images=np.concatenate(imgs_all)[:n], clouds=clouds[:n],
+                                seconds=sum(phases.values()), phase_seconds=phases)

@@ -1,0 +1,144 @@
+"""Weight carrier: the JAX package's parameter tree -> the port's state_dicts.
+
+The inverse of ``lidar_layout_tpu/utils/torch_convert.convert_unet`` and
+``convert_vq_autoencoder``. Input is the tree of numpy arrays that
+``LatentDiffusion.init`` returns in the JAX package
+(``{"unet": {"params": ...}, "first_stage": {"params": ...}}``); output uses
+the reference torch names that the port's modules carry.
+
+Conventions: flax conv kernels HWIO -> torch OIHW; flax ``Dense`` kernels
+(in, out) -> torch (out, in); GroupNorm ``scale`` -> ``weight``. The U-Net
+``qkv`` projection is [q(all heads), k, v] in flax and heads-major
+[h0:(q, k, v), h1:(q, k, v), ...] in the reference conv1d (QKVAttentionLegacy).
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from ..models.unet import UNetConfig
+
+_RES = {"in_norm": "in_layers.0", "in_conv": "in_layers.2", "emb_proj": "emb_layers.1",
+        "out_norm": "out_layers.0", "out_conv": "out_layers.3", "skip": "skip_connection"}
+_AE = [(re.compile(r"^(down|up)_(\d+)_(block|attn)_(\d+)$"), r"\1.\2.\3.\4"),
+       (re.compile(r"^(down|up)_(\d+)_(downsample|upsample)$"), r"\1.\2.\3"),
+       (re.compile(r"^mid_(block_\d+|attn_\d+)$"), r"mid.\1")]
+
+
+def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _leaf(mods: Tuple[str, ...], leaf: str, value: np.ndarray
+          ) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """One flax leaf below a module path -> (torch module path + name, value)."""
+    mods = tuple(m for m in mods if m != "GroupNorm_0")
+    if mods and mods[-1] == "conv":          # the flax Conv inside a conv module
+        mods = mods[:-1]
+        if leaf == "kernel":
+            return mods + ("weight",), np.transpose(value, (3, 2, 0, 1))
+        return mods + (leaf,), value
+    if leaf == "kernel":                     # Dense
+        return mods + ("weight",), value.T
+    if leaf == "scale":
+        return mods + ("weight",), value
+    if leaf == "embedding":
+        return mods + ("embedding", "weight"), value
+    return mods + (leaf,), value
+
+
+def _unet_names(cfg: UNetConfig) -> Dict[str, str]:
+    """flax module name -> reference openaimodel prefix, in construction order."""
+    names = {"time_embed_0": "time_embed.0", "time_embed_2": "time_embed.2",
+             "conv_in": "input_blocks.0.0", "mid_res1": "middle_block.0",
+             "mid_attn": "middle_block.1", "mid_res2": "middle_block.2",
+             "norm_out": "out.0", "conv_out": "out.2"}
+    levels = len(cfg.channel_mult)
+    k, ds = 1, 1
+    for level in range(levels):
+        for i in range(cfg.num_res_blocks):
+            names[f"in_{level}_{i}_res"] = f"input_blocks.{k}.0"
+            if ds in cfg.attention_resolutions:
+                names[f"in_{level}_{i}_attn"] = f"input_blocks.{k}.1"
+            k += 1
+        if level != levels - 1:
+            names[f"down_{level}"] = f"input_blocks.{k}.0"
+            k += 1
+            ds *= 2
+    k = 0
+    for level in reversed(range(levels)):
+        for i in range(cfg.num_res_blocks + 1):
+            names[f"out_{level}_{i}_res"] = f"output_blocks.{k}.0"
+            slot = 1
+            if ds in cfg.attention_resolutions:
+                names[f"out_{level}_{i}_attn"] = f"output_blocks.{k}.1"
+                slot = 2
+            if level and i == cfg.num_res_blocks:
+                names[f"up_{level}"] = f"output_blocks.{k}.{slot}"
+                ds //= 2
+            k += 1
+    return names
+
+
+def unet_state_dict(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetModel`` params (with or without the "params" level) -> the
+    port's ``UNetModel`` state_dict."""
+    params = params.get("params", params)
+    names = _unet_names(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        top, mods, leaf = names[path[0]], path[1:-1], path[-1]
+        if path[0].endswith("_attn") and mods and mods[0] in ("qkv", "proj_out"):
+            c = value.shape[0] // 3 if (mods[0], leaf) == ("qkv", "bias") else value.shape[0]
+            if mods[0] == "qkv":
+                heads, dh = cfg.heads_for(c)
+                if leaf == "kernel":   # (C, 3C) -> (3C, C, 1) heads-major
+                    value = (value.T.reshape(3, heads, dh, c).transpose(1, 0, 2, 3)
+                             .reshape(3 * c, c)[:, :, None])
+                else:                  # (3C,)
+                    value = value.reshape(3, heads, dh).transpose(1, 0, 2).reshape(3 * c)
+            elif leaf == "kernel":     # proj_out (C, C) -> (C, C, 1)
+                value = value.T[:, :, None]
+            name = (mods[0], "weight" if leaf == "kernel" else leaf)
+        else:
+            if "_res" in path[0]:
+                mods = (_RES[mods[0]],) + mods[1:]
+            name, value = _leaf(mods, leaf, value)
+        out[".".join((top,) + name)] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def vq_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``VQModelInterface`` params -> the port's ``VQModelInterface``
+    state_dict."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        mods = []
+        for m in path[:-1]:
+            for pat, rep in _AE:
+                m = pat.sub(rep, m)
+            mods.extend(m.split("."))
+        name, value = _leaf(tuple(mods), path[-1], value)
+        out[".".join(name)] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def latent_diffusion_state_dict(params: Dict[str, Any],
+                                unet_cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """JAX ``LatentDiffusion.init`` tree -> the port's ``LatentDiffusion``
+    state_dict (``model.diffusion_model.*`` and ``first_stage_model.*``)."""
+    sd = {f"model.diffusion_model.{k}": v
+          for k, v in unet_state_dict(params["unet"], unet_cfg).items()}
+    if params.get("first_stage"):
+        sd.update({f"first_stage_model.{k}": v
+                   for k, v in vq_state_dict(params["first_stage"]).items()})
+    return sd

@@ -1,0 +1,99 @@
+"""Shared helpers for the tests of the PyTorch port (tests/test_torch_*.py).
+
+Weights go from the port to JAX through the JAX package's own converters
+(``utils/torch_convert.convert_unet`` / ``convert_vq_autoencoder``), so the
+parity tests also check that the port carries the reference state_dict names.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def seed_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Every parameter from a seeded generator at ~1/sqrt(fan_in), the
+    zero-initialised output layers included (else the U-Net outputs 0 and
+    attention never reaches the result); norm affines near (1, 0); codebooks
+    N(0, 1) (the taming +-1/n codebook makes argmin near-ties)."""
+    from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+    gen = torch.Generator().manual_seed(seed)
+    norm_params = {id(p) for m in model.modules() if isinstance(m, Normalize)
+                   for p in m.parameters()}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if id(p) in norm_params:
+                r = (1.0 + 0.1 * r) if name.endswith("weight") else 0.1 * r
+            elif name.endswith("embedding.weight"):
+                pass
+            elif p.ndim > 1:
+                r = r / (p[0].numel() ** 0.5)
+            else:
+                r = 0.1 * r
+            p.copy_(r.to(p.dtype))
+    return model
+
+
+def numpy_state_dict(module: torch.nn.Module, prefix: str = "") -> dict:
+    return {prefix + k: v.detach().float().numpy() for k, v in module.state_dict().items()}
+
+
+def jax_unet_params(unet, cfg) -> dict:
+    """Port UNetModel -> flax params via the JAX package's convert_unet."""
+    from lidar_layout_tpu.utils.torch_convert import convert_unet
+
+    return convert_unet(numpy_state_dict(unet), cfg.num_res_blocks, cfg.channel_mult,
+                        cfg.num_head_channels, prefix="")
+
+
+_LEVEL_ATTN = re.compile(
+    r"^(encoder|decoder)\.(down|up)\.(\d+)\.attn\.(\d+)\.(norm|q|k|v|proj_out)\.(weight|bias)$")
+
+
+def jax_vq_params(vq) -> dict:
+    """Port VQModel(Interface) -> flax params via convert_vq_autoencoder.
+
+    That converter carries no per-level attention (``down.i.attn.j`` /
+    ``up.i.attn.j``, present when ``attn_levels`` is set), so those leaves are
+    filled here under the flax names the JAX blocks use."""
+    from lidar_layout_tpu.utils.torch_convert import convert_vq_autoencoder
+
+    sd = numpy_state_dict(vq)
+    params = convert_vq_autoencoder(sd)
+    for key, value in sd.items():
+        m = _LEVEL_ATTN.match(key)
+        if not m:
+            continue
+        tower, side, i, j, mod, leaf = m.groups()
+        node = params["params"].setdefault(tower, {}).setdefault(f"{side}_{i}_attn_{j}", {})
+        if mod == "norm":
+            node.setdefault("norm", {}).setdefault("GroupNorm_0", {})[
+                "scale" if leaf == "weight" else "bias"] = value
+        else:
+            node.setdefault(mod, {}).setdefault("conv", {})[
+                "kernel" if leaf == "weight" else "bias"] = (
+                np.transpose(value, (2, 3, 1, 0)) if leaf == "weight" else value)
+    return params
+
+
+def jax_ldm_params(model) -> dict:
+    """Port LatentDiffusion -> the JAX LatentDiffusion params tree."""
+    import jax.numpy as jnp
+
+    return {"unet": jax_unet_params(model.unet, model.unet.cfg),
+            "first_stage": jax_vq_params(model.first_stage_model),
+            "cond_stage": {},
+            "logvar": jnp.zeros((model.cfg.timesteps,), jnp.float32)}
+
+
+def nchw(x: np.ndarray) -> torch.Tensor:
+    """NHWC numpy -> NCHW torch."""
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2))))
+
+
+def nhwc(t: torch.Tensor) -> np.ndarray:
+    """NCHW torch -> NHWC numpy."""
+    return t.detach().float().permute(0, 2, 3, 1).numpy()
