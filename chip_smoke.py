@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py                    # every phase, as the acceptance run
     python3 chip_smoke.py --phases device,build,kernels
+    python3 chip_smoke.py --phases device,build,kernels,train_slice,train
 
 Phases (any failure exits non-zero before the final "ok" line):
-  device   require CUDA, print the card's name and power limit, turn TF32 off
-  build    compile every kernel in csrc/ with nvcc (in parallel), print ptxas
-  kernels  each kernel vs its plain PyTorch version at the flagship shapes,
-           float32 and bfloat16
-  slice    full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode on
-           the card (kernels) vs on the CPU (plain versions)
-  main     GenerationPipeline at full width, batch 16, bf16: generate(32) with
-           DPM-20 and with DDIM-50; checks outputs and the kernel launch counts
-  timing   per-kernel CUDA-event times at the main path's shapes beside the
-           plain version, one PyTorch library call and the card's bound
-  profile  (only when named) device time of one DPM-20 request by kernel family
+  device       require CUDA, print the card's name and power limit, turn TF32 off
+  build        compile every kernel in csrc/ with nvcc (in parallel), print ptxas
+  kernels      each kernel vs its plain PyTorch version at the flagship shapes,
+               float32 and bfloat16: K1 (and its log-sum-exp), K2, K3, and the
+               gradients of the attention and GroupNorm Functions
+  slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
+               on the card (kernels) vs on the CPU (plain versions)
+  train_slice  one full-width training step, f32, batch 1, on the card vs on the
+               CPU: loss, U-Net gradients, parameters and EMA after AdamW
+  main         GenerationPipeline at full width, batch 16, bf16: generate(32) with
+               DPM-20 and with DDIM-50; checks outputs and the kernel launch counts
+  train        the training step at full width, batch 16, bf16 autocast, f32
+               weights, synthetic scenes: steps/s, phase split, peak memory,
+               launches per step against module hooks, a fixed-batch overfit check
+  timing       per-kernel device times at the main paths' shapes beside the
+               plain version, one PyTorch library call and the card's bound
+  profile      (only when named) device time of one DPM-20 request and of one
+               training step by kernel family
 
 The weights are random, drawn from a seed (no trained checkpoint is used). It
 imports nothing of JAX.
@@ -33,17 +41,22 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "slice", "main", "timing")
+PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
-K1_SOURCE = "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu"
-K3_SOURCE = "lidar_layout_tpu_torch/csrc/group_norm.cu"
-K1_REPLACES = "lidar_layout_tpu/ops/pallas_attention.py:87"
-K3_REPLACES = "lidar_layout_tpu/ops/pallas_groupnorm.py:135"
+TRAIN_BATCH, TRAIN_STEPS = 16, 10   # the training path: timed steps at batch 16
+OVERFIT_STEPS, OVERFIT_LR = 30, 1e-4
+KERNELS = (  # name, source, the TPU kernel it replaces
+    ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
+     "lidar_layout_tpu/ops/pallas_attention.py:87"),
+    ("flash_attention_bwd", "lidar_layout_tpu_torch/csrc/flash_attn_bwd.cu",
+     "lidar_layout_tpu/ops/pallas_attention.py:205"),
+    ("group_norm", "lidar_layout_tpu_torch/csrc/group_norm.cu",
+     "lidar_layout_tpu/ops/pallas_groupnorm.py:135"))
 
 
 def log(*a):
@@ -95,7 +108,8 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
+             if ev.device_type == DeviceType.CUDA
+             and not getattr(ev, "is_user_annotation", False))
     if us <= 0:
         raise RuntimeError("the profiler recorded no device time")
     return us / 1e3 / reps
@@ -119,11 +133,31 @@ def cuda_time(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def counters():
+    """The launch counters of every kernel wrapper, by kernel name."""
+    from lidar_layout_tpu_torch.ops import attention as A
+    from lidar_layout_tpu_torch.ops import groupnorm as G
+
+    return {"flash_attention": A.flash_attention, "flash_attention_bwd": A.flash_attention_bwd,
+            "group_norm": G.group_norm}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 class Smoke:
     def __init__(self):
-        self.kernel_err = {"flash_attention": 0.0, "group_norm": 0.0}
+        self.kernel_err = {name: 0.0 for name, _, _ in KERNELS}
         self.launches = {}
+        self.train_launches = {}
         self.shapes = None   # main-path kernel shapes and their launches per request
+        self.train_shapes = None   # the same for one training step
 
     # ------------------------------------------------------------------ device
     def device(self):
@@ -149,7 +183,7 @@ class Smoke:
                     log("   ", line.strip())
 
     # ----------------------------------------------------------------- kernels
-    def _check(self, name, got, want, atol, rtol, what):
+    def _check(self, name, got, want, atol, rtol, what, record=True):
         import torch
 
         torch.cuda.synchronize()
@@ -159,7 +193,7 @@ class Smoke:
             f"(|ref|max {scale:.3e}, tol {atol:g}+{rtol:g}*|ref|) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {what} disagrees with its plain version")
-        if got.dtype == torch.bfloat16:
+        if record and got.dtype == torch.bfloat16:
             self.kernel_err[name] = max(self.kernel_err[name], err)
 
     def kernels(self):
@@ -222,6 +256,91 @@ class Smoke:
                                           + 1e-6)).reshape(x.shape).float()
         self._check("group_norm", G.group_norm(x, gamma, beta, 32, 1e-6, False), ref64,
                     1e-4, 1e-5, "(2, 128, 64, 1024) mean 300 std 0.1 f32 vs f64 statistics")
+
+        self._kernels_train()
+
+    def _kernels_train(self):
+        """K1's log-sum-exp, K2, and the gradients of both autograd Functions
+        on CUDA against autograd of their plain versions."""
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(2)
+        # K2 in f32 differs from the plain version in summation order only;
+        # in bf16 both round P and dS to bf16 before their products, but the
+        # kernel forms P as exp2 of log2-scaled logits, so a few P and dS
+        # values round to the neighbouring bf16, and dq/dk/dv are rounded to
+        # bf16 at the end
+        tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+        log("K1 log-sum-exp and K2 flash_attention_bwd vs _lse_ref / _attend_bwd_ref "
+            "(o and lse from K1):")
+        cases = [((16, 8, 2048, 32), True, False), ((16, 16, 512, 32), True, False),
+                 ((16, 32, 128, 32), True, False), ((4, 8, 1000, 32), False, True),
+                 ((2, 4, 333, 64), True, True), ((2, 2, 200, 128), False, True),
+                 ((2, 2, 130, 16), True, False)]
+        for dtype in (torch.float32, torch.bfloat16):
+            for (b, h, s, d), fused, masked in cases:
+                if fused:   # q, k, v as views of one (B, S, H, 3, D) projection
+                    qkv = torch.randn((b, s, h, 3, d), generator=gen, device=dev).to(dtype)
+                    q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+                else:
+                    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                               .to(dtype) for _ in range(3))
+                kb = None
+                if masked:
+                    kb = torch.zeros((b, s), device=dev)
+                    kb[0, s - s // 4:] = -1e9
+                what = f"{(b, h, s, d)} {str(dtype)[6:]} fused={fused} kbias={masked}"
+                o, lse = A._launch(q, k, v, kb, with_lse=True)
+                torch.cuda.synchronize()
+                err, scale = max_err(lse, A._lse_ref(q, k, kb))
+                if not err <= 2e-4 + 1e-5 * scale:
+                    raise AssertionError(f"K1 log-sum-exp {what}: max_abs_err {err:.3e}")
+                log(f"  lse {what}: max_abs_err={err:.3e} (tol 2e-4+1e-5*|ref|) ok")
+                do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+                got = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
+                want = A._attend_bwd_ref(q, k, v, o, do, lse, kb)
+                for part, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                    self._check("flash_attention_bwd", g_, w_, *tol[dtype], f"{part} {what}")
+                del q, k, v, o, lse, do, got, want
+
+        log("gradients through the Functions on CUDA vs autograd of the plain versions:")
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((2, 300, 4, 3, 32), generator=gen, device=dev).to(dtype)
+            kb = torch.zeros((2, 300), device=dev)
+            kb[1, 250:] = -1e9
+            qkv_k = qkv.clone().requires_grad_()
+            qkv_p = qkv.clone().requires_grad_()
+            outs = []
+            for t_, fn in ((qkv_k, A.flash_attention), (qkv_p, A._attend_ref)):
+                q, k, v = (t_[:, :, :, i].transpose(1, 2) for i in range(3))
+                outs.append(fn(q, k, v, kb))
+            dout = torch.randn(outs[0].shape, generator=gen, device=dev).to(dtype)
+            (g_k,) = torch.autograd.grad(outs[0], qkv_k, dout)
+            (g_p,) = torch.autograd.grad(outs[1], qkv_p, dout)
+            self._check("flash_attention_bwd", g_k, g_p, *tol[dtype],
+                        f"d(qkv) through flash_attention (2, 4, 300, 32) {str(dtype)[6:]}")
+            for (bsz, c, hh, ww, groups) in ((2, 256, 16, 128, 32), (2, 768, 8, 64, 32)):
+                x = (torch.randn((bsz, c, hh, ww), generator=gen, device=dev) * 2 + 0.3).to(dtype)
+                gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+                beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+                dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+                for act in (False, True):
+                    grads = []
+                    for fn in (G.group_norm, G._ref):
+                        xs, gs, bs = (t_.clone().requires_grad_() for t_ in (x, gamma, beta))
+                        grads.append(torch.autograd.grad(fn(xs, gs, bs, groups, 1e-6, act),
+                                                         (xs, gs, bs), dy))
+                    # both compute the backward in f32 from the same x and dy;
+                    # dx is rounded to x's dtype, dgamma/dbeta sum 131K products
+                    for part, g_, w_, t_ in zip(("dx", "dgamma", "dbeta"), *grads,
+                                                ((1e-4, 1e-4) if dtype == torch.float32
+                                                 else (2e-2, 1e-2), (1e-3, 1e-4), (1e-3, 1e-4))):
+                        self._check("group_norm", g_, w_, *t_,
+                                    f"{part} {(bsz, c, hh, ww)} {str(dtype)[6:]} act={act}",
+                                    record=False)
 
     # --------------------------------------------------------- main-path shapes
     def _main_shapes(self):
@@ -321,6 +440,74 @@ class Smoke:
         del model_gpu, model_cpu
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------- train_slice
+    def train_slice(self):
+        """One training step at full width, f32, batch 1, on the card and on
+        the CPU: same weights, batch, t and noise (drawn on the CPU)."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        lr = 1.6e-5       # the flagship's: base 1e-6 x batch 16
+        batch = synthetic_range_batch(np.random.default_rng(4), 1, KITTI_GEOMETRY)
+        runs = {}
+        sd = None
+        for dev in ("cuda", "cpu"):
+            model, _ = flagship(device=dev)
+            if sd is None:
+                seed_weights(model, 0)
+                sd = {k: v.cpu() for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(sd)
+            params = DT.trainable_params(model)
+            state = DT.create_train_state(model, DT.make_optimizer(params, lr), params)
+            grads = {}
+            step_opt = state.optimizer.step
+
+            def spy(step_opt=step_opt, params=params, grads=grads):
+                grads.update({k: p.grad.detach().cpu().clone() for k, p in params.items()})
+                return step_opt()
+            state.optimizer.step = spy
+            t0 = time.perf_counter()
+            state, logs = DT.make_train_step(model)(
+                state, {k: v.to(dev) for k, v in batch.items()},
+                torch.Generator().manual_seed(11))
+            runs[dev] = {"loss": float(logs["loss"]), "grad_norm": float(logs["grad_norm"]),
+                         "grads": grads,
+                         "params": {k: p.detach().cpu().clone() for k, p in params.items()},
+                         "ema": {k: v.cpu().clone() for k, v in state.ema.params.items()}}
+            log(f"train_slice on {dev}: {time.perf_counter() - t0:.1f} s, loss "
+                f"{runs[dev]['loss']:.6f}, grad_norm {runs[dev]['grad_norm']:.6f}")
+            del model, state, params
+            torch.cuda.empty_cache()
+        g, c = runs["cuda"], runs["cpu"]
+        loss_err = abs(g["loss"] - c["loss"])
+        num = sum(float((g["grads"][k] - c["grads"][k]).square().sum()) for k in c["grads"])
+        den = sum(float(c["grads"][k].square().sum()) for k in c["grads"])
+        gmax = max(float(v.abs().max()) for v in c["grads"].values())
+        gerr = max(float((g["grads"][k] - c["grads"][k]).abs().max()) for k in c["grads"])
+        worst = max(c["grads"], key=lambda k: float((g["grads"][k] - c["grads"][k]).abs().max()))
+        # Adam's first update is about lr * sign(g): where a gradient is within
+        # rounding of 0 the two devices may step in opposite directions, so
+        # parameters and EMA may differ by up to 2 lr, on few elements
+        upd = [(g["params"][k] - c["params"][k]).abs().flatten() for k in c["params"]]
+        upd = torch.cat(upd)
+        far = float((upd > 0.01 * lr).float().mean())
+        perr = float(upd.max())
+        eerr = max(float((g["ema"][k] - c["ema"][k]).abs().max()) for k in c["ema"])
+        log(f"train_slice: loss |diff| {loss_err:.3e} (loss {c['loss']:.6f}); U-Net gradients: "
+            f"relative L2 error {(num / den) ** 0.5:.3e}, max_abs_err {gerr:.3e} at {worst} "
+            f"(|g|max {gmax:.3e}); parameters after AdamW: max_abs_err {perr:.3e}, share of "
+            f"elements off by > 0.01 lr {far:.2e}; EMA max_abs_err {eerr:.3e} (lr {lr:g})")
+        # tolerances: f32 on both, TF32 off; the devices sum in other orders
+        # through ~50 layers forward and back
+        if not (loss_err <= 1e-5 * max(1.0, abs(c["loss"])) and (num / den) ** 0.5 <= 1e-4
+                and gerr <= 1e-4 * gmax and far <= 1e-3 and perr <= 2 * lr
+                and eerr <= 2 * lr):
+            raise AssertionError("card training step disagrees with the CPU step")
+
     # -------------------------------------------------------------------- main
     def main(self):
         import torch
@@ -344,8 +531,7 @@ class Smoke:
             pipe.generate(batch, seed=99)        # warm-up (cuDNN plans, allocator)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            A.flash_attention.launches = 0
-            G.group_norm.launches = 0
+            reset_counts()
             res = pipe.generate(n, seed=0, batch=batch)
             got = {"flash_attention": A.flash_attention.launches,
                    "group_norm": G.group_norm.launches}
@@ -372,6 +558,133 @@ class Smoke:
         del model
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------------- train
+    def _train_setup(self, lr):
+        import torch
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        model, _ = flagship(device="cuda")    # f32 weights; bf16 under autocast
+        seed_weights(model, 0)
+        params = DT.trainable_params(model)
+        state = DT.create_train_state(model, DT.make_optimizer(params, lr), params)
+        return model, state
+
+    def _train_hooks(self, model):
+        """Module-hook counts of one training step: kernel calls by name and
+        by shape (K2 runs once for every attention call that needs grad)."""
+        import torch
+        from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+        seen = {"flash_attention": collections.Counter(),
+                "flash_attention_bwd": collections.Counter(),
+                "group_norm": collections.Counter(),
+                "group_norm_bwd": collections.Counter()}   # the plain backward
+
+        def norm_hook(mod, args):
+            b, c, h, w = args[0].shape
+            key = (b, c, h, w, mod.num_groups, mod.act)
+            seen["group_norm"][key] += 1
+            if torch.is_grad_enabled():
+                seen["group_norm_bwd"][key] += 1
+
+        def attn_hook(mod, args):
+            b, c, h, w = args[0].shape
+            key = (b, mod.num_heads, h * w, c // mod.num_heads)
+            seen["flash_attention"][key] += 1
+            if torch.is_grad_enabled():
+                seen["flash_attention_bwd"][key] += 1
+
+        hooks = []
+        for m in list(model.unet.modules()) + list(model.first_stage_model.encoder.modules()):
+            if isinstance(m, Normalize):
+                hooks.append(m.register_forward_pre_hook(norm_hook))
+            elif isinstance(m, SelfAttentionBlock):
+                hooks.append(m.register_forward_pre_hook(attn_hook))
+        return seen, hooks
+
+    def train(self):
+        """The training path: full width, batch 16, bf16 autocast, f32 weights."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        card = card_line()
+        rng = np.random.default_rng(6)
+        t0 = time.perf_counter()   # scenes projected on the card, outside the timed window
+        batches = [synthetic_range_batch(rng, TRAIN_BATCH, KITTI_GEOMETRY, device="cuda")
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        log(f"train: {len(batches)} synthetic batches of {TRAIN_BATCH} scenes in "
+            f"{time.perf_counter() - t0:.1f} s")
+        model, state = self._train_setup(OVERFIT_LR)
+        step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        # module hooks on one warm-up step give the expected launches per step
+        seen, hooks = self._train_hooks(model)
+        reset_counts()
+        state, logs = step(state, batches[0], gen)
+        torch.cuda.synchronize()
+        first = read_counts()
+        for hk in hooks:
+            hk.remove()
+        want = {k: sum(seen[k].values()) for k in counters()}
+        self.train_shapes = seen
+        step(state, batches[1], gen)              # second warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(TRAIN_STEPS):
+            state, logs = step(state, batches[i % len(batches)], gen)
+            losses.append((logs["loss"], logs["grad_norm"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = {k: v / TRAIN_STEPS for k, v in got.items()}
+        timed = DT.make_train_step(model, autocast_dtype=torch.bfloat16, timed=True)
+        phases = collections.Counter()
+        for i in range(3):
+            state, tl = timed(state, batches[i], gen)
+            for k in ("encode", "fwd_bwd", "opt_ema"):
+                phases[k] += tl[f"seconds_{k}"] / 3
+        finite = all(bool(torch.isfinite(l_)) and bool(torch.isfinite(g_)) for l_, g_ in losses)
+        log(f"train (batch {TRAIN_BATCH}, bf16 autocast, f32 weights, {TRAIN_STEPS} steps): "
+            f"{TRAIN_STEPS / wall:.3f} steps/s, {TRAIN_STEPS * TRAIN_BATCH / wall:.2f} samples/s; "
+            f"phases per step (synchronised): encode {phases['encode']:.4f} s, forward+backward "
+            f"{phases['fwd_bwd']:.4f} s, optimizer+EMA {phases['opt_ema']:.4f} s; peak memory "
+            f"{mem:.2f} GiB; launches per step {per_step} (hooks {want}; first step {first}); "
+            f"loss {float(losses[-1][0]):.5f} grad_norm {float(losses[-1][1]):.5f} "
+            f"finite={finite}; card {card}")
+        self.train_stats = {"steps_per_s": TRAIN_STEPS / wall, "mem_gib": mem, **phases}
+        if per_step != {k: float(v) for k, v in want.items()} or first != want:
+            raise AssertionError(f"train: launches per step {per_step} != hooks {want}")
+        if not finite:
+            raise AssertionError("train: loss or gradient norm not finite")
+        self.train_launches = got
+
+        # overfit check: one fixed batch, t and noise (the generator reset
+        # each step), fresh weights, lr 1e-4
+        del state
+        model, state = self._train_setup(OVERFIT_LR)
+        step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
+        curve = []
+        for i in range(OVERFIT_STEPS + 1):
+            state, logs = step(state, batches[0], torch.Generator(device="cuda").manual_seed(3))
+            curve.append(float(logs["loss"]))
+        ratio = curve[-1] / curve[0]
+        log(f"train overfit ({OVERFIT_STEPS} AdamW steps at lr {OVERFIT_LR:g} on one batch): "
+            f"loss step 0 {curve[0]:.5f} -> step {OVERFIT_STEPS} {curve[-1]:.5f}, ratio "
+            f"{ratio:.4f}; curve {[round(c_, 5) for c_ in curve[::5]]}")
+        if not curve[-1] < curve[0]:
+            raise AssertionError("train: the loss on a fixed batch did not fall")
+        del model, state, batches
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
@@ -384,7 +697,7 @@ class Smoke:
         gen = torch.Generator(device=dev).manual_seed(5)
         card = card_line()
         totals = {}
-        saved = (A.flash_attention.launches, G.group_norm.launches)
+        saved = read_counts()
         log(f"timing on {card}: per call, device ms (torch.profiler kernel time, mean of "
             f"back-to-back calls); 'events' is the wall time per call from CUDA events, "
             f"which includes the host's launch rate")
@@ -443,26 +756,112 @@ class Smoke:
             tot["bound_ops_ms"] += count * bound_ops * (N_MAIN // BATCH)
             tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
         totals["group_norm"] = tot
-        A.flash_attention.launches, G.group_norm.launches = saved
+        totals["flash_attention_bwd"] = self._timing_bwd(gen)
+        for name, fn in counters().items():
+            fn.launches = saved[name]
         for name, tot in totals.items():
-            log(f"  {name} over the main DPM-20 run (generate({N_MAIN}), batch {BATCH}; "
-                f"sum over shapes of launches x time): kernel "
+            run = (f"{TRAIN_STEPS} training steps (batch {TRAIN_BATCH})"
+                   if name == "flash_attention_bwd" else
+                   f"the main DPM-20 run (generate({N_MAIN}), batch {BATCH})")
+            log(f"  {name} over {run}; sum over shapes of launches x time): kernel "
                 f"{tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain "
                 f"{tot['plain_ms']:.3f} | library "
                 f"{tot['library_ms']:.3f} | bound {tot['bound_ms']:.3f}")
         self.totals = totals
 
+    def _timing_bwd(self, gen):
+        """K2 at the training step's shapes: kernel, plain version, the
+        backward of scaled_dot_product_attention, and the bound."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import attention as A
+
+        if self.train_shapes is None:   # the train phase did not run: count them
+            model, state = self._train_setup(OVERFIT_LR)
+            from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+            from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+            from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+            seen, hooks = self._train_hooks(model)
+            batch = synthetic_range_batch(np.random.default_rng(6), TRAIN_BATCH,
+                                          KITTI_GEOMETRY, device="cuda")
+            DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
+                state, batch, torch.Generator(device="cuda").manual_seed(0))
+            for hk in hooks:
+                hk.remove()
+            self.train_shapes = seen
+            del model, state
+            torch.cuda.empty_cache()
+        dev = torch.device("cuda")
+        tot = collections.Counter()
+        for (b, h, s, d), count in sorted(self.train_shapes["flash_attention_bwd"].items()):
+            q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                           .to(torch.bfloat16) for _ in range(4))
+            o, lse = A._launch(q, k, v, None, with_lse=True)
+            ql, kl, vl = (t_.clone().requires_grad_() for t_ in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl)
+            flops = 10 * b * h * s * s * d
+            nbytes = 8 * b * h * s * d * 2
+            t = {"ms": device_ms(lambda: A.flash_attention_bwd(q, k, v, o, do, lse), 10),
+                 "events_ms": cuda_time(lambda: A.flash_attention_bwd(q, k, v, o, do, lse), 10),
+                 "plain_ms": device_ms(lambda: A._attend_bwd_ref(q, k, v, o, do, lse), 3),
+                 "library_ms": device_ms(lambda: torch.autograd.grad(
+                     out, (ql, kl, vl), do, retain_graph=True), 10)}
+            bound_flops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            t["bound_ms"] = max(bound_flops, bound_bytes)
+            log(f"  K2 {(b, h, s, d)} bf16 x{count}/step: kernel {t['ms']:.4f} (events "
+                f"{t['events_ms']:.4f}) | plain {t['plain_ms']:.4f} | sdpa backward "
+                f"{t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
+                f"({'operations' if bound_flops >= bound_bytes else 'bytes'}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
+                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+            for key, val in t.items():
+                tot[key] += count * val * TRAIN_STEPS
+                tot[f"step_{key}"] += count * val
+            tot["bound_ops_ms"] += count * bound_flops * TRAIN_STEPS
+            tot["bound_bytes_ms"] += count * bound_bytes * TRAIN_STEPS
+            del q, k, v, do, o, lse, ql, kl, vl, out
+        log(f"  K2 per training step (sum over shapes): kernel {tot['step_ms']:.3f} ms | plain "
+            f"{tot['step_plain_ms']:.3f} | sdpa backward {tot['step_library_ms']:.3f} | bound "
+            f"{tot['step_bound_ms']:.3f}")
+        self._timing_gn_bwd(gen)
+        torch.cuda.empty_cache()
+        return tot
+
+    def _timing_gn_bwd(self, gen):
+        """The plain GroupNorm backward (K3's autograd backward) at the
+        training step's shapes, beside the bytes bound of reading x and dy
+        and writing dx."""
+        import torch
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        dev = torch.device("cuda")
+        total = bound = 0.0
+        for (b, c, hh, ww, groups, act), count in sorted(
+                self.train_shapes["group_norm_bwd"].items()):
+            x, dy = (torch.randn((b, c, hh, ww), generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(2))
+            gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+            ms = device_ms(lambda: G._group_norm_bwd_ref(x, gamma, beta, dy, groups, 1e-6,
+                                                         act), 10)
+            total += count * ms
+            bound += count * 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        log(f"  plain GroupNorm backward per training step ({sum(self.train_shapes['group_norm_bwd'].values())} "
+            f"calls, bf16): {total:.3f} ms device time | bytes bound {bound:.3f} ms")
+        self.gn_bwd_ms = total
+
     # ----------------------------------------------------------------- profile
     def profile(self):
-        """Device time of one DPM-20 request (batch 16, bf16) by kernel family,
-        from torch.profiler, beside the request's wall time."""
+        """Device time of one DPM-20 request (batch 16, bf16) and of one
+        training step (batch 16, bf16 autocast) by kernel family, from
+        torch.profiler, beside their wall times."""
         import torch
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
         from lidar_layout_tpu_torch.flagship import flagship
         from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
         from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
         model, _ = flagship(dtype=torch.bfloat16, device="cuda")
         seed_weights(model, 0)
@@ -474,16 +873,46 @@ class Smoke:
             res = pipe.generate(BATCH, seed=2)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        self._families(prof, wall_ms, f"one DPM-20 request, batch {BATCH}, bf16 (host phases "
+                                      f"{res.phase_seconds})")
+        del model, pipe
+        torch.cuda.empty_cache()
+
+        model, state = self._train_setup(OVERFIT_LR)
+        step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
+        batch = synthetic_range_batch(np.random.default_rng(6), TRAIN_BATCH, KITTI_GEOMETRY,
+                                      device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(2):                            # warm-up
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        self._families(prof, wall_ms, f"one training step, batch {TRAIN_BATCH}, bf16 autocast")
+        del model, state
+        torch.cuda.empty_cache()
+
+    @staticmethod
+    def _families(prof, wall_ms, title):
+        from torch.autograd import DeviceType
+
         families = (("K1 flash_attention", ("attn_fwd",)),
+                    ("K2 flash_attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
                     ("K3 group_norm", ("group_norm_fwd",)),
+                    ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
                     ("convolution / matmul (cuDNN, cuBLAS)",
-                     ("conv", "xmma", "gemm", "cudnn", "cutlass", "sm90", "implicit")),
+                     ("conv", "xmma", "gemm", "cudnn", "cutlass", "sm90", "implicit",
+                      "wgrad", "dgrad")),
                     ("elementwise / copy / reduce (PyTorch)",
                      ("elementwise", "vectorized", "reduce", "copy", "cat", "fill",
                       "upsample", "index", "pool", "softmax")))
         by_family, kernels = collections.Counter(), []
         for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
+            # user annotations (e.g. Optimizer.step) span kernels counted already
+            if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
                 continue
             us = ev.self_device_time_total
             kernels.append((us, ev.count, ev.key))
@@ -491,10 +920,9 @@ class Smoke:
             family = next((f for f, keys in families if any(k in name for k in keys)), "other")
             by_family[family] += us
         busy_ms = sum(by_family.values()) / 1e3
-        log(f"profile: one DPM-20 request, batch 16, bf16: wall {wall_ms:.1f} ms "
-            f"(profiler on; host phases {res.phase_seconds}), device busy {busy_ms:.1f} ms "
-            f"({100 * busy_ms / wall_ms:.1f}% of wall) in {sum(k[1] for k in kernels)} "
-            f"device activities")
+        log(f"profile: {title}: wall {wall_ms:.1f} ms (profiler on), device busy "
+            f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall) in "
+            f"{sum(k[1] for k in kernels)} device activities")
         if busy_ms == 0:
             log("  the profiler saw no device time")
             return
@@ -502,19 +930,22 @@ class Smoke:
             log(f"  {family}: {us / 1e3:.2f} ms ({100 * us / 1e3 / busy_ms:.1f}% of device time)")
         for us, count, key in sorted(kernels, reverse=True)[:12]:
             log(f"    {us / 1e3:9.2f} ms  x{count:<5d} {key[:110]}")
-        del model, pipe
-        torch.cuda.empty_cache()
 
     def summary(self):
+        """The kernels line: ``launches`` and the times cover the run each
+        kernel serves, the DPM-20 main run for K1/K3 and the timed training
+        steps for K2; ``train_launches`` counts every kernel over those steps."""
         entries = []
-        for name, route_src, replaces in (("flash_attention", K1_SOURCE, K1_REPLACES),
-                                          ("group_norm", K3_SOURCE, K3_REPLACES)):
+        for name, source, replaces in KERNELS:
             tot = getattr(self, "totals", {}).get(name, {})
             bound_by = ("operations" if tot.get("bound_ops_ms", 0) >= tot.get("bound_bytes_ms", 0)
                         else "bytes")
+            launches = (self.train_launches if name == "flash_attention_bwd"
+                        else self.launches).get(name)
             entries.append({
-                "name": name, "route": "cuda", "source": route_src,
-                "replaces": replaces, "launches": self.launches.get(name),
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "train_launches": self.train_launches.get(name),
                 "max_abs_err": self.kernel_err[name],
                 "ms": tot.get("ms"), "plain_ms": tot.get("plain_ms"),
                 "bound_ms": tot.get("bound_ms"), "bound_by": bound_by,

@@ -2,7 +2,8 @@
 
 Counterpart of the ``latent_diffusion``, ``unet`` and ``vq_model_interface``
 builders of ``lidar_layout_tpu/config.py`` (with the reference's target-name
-aliases) and of its ``load_yaml``. Targets not ported yet raise KeyError.
+aliases) and of its ``load_yaml`` and ``apply_dotlist``. Targets not ported
+yet raise KeyError.
 """
 from __future__ import annotations
 
@@ -122,3 +123,31 @@ def load_yaml(path: str) -> Dict[str, Any]:
 
     with open(path) as f:
         return yaml.safe_load(f)
+
+
+def apply_dotlist(cfg: Dict[str, Any], overrides) -> Dict[str, Any]:
+    """Merge ``a.b.c=value`` overrides into ``cfg`` (values parsed as YAML,
+    bare scientific notation as float); intermediate dicts are created as
+    needed. Mutates and returns ``cfg``."""
+    import yaml
+
+    for item in overrides or []:
+        if "=" not in item:
+            raise ValueError(f"dotlist override '{item}' must be key=value")
+        key, _, raw = item.partition("=")
+        val = yaml.safe_load(raw)
+        if isinstance(val, str):
+            try:
+                val = float(val)
+            except ValueError:
+                pass
+        node = cfg
+        parts = key.strip().split(".")
+        for part in parts[:-1]:
+            nxt = node.get(part)
+            if not isinstance(nxt, dict):
+                nxt = {}
+                node[part] = nxt
+            node = nxt
+        node[parts[-1]] = val
+    return cfg

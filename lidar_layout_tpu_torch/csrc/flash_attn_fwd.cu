@@ -4,7 +4,9 @@
 // Replaces the TPU kernel `_kernel` / `_flash_fwd_tpu` in
 // lidar_layout_tpu/ops/pallas_attention.py. Same meaning: (B, H, S, D) with
 // S_q == S_kv, logits and softmax in f32, an optional f32 per-(batch, key)
-// additive bias row (-1e9 on padding), output in the input dtype.
+// additive bias row (-1e9 on padding), output in the input dtype. When asked
+// (training), it also writes each row's f32 log-sum-exp of the logits, the
+// residual that the backward kernel (flash_attn_bwd.cu) recomputes P from.
 //
 // What bounds it on this card: operations. At the flagship's (16, 8, 2048, 32)
 // in bf16 it does 4*B*H*S^2*D = 68.7 GFLOP on ~17 MB of inputs, far above the
@@ -40,6 +42,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -47,6 +50,7 @@ struct Params {
   const void* v;
   void* o;
   const float* kb;  // (B, S) f32 or nullptr
+  float* lse;       // (B, H, S) f32 or nullptr
   long long qs[3], ks[3], vs[3], os[3];  // element strides of b, h, s
   int H, S, D;
   float scale_log2;  // D^-1/2 * log2(e)
@@ -214,6 +218,11 @@ __global__ void __launch_bounds__(128) attn_fwd_bf16(Params p) {
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.os[0] + h * p.os[1];
   const int row0 = q0 + r0, row1 = row0 + 8;
+  if (p.lse && t == 0) {  // natural-log units: (m + log2 l) * ln 2
+    float* lg = p.lse + (long long)bh * S;
+    if (row0 < S) lg[row0] = (m0 + log2f(l0)) * kLn2;
+    if (row1 < S) lg[row1] = (m1 + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const int c = dt * 8 + 2 * t;
@@ -302,6 +311,7 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
   if (qi < S) {
     float* og = static_cast<float*>(p.o) + b * p.os[0] + h * p.os[1] + qi * p.os[2];
     const float inv = 1.f / l;
+    if (p.lse) p.lse[(long long)bh * S + qi] = (m + log2f(l)) * kLn2;
 #pragma unroll
     for (int d = 0; d < DP; d += 4)
       if (d < D)
@@ -325,10 +335,11 @@ void launch(const Params& p, int B, int dtype, cudaStream_t stream) {
 
 // q, k, v: (B, H, S, D) with any b/h/s element strides and contiguous d;
 // strides holds 12 values, (b, h, s) for q, k, v, then o. kbias: (B, S)
-// float32 or null. dtype: 0 = float32, 1 = bfloat16. D % 8 == 0, D <= 128.
+// float32 or null. lse: (B, H, S) float32 written when not null.
+// dtype: 0 = float32, 1 = bfloat16. D % 8 == 0, D <= 128.
 // Returns cudaGetLastError() after the launch.
 extern "C" int llt_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                  const void* kbias, void* o,
+                                  const void* kbias, void* o, void* lse,
                                   const long long* strides, int dtype, int B,
                                   int H, int S, int D, void* stream) {
   if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1))
@@ -339,6 +350,7 @@ extern "C" int llt_flash_attn_fwd(const void* q, const void* k, const void* v,
   p.v = v;
   p.o = o;
   p.kb = static_cast<const float*>(kbias);
+  p.lse = static_cast<float*>(lse);
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];
     p.ks[i] = strides[3 + i];

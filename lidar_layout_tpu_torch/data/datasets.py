@@ -1,0 +1,99 @@
+"""Range-image batches from KITTI-360 / SemanticKITTI scans, or synthetic ones.
+
+Counterpart of ``RangeImageDataset`` in ``lidar_layout_tpu/data/datasets.py``
+with its python ``.bin`` reader: velodyne scans are read with numpy and
+projected with the port's ``pcd2range`` / ``process_scan``. When no dataset
+root exists the synthetic generator stands in (and says so). The native
+loader and the degradation transform are not ported yet (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import glob
+import os
+from typing import Dict, Iterator, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..ops.lidar import KITTI_GEOMETRY, NUSCENES_GEOMETRY, LidarGeometry
+from .synthetic import project_batch, synthetic_range_batch
+
+
+def read_velodyne_bin(path: str, with_remission: bool = True) -> np.ndarray:
+    """KITTI velodyne format: float32 N x 4 [x, y, z, remission]."""
+    scan = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    return scan if with_remission else scan[:, :3]
+
+
+def list_kitti360_scans(root: str, split: str = "train") -> List[str]:
+    """<root>/data_3d_raw/<seq>/velodyne_points/data/*.bin, with the
+    reference's sequence partition."""
+    train_seqs = ["0000", "0002", "0003", "0004", "0005", "0006", "0007", "0009", "0010"]
+    seqs = train_seqs if split == "train" else ["0008"]
+    files: List[str] = []
+    for s in seqs:
+        files.extend(sorted(glob.glob(os.path.join(
+            root, "data_3d_raw", f"2013_05_28_drive_{s}_sync", "velodyne_points", "data",
+            "*.bin"))))
+    return files
+
+
+def list_semantic_kitti_scans(root: str, split: str = "train") -> List[str]:
+    seqs = [f"{i:02d}" for i in range(11) if i != 8] if split == "train" else ["08"]
+    files: List[str] = []
+    for s in seqs:
+        files.extend(sorted(glob.glob(os.path.join(root, "sequences", s, "velodyne",
+                                                   "*.bin"))))
+    return files
+
+
+class RangeImageDataset:
+    """Endless iterator over batches of projected range images (torch
+    tensors on ``device``); synthetic scenes when ``root`` holds no scans."""
+
+    def __init__(self, root: Optional[str], dataset: str = "kitti360",
+                 split: str = "train", batch_size: int = 4,
+                 geom: Optional[LidarGeometry] = None, seed: int = 0,
+                 max_points: int = 130000, degradation: Optional[str] = None,
+                 device: Union[str, torch.device] = "cpu"):
+        if degradation is not None:
+            raise NotImplementedError("the degradation transform is not ported yet "
+                                      "(ROADMAP queue 1, item 15)")
+        self.geom = geom or (NUSCENES_GEOMETRY if dataset.startswith("nusc")
+                             else KITTI_GEOMETRY)
+        self.batch_size = batch_size
+        self.max_points = max_points
+        self.device = device
+        self.rng = np.random.default_rng(seed)
+        self.files: List[str] = []
+        if root and os.path.isdir(root):
+            if dataset == "kitti360":
+                self.files = list_kitti360_scans(root, split)
+            elif dataset in ("kitti", "semantic_kitti"):
+                self.files = list_semantic_kitti_scans(root, split)
+        self.synthetic = not self.files
+        if self.synthetic:
+            print(f"[data] no scans under root={root!r}: using synthetic scenes")
+
+    def __len__(self) -> int:
+        return max(len(self.files) // self.batch_size, 1)
+
+    def batches(self, shuffle: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
+        if self.synthetic:
+            while True:
+                yield synthetic_range_batch(self.rng, self.batch_size, self.geom,
+                                            device=self.device)
+        order = np.arange(len(self.files))
+        while True:
+            if shuffle:
+                self.rng.shuffle(order)
+            for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
+                clouds = np.zeros((self.batch_size, self.max_points, 3), np.float32)
+                masks = np.zeros((self.batch_size, self.max_points), bool)
+                for j, k in enumerate(order[i:i + self.batch_size]):
+                    pts = read_velodyne_bin(self.files[k])[:, :3]
+                    n = min(len(pts), self.max_points)
+                    clouds[j, :n] = pts[:n]
+                    masks[j, :n] = True
+                yield project_batch(torch.from_numpy(clouds).to(self.device), self.geom,
+                                    mask=torch.from_numpy(masks).to(self.device))

@@ -1,0 +1,75 @@
+"""Synthetic LiDAR scenes for tests, smoke runs and training without a dataset.
+
+Counterpart of ``lidar_layout_tpu/data/synthetic.py``: street-like scans
+(ground plane, random boxes, poles) drawn with numpy, with the same random
+number consumption as the JAX package, then projected through the port's
+``pcd2range`` and ``process_scan``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..ops import lidar as L
+from ..ops.lidar import KITTI_GEOMETRY, LidarGeometry
+
+
+def synthetic_scene(rng: np.random.Generator, n_points: int = 120000) -> np.ndarray:
+    """(N, 3) float32 points of a synthetic street scene (the same geometry
+    as ``synthetic_scene_labeled`` for the same generator state)."""
+    return synthetic_scene_labeled(rng, n_points)[0]
+
+
+def synthetic_scene_labeled(rng: np.random.Generator, n_points: int = 120000
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """(N, 3) points and (N,) int32 labels (0 ground, 1 box, 2 pole)."""
+    n_ground = int(n_points * 0.6)
+    r = np.sqrt(rng.uniform(4.0, 2500.0, n_ground))
+    th = rng.uniform(-np.pi, np.pi, n_ground)
+    ground = np.stack([r * np.cos(th), r * np.sin(th),
+                       rng.normal(-1.9, 0.05, n_ground)], axis=-1)
+
+    boxes = []
+    n_box = rng.integers(6, 14)
+    per_box = int(n_points * 0.3) // max(n_box, 1)
+    for _ in range(n_box):
+        cx, cy = rng.uniform(-40, 40, 2)
+        l, w, h = rng.uniform(1.5, 8), rng.uniform(1.5, 3), rng.uniform(1.0, 3.0)
+        boxes.append(np.stack([rng.uniform(-l / 2, l / 2, per_box) + cx,
+                               rng.uniform(-w / 2, w / 2, per_box) + cy,
+                               rng.uniform(-2.0, -2.0 + h, per_box)], axis=-1))
+
+    n_pole = n_points - n_ground - per_box * n_box
+    px, py = rng.uniform(-30, 30, (2, max(n_pole, 1)))
+    poles = np.stack([px, py, rng.uniform(-2.0, 4.0, max(n_pole, 1))], axis=-1)
+
+    pts = np.concatenate([ground] + boxes + [poles]).astype(np.float32)
+    labels = np.concatenate([np.zeros(n_ground, np.int32),
+                             np.ones(per_box * n_box, np.int32),
+                             np.full(max(n_pole, 1), 2, np.int32)])
+    return pts[:n_points], labels[:n_points]
+
+
+def project_batch(points: torch.Tensor, geom: LidarGeometry,
+                  mask: torch.Tensor = None) -> Dict[str, torch.Tensor]:
+    """(B, N, 3) clouds -> {"image", "mask"}, each (B, H, W, 1) float32:
+    the model-space range image and the ray-drop mask."""
+    img, _ = L.pcd2range(points, geom, mask=mask)
+    model, drop = L.process_scan(img, geom)
+    return {"image": model[..., None], "mask": drop[..., None]}
+
+
+def synthetic_range_batch(rng: np.random.Generator, batch: int,
+                          geom: LidarGeometry = KITTI_GEOMETRY, with_pcd: bool = False,
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> Dict[str, torch.Tensor]:
+    """A batch in the reference dataset contract: image (B, H, W, 1) in
+    [-1, 1] and mask (B, H, W, 1) in {-1, +1}, projected on ``device``; with
+    ``with_pcd`` also the (B, N, 3) numpy points."""
+    pts = np.stack([synthetic_scene(rng) for _ in range(batch)])
+    out: Dict = project_batch(torch.from_numpy(pts).to(device), geom)
+    if with_pcd:
+        out["points"] = pts
+    return out

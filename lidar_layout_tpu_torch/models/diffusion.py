@@ -1,27 +1,31 @@
-"""Latent diffusion over range-image latents (inference).
+"""Latent diffusion over range-image latents.
 
 Counterpart of ``lidar_layout_tpu/models/diffusion.py``: ``DiffusionConfig``
 and ``LatentDiffusion`` with ``apply_model``, ``encode_first_stage``,
-``decode_first_stage``, ``eps_from_model_out`` and ``predict_eps_from_x``.
+``decode_first_stage``, ``eps_from_model_out``, ``predict_eps_from_x``, the
+training loss (``p_losses``, ``training_loss``) and the ``scale_by_std``
+calibration.
 Latents at this API are NHWC (B, 16, 128, 8) and images (B, H, W, 1), as in
 the JAX package; the modules inside are NCHW.
 
 The state_dict uses the reference LatentDiffusion checkpoint prefixes,
 ``model.diffusion_model.`` for the U-Net and ``first_stage_model.`` for the
-autoencoder.
+autoencoder. ``logvar`` is a non-persistent buffer, or a parameter when
+``learn_logvar`` is set, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..nn.blocks import Normalize
 from ..nn.quantize import VectorQuantizer
 from .autoencoder import AEConfig, VQModelInterface
-from .schedules import DiffusionSchedule, extract
+from .schedules import DiffusionSchedule, extract, q_sample
 from .unet import UNetConfig, UNetModel
 
 
@@ -83,6 +87,11 @@ class LatentDiffusion(nn.Module):
         self.first_stage_model = (VQModelInterface(first_stage_cfg, n_embed=n_embed,
                                                    embed_dim=embed_dim, use_mask=use_mask)
                                   if first_stage_cfg is not None else None)
+        logvar = torch.full((cfg.timesteps,), float(cfg.logvar_init))
+        if cfg.learn_logvar:
+            self.logvar = nn.Parameter(logvar)
+        else:
+            self.register_buffer("logvar", logvar, persistent=False)
         self.cast_(dtype)
 
     @property
@@ -90,10 +99,14 @@ class LatentDiffusion(nn.Module):
         return self.model.diffusion_model
 
     def cast_(self, dtype: torch.dtype) -> "LatentDiffusion":
-        """Put conv/linear weights in ``dtype``; GroupNorm affines and the VQ
-        codebook stay float32."""
+        """Put conv/linear weights in ``dtype``; GroupNorm affines, the VQ
+        codebook and a learned logvar stay float32. (The trainer keeps f32
+        weights and runs bf16 under autocast instead: AdamW updates of a
+        small learning rate vanish in bf16 weights.)"""
         keep = {id(p) for m in self.modules() if isinstance(m, (Normalize, VectorQuantizer))
                 for p in m.parameters()}
+        if isinstance(self.logvar, nn.Parameter):
+            keep.add(id(self.logvar))
         for p in self.parameters():
             p.data = p.data.float() if id(p) in keep else p.data.to(dtype)
         self.dtype = dtype
@@ -101,10 +114,12 @@ class LatentDiffusion(nn.Module):
 
     # -------------------------------------------------------- first stage io
     def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 1) image -> scaled NHWC latent."""
+        """(B, H, W, 1) image -> scaled NHWC latent. The first stage is
+        frozen: no gradient flows through it (JAX's stop_gradient)."""
         if self.first_stage_model is None:
             return x
-        z = self.first_stage_model.encode_latent(x.permute(0, 3, 1, 2).to(self.dtype))
+        with torch.no_grad():
+            z = self.first_stage_model.encode_latent(x.permute(0, 3, 1, 2).to(self.dtype))
         return (self.cfg.scale_factor * z.float()).permute(0, 2, 3, 1)
 
     def decode_first_stage(self, z: torch.Tensor,
@@ -126,6 +141,46 @@ class LatentDiffusion(nn.Module):
         out = self.unet(x_noisy.permute(0, 3, 1, 2), t)
         return out.permute(0, 2, 3, 1)
 
+    # ----------------------------------------------------------------- loss
+    def p_losses(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+                 cond: Any = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's LatentDiffusion.p_losses at the given ``t`` and
+        ``noise``: (loss, detached logs)."""
+        x_noisy = q_sample(self.schedule, x_start, t, noise)
+        model_out = self.apply_model(x_noisy, t, cond)
+        target = noise if self.cfg.parameterization == "eps" else x_start
+        if self.cfg.loss_type == "l2":
+            per = (model_out - target) ** 2
+        else:
+            per = (model_out - target).abs()
+        loss_simple = per.mean(dim=tuple(range(1, per.ndim)))      # (B,)
+        logvar_t = self.logvar[t]
+        loss = loss_simple / torch.exp(logvar_t) + logvar_t
+        loss = self.cfg.l_simple_weight * loss.mean()
+        lvlb = torch.as_tensor(np.asarray(self.schedule.lvlb_weights, np.float32),
+                               device=t.device)[t]
+        loss_vlb = (lvlb * loss_simple).mean()
+        loss = loss + self.cfg.original_elbo_weight * loss_vlb
+        logs = {"loss_simple": loss_simple.mean(), "loss_vlb": loss_vlb, "loss": loss}
+        return loss, {k: v.detach() for k, v in logs.items()}
+
+    def training_loss(self, batch: Dict[str, torch.Tensor], generator: torch.Generator
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One shared step: encode (frozen), draw t and the noise from
+        ``generator`` (on its device, then moved to the batch's), p_losses."""
+        z = self.encode_first_stage(batch["image"])
+        return self.p_losses(z, *self.draw_t_noise(z, generator))
+
+    def draw_t_noise(self, z: torch.Tensor, generator: torch.Generator
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Uniform timesteps, then Gaussian noise shaped like ``z``, both drawn
+        on the generator's device and moved to z's."""
+        t = torch.randint(0, self.cfg.timesteps, (z.shape[0],), generator=generator,
+                          device=generator.device)
+        noise = torch.randn(z.shape, generator=generator, device=generator.device,
+                            dtype=z.dtype)
+        return t.to(z.device), noise.to(z.device)
+
     # ------------------------------------------------------------- sampling
     def predict_eps_from_x(self, x_t: torch.Tensor, t: torch.Tensor,
                            pred_x0: torch.Tensor) -> torch.Tensor:
@@ -139,3 +194,18 @@ class LatentDiffusion(nn.Module):
         if self.cfg.parameterization == "eps":
             return out
         return self.predict_eps_from_x(x_t, t, out)
+
+
+def calibrate_scale_factor(z: torch.Tensor) -> float:
+    """scale_by_std calibration: 1 / std(z) (population std) over a batch."""
+    return float(1.0 / z.float().std(correction=0))
+
+
+def apply_scale_by_std(model: LatentDiffusion, first_batch_image: torch.Tensor) -> float:
+    """When ``scale_by_std`` is set and the scale factor is still 1.0,
+    replace it with 1/std(encode(first batch)); returns the factor in use."""
+    if not model.cfg.scale_by_std or model.cfg.scale_factor != 1.0:
+        return model.cfg.scale_factor
+    s = calibrate_scale_factor(model.encode_first_stage(first_batch_image))
+    model.cfg = dataclasses.replace(model.cfg, scale_factor=s)
+    return s

@@ -102,6 +102,29 @@ def extract(a: np.ndarray, t: torch.Tensor, broadcast_ndim: int) -> torch.Tensor
     return out.reshape(t.shape[0], *([1] * (broadcast_ndim - 1)))
 
 
+def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion x_t = sqrt(acp_t) x_0 + sqrt(1 - acp_t) eps."""
+    return (extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+            + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
+
+
+def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor,
+                             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    return (extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
+            - extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise)
+
+
+def q_posterior(sched: DiffusionSchedule, x_start: torch.Tensor, x_t: torch.Tensor,
+                t: torch.Tensor):
+    """Mean, variance and clipped log-variance of q(x_{t-1} | x_t, x_0)."""
+    mean = (extract(sched.posterior_mean_coef1, t, x_t.ndim) * x_start
+            + extract(sched.posterior_mean_coef2, t, x_t.ndim) * x_t)
+    var = extract(sched.posterior_variance, t, x_t.ndim)
+    log_var = extract(sched.posterior_log_variance_clipped, t, x_t.ndim)
+    return mean, var, log_var
+
+
 def make_ddim_timesteps(method: str, num_ddim_steps: int,
                         num_ddpm_steps: int) -> np.ndarray:
     """DDIM step ids, shifted by +1 as in the reference."""

@@ -89,13 +89,14 @@ class ResBlock(nn.Module):
 
     The Sequential indices of the reference are kept for the state_dict
     (``in_layers.0`` norm, ``in_layers.2`` conv, ``emb_layers.1``,
-    ``out_layers.0`` norm, ``out_layers.3`` conv); the SiLU slots are empty
-    because kernel K3 fuses the SiLU into the norm.
+    ``out_layers.0`` norm, ``out_layers.2`` dropout, ``out_layers.3`` conv);
+    the SiLU slots are empty because kernel K3 fuses the SiLU into the norm.
+    Dropout acts in train mode only, as flax's with ``deterministic=False``.
     """
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  use_scale_shift_norm: bool = False, cconv: bool = True,
-                 up: bool = False, down: bool = False):
+                 up: bool = False, down: bool = False, dropout: float = 0.0):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down = up, down
@@ -105,7 +106,7 @@ class ResBlock(nn.Module):
             emb_channels, 2 * out_channels if use_scale_shift_norm else out_channels)])
         self.out_layers = nn.ModuleList([
             Normalize(out_channels, act=not use_scale_shift_norm), nn.Identity(),
-            nn.Identity(), _zero_conv3(out_channels, out_channels, cconv)])
+            nn.Dropout(dropout), _zero_conv3(out_channels, out_channels, cconv)])
         self.skip_connection = (Conv1x1(channels, out_channels)
                                 if channels != out_channels else nn.Identity())
 
@@ -122,7 +123,7 @@ class ResBlock(nn.Module):
             h = F.silu(self.out_layers[0](h) * (1 + scale) + shift)
         else:
             h = self.out_layers[0](h + emb_out)
-        h = self.out_layers[3](h)
+        h = self.out_layers[3](self.out_layers[2](h))
         return self.skip_connection(x) + h
 
 
@@ -209,7 +210,8 @@ class UNetModel(nn.Module):
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
 
         def res(cin: int, cout: int, **kw) -> ResBlock:
-            return ResBlock(cin, ted, cout, cfg.use_scale_shift_norm, cfg.cconv, **kw)
+            return ResBlock(cin, ted, cout, cfg.use_scale_shift_norm, cfg.cconv,
+                            dropout=cfg.dropout, **kw)
 
         def attn(ch: int) -> SelfAttentionBlock:
             return SelfAttentionBlock(ch, cfg.heads_for(ch)[0])

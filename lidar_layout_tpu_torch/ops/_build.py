@@ -25,7 +25,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # each source's C entry point and its argument types (pointers and the
 # stream as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 6 + [_I] * 5 + [_P]),
+    "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
+    "flash_attn_bwd": ("llt_flash_attn_bwd", [_P] * 12 + [_I] * 5 + [_P]),
     "group_norm": ("llt_group_norm_fwd", [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]),
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,18 +1,23 @@
-"""Self-attention forward: kernel K1, its plain version and the routing.
+"""Self-attention: kernels K1 (forward) and K2 (backward), their plain
+versions, the autograd Function that joins them, and the routing.
 
-Counterpart of ``lidar_layout_tpu/ops/pallas_attention.py`` (forward only).
-The kernel is ``csrc/flash_attn_fwd.cu`` (CUDA C++ for sm_90a; its header
-says what bounds it and how it is built around that).
+Counterpart of ``lidar_layout_tpu/ops/pallas_attention.py``. The kernels are
+``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu`` (CUDA C++ for
+sm_90a; each header says what bounds it and how it is built around that).
 
-``flash_attention`` takes the plain version only for a tensor on the CPU; for
-a CUDA tensor it launches the kernel or raises. ``attend`` routes the same
-cases as the JAX package: self-attention with no mask or with a key-padding
-mask goes to ``flash_attention``; anything else goes to plain attention.
+``flash_attention`` takes the plain versions only for tensors on the CPU; for
+CUDA tensors it launches the kernels or raises. When a gradient is needed it
+runs through ``_FlashAttention``: the forward (K1) also writes the per-row
+f32 log-sum-exp, and the backward (K2) recomputes the probabilities from it,
+FlashAttention-2 style. The key bias is a padding mask and gets no gradient
+(the JAX package returns zeros for it). ``attend`` routes the same cases as
+the JAX package: self-attention with no mask or with a key-padding mask goes
+to ``flash_attention``; anything else goes to plain attention.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,12 +32,46 @@ def _attend_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     kbias: optional (B, S_k) f32 additive logit bias (e.g. -1e9 on padding).
     """
-    scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(_logits_ref(q, k, kbias), dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _logits_ref(q: torch.Tensor, k: torch.Tensor,
+                kbias: Optional[torch.Tensor]) -> torch.Tensor:
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
     if kbias is not None:
         s = s + kbias.float()[:, None, None, :]
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return s
+
+
+def _lse_ref(q: torch.Tensor, k: torch.Tensor,
+             kbias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row f32 log-sum-exp of the logits, (B, H, S): K1's second output."""
+    return torch.logsumexp(_logits_ref(q, k, kbias), dim=-1)
+
+
+def _attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                    kbias: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain attention backward, the math of kernel K2.
+
+    P is recomputed from the saved log-sum-exp, ``delta = rowsum(dO*O)``,
+    ``dS = P*(dP - delta)``; P and dS are rounded to the input dtype before
+    their products (as the TPU kernel rounds them), everything is summed in
+    f32 and dq/dk/dv come back in the input dtypes.
+    """
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(_logits_ref(q, k, kbias) - lse.float()[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    pc, dsc = p.to(v.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.matmul(pc.transpose(-1, -2), dof)
+    dk = torch.matmul(dsc.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(dsc, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
@@ -45,49 +84,138 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            kbias: Optional[torch.Tensor]) -> torch.Tensor:
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not q.is_cuda:
         raise ValueError(f"flash attention kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel takes float32/bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    launch = _build.launcher("flash_attn_fwd")
-    b, h, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"self-attention needs equal q/k/v shapes, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, d = q.shape
     if d % 8 or d > 128 or b * h > 65535:
         raise ValueError(f"unsupported attention shape {tuple(q.shape)}")
+
+
+def _bias_ready(kbias: Optional[torch.Tensor], q: torch.Tensor) -> Optional[torch.Tensor]:
+    if kbias is None:
+        return None
+    b, _, s, _ = q.shape
+    return kbias.to(device=q.device, dtype=torch.float32).expand(b, s).contiguous()
+
+
+def _bshd_empty(q: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) view of a (B, S, H, D) buffer: the caller's projections
+    read (B, S, H*D) with no copy."""
+    b, h, s, d = q.shape
+    return torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def _strides(*ts: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(ts)))(*(st for t in ts for st in t.stride()[:3]))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kbias: Optional[torch.Tensor], with_lse: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1: (o, the f32 (B, H, S) log-sum-exp when ``with_lse`` else None)."""
+    _check_inputs(q, k, v)
+    launch = _build.launcher("flash_attn_fwd")
+    b, h, s, d = q.shape
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
-    # written straight in (B, S, H, D) memory order: the caller's output
-    # projection reads (B, S, H*D) with no copy
-    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    kb_ptr = None
-    if kbias is not None:
-        kbias = kbias.to(device=q.device, dtype=torch.float32).expand(b, s).contiguous()
-        kb_ptr = kbias.data_ptr()
-    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, o)
-                                         for st in t.stride()[:3]))
+    o = _bshd_empty(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    kbias = _bias_ready(kbias, q)
+    strides = _strides(q, k, v, o)
     status = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kb_ptr, o.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kbias is None else kbias.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, d,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention")
     flash_attention.launches += 1
-    return o
+    return o, lse
+
+
+def _launch_bwd(q, k, v, o, do, lse, kbias):
+    _check_inputs(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError("o, dO must match q and lse must be (B, H, S)")
+    launch = _build.launcher("flash_attn_bwd")
+    b, h, s, d = q.shape
+    q, k, v = (_kernel_ready(t) for t in (q, k, v))
+    o, do = (_kernel_ready(t.to(q.dtype)) for t in (o, do))
+    lse = lse.to(torch.float32).contiguous()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq, dk, dv = _bshd_empty(q), _bshd_empty(q), _bshd_empty(q)
+    kbias = _bias_ready(kbias, q)
+    strides = _strides(q, k, v, o, do, dq, dk, dv)
+    status = launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        None if kbias is None else kbias.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, d,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        kbias: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of self-attention from the forward's output ``o`` and
+    log-sum-exp ``lse``: kernel K2 for CUDA tensors, the plain version for
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return _attend_bwd_ref(q, k, v, o, do, lse, kbias)
+    return _launch_bwd(q, k, v, o, do, lse, kbias)
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward with its log-sum-exp, K2 backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kbias):
+        if q.device.type == "cpu":
+            o, lse = _attend_ref(q, k, v, kbias), _lse_ref(q, k, kbias)
+        else:
+            o, lse = _launch(q, k, v, kbias, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, kbias)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kbias = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, kbias)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kbias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused self-attention, (B, H, S, D) -> (B, H, S, D).
+    """Fused self-attention, (B, H, S, D) -> (B, H, S, D), differentiable in
+    q, k and v.
 
     kbias: optional (B, S) f32 additive key bias (key-padding masks).
-    Kernel constraints: S_q == S_kv, D % 8 == 0, D <= 128; any S.
+    Kernel constraints: S_q == S_kv, D % 8 == 0, D <= 128; any S. Under
+    autocast q, k and v run in the autocast dtype, as matmuls do.
     """
+    if torch.is_autocast_enabled(q.device.type):
+        dt = torch.get_autocast_dtype(q.device.type)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kbias)
     if q.device.type == "cpu":
         return _attend_ref(q, k, v, kbias)
-    return _launch(q, k, v, kbias)
+    return _launch(q, k, v, kbias)[0]
 
 
 flash_attention.launches = 0

@@ -6,7 +6,10 @@ and how it is built around that). Tensors here are NCHW, where each
 (batch, group) is one contiguous span.
 
 ``group_norm`` takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. When a gradient is needed it
+runs through ``_GroupNorm``, whose backward is ``_group_norm_bwd_ref``: the
+analytic GroupNorm(+SiLU) backward that the JAX package writes in plain jnp
+(``_fused_vjp_bwd``), here in plain PyTorch for NCHW.
 """
 from __future__ import annotations
 
@@ -26,6 +29,33 @@ def _ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if act:
         y = y * torch.sigmoid(y)
     return y.reshape(x.shape).to(x.dtype)
+
+
+def _group_norm_bwd_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                        dy: torch.Tensor, num_groups: int, eps: float, act: bool):
+    """(dx, dgamma, dbeta) of GroupNorm(+SiLU), f32 arithmetic, each in its
+    input's dtype: the JAX ``_fused_vjp_bwd`` for NCHW, where each (batch,
+    group) is one contiguous span."""
+    b, c = x.shape[:2]
+    xf = x.float().reshape(b, num_groups, -1)
+    mean = xf.mean(dim=2, keepdim=True)
+    var = (xf - mean).square().mean(dim=2, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = ((xf - mean) * rstd).reshape(b, c, -1)
+    gf = gamma.float()[None, :, None]
+    g = dy.float().reshape(b, c, -1)
+    if act:
+        y = xhat * gf + beta.float()[None, :, None]
+        sig = torch.sigmoid(y)
+        g = g * (sig * (1.0 + y * (1.0 - sig)))        # d silu(y) / dy
+    dgamma = (g * xhat).sum(dim=(0, 2)).to(gamma.dtype)
+    dbeta = g.sum(dim=(0, 2)).to(beta.dtype)
+    dxhat = (g * gf).reshape(b, num_groups, -1)
+    xhat = xhat.reshape(b, num_groups, -1)
+    m1 = dxhat.mean(dim=2, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=2, keepdim=True)
+    dx = (dxhat - m1 - xhat * m2) * rstd
+    return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,14 +89,38 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y
 
 
+def _forward(x, gamma, beta, num_groups, eps, act):
+    if x.device.type == "cpu":
+        return _ref(x, gamma, beta, num_groups, eps, act)
+    return _launch(x, gamma, beta, num_groups, eps, act)
+
+
+class _GroupNorm(torch.autograd.Function):
+    """K3 forward (the plain version on the CPU), plain analytic backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps, act):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.cfg = (num_groups, eps, act)
+        return _forward(x, gamma, beta, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = _group_norm_bwd_ref(x, gamma, beta, dy, *ctx.cfg)
+        return dx, dgamma, dbeta, None, None, None
+
+
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-6,
                act: bool = False) -> torch.Tensor:
     """GroupNorm over NCHW ``x`` (any trailing spatial dims) with f32
-    statistics and affine, optionally fused with SiLU; output in x's dtype."""
-    if x.device.type == "cpu":
-        return _ref(x, gamma, beta, num_groups, eps, act)
-    return _launch(x, gamma, beta, num_groups, eps, act)
+    statistics and affine, optionally fused with SiLU; output in x's dtype.
+    Differentiable in x, gamma and beta."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _GroupNorm.apply(x, gamma, beta, num_groups, eps, act)
+    return _forward(x, gamma, beta, num_groups, eps, act)
 
 
 group_norm.launches = 0

@@ -1,14 +1,17 @@
-"""LiDAR range-image geometry: projection config and range image -> points.
+"""LiDAR range-image geometry: projection config, points -> range image and
+range image -> points.
 
 Counterpart of ``lidar_layout_tpu/ops/lidar.py`` (``LidarGeometry``,
-``model_to_depth``, ``range2xyz``, ``range2pcd``). Angle grids are built in
-numpy float64, as in the JAX package, and moved to the image's device.
+``depth_to_model``, ``model_to_depth``, ``raydrop_mask``, ``process_scan``,
+``project_coords``, ``pcd2coord2d``, ``pcd2range``, ``range2xyz``,
+``range2pcd``). Angle grids are built in numpy float64, as in the JAX
+package, and moved to the image's device.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +69,96 @@ KITTI_GEOMETRY = LidarGeometry(size=(64, 1024), fov=(3.0, -25.0),
                                depth_range=(1.0, 56.0), depth_scale=5.84, log_scale=True)
 NUSCENES_GEOMETRY = LidarGeometry(size=(32, 1024), fov=(10.0, -30.0),
                                   depth_range=(1.0, 56.0), depth_scale=5.84, log_scale=True)
+
+
+def depth_to_model(depth: torch.Tensor, geom: LidarGeometry) -> torch.Tensor:
+    """Metric depth -> model space [-1, 1] (negative depth counts as 0)."""
+    d = torch.where(depth < 0, torch.zeros_like(depth), depth)
+    if geom.log_scale:
+        d = torch.log2(d + 0.0001 + 1.0)
+    return (d / geom.depth_scale * 2.0 - 1.0).clamp(-1.0, 1.0)
+
+
+def raydrop_mask(img: torch.Tensor, geom: LidarGeometry) -> torch.Tensor:
+    """+1 where a return exists, -1 where the ray dropped."""
+    return torch.where(img < geom.depth_thresh, -1.0, 1.0).to(img.dtype)
+
+
+def process_scan(range_img: torch.Tensor, geom: LidarGeometry
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw metric range image -> (model-space image, ray-drop mask)."""
+    img = depth_to_model(range_img, geom)
+    return img, raydrop_mask(img, geom)
+
+
+def project_coords(points: torch.Tensor, geom: LidarGeometry
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-point (col, row, depth): continuous image coords in [0, 1] x [0, 1]
+    and the range. ``points`` is (..., 3)."""
+    depth = torch.linalg.vector_norm(points, dim=-1)
+    yaw = -torch.atan2(points[..., 1], points[..., 0])
+    sin_pitch = torch.where(depth > 0, points[..., 2] / depth.clamp(min=1e-8),
+                            torch.zeros_like(depth))
+    pitch = torch.asin(sin_pitch)
+    proj_x = 0.5 * (yaw / math.pi + 1.0)
+    proj_y = 1.0 - (pitch + abs(geom.fov_down)) / geom.fov_range
+    return proj_x, proj_y, depth
+
+
+def pcd2coord2d(points: torch.Tensor, geom: LidarGeometry,
+                clip: bool = True) -> torch.Tensor:
+    """(..., 3) points -> (..., 2) normalised (x, y) image coords."""
+    px, py, _ = project_coords(points, geom)
+    if clip:
+        px, py = px.clamp(0.0, 1.0), py.clamp(0.0, 1.0)
+    return torch.stack([px, py], dim=-1)
+
+
+def pcd2range(points: torch.Tensor, geom: LidarGeometry,
+              mask: Optional[torch.Tensor] = None,
+              features: Optional[torch.Tensor] = None,
+              fill: float = -1.0, feature_fill: float = -1.0
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Project (..., N, 3) clouds into (..., H, W) range images; the nearest
+    return wins.
+
+    A scatter-min on depth (``scatter_reduce(..., "amin")``) with invalid
+    points routed to a dump slot one past each image, as the JAX package does;
+    the optional (..., N) feature channel takes the largest feature among the
+    points at the winning depth. ``mask`` (..., N) marks real points.
+    Returns (range images, feature images or None).
+    """
+    h, w = geom.size
+    lead = points.shape[:-2]
+    n = points.shape[-2]
+    pts = points.reshape(-1, n, 3).float()
+    nb = pts.shape[0]
+    px, py, depth = project_coords(pts, geom)
+    valid = (depth > geom.depth_range[0]) & (depth < geom.depth_range[1])
+    if mask is not None:
+        valid = valid & mask.reshape(nb, n)
+    xi = torch.floor(px * w).clamp(0, w - 1).long()
+    yi = torch.floor(py * h).clamp(0, h - 1).long()
+    slots = h * w + 1
+    pix = torch.where(valid, yi * w + xi, h * w)
+    pix = (pix + torch.arange(nb, device=pts.device)[:, None] * slots).reshape(-1)
+    big = torch.finfo(torch.float32).max
+    d = torch.where(valid, depth, big).reshape(-1)
+    dmin = torch.full((nb * slots,), big, dtype=torch.float32, device=pts.device)
+    dmin = dmin.scatter_reduce(0, pix, d, reduce="amin", include_self=True)
+    img = dmin.reshape(nb, slots)[:, : h * w]
+    range_img = torch.where(img < big, img, fill).reshape(*lead, h, w)
+
+    feat_img = None
+    if features is not None:
+        neg = -big
+        winner = valid.reshape(-1) & (d <= dmin[pix])
+        fvals = torch.where(winner, features.reshape(-1).float(), neg)
+        fmax = torch.full((nb * slots,), neg, dtype=torch.float32, device=pts.device)
+        fmax = fmax.scatter_reduce(0, pix, fvals, reduce="amax", include_self=True)
+        f = fmax.reshape(nb, slots)[:, : h * w]
+        feat_img = torch.where(f > neg, f, feature_fill).reshape(*lead, h, w)
+    return range_img, feat_img
 
 
 def model_to_depth(img: torch.Tensor, geom: LidarGeometry,

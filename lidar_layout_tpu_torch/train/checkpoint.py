@@ -1,0 +1,76 @@
+"""Checkpoints of a training run (model, optimizer, EMA, step) with torch.save.
+
+Counterpart of ``lidar_layout_tpu/train/checkpoint.py``: ``save_checkpoint``
+keeps the newest ``max_to_keep`` files ``step_<n>.pt`` of a directory,
+``latest_step`` and ``restore_checkpoint`` read them back, and
+``load_first_stage_params`` loads trained autoencoder weights from a torch
+``state_dict`` file (a reference ``.ckpt``/``.pt``/``.pth``).
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, List, Optional
+
+import torch
+
+_NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+def _steps(ckpt_dir: str) -> List[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(ckpt_dir)) if m)
+
+
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}.pt")
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state: Any, max_to_keep: int = 3) -> str:
+    """Write ``state`` (a DiffusionTrainState) at ``step``; drop the oldest
+    files beyond ``max_to_keep``. Returns the path written."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = checkpoint_path(ckpt_dir, step)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"step": step, "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(), "ema": state.ema.state_dict()},
+               tmp)
+    os.replace(tmp, path)
+    for old in _steps(ckpt_dir)[:-max_to_keep] if max_to_keep > 0 else []:
+        os.remove(checkpoint_path(ckpt_dir, old))
+    return path
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = _steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, state: Any, step: Optional[int] = None) -> Any:
+    """Load the checkpoint at ``step`` (default: the latest) into ``state``
+    in place and return it."""
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    dev = next(state.model.parameters()).device
+    ckpt = torch.load(checkpoint_path(ckpt_dir, step), map_location=dev, weights_only=True)
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.ema.load_state_dict(ckpt["ema"])
+    state.step = int(ckpt["step"])
+    return state
+
+
+def load_first_stage_params(path: str, model: torch.nn.Module) -> None:
+    """Load a trained first stage into ``model.first_stage_model`` from a
+    torch file holding a ``state_dict`` (or ``{"state_dict": ...}``, as a
+    Lightning checkpoint does), with or without the ``first_stage_model.``
+    prefix; an autoencoder checkpoint's ``loss.*`` entries are skipped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    prefix = "first_stage_model."
+    if any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    sd = {k: v for k, v in sd.items() if not k.startswith("loss.")}
+    model.first_stage_model.load_state_dict(sd)

@@ -1,0 +1,172 @@
+"""Train a latent-diffusion model from a YAML config, on one CUDA card.
+
+    python -m lidar_layout_tpu_torch.train.train_lidm \\
+        -b configs/lidar_diffusion/kitti/uncond_c2_p4.yaml --synthetic --steps 100 --bf16
+
+Counterpart of ``scripts/train_lidm.py`` with the same flags:
+``-b/--base -t/--train -r/--resume -d/--data-root -s/--seed --steps
+--workdir --synthetic --bf16`` and trailing ``a.b.c=value`` overrides;
+``--cpu`` runs on the CPU. Only the LatentDiffusion branch is ported: the
+autoencoder and the other families' trainers raise NotImplementedError.
+Weights start from torch's initialisers under ``--seed`` unless the first
+stage names a ``ckpt_path``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Any, Dict
+
+import torch
+
+LDM_TARGETS = ("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("-b", "--base", required=True, help="YAML config")
+    p.add_argument("-t", "--train", action="store_true")
+    p.add_argument("-r", "--resume", default=None, help="run directory to resume")
+    p.add_argument("-d", "--data-root", default=None)
+    p.add_argument("-s", "--seed", type=int, default=23)
+    p.add_argument("--steps", type=int, default=10000)
+    p.add_argument("--workdir", default=None)
+    p.add_argument("--synthetic", action="store_true", help="synthetic scenes only")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--bf16", action="store_true", help="bf16 autocast, f32 weights")
+    args, unknown = p.parse_known_args(argv)
+    bad = [u for u in unknown if "=" not in u]
+    if bad:
+        p.error(f"unrecognized arguments: {' '.join(bad)}")
+    args.overrides = unknown
+    return args
+
+
+def _merge(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _merge(dst[k], v)
+        else:
+            dst[k] = v
+
+
+def _lr_lambda(model_cfg: Dict[str, Any], steps: int):
+    """The config's warmup-cosine scheduler as a multiplier, or None."""
+    from .lr_schedule import lambda_warmup_cosine
+
+    sched = model_cfg.get("scheduler_config") or model_cfg["params"].get("scheduler_config")
+    if not sched:
+        return None
+    sp = sched.get("params", sched)
+
+    def scalar(key, default, alt=None):
+        v = sp.get(key, sp.get(alt) if alt else None)
+        if isinstance(v, (list, tuple)):   # LambdaLinearScheduler lists
+            v = v[0] if v else None
+        return default if v is None else float(v)
+
+    return lambda_warmup_cosine(
+        warm_up_steps=int(scalar("warm_up_steps", 1000)),
+        lr_min=scalar("f_min", 0.0, "lr_min"), lr_max=scalar("f_max", 1.0, "lr_max"),
+        lr_start=scalar("f_start", 1e-6, "lr_start"),
+        max_decay_steps=int(scalar("cycle_lengths", steps)))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from ..config import apply_dotlist, instantiate_from_config, load_yaml
+    from ..data.datasets import RangeImageDataset
+    from ..models.diffusion import apply_scale_by_std
+    from ..pipeline import geometry_from_config
+    from ..utils.device import resolve_device
+    from .checkpoint import load_first_stage_params, restore_checkpoint
+    from .diffusion_trainer import (create_train_state, make_optimizer, make_train_step,
+                                    make_val_step, trainable_params)
+    from .lr_schedule import scale_lr
+    from .trainer import (BestCheckpointSaver, CheckpointSaver, InformationWriter,
+                          IterationTimer, Trainer, ValidationHook)
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    cfg = load_yaml(args.base)
+    if args.resume:   # a resumed run reloads its own config; -b overrides it
+        saved = os.path.join(args.resume, "config.yaml")
+        if os.path.isfile(saved):
+            base = load_yaml(saved)
+            _merge(base, cfg)
+            cfg = base
+            print(f"re-merged config from {saved}")
+    if args.overrides:
+        apply_dotlist(cfg, args.overrides)
+        print(f"dotlist overrides: {args.overrides}")
+    model_cfg = cfg["model"]
+    if model_cfg["target"] not in LDM_TARGETS:
+        raise NotImplementedError(
+            f"training {model_cfg['target']!r} is not ported yet: the autoencoder and "
+            f"the other families' trainers are open in ROADMAP queue 1, item 10")
+    data_cfg = cfg.get("data", {}).get("params", {})
+    name = os.path.splitext(os.path.basename(args.base))[0]
+    workdir = args.workdir or f"./runs/{name}"
+    geom = geometry_from_config(cfg)
+    batch_size = data_cfg.get("batch_size", 4)
+    accumulate = int(data_cfg.get("accumulate_grad_batches", 1))
+
+    def make_batches(split: str, seed: int):
+        blk = data_cfg.get(split) or data_cfg.get("train")
+        if blk and blk.get("target") and not args.synthetic:
+            raise NotImplementedError("dataset targets (data/factory.py) are not ported "
+                                      "yet (ROADMAP queue 1, item 15); use --synthetic")
+        ds = RangeImageDataset(None if args.synthetic else args.data_root,
+                               batch_size=batch_size, geom=geom, seed=seed, device=device)
+        return ds.batches()
+
+    train_batches = make_batches("train", args.seed)
+    val_every = max(int(data_cfg.get("val_every_steps", args.steps // 10 or 1)), 1)
+    val_iter = make_batches("validation", args.seed + 1000)
+    val_cache = [next(val_iter) for _ in range(int(data_cfg.get("num_val_batches", 4)))]
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        model = instantiate_from_config(model_cfg).to(device)
+    fsc = model_cfg["params"].get("first_stage_config")
+    fs_ckpt = fsc.get("params", {}).get("ckpt_path") if isinstance(fsc, dict) else None
+    if fs_ckpt and model.first_stage_model is not None:
+        load_first_stage_params(fs_ckpt, model)
+        print(f"first_stage weights <- {fs_ckpt}")
+    if model.cfg.scale_by_std:
+        print(f"scale_by_std: scale_factor={apply_scale_by_std(model, val_cache[0]['image']):.4f}")
+
+    lr = scale_lr(model_cfg.get("base_learning_rate", 4.5e-6), batch_size, 1, accumulate)
+    params = trainable_params(model)
+    optimizer = make_optimizer(params, lr, accumulate=accumulate,
+                               lr_lambda=_lr_lambda(model_cfg, args.steps))
+    state = create_train_state(model, optimizer, params)
+    amp = torch.bfloat16 if args.bf16 else None
+    step = make_train_step(model, autocast_dtype=amp)
+    val_step = make_val_step(model, autocast_dtype=amp)
+    if args.resume:
+        restore_checkpoint(os.path.join(args.resume, "ckpt"), state)
+        print(f"resumed from {args.resume} at step {state.step}")
+
+    # ValidationHook comes first: the writer and savers read its val/* metrics
+    hooks = [IterationTimer(),
+             ValidationHook(val_step, lambda: iter(val_cache), every_steps=val_every),
+             InformationWriter(),
+             CheckpointSaver(every_steps=max(args.steps // 5, 1)),
+             BestCheckpointSaver(monitor="val/loss_simple_ema", top_k=3)]
+    trainer = Trainer(step, state, train_batches, workdir=workdir, max_steps=args.steps,
+                      hooks=hooks, seed=args.seed)
+    try:
+        import yaml
+
+        with open(os.path.join(workdir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+    except ImportError as e:
+        print(f"config save skipped: {e}")
+    trainer.train()
+    print(f"done: {trainer.global_step} steps -> {workdir}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

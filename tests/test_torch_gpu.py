@@ -62,3 +62,128 @@ def test_gpu_group_norm_kernel_matches_plain(cuda_device, dtype):
             # f32: summation order only; bf16: one output rounding (|y| < 8)
             tol = 1e-4 if dt == torch.float32 else 5e-2
             assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_attention_bwd_kernel_matches_plain(cuda_device, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    for (b, h, s, d) in [(2, 8, 2048, 32), (2, 4, 1000, 64), (1, 2, 77, 16), (1, 2, 200, 128)]:
+        q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=cuda_device).to(dt)
+                       for _ in range(4))
+        kb = torch.zeros((b, s), device=cuda_device)
+        kb[0, -s // 4:] = -1e9
+        o, lse = A._launch(q, k, v, kb, with_lse=True)
+        launches = A.flash_attention_bwd.launches
+        got = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
+        want = A._attend_bwd_ref(q, k, v, o, do, lse, kb)
+        torch.cuda.synchronize()
+        assert A.flash_attention_bwd.launches == launches + 1
+        # f32: summation order only; bf16: P and dS rounded to bf16 on both
+        # sides, from exp2 in the kernel and exp in the plain version, and
+        # the results rounded to bf16
+        for g, w in zip(got, want):
+            tol = 1e-4 if dt == torch.float32 else 2e-2 * float(w.float().abs().max())
+            assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+def _qkv_leaves(t):
+    q, k, v = (t[:, :, :, i].transpose(1, 2) for i in range(3))
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_gradients_flow_through_attention_and_group_norm(cuda_device, dtype):
+    # the kernels' outputs carry a grad_fn, and backward gives the gradients
+    # of the plain versions (a ctypes call into a bare torch.empty output
+    # would have dropped them)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((2, 300, 4, 3, 32), generator=gen, device=cuda_device).to(dt)
+    kb = torch.zeros((2, 300), device=cuda_device)
+    kb[1, 250:] = -1e9
+    dout = torch.randn((2, 4, 300, 32), generator=gen, device=cuda_device).to(dt)
+    grads = []
+    for fn in (A.flash_attention, A._attend_ref):
+        leaf = qkv.clone().requires_grad_()
+        out = fn(*_qkv_leaves(leaf), kb)
+        grads.append(torch.autograd.grad(out, leaf, dout)[0])
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert (grads[0].float() - grads[1].float()).abs().max().item() <= tol
+
+    x = (torch.randn((2, 256, 16, 128), generator=gen, device=cuda_device) * 2 + 0.3).to(dt)
+    gamma = 1 + 0.1 * torch.randn(256, generator=gen, device=cuda_device)
+    beta = 0.1 * torch.randn(256, generator=gen, device=cuda_device)
+    dy = torch.randn(x.shape, generator=gen, device=cuda_device).to(dt)
+    for act in (False, True):
+        res = []
+        for fn in (G.group_norm, G._ref):
+            leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+            res.append(torch.autograd.grad(fn(*leaves, 32, 1e-6, act), leaves, dy))
+        for got, want, tol in zip(*res, (1e-4 if dt == torch.float32 else 3e-2, 1e-2, 1e-2)):
+            assert got.dtype == want.dtype
+            assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_gpu_autocast_dtype_cases(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((2, 4, 128, 32), generator=gen, device=cuda_device)
+               for _ in range(3))
+    # K1 takes one dtype: mixed q/k/v raise outside autocast, and run in the
+    # autocast dtype inside it, with gradients back in each input's dtype
+    with pytest.raises(TypeError):
+        A.flash_attention(q.bfloat16(), k, v)
+    qb = q.bfloat16().requires_grad_()
+    kf, vf = k.clone().requires_grad_(), v.clone().requires_grad_()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = A.flash_attention(qb, kf, vf)
+    assert out.dtype == torch.bfloat16
+    out.float().square().sum().backward()
+    assert qb.grad.dtype == torch.bfloat16 and kf.grad.dtype == torch.float32
+    want = A._attend_ref(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert (out.float() - want.float()).abs().max().item() <= 3e-2
+
+    # K3 with bf16 activations and f32 affines that require grad
+    x = torch.randn((2, 64, 8, 16), generator=gen, device=cuda_device).bfloat16()
+    x.requires_grad_()
+    gamma = torch.ones(64, device=cuda_device, requires_grad=True)
+    beta = torch.zeros(64, device=cuda_device, requires_grad=True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = G.group_norm(x, gamma, beta, 32, 1e-6, True)
+    assert y.dtype == torch.bfloat16
+    y.float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and gamma.grad.dtype == torch.float32
+    assert torch.isfinite(beta.grad).all()
+
+
+@pytest.mark.gpu
+def test_gpu_tiny_training_step_under_autocast(cuda_device):
+    # f32 weights, bf16 autocast: the embedding adds mix the bf16 Linear
+    # output with bf16 activations, the norms take f32 affines; every U-Net
+    # parameter gets a finite gradient through K1, K2 and K3
+    from lidar_layout_tpu_torch.flagship import flagship
+    from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+    model, _ = flagship(tiny=True, device="cuda")
+    params = DT.trainable_params(model)
+    for p in params.values():   # lift the zero-initialised output layers
+        torch.nn.init.normal_(p, std=0.05)
+    counts = (A.flash_attention.launches, A.flash_attention_bwd.launches,
+              G.group_norm.launches)
+    x = torch.rand((2, 16, 128, 1), device=cuda_device) * 2 - 1
+    z = model.encode_first_stage(x)
+    t = torch.tensor([3, 40], device=cuda_device)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        loss, _ = model.p_losses(z, t, torch.randn_like(z))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    for name, p in params.items():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert torch.isfinite(p.grad).all(), name
+    assert A.flash_attention.launches > counts[0]
+    assert A.flash_attention_bwd.launches > counts[1]
+    assert G.group_norm.launches > counts[2]
