@@ -4,13 +4,16 @@
     python3 chip_smoke.py                    # every phase, as the acceptance run
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,kernels,train_slice,train
+    python3 chip_smoke.py --phases device,build,kernels,eval_slice,eval
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
   build        compile every kernel in csrc/ with nvcc (in parallel), print ptxas
   kernels      each kernel vs its plain PyTorch version at the flagship shapes,
                float32 and bfloat16: K1 (and its log-sum-exp), K2, K3, and the
-               gradients of the attention and GroupNorm Functions
+               gradients of the attention and GroupNorm Functions; K4 (f32)
+               against its plain version and float64, with masks, and its
+               grad guard
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -20,8 +23,16 @@ Phases (any failure exits non-zero before the final "ok" line):
   train        the training step at full width, batch 16, bf16 autocast, f32
                weights, synthetic scenes: steps/s, phase split, peak memory,
                launches per step against module hooks, a fixed-batch overfit check
+  eval_slice   the eval modules on the card vs on the CPU, same numpy clouds:
+               CD (K4 vs plain), EMD at N = 4096, BEV histograms and bitmaps,
+               RangeNet features at 64x1024, FRID
+  eval         the sample-and-evaluate path at full width: generate(32) with
+               DPM-20 at batch 16, bf16; 32 synthetic references range-
+               roundtripped on the card; CD, JSD, MMD, FRID; launch counts; the
+               device-side statistics of JSD, MMD and FRID against the host's
   timing       per-kernel device times at the main paths' shapes beside the
                plain version, one PyTorch library call and the card's bound
+               (K4 at the eval's clouds, so it needs the eval phase)
   profile      (only when named) device time of one DPM-20 request and of one
                training step by kernel family
 
@@ -41,7 +52,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "timing")
+PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "eval_slice",
+          "eval", "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -56,7 +68,24 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention_bwd", "lidar_layout_tpu_torch/csrc/flash_attn_bwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:205"),
     ("group_norm", "lidar_layout_tpu_torch/csrc/group_norm.cu",
-     "lidar_layout_tpu/ops/pallas_groupnorm.py:135"))
+     "lidar_layout_tpu/ops/pallas_groupnorm.py:135"),
+    ("chamfer_nn", "lidar_layout_tpu_torch/csrc/chamfer_nn.cu",
+     "lidar_layout_tpu/ops/pallas_chamfer.py:71"))
+EVAL_METRICS = ("cd", "jsd", "mmd", "frid")   # emd holds an (N, N) matrix: checked at N = 4096
+EPS32 = float(np.finfo(np.float32).eps)
+PROFILER_TRIES = 3   # profiler sessions a device_ms may take before it raises
+# FRID from the device twin's inputs (the decoded raster itself) against the
+# host path's (reproject, then rasterise again): reprojected points sit on
+# pixel-floor boundaries, so about a tenth of the valid pixels move to a
+# neighbouring column by float-ulp noise, and the two FRIDs are of slightly
+# different inputs. On the H100, with the seeded weights here, the twin reads
+# 4.502e-02 and a faulty twin with its depth left in model space 6.408e-01;
+# the limit sits between them. Rasters rolled by one row or one column read
+# 4.508e-02 and 4.506e-02: random RangeNet features barely see such a shift,
+# so they are logged, not gated (the twin's input function is held card
+# against CPU in eval_slice and CPU against JAX in the tests)
+FRID_TWIN_TOL = 0.05
+FRID_FAULTS = ("depth in model space",)   # faulty twins beyond that limit
 
 
 def log(*a):
@@ -95,7 +124,9 @@ def max_err(a, b):
 def device_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean device milliseconds per call: the CUDA kernel (and copy) times
     that torch.profiler records over ``reps`` calls, summed. Gaps between
-    launches, where the card waits for the host, are not counted."""
+    launches, where the card waits for the host, are not counted. Now and
+    then a profiler session records no device activity at all: it is run
+    again, up to PROFILER_TRIES sessions in all, and then this raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -103,16 +134,17 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and not getattr(ev, "is_user_annotation", False))
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False))
+        if us > 0:
+            return us / 1e3 / reps
+    raise RuntimeError(f"torch.profiler recorded no device time in {PROFILER_TRIES} sessions")
 
 
 def cuda_time(fn, reps: int, warmup: int = 3) -> float:
@@ -136,10 +168,11 @@ def cuda_time(fn, reps: int, warmup: int = 3) -> float:
 def counters():
     """The launch counters of every kernel wrapper, by kernel name."""
     from lidar_layout_tpu_torch.ops import attention as A
+    from lidar_layout_tpu_torch.ops import chamfer as C
     from lidar_layout_tpu_torch.ops import groupnorm as G
 
     return {"flash_attention": A.flash_attention, "flash_attention_bwd": A.flash_attention_bwd,
-            "group_norm": G.group_norm}
+            "group_norm": G.group_norm, "chamfer_nn": C.nn_dist_one_way}
 
 
 def reset_counts():
@@ -158,6 +191,8 @@ class Smoke:
         self.train_launches = {}
         self.shapes = None   # main-path kernel shapes and their launches per request
         self.train_shapes = None   # the same for one training step
+        self.eval_launches = {}
+        self.eval_clouds = None    # the eval's (reference, sample) clouds: K4's shapes
 
     # ------------------------------------------------------------------ device
     def device(self):
@@ -258,6 +293,7 @@ class Smoke:
                     1e-4, 1e-5, "(2, 128, 64, 1024) mean 300 std 0.1 f32 vs f64 statistics")
 
         self._kernels_train()
+        self._kernels_chamfer()
 
     def _kernels_train(self):
         """K1's log-sum-exp, K2, and the gradients of both autograd Functions
@@ -341,6 +377,71 @@ class Smoke:
                         self._check("group_norm", g_, w_, *t_,
                                     f"{part} {(bsz, c, hh, ww)} {str(dtype)[6:]} act={act}",
                                     record=False)
+
+    def _kernels_chamfer(self):
+        """K4 against its plain version and a float64 computation: a scene
+        pair, a 65,536-point pair, ragged sizes, masks (all masked gives
+        BIG exactly), identical clouds (0 exactly); and the grad guard."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_scene
+        from lidar_layout_tpu_torch.ops import chamfer as C
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+        from lidar_layout_tpu_torch.sample import range_roundtrip
+
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(7)
+        scenes = range_roundtrip([synthetic_scene(np.random.default_rng(s)) for s in (0, 1)],
+                                 KITTI_GEOMETRY, "cuda")
+        ragged = rng.uniform(-40, 40, (4097, 3)).astype(np.float32)
+        mask = rng.random(4097) < 0.7
+        cases = [("scene pair", scenes[0], scenes[1], None),
+                 ("65536 x 65536 in a 100 m box",
+                  rng.uniform(-50, 50, (65536, 3)).astype(np.float32),
+                  rng.uniform(-50, 50, (65536, 3)).astype(np.float32), None),
+                 ("13 x 77", ragged[:13], ragged[100:177], None),
+                 ("1000 x 4097", ragged[:1000] + 0.5, ragged, None),
+                 ("1000 x 4097 y mask", ragged[:1000] + 0.5, ragged, mask),
+                 ("1000 x 4097 all masked", ragged[:1000], ragged, np.zeros(4097, bool)),
+                 ("identical 4097", ragged, ragged, None)]
+        log("K4 chamfer_nn vs _nn_dist_ref (plain, f32 expansion) and float64:")
+        for what, xs, ys, ms in cases:
+            x, y = (torch.from_numpy(a).to(dev) for a in (xs, ys))
+            m = None if ms is None else torch.from_numpy(ms).to(dev)
+            before = C.nn_dist_one_way.launches
+            got = C.nn_dist_one_way(x, y, m)
+            plain = C._nn_dist_ref(x, y, m)
+            d64 = C._nn_dist_ref(x.double(), y.double(), m)
+            torch.cuda.synchronize()
+            if C.nn_dist_one_way.launches != before + 1:
+                raise AssertionError("K4 did not count its launch")
+            # the direct form rounds 3 differences, 3 products and 2 sums:
+            # a few eps_f32 of d; the expansion cancels |x|^2 + |y|^2
+            err64 = float(((got.double() - d64).abs() - 1e-6 * (1 + d64)).max())
+            scale = (x.double().square().sum(1) + y.double().square().sum(1).max())
+            err = (plain.double() - got.double()).abs()
+            err_exp = float((err - 16 * EPS32 * scale).max())
+            self.kernel_err["chamfer_nn"] = max(self.kernel_err["chamfer_nn"],
+                                                float(err.max()))
+            exact = True
+            if what.endswith("all masked"):
+                exact = bool((got == C.BIG).all())
+            elif what.startswith("identical"):
+                exact = bool((got == 0).all())
+            ok = err64 <= 0 and err_exp <= 0 and exact and bool((got >= 0).all())
+            log(f"  {what} ({len(xs)} x {len(ys)}): max |K4 - f64| "
+                f"{float((got.double() - d64).abs().max()):.3e} (tol 1e-6*(1+d)), max "
+                f"|plain - K4| {float(err.max()):.3e} (tol 16 eps32 (|x|^2 + max|y|^2)), "
+                f"exact={exact} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K4 {what} disagrees")
+        x = torch.from_numpy(ragged[:100]).to(dev).requires_grad_()
+        try:
+            C.nn_dist_one_way(x, torch.from_numpy(ragged).to(dev))
+        except RuntimeError as e:
+            log(f"  grad guard raises on the card: {e}")
+        else:
+            raise AssertionError("K4 returned a result with no gradient for an input "
+                                 "that requires grad")
 
     # --------------------------------------------------------- main-path shapes
     def _main_shapes(self):
@@ -580,7 +681,8 @@ class Smoke:
         seen = {"flash_attention": collections.Counter(),
                 "flash_attention_bwd": collections.Counter(),
                 "group_norm": collections.Counter(),
-                "group_norm_bwd": collections.Counter()}   # the plain backward
+                "group_norm_bwd": collections.Counter(),   # the plain backward
+                "chamfer_nn": collections.Counter()}       # none: training scores no CD
 
         def norm_hook(mod, args):
             b, c, h, w = args[0].shape
@@ -685,6 +787,230 @@ class Smoke:
         del model, state, batches
         torch.cuda.empty_cache()
 
+    # -------------------------------------------------------------- eval_slice
+    def eval_slice(self):
+        """The eval modules on the card against the CPU on the same numpy
+        clouds: f32, TF32 off for matmuls and cuDNN (device phase)."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_scene
+        from lidar_layout_tpu_torch.eval import device_metrics as D
+        from lidar_layout_tpu_torch.eval import metrics as M
+        from lidar_layout_tpu_torch.eval.rangenet import preprocess_range_batch
+        from lidar_layout_tpu_torch.eval.registry import build_range_feature_net
+        from lidar_layout_tpu_torch.ops import emd as E
+        from lidar_layout_tpu_torch.ops import lidar as L
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY as geom
+        from lidar_layout_tpu_torch.sample import range_roundtrip
+
+        raw = [synthetic_scene(np.random.default_rng(100 + i)) for i in range(8)]
+        clouds = range_roundtrip(raw, geom, "cpu")
+        ref, smp = clouds[:4], clouds[4:]
+        fails = []
+
+        # CD: K4 on the card, the plain expansion on the CPU; the expansion
+        # is off by up to eps32 (|x|^2 + |y|^2) a point (1e-3 m^2 at 60 m),
+        # which averages out over ~20K points
+        cd = {d: M.compute_cd(ref, smp, d) for d in ("cuda", "cpu")}
+        rel = abs(cd["cuda"] - cd["cpu"]) / abs(cd["cpu"])
+        log(f"eval_slice CD (4 pairs, {[len(c) for c in clouds]} points): card {cd['cuda']:.9g} "
+            f"cpu {cd['cpu']:.9g} relative {rel:.3e} (tol 1e-4)")
+        if not rel <= 1e-4:
+            fails.append("CD")
+
+        # EMD at N = 4096 (the (N, N) auction matrix is 64 MB there); 4096 is
+        # a multiple of 1024, so emd_distance would match all of it: its
+        # value is computed here from the one auction
+        x, y = ref[0][:4096], smp[0][:4096]
+        res = {}
+        for d in ("cuda", "cpu"):
+            xt, yt = torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)
+            t0 = time.perf_counter()
+            a = E.auction_match(xt, yt)
+            val = float(((xt - yt[a]) ** 2).sum(dim=-1).sqrt().mean())
+            res[d] = (a.cpu(), val, time.perf_counter() - t0)
+        (a_g, v_g, t_g), (a_c, v_c, t_c) = res["cuda"], res["cpu"]
+        dd = ((torch.from_numpy(x)[:, None] - torch.from_numpy(y)[None]) ** 2).sum(-1)
+        differ = (a_g != a_c).nonzero().flatten()
+        gap = (float((dd[differ, a_g[differ]] - dd[differ, a_c[differ]]).abs().max())
+               if len(differ) else 0.0)
+        # the assignments may differ only at near-ties: two targets whose
+        # squared distances are within a few roundings of the largest one
+        tie = 4 * EPS32 * float(dd.max())
+        rel = abs(v_g - v_c) / v_c
+        log(f"eval_slice EMD at N = 4096: card {v_g:.7g} ({t_g:.2f} s) cpu {v_c:.7g} "
+            f"({t_c:.2f} s) relative {rel:.3e} (tol 1e-3); assignments differ at "
+            f"{len(differ)} of 4096 points, largest cost gap there {gap:.3e} m^2 "
+            f"(near-tie tol {tie:.3e})")
+        if not (rel <= 1e-3 and gap <= tie):
+            fails.append("EMD")
+
+        # BEV histograms and occupancy bitmaps: the same binning arithmetic
+        # (IEEE division, floor) on both devices, so equal
+        pts = torch.zeros((8, max(len(c) for c in clouds), 3))
+        valid = torch.zeros(pts.shape[:2], dtype=torch.bool)
+        for i, c in enumerate(clouds):
+            pts[i, :len(c)] = torch.from_numpy(c)
+            valid[i, :len(c)] = True
+        stats = {}
+        for d in ("cuda", "cpu"):
+            p, v = pts.to(d), valid.to(d)
+            stats[d] = (D.bev_hist_accumulate(p[:4], v[:4]).cpu().numpy(),
+                        D.bev_hist_accumulate(p[4:], v[4:]).cpu().numpy(),
+                        D.bev_occupancy_packed(p, v).cpu().numpy())
+        equal = all(np.array_equal(a, b) for a, b in zip(stats["cuda"], stats["cpu"]))
+        hr, hs, bits = stats["cuda"]
+        jsd_dev, jsd_host = D.jsd_from_hists(hr, hs), M.compute_jsd(ref, smp)
+        mmd_dev, mmd_host = D.mmd_from_packed(bits[:4], bits[4:]), M.compute_mmd(ref, smp)
+        log(f"eval_slice device_metrics: histograms and bitmaps card == cpu: {equal}; JSD "
+            f"from card histograms {jsd_dev:.9g} vs compute_jsd {jsd_host:.9g} (tol 1e-6); "
+            f"MMD from card bitmaps {mmd_dev:.9g} vs compute_mmd {mmd_host:.9g} (equal)")
+        if not (equal and abs(jsd_dev - jsd_host) <= 1e-6 and mmd_dev == mmd_host):
+            fails.append("device_metrics")
+
+        # RangeNet (DarkNet21) at 64x1024: f32 on both, TF32 off; the devices
+        # sum in other orders through 40 convolutions
+        imgs = preprocess_range_batch(clouds, geom)
+        feats = {}
+        for d in ("cuda", "cpu"):
+            net = build_range_feature_net("64", device=d)
+            with torch.inference_mode():
+                feats[d] = np.concatenate([
+                    net(torch.from_numpy(imgs[i:i + 4]).to(d), return_final_logits=True)
+                    .cpu().numpy() for i in (0, 4)])
+        rel_l2 = float(np.linalg.norm(feats["cuda"] - feats["cpu"]) / np.linalg.norm(feats["cpu"]))
+        frid = {d: M.frechet_distance(f[:4].astype(np.float64), f[4:].astype(np.float64))
+                for d, f in feats.items()}
+        frid_rel = abs(frid["cuda"] - frid["cpu"]) / abs(frid["cpu"])
+        log(f"eval_slice RangeNet features (8 images, 64x1024): relative L2 {rel_l2:.3e} "
+            f"(tol 1e-4); FRID card {frid['cuda']:.9g} cpu {frid['cpu']:.9g} relative "
+            f"{frid_rel:.3e} (tol 1e-3)")
+        if not rel_l2 <= 1e-4:
+            fails.append("RangeNet")
+        if not frid_rel <= 1e-3:
+            fails.append("FRID")
+        # the device-side RangeNet input from a model-space image, same on both
+        model_img, _ = L.process_scan(L.pcd2range(torch.from_numpy(raw[0])[None], geom)[0], geom)
+        rin = {d: D.rangenet_input_from_model_imgs(model_img.to(d), geom).cpu() for d in
+               ("cuda", "cpu")}
+        rin_err = float((rin["cuda"] - rin["cpu"]).abs().max())
+        log(f"eval_slice rangenet_input_from_model_imgs card vs cpu: max_abs_err {rin_err:.3e} "
+            f"(tol 1e-3: exp2 of up to 5.84 on each device)")
+        if not rin_err <= 1e-3:
+            fails.append("rangenet_input_from_model_imgs")
+        if fails:
+            raise AssertionError(f"eval_slice: card and CPU disagree on {fails}")
+
+    # -------------------------------------------------------------------- eval
+    def eval(self):
+        """The sample-and-evaluate path at full width, through the port's
+        entry points; then the device-side statistics against the host's."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_scene
+        from lidar_layout_tpu_torch.eval import device_metrics as D
+        from lidar_layout_tpu_torch.eval.metrics import frechet_distance
+        from lidar_layout_tpu_torch.eval.registry import build_feature_fn
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+        from lidar_layout_tpu_torch.ops import lidar as L
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY as geom
+        from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+        from lidar_layout_tpu_torch.sample import evaluate_samples, range_roundtrip
+
+        model, _ = flagship(dtype=torch.bfloat16, device="cuda")
+        seed_weights(model, 0)
+        pipe = GenerationPipeline(model, geom, sampler="dpm", steps=20)
+        feature_fn = build_feature_fn("64", "range", device="cuda")
+        reference = [synthetic_scene(np.random.default_rng(1000 + i)) for i in range(N_MAIN)]
+        evals = unet_evals(model, 20)
+        batches = N_MAIN // BATCH
+        want = {"flash_attention": batches * evals * sum(
+                    isinstance(m, SelfAttentionBlock) for m in model.unet.modules()),
+                "flash_attention_bwd": 0,
+                "group_norm": batches * (
+                    evals * sum(isinstance(m, Normalize) for m in model.unet.modules())
+                    + sum(isinstance(m, Normalize)
+                          for m in model.first_stage_model.decoder.modules())),
+                "chamfer_nn": 2 * N_MAIN}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = pipe.generate(N_MAIN, seed=0, batch=BATCH)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = evaluate_samples(res.clouds, reference, EVAL_METRICS, "cuda",
+                               {"frid": feature_fn}, verbose=True)
+        t_eval = time.perf_counter() - t0
+        got = read_counts()
+        ref = range_roundtrip(reference, geom, "cuda")   # the clouds evaluate_samples scored
+        self.eval_clouds = (ref, res.clouds)
+        self.eval_launches = got
+        n_ref, n_smp = [len(c) for c in ref], [len(c) for c in res.clouds]
+        log(f"eval: generate({N_MAIN}) DPM-20 batch {BATCH} bf16 {t_gen:.3f} s, evaluate "
+            f"{t_eval:.3f} s; metrics {json.dumps(out)}; points per reference cloud "
+            f"min/median/max {min(n_ref)}/{int(np.median(n_ref))}/{max(n_ref)}, per sample "
+            f"{min(n_smp)}/{int(np.median(n_smp))}/{max(n_smp)}; launches {got} expected "
+            f"{want}; RangeNet param_hash {feature_fn.param_hash}; card {card_line()}")
+        if got != want:
+            raise AssertionError(f"eval: launch counts {got} != {want}")
+        if set(out) != set(EVAL_METRICS) or not all(np.isfinite(v) for v in out.values()):
+            raise AssertionError(f"eval: metrics {out}")
+
+        # the device twin: per generated batch (and per reference batch) the
+        # JSD histogram, the packed MMD bitmaps and the FRID features from the
+        # model-space images, read back; then the host tails. Faulty twins
+        # show what the FRID limit tells from the twin (FRID_TWIN_TOL)
+        net = feature_fn.net
+
+        def rangenet_inputs(imgs):
+            rin = D.rangenet_input_from_model_imgs(imgs, geom)
+            depth = rin[..., :1]
+            return {"twin": rin, "depth in model space": torch.cat(
+                        [torch.where(depth == -1.0, depth, imgs[..., None]), rin[..., 1:]], -1),
+                    "one row off": torch.roll(rin, 1, dims=1),       # logged only
+                    "one column off": torch.roll(rin, 1, dims=2)}    # logged only
+
+        def featurize(imgs):
+            xyz, valid = L.range2pcd(imgs, geom)
+            with torch.inference_mode():
+                feats = {k: net(r, return_final_logits=True).cpu().numpy()
+                         for k, r in rangenet_inputs(imgs).items()}
+            return (D.bev_hist_accumulate(xyz, valid).cpu().numpy(),
+                    D.bev_occupancy_packed(xyz, valid).cpu().numpy(), feats)
+
+        t0 = time.perf_counter()
+        twin = {"ref": [], "smp": []}
+        for i in range(0, N_MAIN, BATCH):
+            imgs = torch.from_numpy(res.images[i:i + BATCH, ..., 0]).to("cuda")
+            twin["smp"].append(featurize(imgs))
+            pts = torch.from_numpy(np.stack(reference[i:i + BATCH])).to("cuda")
+            model_img, _ = L.process_scan(L.pcd2range(pts, geom)[0], geom)
+            twin["ref"].append(featurize(model_img))
+        torch.cuda.synchronize()
+        t_twin = time.perf_counter() - t0
+        hist = {k: sum(b[0] for b in v) for k, v in twin.items()}
+        bits = {k: np.concatenate([b[1] for b in v]) for k, v in twin.items()}
+        jsd = D.jsd_from_hists(hist["ref"], hist["smp"])
+        mmd = D.mmd_from_packed(bits["ref"], bits["smp"])
+        frid_rel = {}
+        for name in twin["ref"][0][2]:   # the twin, then the faulty twins
+            feats = {k: np.concatenate([b[2][name] for b in v]).astype(np.float64)
+                     for k, v in twin.items()}
+            frid = frechet_distance(feats["ref"], feats["smp"])
+            frid_rel[name] = abs(frid - out["frid"]) / abs(out["frid"])
+            log(f"eval device twin FRID ({name}) {frid:.9g} vs host {out['frid']:.9g}, "
+                f"relative {frid_rel[name]:.3e} (the twin within {FRID_TWIN_TOL:g}, "
+                f"{' and '.join(FRID_FAULTS)} beyond it)")
+        log(f"eval device twin ({t_twin:.3f} s for {2 * N_MAIN} clouds): JSD {jsd:.9g} vs host "
+            f"{out['jsd']:.9g} (tol 1e-6); MMD {mmd:.9g} vs host {out['mmd']:.9g} (equal)")
+        if not (abs(jsd - out["jsd"]) <= 1e-6 and mmd == out["mmd"]
+                and frid_rel["twin"] <= FRID_TWIN_TOL
+                < min(frid_rel[name] for name in FRID_FAULTS)):
+            raise AssertionError("eval: the device-side statistics disagree with the host's, "
+                                 "or the FRID limit does not tell a faulty twin from the twin")
+        del model, pipe, net, feature_fn
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
@@ -757,12 +1083,13 @@ class Smoke:
             tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
         totals["group_norm"] = tot
         totals["flash_attention_bwd"] = self._timing_bwd(gen)
+        totals["chamfer_nn"] = self._timing_chamfer()
         for name, fn in counters().items():
             fn.launches = saved[name]
+        runs = {"flash_attention_bwd": f"{TRAIN_STEPS} training steps (batch {TRAIN_BATCH})",
+                "chamfer_nn": f"the eval's CD ({N_MAIN} pairs, 2 launches each)"}
         for name, tot in totals.items():
-            run = (f"{TRAIN_STEPS} training steps (batch {TRAIN_BATCH})"
-                   if name == "flash_attention_bwd" else
-                   f"the main DPM-20 run (generate({N_MAIN}), batch {BATCH})")
+            run = runs.get(name, f"the main DPM-20 run (generate({N_MAIN}), batch {BATCH})")
             log(f"  {name} over {run}; sum over shapes of launches x time): kernel "
                 f"{tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain "
                 f"{tot['plain_ms']:.3f} | library "
@@ -825,6 +1152,47 @@ class Smoke:
             f"{tot['step_bound_ms']:.3f}")
         self._timing_gn_bwd(gen)
         torch.cuda.empty_cache()
+        return tot
+
+    def _timing_chamfer(self):
+        """K4 over the eval's launches (reference -> sample and back for
+        every pair), each set run back to back: the kernel, the plain
+        version, torch.cdist squared then amin (row-chunked as the plain
+        version), and the bound summed over the launches."""
+        import torch
+        from lidar_layout_tpu_torch.ops import chamfer as C
+
+        if self.eval_clouds is None:
+            raise RuntimeError("timing: K4 is timed on the eval's clouds; run the eval phase")
+
+        def library(x, y):
+            return torch.cat([torch.cdist(x[i:i + 4096], y).square().amin(dim=1)
+                              for i in range(0, x.shape[0], 4096)])
+
+        pairs = []
+        for ref, smp in zip(*self.eval_clouds):
+            r, s = (torch.from_numpy(c).to("cuda") for c in (ref, smp))
+            pairs += [(r, s), (s, r)]
+
+        def every(fn):
+            return lambda: [fn(x, y) for x, y in pairs]
+
+        tot = collections.Counter({
+            "ms": device_ms(every(C.nn_dist_one_way), 5, 1),
+            "events_ms": cuda_time(every(C.nn_dist_one_way), 5, 1),
+            "plain_ms": device_ms(every(C._nn_dist_ref), 1, 1),
+            "library_ms": device_ms(every(library), 1, 1)})
+        for x, y in pairs:
+            n, m = x.shape[0], y.shape[0]
+            tot["bound_ops_ms"] += 9 * n * m / PEAK_F32 * 1e3
+            tot["bound_bytes_ms"] += (12 * (n + m) + 4 * n) / HBM_BYTES_PER_S * 1e3
+            tot["pairs"] += n * m
+        tot["bound_ms"] = max(tot["bound_ops_ms"], tot["bound_bytes_ms"])
+        log(f"  K4 over the eval's {len(pairs)} launches ({tot['pairs'] / 1e9:.3f} G point "
+            f"pairs): kernel {tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain "
+            f"{tot['plain_ms']:.3f} | cdist^2 + amin {tot['library_ms']:.3f} | bound "
+            f"{tot['bound_ms']:.3f} (operations: 9 per pair at 67 TFLOP/s f32) | "
+            f"{9 * tot['pairs'] / tot['ms'] / 1e9:.1f} TFLOP/s")
         return tot
 
     def _timing_gn_bwd(self, gen):
@@ -933,15 +1301,16 @@ class Smoke:
 
     def summary(self):
         """The kernels line: ``launches`` and the times cover the run each
-        kernel serves, the DPM-20 main run for K1/K3 and the timed training
-        steps for K2; ``train_launches`` counts every kernel over those steps."""
+        kernel serves, the DPM-20 main run for K1/K3, the timed training
+        steps for K2 and the eval's CD for K4; ``train_launches`` counts every
+        kernel over those steps."""
         entries = []
         for name, source, replaces in KERNELS:
             tot = getattr(self, "totals", {}).get(name, {})
             bound_by = ("operations" if tot.get("bound_ops_ms", 0) >= tot.get("bound_bytes_ms", 0)
                         else "bytes")
-            launches = (self.train_launches if name == "flash_attention_bwd"
-                        else self.launches).get(name)
+            launches = (self.train_launches if name == "flash_attention_bwd" else
+                        self.eval_launches if name == "chamfer_nn" else self.launches).get(name)
             entries.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,

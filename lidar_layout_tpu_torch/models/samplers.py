@@ -1,14 +1,15 @@
-"""Samplers: DDIM and DPM-Solver++(2M) over NHWC latents (inference).
+"""Samplers: DDIM, PLMS, DPM-Solver++(2M) and DDPM over NHWC latents (inference).
 
 Counterpart of ``lidar_layout_tpu/models/samplers.py`` (``_cfg_apply``,
-``ddim_sample``, ``dpm_solver_sample``). The per-step tables come from numpy
+``ddim_sample``, ``plms_sample``, ``dpm_solver_sample``, ``ddpm_sample``). The per-step tables come from numpy
 float64 exactly as in the JAX package, are cast to float32 there as JAX casts
 them, and each step's scalar arithmetic is done in np.float32 so that it
 rounds as the JAX scan does. The loop is a Python loop over eager torch ops.
 
-Both samplers take an optional ``x_T``, as the reference's
-``DDIMSampler.sample(x_T=...)``; without it they draw ``x_T`` from the
-caller's ``torch.Generator``.
+Every sampler takes an optional ``x_T``, as the reference's
+``DDIMSampler.sample(x_T=...)``; without it, and for the noise of DDIM with
+eta > 0 and of DDPM, it draws from the caller's ``torch.Generator`` through
+``_randn``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,12 @@ def _cfg_apply(model: LatentDiffusion, x: torch.Tensor, t: torch.Tensor, cond: A
     return e_uncond + scale * (e_cond - e_uncond)
 
 
+def _randn(shape: Tuple[int, ...], generator: Optional[torch.Generator],
+           device) -> torch.Tensor:
+    """Every Gaussian draw of the samplers, in order."""
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
 def _initial(shape: Tuple[int, ...], x_T: Optional[torch.Tensor],
              generator: Optional[torch.Generator], device) -> torch.Tensor:
     device = resolve_device(device)
@@ -40,7 +47,7 @@ def _initial(shape: Tuple[int, ...], x_T: Optional[torch.Tensor],
         if tuple(x_T.shape) != tuple(shape):
             raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected {shape}")
         return x_T.to(device=device, dtype=torch.float32)
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return _randn(shape, generator, device)
 
 
 def _f32(a: np.ndarray) -> np.ndarray:
@@ -72,7 +79,7 @@ def ddim_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int = 50,
                                       np.float32(0.0)))
         img = float(np.sqrt(aprev)) * pred_x0 + float(dir_coef) * e_t
         if sigma != 0.0:
-            noise = torch.randn(shape, generator=generator, device=img.device)
+            noise = _randn(shape, generator, img.device)
             img = img + float(sigma) * noise * temperature
     return img
 
@@ -117,4 +124,78 @@ def dpm_solver_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int
             d = x0
         img = float(sn_t[i] / sc_t[i]) * img - float(an_t[i] * np.expm1(-h_t[i])) * d
         x0_prev = x0
+    return img
+
+
+def plms_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int = 50,
+                cond: Any = None, uncond: Any = None, cfg_scale: float = 1.0,
+                method: str = "uniform", x_T: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                device="cuda") -> torch.Tensor:
+    """PLMS: Adams-Bashforth multistep on epsilon (eta 0). The first step
+    refines with a second model eval at the next timestep; the next ones use
+    the 2-, 3- and then 4-tap history, as the reference does."""
+    dsched = DDIMSchedule.create(model.schedule, steps, 0.0, method)
+    ts = dsched.timesteps[::-1]
+    ts_next = np.concatenate([ts[1:], [0]])
+    a_t, a_prev = _f32(dsched.alphas[::-1]), _f32(dsched.alphas_prev[::-1])
+    sqrt_1ma = _f32(dsched.sqrt_one_minus_alphas[::-1])
+
+    img = _initial(shape, x_T, generator, device)
+    b = shape[0]
+
+    def get_prev(x, e_t, i):
+        pred_x0 = (x - float(sqrt_1ma[i]) * e_t) / float(np.sqrt(a_t[i]))
+        dir_coef = np.sqrt(np.maximum(np.float32(1.0) - a_prev[i], np.float32(0.0)))
+        return float(np.sqrt(a_prev[i])) * pred_x0 + float(dir_coef) * e_t
+
+    old_eps = []
+    for i, t_scalar in enumerate(ts):
+        t = torch.full((b,), int(t_scalar), dtype=torch.long, device=img.device)
+        e_t = model.eps_from_model_out(img, t, _cfg_apply(model, img, t, cond, uncond,
+                                                          cfg_scale))
+        if not old_eps:
+            t_next = torch.full((b,), int(ts_next[i]), dtype=torch.long, device=img.device)
+            x_prev = get_prev(img, e_t, i)
+            e_next = model.eps_from_model_out(
+                x_prev, t_next, _cfg_apply(model, x_prev, t_next, cond, uncond, cfg_scale))
+            e_prime = (e_t + e_next) / 2.0
+        elif len(old_eps) == 1:
+            e_prime = (3.0 * e_t - old_eps[-1]) / 2.0
+        elif len(old_eps) == 2:
+            e_prime = (23.0 * e_t - 16.0 * old_eps[-1] + 5.0 * old_eps[-2]) / 12.0
+        else:
+            e_prime = (55.0 * e_t - 59.0 * old_eps[-1] + 37.0 * old_eps[-2]
+                       - 9.0 * old_eps[-3]) / 24.0
+        img = get_prev(img, e_prime, i)
+        old_eps = (old_eps + [e_t])[-3:]
+    return img
+
+
+def ddpm_sample(model: LatentDiffusion, shape: Tuple[int, ...], cond: Any = None,
+                clip_denoised: bool = True, x_T: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                device="cuda") -> torch.Tensor:
+    """Ancestral sampling over all T steps; each step draws its noise (the
+    last step draws it too and adds none, as the JAX scan does)."""
+    s = model.schedule
+    c1, c2 = _f32(s.posterior_mean_coef1), _f32(s.posterior_mean_coef2)
+    logvar = _f32(s.posterior_log_variance_clipped)
+    sr, srm1 = _f32(s.sqrt_recip_alphas_cumprod), _f32(s.sqrt_recipm1_alphas_cumprod)
+
+    img = _initial(shape, x_T, generator, device)
+    b = shape[0]
+    for t_scalar in range(s.num_timesteps - 1, -1, -1):
+        t = torch.full((b,), t_scalar, dtype=torch.long, device=img.device)
+        out = model.apply_model(img, t, cond)
+        if model.cfg.parameterization == "eps":
+            x0 = float(sr[t_scalar]) * img - float(srm1[t_scalar]) * out
+        else:
+            x0 = out
+        if clip_denoised:
+            x0 = x0.clamp(-1.0, 1.0)
+        mean = float(c1[t_scalar]) * x0 + float(c2[t_scalar]) * img
+        noise = _randn(shape, generator, img.device)
+        img = mean + float(t_scalar > 0) * float(np.exp(np.float32(0.5) * logvar[t_scalar])) \
+            * noise
     return img

@@ -28,6 +28,7 @@ SIGNATURES = {
     "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
     "flash_attn_bwd": ("llt_flash_attn_bwd", [_P] * 12 + [_I] * 5 + [_P]),
     "group_norm": ("llt_group_norm_fwd", [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "chamfer_nn": ("llt_chamfer_nn", [_P] * 4 + [_I] * 2 + [_P]),
 }
 SOURCES = tuple(SIGNATURES)
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"

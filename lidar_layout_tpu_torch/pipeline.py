@@ -7,11 +7,12 @@ Counterpart of ``lidar_layout_tpu/pipeline.py`` (``geometry_from_config``,
     out = pipe.generate(64, seed=0)          # out.images, out.clouds
 
 Each batch runs sample -> VQ decode -> reprojection on the device. Samplers
-are cached per (batch, sampler, steps, eta) key. ``from_run_dir`` waits for
-the checkpoint port.
+are cached per (batch, sampler, steps, eta) key. ``from_run_dir`` loads a run
+that ``train.train_lidm`` wrote: its ``config.yaml`` and latest checkpoint.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -92,6 +93,28 @@ class GenerationPipeline:
         return cls(model=model.to(dev).eval(), geom=geometry_from_config(cfg, dataset),
                    **kw)
 
+    @classmethod
+    def from_run_dir(cls, run_dir: str, base_config: Optional[str] = None,
+                     dataset: str = "64", use_ema: bool = True, bf16: bool = False,
+                     device: Union[str, torch.device] = "cuda", **kw) -> "GenerationPipeline":
+        """Load a training run: its saved ``config.yaml`` (or ``base_config``)
+        and the latest checkpoint under ``<run_dir>/ckpt``, with the EMA
+        weights by default."""
+        from .train.checkpoint import checkpoint_path, latest_step
+
+        cfg = load_yaml(base_config or os.path.join(run_dir, "config.yaml"))
+        ckpt_dir = os.path.join(run_dir, "ckpt")
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        ckpt = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu",
+                          weights_only=True)
+        sd = dict(ckpt["model"])
+        if use_ema:
+            sd.update(ckpt["ema"]["params"])
+        return cls.from_config(cfg, state_dict=sd, dataset=dataset, bf16=bf16,
+                               device=device, **kw)
+
     def _program(self, batch: int) -> Callable[[torch.Generator], torch.Tensor]:
         key = (batch, self.sampler, self.steps, self.eta)
         if key not in self._cache:
@@ -106,6 +129,13 @@ class GenerationPipeline:
                 def draw(gen):
                     return S.dpm_solver_sample(self.model, shape, steps=self.steps,
                                                generator=gen, device=dev)
+            elif self.sampler == "plms":
+                def draw(gen):
+                    return S.plms_sample(self.model, shape, steps=self.steps,
+                                         generator=gen, device=dev)
+            elif self.sampler == "ddpm":
+                def draw(gen):
+                    return S.ddpm_sample(self.model, shape, generator=gen, device=dev)
             else:
                 raise NotImplementedError(
                     f"sampler {self.sampler!r} is not ported yet (ROADMAP queue 1)")

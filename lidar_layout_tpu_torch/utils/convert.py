@@ -10,6 +10,8 @@ Conventions: flax conv kernels HWIO -> torch OIHW; flax ``Dense`` kernels
 (in, out) -> torch (out, in); GroupNorm ``scale`` -> ``weight``. The U-Net
 ``qkv`` projection is [q(all heads), k, v] in flax and heads-major
 [h0:(q, k, v), h1:(q, k, v), ...] in the reference conv1d (QKVAttentionLegacy).
+``rangenet_state_dict`` carries the JAX ``RangeNet`` init tree (``params`` and
+``batch_stats``) into the port's ``eval/rangenet.RangeNet``.
 """
 from __future__ import annotations
 
@@ -142,3 +144,34 @@ def latent_diffusion_state_dict(params: Dict[str, Any],
         sd.update({f"first_stage_model.{k}": v
                    for k, v in vq_state_dict(params["first_stage"]).items()})
     return sd
+
+
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def rangenet_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``RangeNet`` variables (``params`` and ``batch_stats``) -> the port's
+    ``RangeNet`` state_dict. Convolutions HWIO -> OIHW; the decoder's
+    ``upconv`` HWIO -> IOHW with the kernel flipped along W, which is how a
+    flax ConvTranspose((1, 4), (1, 2), "SAME") equals torch's
+    ConvTranspose2d(k=(1, 4), s=(1, 2), p=(0, 1)); BatchNorm
+    scale/bias/mean/var -> weight/bias/running_mean/running_var."""
+    out: Dict[str, torch.Tensor] = {}
+    for col in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(col, {})):
+            mods = tuple(m for m in path[:-1] if m != "BatchNorm_0")
+            leaf = path[-1]
+            scope = "decoder" if mods[0].startswith("dec") else "backbone"
+            if leaf == "kernel":
+                value = (np.transpose(value, (2, 3, 0, 1))[..., ::-1] if mods[-1] == "upconv"
+                         else np.transpose(value, (3, 2, 0, 1)))
+                name = "weight"
+            elif mods[-1] == "upconv":
+                name = leaf
+            else:
+                name = _BN_LEAVES[leaf]
+            out[".".join((scope,) + mods + (name,))] = torch.from_numpy(
+                np.ascontiguousarray(value))
+            if leaf == "mean":
+                out[".".join((scope,) + mods + ("num_batches_tracked",))] = torch.tensor(0)
+    return out

@@ -187,3 +187,58 @@ def test_gpu_tiny_training_step_under_autocast(cuda_device):
     assert A.flash_attention.launches > counts[0]
     assert A.flash_attention_bwd.launches > counts[1]
     assert G.group_norm.launches > counts[2]
+
+
+@pytest.mark.gpu
+def test_gpu_chamfer_kernel_matches_plain_and_float64(cuda_device):
+    from lidar_layout_tpu_torch.ops import chamfer as C
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    y = (torch.rand((4097, 3), generator=gen, device=cuda_device) - 0.5) * 80
+    mask = torch.rand(4097, generator=gen, device=cuda_device) < 0.7
+    cases = [(y[:13], y[100:177], None), (y[:1000] + 0.5, y, None), (y[:1000] + 0.5, y, mask),
+             (y, y, None)]
+    for x, yy, m in cases:
+        launches = C.nn_dist_one_way.launches
+        got = C.nn_dist_one_way(x, yy, m)
+        d64 = C._nn_dist_ref(x.double(), yy.double(), m)
+        plain = C._nn_dist_ref(x, yy, m)
+        torch.cuda.synchronize()
+        assert C.nn_dist_one_way.launches == launches + 1
+        assert (got >= 0).all()
+        # the direct form: a few f32 roundings of d; the plain expansion
+        # cancels |x|^2 + |y|^2 in f32
+        assert ((got.double() - d64).abs() <= 1e-6 * (1 + d64)).all()
+        scale = x.double().square().sum(1) + yy.double().square().sum(1).max()
+        assert ((plain.double() - got.double()).abs() <= 16 * 1.2e-7 * scale).all()
+    assert (C.nn_dist_one_way(y, y) == 0).all()
+    none = torch.zeros(4097, dtype=torch.bool, device=cuda_device)
+    assert (C.nn_dist_one_way(y[:100], y, none) == C.BIG).all()
+
+
+@pytest.mark.gpu
+def test_gpu_chamfer_grad_guard_raises(cuda_device):
+    from lidar_layout_tpu_torch.ops import chamfer as C
+
+    x = torch.rand((64, 3), device=cuda_device, requires_grad=True)
+    y = torch.rand((80, 3), device=cuda_device)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        C.nn_dist_one_way(x, y)
+    with pytest.raises(RuntimeError, match="ROADMAP"):
+        C.pairwise_cd(y, x)
+
+
+@pytest.mark.gpu
+def test_gpu_rangenet_matches_cpu(cuda_device):
+    from lidar_layout_tpu_torch.eval.registry import build_range_feature_net
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.randn((2, 64, 1024, 4), generator=torch.Generator().manual_seed(5)) * 5
+    feats = []
+    for dev in ("cpu", cuda_device):
+        net = build_range_feature_net("64", weights_root="/nonexistent", device=dev)
+        with torch.inference_mode():
+            feats.append(net(x.to(dev), return_final_logits=True).cpu())
+    # f32 on both, summed in other orders through 40 convolutions
+    rel = (feats[1] - feats[0]).norm() / feats[0].norm()
+    assert rel.item() <= 1e-4

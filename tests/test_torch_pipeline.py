@@ -30,9 +30,10 @@ from lidar_layout_tpu_torch.flagship import flagship
 from lidar_layout_tpu_torch.models import samplers as PS
 from lidar_layout_tpu_torch.ops import lidar as PL
 from lidar_layout_tpu_torch.pipeline import GenerationPipeline
-from torch_port_helpers import jax_ldm_params, seed_weights
+from torch_port_helpers import jax_ldm_params, one_intra_op_thread, seed_weights
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_intra_op_thread)
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "lidar_layout_tpu"}
 SHAPE = (2, 4, 16, 8)          # batch 2 of the tiny flagship's 4x16x8 latent
 
@@ -216,7 +217,10 @@ def test_port_source_imports_no_jax():
     files = sorted((ROOT / "lidar_layout_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     names = {str(f.relative_to(ROOT / "lidar_layout_tpu_torch")) for f in files[:-1]}
     assert len(files) > 15 and {"nn/ema.py", "data/synthetic.py", "data/datasets.py",
-                                "train/trainer.py", "train/train_lidm.py"} <= names
+                                "train/trainer.py", "train/train_lidm.py", "eval/metrics.py",
+                                "eval/device_metrics.py", "eval/rangenet.py",
+                                "eval/registry.py", "ops/chamfer.py", "ops/emd.py",
+                                "data/readers.py", "sample.py"} <= names
     bad = {f"{f.relative_to(ROOT)}: {m}" for f in files for m in _imported_roots(f)
            if m in FORBIDDEN}
     assert not bad
@@ -237,6 +241,10 @@ import lidar_layout_tpu_torch.train.train_lidm, lidar_layout_tpu_torch.train.tra
 import lidar_layout_tpu_torch.train.diffusion_trainer, lidar_layout_tpu_torch.train.checkpoint
 import lidar_layout_tpu_torch.train.lr_schedule, lidar_layout_tpu_torch.nn.ema
 import lidar_layout_tpu_torch.data.datasets, lidar_layout_tpu_torch.data.synthetic
+import lidar_layout_tpu_torch.eval.metrics, lidar_layout_tpu_torch.eval.device_metrics
+import lidar_layout_tpu_torch.eval.rangenet, lidar_layout_tpu_torch.eval.registry
+import lidar_layout_tpu_torch.ops.chamfer, lidar_layout_tpu_torch.ops.emd
+import lidar_layout_tpu_torch.data.readers, lidar_layout_tpu_torch.sample
 assert "jax" not in sys.modules
 assert not [m for m in sys.modules if m.split(".")[0] in BAD]
 print("clean")

@@ -49,9 +49,11 @@ from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 from lidar_layout_tpu_torch.train import lr_schedule as PLR
 from lidar_layout_tpu_torch.train import trainer as TR
 from lidar_layout_tpu_torch.train.train_lidm import main as train_main
-from torch_port_helpers import jax_ldm_params, jax_unet_params, nchw, nhwc, seed_weights
+from torch_port_helpers import (jax_ldm_params, jax_unet_params, nchw, nhwc, one_intra_op_thread,
+                                seed_weights)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_intra_op_thread)
 TINY_UNET = dict(in_channels=8, model_channels=32, out_channels=8, num_res_blocks=1,
                  attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=8)
 TINY_GEOM = PL.LidarGeometry(size=(16, 128))

@@ -12,6 +12,18 @@ import numpy as np
 import torch
 
 
+def one_intra_op_thread():
+    """Body of a module fixture that runs the module's tests on one torch
+    thread. Tests that run thousands of small ops (samplers, training loops,
+    CLIs) wait on their intra-op threads whenever the suite's other parallel
+    workers keep those threads off the cores: a DDPM test took 60x longer so.
+    Use as ``pytest.fixture(autouse=True, scope="module")(one_intra_op_thread)``."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def seed_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Every parameter from a seeded generator at ~1/sqrt(fan_in), the
     zero-initialised output layers included (else the U-Net outputs 0 and
