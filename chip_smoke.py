@@ -11,9 +11,11 @@ Phases (any failure exits non-zero before the final "ok" line):
   build        compile every kernel in csrc/ with nvcc (in parallel), print ptxas
   kernels      each kernel vs its plain PyTorch version at the flagship shapes,
                float32 and bfloat16: K1 (and its log-sum-exp), K2, K3, and the
-               gradients of the attention and GroupNorm Functions; K4 (f32)
-               against its plain version and float64, with masks, and its
-               grad guard
+               gradients of the attention and GroupNorm Functions, with K1/K2
+               at the edges of their tiles (S = 1, 127, 129, 2049; D = 8, 96;
+               a masked key tile); K1 bit for bit over two launches, K2 within
+               the bf16 tolerance (atomics); K4 (f32) against its plain version
+               and float64, with masks, and its grad guard
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -31,8 +33,10 @@ Phases (any failure exits non-zero before the final "ok" line):
                roundtripped on the card; CD, JSD, MMD, FRID; launch counts; the
                device-side statistics of JSD, MMD and FRID against the host's
   timing       per-kernel device times at the main paths' shapes beside the
-               plain version, one PyTorch library call and the card's bound
-               (K4 at the eval's clouds, so it needs the eval phase)
+               plain version, one PyTorch library call and the card's bound,
+               and for K1/K2 the special-function unit's floor for their
+               exponentials (K4 at the eval's clouds, so it needs the eval
+               phase)
   profile      (only when named) device time of one DPM-20 request and of one
                training step by kernel family
 
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import os
 import subprocess
@@ -71,6 +76,12 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "lidar_layout_tpu/ops/pallas_groupnorm.py:135"),
     ("chamfer_nn", "lidar_layout_tpu_torch/csrc/chamfer_nn.cu",
      "lidar_layout_tpu/ops/pallas_chamfer.py:71"))
+# K1 cases: the flagship's shapes, a fused qkv view, key padding, D = 16 to 128
+ATTN_CASES = [((16, 8, 2048, 32), False, False), ((16, 16, 512, 32), False, False),
+              ((16, 32, 128, 32), False, False), ((16, 8, 2048, 32), True, False),
+              ((4, 8, 1000, 32), False, True), ((2, 4, 333, 64), True, True),
+              ((2, 2, 200, 128), False, True), ((2, 2, 130, 16), True, False)]
+SFU_EX2_PER_CLOCK = 16   # exp2 per clock per SM on Hopper (special-function unit)
 EVAL_METRICS = ("cd", "jsd", "mmd", "frid")   # emd holds an (N, N) matrix: checked at N = 4096
 EPS32 = float(np.finfo(np.float32).eps)
 PROFILER_TRIES = 3   # profiler sessions a device_ms may take before it raises
@@ -116,6 +127,21 @@ def unet_evals(model, steps: int) -> int:
     return len(DDIMSchedule.create(model.schedule, steps).timesteps)
 
 
+@functools.lru_cache(maxsize=None)
+def sfu_ex2_per_ms() -> float:
+    """Exponentials a millisecond on the special-function units: 16 exp2 a
+    clock per SM at the card's maximum SM clock (nvidia-smi)."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"SFU floor: {SFU_EX2_PER_CLOCK} exp2/clock/SM x {sms} SMs x {mhz:g} MHz")
+    return SFU_EX2_PER_CLOCK * sms * mhz * 1e3
+
+
 def max_err(a, b):
     d = (a.float() - b.float()).abs()
     return float(d.max()), float(b.float().abs().max())
@@ -145,6 +171,26 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
         if us > 0:
             return us / 1e3 / reps
     raise RuntimeError(f"torch.profiler recorded no device time in {PROFILER_TRIES} sessions")
+
+
+def paired_ms(kernel, library, reps: int, rounds: int = 3):
+    """device_ms of a kernel and of its library call, in turns (kernel,
+    library, kernel, ...) for ``rounds`` rounds: the median of each, and
+    the rounds. On the H100 a kernel's first rounds after other work read up
+    to 1.5x its later ones now and then; turns keep the two comparable. The
+    first round alone is one device_ms of each, the method of the timings
+    before the turns: the timing phase logs its ratio beside the medians'."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(device_ms(kernel, reps))
+        ls.append(device_ms(library, reps))
+    return float(np.median(ks)), float(np.median(ls)), ks, ls
+
+
+def clock_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
 def cuda_time(fn, reps: int, warmup: int = 3) -> float:
@@ -235,6 +281,7 @@ class Smoke:
         import torch
         from lidar_layout_tpu_torch.ops import attention as A
         from lidar_layout_tpu_torch.ops import groupnorm as G
+        from torch_port_helpers import ATTN_EDGE_CASES, attn_inputs   # tests/ is on sys.path
 
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -243,26 +290,23 @@ class Smoke:
         # unnormalised p to bf16 (the plain version rounds the normalised p)
         tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
         log("K1 flash_attention vs _attend_ref:")
-        cases = [((16, 8, 2048, 32), False, False), ((16, 16, 512, 32), False, False),
-                 ((16, 32, 128, 32), False, False), ((16, 8, 2048, 32), True, False),
-                 ((4, 8, 1000, 32), False, True), ((2, 4, 333, 64), True, True),
-                 ((2, 2, 200, 128), False, True), ((2, 2, 130, 16), True, False)]
         for dtype in (torch.float32, torch.bfloat16):
-            for (b, h, s, d), fused, masked in cases:
-                if fused:   # q, k, v as views of one (B, S, H, 3, D) projection
-                    qkv = torch.randn((b, s, h, 3, d), generator=gen, device=dev).to(dtype)
-                    q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
-                else:
-                    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
-                               .to(dtype) for _ in range(3))
-                kb = None
-                if masked:  # key padding: the last ~quarter of keys of batch 0
-                    kb = torch.zeros((b, s), device=dev)
-                    kb[0, s - s // 4:] = -1e9
+            for (b, h, s, d), fused, masked in ATTN_CASES + ATTN_EDGE_CASES:
+                q, k, v, kb = attn_inputs(gen, b, h, s, d, dtype, fused, masked)
                 got = A.flash_attention(q, k, v, kb)
                 want = A._attend_ref(q, k, v, kb)
                 self._check("flash_attention", got, want, *tol[dtype],
                             f"{(b, h, s, d)} {str(dtype)[6:]} fused={fused} kbias={masked}")
+        # one launch of the bf16 kernel sums in a fixed order: bit for bit
+        for (b, h, s, d), fused, masked in (ATTN_CASES[0], ((2, 2, 384, 32), False, "tile")):
+            q, k, v, kb = attn_inputs(gen, b, h, s, d, torch.bfloat16, fused, masked)
+            o1, l1 = A._launch(q, k, v, kb, with_lse=True)
+            o2, l2 = A._launch(q, k, v, kb, with_lse=True)
+            same = bool(torch.equal(o1, o2)) and bool(torch.equal(l1, l2))
+            log(f"  flash_attention {(b, h, s, d)} bf16 kbias={masked}: two launches bit for "
+                f"bit equal (o and lse): {same}")
+            if not same:
+                raise AssertionError("K1 is not deterministic")
 
         log("K3 group_norm vs _ref:")
         shapes = self._main_shapes()["group_norm"]
@@ -301,6 +345,7 @@ class Smoke:
         import torch
         from lidar_layout_tpu_torch.ops import attention as A
         from lidar_layout_tpu_torch.ops import groupnorm as G
+        from torch_port_helpers import ATTN_EDGE_CASES, attn_inputs
 
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -317,17 +362,8 @@ class Smoke:
                  ((2, 4, 333, 64), True, True), ((2, 2, 200, 128), False, True),
                  ((2, 2, 130, 16), True, False)]
         for dtype in (torch.float32, torch.bfloat16):
-            for (b, h, s, d), fused, masked in cases:
-                if fused:   # q, k, v as views of one (B, S, H, 3, D) projection
-                    qkv = torch.randn((b, s, h, 3, d), generator=gen, device=dev).to(dtype)
-                    q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
-                else:
-                    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
-                               .to(dtype) for _ in range(3))
-                kb = None
-                if masked:
-                    kb = torch.zeros((b, s), device=dev)
-                    kb[0, s - s // 4:] = -1e9
+            for (b, h, s, d), fused, masked in cases + ATTN_EDGE_CASES:
+                q, k, v, kb = attn_inputs(gen, b, h, s, d, dtype, fused, masked)
                 what = f"{(b, h, s, d)} {str(dtype)[6:]} fused={fused} kbias={masked}"
                 o, lse = A._launch(q, k, v, kb, with_lse=True)
                 torch.cuda.synchronize()
@@ -340,6 +376,15 @@ class Smoke:
                 want = A._attend_bwd_ref(q, k, v, o, do, lse, kb)
                 for part, g_, w_ in zip(("dq", "dk", "dv"), got, want):
                     self._check("flash_attention_bwd", g_, w_, *tol[dtype], f"{part} {what}")
+                if dtype == torch.bfloat16 and (b, h, s, d) == (16, 8, 2048, 32):
+                    # dq is summed by atomics in no fixed order: a second launch
+                    # agrees within the bf16 tolerance, not bit for bit
+                    again = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
+                    for part, g_, w_ in zip(("dq", "dk", "dv"), again, got):
+                        self._check("flash_attention_bwd", g_, w_, *tol[dtype],
+                                    f"{part} {what}: second launch vs first", record=False)
+                    log(f"  dq of two launches: {int((again[0] != got[0]).sum())} of "
+                        f"{got[0].numel()} elements differ")
                 del q, k, v, o, lse, do, got, want
 
         log("gradients through the Functions on CUDA vs autograd of the plain versions:")
@@ -1025,27 +1070,37 @@ class Smoke:
         totals = {}
         saved = read_counts()
         log(f"timing on {card}: per call, device ms (torch.profiler kernel time, mean of "
-            f"back-to-back calls); 'events' is the wall time per call from CUDA events, "
-            f"which includes the host's launch rate")
+            f"back-to-back calls; K1/K2 and SDPA the median of 3 rounds in turns); 'events' "
+            f"is the wall time per call from CUDA events, which includes the host's launch "
+            f"rate; clocks at the start: {clock_line()}")
         # K1
         tot = collections.Counter()
         for (b, h, s, d), count in sorted(shapes["flash_attention"].items()):
             q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(3))
-            flops = 4 * b * h * s * s * d
-            nbytes = 4 * b * h * s * d * 2
-            t = {"ms": device_ms(lambda: A.flash_attention(q, k, v), 20),
-                 "events_ms": cuda_time(lambda: A.flash_attention(q, k, v), 20),
-                 "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 5),
-                 "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
+            cost = A.attention_cost(b, h, s, d, 2)
+            flops, nbytes = cost["flops"], cost["bytes"]
+            kms, lms, krounds, lrounds = paired_ms(
+                lambda: A.flash_attention(q, k, v),
+                lambda: F.scaled_dot_product_attention(q, k, v), 20)
+            t = {"ms": kms, "events_ms": cuda_time(lambda: A.flash_attention(q, k, v), 20),
+                 "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 5), "library_ms": lms,
+                 "first_ms": krounds[0], "first_library_ms": lrounds[0]}
             bound_flops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             t["bound_ms"] = max(bound_flops, bound_bytes)
+            t["sfu_ms"] = cost["transcendentals"] / sfu_ex2_per_ms()
             log(f"  K1 {(b, h, s, d)} bf16 x{count}/request: kernel {t['ms']:.4f} (events "
                 f"{t['events_ms']:.4f}) | plain "
-                f"{t['plain_ms']:.4f} | sdpa {t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
+                f"{t['plain_ms']:.4f} | sdpa {t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x)"
+                f" | bound {t['bound_ms']:.4f} "
                 f"({'operations' if bound_flops >= bound_bytes else 'bytes'}; "
-                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
-                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; kernel at "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) | SFU floor {t['sfu_ms']:.4f} "
+                f"({cost['transcendentals'] / 1e6:.0f} M exp2; kernel at "
+                f"{100 * t['sfu_ms'] / t['ms']:.1f}% of it) | {flops / t['ms'] / 1e9:.1f} TFLOP/s"
+                f" | rounds kernel {[round(x, 4) for x in krounds]} sdpa "
+                f"{[round(x, 4) for x in lrounds]} (first round alone "
+                f"{krounds[0] / lrounds[0]:.3f}x) | clocks {clock_line()}")
             for key, val in t.items():
                 tot[key] += count * val * (N_MAIN // BATCH)
             tot["bound_ops_ms"] += count * bound_flops * (N_MAIN // BATCH)
@@ -1090,10 +1145,16 @@ class Smoke:
                 "chamfer_nn": f"the eval's CD ({N_MAIN} pairs, 2 launches each)"}
         for name, tot in totals.items():
             run = runs.get(name, f"the main DPM-20 run (generate({N_MAIN}), batch {BATCH})")
+            extra = f" | SFU floor {tot['sfu_ms']:.3f}" if "sfu_ms" in tot else ""
+            if "first_ms" in tot:   # one device_ms of each, not in turns
+                extra += (f" | first round alone: kernel {tot['first_ms']:.3f}, library "
+                          f"{tot['first_library_ms']:.3f} "
+                          f"({tot['first_ms'] / tot['first_library_ms']:.3f}x)")
             log(f"  {name} over {run}; sum over shapes of launches x time): kernel "
                 f"{tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain "
                 f"{tot['plain_ms']:.3f} | library "
-                f"{tot['library_ms']:.3f} | bound {tot['bound_ms']:.3f}")
+                f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | bound "
+                f"{tot['bound_ms']:.3f}{extra}")
         self.totals = totals
 
     def _timing_bwd(self, gen):
@@ -1126,21 +1187,29 @@ class Smoke:
             o, lse = A._launch(q, k, v, None, with_lse=True)
             ql, kl, vl = (t_.clone().requires_grad_() for t_ in (q, k, v))
             out = F.scaled_dot_product_attention(ql, kl, vl)
-            flops = 10 * b * h * s * s * d
-            nbytes = 8 * b * h * s * d * 2
-            t = {"ms": device_ms(lambda: A.flash_attention_bwd(q, k, v, o, do, lse), 10),
+            cost = A.attention_cost(b, h, s, d, 2, backward=True)
+            flops, nbytes = cost["flops"], cost["bytes"]
+            kms, lms, krounds, lrounds = paired_ms(
+                lambda: A.flash_attention_bwd(q, k, v, o, do, lse),
+                lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True), 10)
+            t = {"ms": kms,
                  "events_ms": cuda_time(lambda: A.flash_attention_bwd(q, k, v, o, do, lse), 10),
                  "plain_ms": device_ms(lambda: A._attend_bwd_ref(q, k, v, o, do, lse), 3),
-                 "library_ms": device_ms(lambda: torch.autograd.grad(
-                     out, (ql, kl, vl), do, retain_graph=True), 10)}
+                 "library_ms": lms, "first_ms": krounds[0], "first_library_ms": lrounds[0]}
             bound_flops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             t["bound_ms"] = max(bound_flops, bound_bytes)
+            t["sfu_ms"] = cost["transcendentals"] / sfu_ex2_per_ms()
             log(f"  K2 {(b, h, s, d)} bf16 x{count}/step: kernel {t['ms']:.4f} (events "
                 f"{t['events_ms']:.4f}) | plain {t['plain_ms']:.4f} | sdpa backward "
-                f"{t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
-                f"({'operations' if bound_flops >= bound_bytes else 'bytes'}; "
-                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) | "
-                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+                f"{t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x) | bound "
+                f"{t['bound_ms']:.4f} ({'operations' if bound_flops >= bound_bytes else 'bytes'}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; kernel at "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) | SFU floor {t['sfu_ms']:.4f} "
+                f"({cost['transcendentals'] / 1e6:.0f} M exp2; kernel at "
+                f"{100 * t['sfu_ms'] / t['ms']:.1f}% of it) | {flops / t['ms'] / 1e9:.1f} TFLOP/s"
+                f" | rounds kernel {[round(x, 4) for x in krounds]} sdpa backward "
+                f"{[round(x, 4) for x in lrounds]} (first round alone "
+                f"{krounds[0] / lrounds[0]:.3f}x) | clocks {clock_line()}")
             for key, val in t.items():
                 tot[key] += count * val * TRAIN_STEPS
                 tot[f"step_{key}"] += count * val
@@ -1148,8 +1217,12 @@ class Smoke:
             tot["bound_bytes_ms"] += count * bound_bytes * TRAIN_STEPS
             del q, k, v, do, o, lse, ql, kl, vl, out
         log(f"  K2 per training step (sum over shapes): kernel {tot['step_ms']:.3f} ms | plain "
-            f"{tot['step_plain_ms']:.3f} | sdpa backward {tot['step_library_ms']:.3f} | bound "
-            f"{tot['step_bound_ms']:.3f}")
+            f"{tot['step_plain_ms']:.3f} | sdpa backward {tot['step_library_ms']:.3f} "
+            f"({tot['step_ms'] / tot['step_library_ms']:.3f}x) | bound "
+            f"{tot['step_bound_ms']:.3f} | SFU floor {tot['step_sfu_ms']:.3f} | first round "
+            f"alone: kernel {tot['step_first_ms']:.3f}, sdpa backward "
+            f"{tot['step_first_library_ms']:.3f} "
+            f"({tot['step_first_ms'] / tot['step_first_library_ms']:.3f}x)")
         self._timing_gn_bwd(gen)
         torch.cuda.empty_cache()
         return tot
@@ -1268,7 +1341,7 @@ class Smoke:
         from torch.autograd import DeviceType
 
         families = (("K1 flash_attention", ("attn_fwd",)),
-                    ("K2 flash_attention_bwd", ("bwd_dkdv", "bwd_dq", "bwd_delta")),
+                    ("K2 flash_attention_bwd", ("bwd_bf16", "bwd_dkdv", "bwd_dq", "bwd_delta")),
                     ("K3 group_norm", ("group_norm_fwd",)),
                     ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
                     ("convolution / matmul (cuDNN, cuBLAS)",

@@ -8,45 +8,76 @@
 // before their products on the bf16 path, results in the input dtype. The
 // key bias gets no gradient (it is a padding mask).
 //
-// What bounds it on this card: operations. It does 10*B*H*S^2*D operations
-// (the JAX CostEstimate): 171.8 GFLOP at the flagship's (16, 8, 2048, 32), or
-// 0.174 ms at 989 TFLOP/s, against 0.040 ms for its bytes (5 reads and 3
-// writes of 16.8 MB in bf16). It also takes B*H*S^2 exponentials on the
-// special-function units per pass that recomputes P (two passes here).
+// What bounds it on this card: operations. The bf16 path does 10*B*H*S^2*D
+// operations and B*H*S^2 exponentials, as the JAX CostEstimate counts: 171.8
+// GFLOP and 537 M exponentials at the flagship's (16, 8, 2048, 32), or 0.174
+// ms at 989 TFLOP/s and 0.13 ms for the special-function unit (16 exp2 a
+// clock per SM, 1.98 GHz, 132 SMs), against 0.040 ms for its bytes.
 //
 // Why the design differs from the TPU kernel: that kernel keeps all of K and
 // V of a (batch, head) in VMEM, recomputes each q-block's softmax with no
 // saved statistics, and sums dk/dv over the sequential q grid axis in a
 // revisited output block. On the H100 blocks run in parallel in no order,
-// and K/V for S = 2048 in f32 do not fit a block's shared memory. So:
+// and K/V for S = 2048 in f32 do not fit a block's shared memory. So
+// (FlashAttention-2):
 //   * The forward (flash_attn_fwd.cu) saves each row's log-sum-exp, and
-//     P = exp(S - lse) is recomputed tile by tile (FlashAttention-2).
+//     P = exp(S - lse) is recomputed tile by tile.
 //   * A small pass writes delta = rowsum(dO * O) in f32.
-//   * dK/dV: one block owns 64 keys of one (batch, head), holds their K and
-//     V fragments in registers, and loops over the q-tiles: S^T = K Q^T,
-//     P^T, dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - delta),
-//     dK += dS^T Q. Key rows are independent, so nothing crosses blocks.
-//   * dQ: one block owns 64 query rows and loops over the key tiles:
-//     S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
-//   Two kernels recompute P twice, but every sum is owned by one block: no
-//   atomics, and the result does not depend on scheduling.
-//   * bf16: 4 warps of 16 rows, mma.sync m16n8k16 (bf16 in, f32 accumulate)
-//     as in the forward; an f32 accumulator fragment is re-packed in
-//     registers as the A operand of the next product. Operands needed as
-//     "B" in both orientations are staged in shared memory twice (row-major
-//     and transposed). f32: one thread per key (dK/dV) or per query (dQ)
-//     with FMAs, since the tensor cores have no full-f32 mode.
-//   * Rows past S are zero-filled and masked (lse = +inf gives P = 0), so S
-//     needs no alignment; D is padded to 16/32/64/128. Any strides for the
-//     b, h and s axes, as in the forward, so q, k and v can be views of one
-//     fused qkv projection and dq/dk/dv can be written in any layout.
-//   * Plain synchronous tile loads; no TMA/wgmma/cp.async pipelining yet.
+//   * bf16, the main pass: one block of 8 warps owns 128 keys of one (batch,
+//     head), a warp 16 of them, and loops over the query tiles (64 queries,
+//     32 at D = 128). Per tile, with K and V as A fragments: S^T = K Q^T and
+//     dP^T = V dO^T, then P^T = exp2(S^T * scale_log2 - lse_log2) (one FFMA
+//     and one MUFU.EX2 without a bias) and dS^T = P^T (dP^T - delta), each
+//     exponential taken once; dV += P^T dO and dK += dS^T Q in registers.
+//     dS^T goes to shared memory (bf16) and the block adds dS K for the tile
+//     into an f32 (B, H, S, D) accumulator with float4 atomicAdd (4 columns
+//     of a row a lane, after a swap between neighbouring lanes), which
+//     compiles to one vector RED.E.ADD.F32 on sm_90. A last pass scales it by
+//     D^-1/2 and writes dq in the input dtype, into dq's strides.
+//     So the bf16 path takes B*H*S^2 exponentials and 10*B*H*S^2*D FLOPs.
+//   * dq is summed by atomics in no fixed order: two runs agree within the
+//     rounding of f32 sums of bf16 products (the bf16 tolerance of the
+//     checks, 1e-2 + 2e-2 |ref|, covers it, and dq is rounded to bf16 at the
+//     end). dk and dv are summed by one warp in a fixed order.
+//   * Copies: K and V of the block, then the Q, dO, lse and delta tiles
+//     through a ring of NS slots filled by cp.async copies (16 bytes; 4 for
+//     lse and delta, whose rows need not be 16-byte aligned), tiles j + 1 ..
+//     j + NS - 1 in flight while tile j is computed. Every operand is staged
+//     once, row-major, with a pitch of D+8 elements (no bank conflicts for
+//     ldmatrix), and read with ldmatrix plain or .trans as each product needs
+//     (Q and dO are B operands both ways round). At D <= 64 the K and V fragments stay in
+//     registers; at D = 128 they are re-read from shared memory.
+//     (Plain loads of lse and delta made their warps wait on global memory
+//     right before the tile's barrier.)
+//   * Two blocks (16 warps) an SM at D <= 32, so at most 128 registers a
+//     thread. Timed against it in turns on the H100 at (16, 8, 2048, 32),
+//     one block an SM (234 registers), a bulk (TMA) reduction of each dQ
+//     tile in place of the REDs, and 256-key blocks of 16 warps (half the
+//     REDs) were each slower.
+//     P, dS and their products go a k16 chunk of queries at a time, so one
+//     chunk of each is live in registers.
+//   * ptxas (sm_90a, CUDA 12.8) at D = 32: 128 registers, 8 bytes of stack,
+//     60,416 bytes of dynamic shared memory a block; one MUFU.EX2 per (key,
+//     query) pair in the SASS (32 a tile of 16 x 64 per thread).
+//   * Rows past S are zero-filled, lse and delta too: there P = exp2(0) but
+//     dO = 0, so they add nothing to dV, dS = 0 adds nothing to dK, and their
+//     dq is not added. So S needs no alignment; D is padded to 16/32/64/128.
+//     Any strides for the b, h and s axes, as in the forward, so q, k and v
+//     can be views of one fused qkv projection and dq/dk/dv can be written in
+//     any layout.
+//   * f32 (the parity runs): one thread per key (dK/dV) or per query (dQ)
+//     with FMAs, since the tensor cores have no full-f32 mode; two kernels
+//     recompute P twice, no atomics.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
+
+using namespace mma_tiles;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -59,6 +90,7 @@ struct Params {
   const float* kb;   // (B, S) f32 or nullptr
   const float* lse;  // (B*H, S) f32, natural log
   float* delta;      // (B*H, S) f32, written by the first pass
+  float* dqacc;      // (B*H, S, D) f32, zeroed by the caller (bf16 path)
   void* dq;
   void* dk;
   void* dv;
@@ -68,8 +100,6 @@ struct Params {
   float scale;       // D^-1/2
   float scale_log2;  // D^-1/2 * log2(e)
 };
-
-typedef __nv_bfloat16 bf16;
 
 template <typename T>
 __device__ __forceinline__ const T* row_base(const void* base, const long long (&st)[3],
@@ -120,149 +150,218 @@ __global__ void __launch_bounds__(128) bwd_delta(Params p) {
 
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kRows = 64;  // rows a bf16 block owns (4 warps x 16)
+constexpr int kBKV = 128;  // keys a block owns
+constexpr int kNWB = 8;    // warps, 16 keys each
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+template <int DP>
+struct BwdTile {
+  static constexpr int BQ = DP <= 64 ? 64 : 32;  // queries per tile
+  static constexpr int NS = 2;                    // query tiles in the ring
+  static constexpr int LD = DP + 8;              // pitch of K, V, Q, dO tiles
+  static constexpr int LDS = BQ + 8;             // pitch of the dS^T tile
+  // K, V; NS slots of Q and dO; dS^T; NS slots of lse and delta
+  static constexpr int kSmem =
+      (2 * kBKV + 2 * NS * BQ) * LD * 2 + kBKV * LDS * 2 + 2 * NS * BQ * 4;
+};
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 at (row, col) of a strided (S, D) matrix, zero outside it
-__device__ __forceinline__ uint32_t ld_pair(const bf16* base, long long stride, int row,
-                                            int col, int S, int D) {
-  if (row >= S || col >= D) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * stride + col);
-}
-
-// A fragments (m16 x k16 chunks over D) of rows r0 and r0 + 8, from global
-template <int KT>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KT][4], const bf16* base,
-                                       long long stride, int r0, int t, int S, int D) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const int c0 = kk * 16 + 2 * t, c1 = c0 + 8;
-    a[kk][0] = ld_pair(base, stride, r0, c0, S, D);
-    a[kk][1] = ld_pair(base, stride, r0 + 8, c0, S, D);
-    a[kk][2] = ld_pair(base, stride, r0, c1, S, D);
-    a[kk][3] = ld_pair(base, stride, r0 + 8, c1, S, D);
-  }
-}
-
-// stage ROWS rows of a strided (S, D) matrix into shared memory, row-major
-// (rm) and, when tr is given, transposed; zero past S and past D
-template <int ROWS, int DP, int LD, int LDT>
-__device__ __forceinline__ void stage(bf16 (*rm)[LD], bf16 (*tr)[LDT], const bf16* base,
-                                      long long stride, int r0, int S, int D) {
-  constexpr int VPR = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += 128) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S && c < D) val = *reinterpret_cast<const uint4*>(base + (r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(&rm[r][c]) = val;
-    if (tr != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[c + j][r] = e[j];
-    }
-  }
-}
-
-// dK, dV for kRows keys per block; BQ queries per shared-memory tile
-template <int DP, int BQ>
-__global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
-  constexpr int KT = DP / 16;  // k16 chunks over D
-  constexpr int DT = DP / 8;   // n8 tiles over D
-  constexpr int NT = BQ / 8;   // n8 tiles over the query tile
-  constexpr int QC = BQ / 16;  // k16 chunks over the query tile
-  __shared__ __align__(16) bf16 Qs[BQ][DP + 8];   // B of S^T = K Q^T
-  __shared__ __align__(16) bf16 Qt[DP][BQ + 8];   // B of dK += dS^T Q
-  __shared__ __align__(16) bf16 dOs[BQ][DP + 8];  // B of dP^T = V dO^T
-  __shared__ __align__(16) bf16 dOt[DP][BQ + 8];  // B of dV += P^T dO
-  __shared__ float Ls[BQ], Ds[BQ];
+template <int DP, bool BIAS>
+__global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p) {
+  using T = BwdTile<DP>;
+  constexpr int BQ = T::BQ, NS = T::NS, LD = T::LD, LDS = T::LDS;
+  constexpr int NTH = kNWB * 32;
+  constexpr int KT = DP / 16;   // k16 chunks over D
+  constexpr int DT = DP / 8;    // n8 tiles over D
+  constexpr int NT = BQ / 8;    // n8 tiles over the query tile
+  constexpr int QC = BQ / 16;   // k16 chunks over the query tile
+  constexpr int RG = BQ / 16;   // dQ: groups of 16 query rows ...
+  constexpr int DG = kNWB / RG;  // ... times groups of columns
+  constexpr int NDW = DT / DG;   // n8 tiles over D per warp
+  constexpr bool KREG = DP <= 64;  // K, V A fragments held in registers
+  static_assert(NDW == 1 || (NDW >= 2 && NDW % 2 == 0), "dQ split");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kBKV * LD;
+  bf16* Qs = Vs + kBKV * LD;      // NS slots of BQ x LD
+  bf16* dOs = Qs + NS * BQ * LD;  // NS slots of BQ x LD
+  bf16* dSt = dOs + NS * BQ * LD; // kBKV x LDS
+  float* Ls = reinterpret_cast<float*>(dSt + kBKV * LDS);  // NS slots of BQ (lse)
+  float* Dl = Ls + NS * BQ;                                 // NS slots of BQ
 
   const int S = p.S, D = p.D;
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.x * kBKV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int kr0 = blockIdx.x * kRows + warp * 16 + g, kr1 = kr0 + 8;
+  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
+  const float sl2 = p.scale_log2;
 
   const bf16* qg = row_base<bf16>(p.q, p.qs, b, h);
   const bf16* dog = row_base<bf16>(p.dO, p.dos, b, h);
   const float* lg = p.lse + (long long)bh * S;
   const float* dg = p.delta + (long long)bh * S;
+  float* acc = p.dqacc + (long long)bh * S * D;
+  float kb0 = 0.f, kb1 = 0.f;
+  if (BIAS) {
+    const float* kbr = p.kb + (long long)b * S;
+    if (kr0 < S) kb0 = kbr[kr0] * kLog2e;
+    if (kr1 < S) kb1 = kbr[kr1] * kLog2e;
+  }
+  const int nq = (S + BQ - 1) / BQ;
 
-  uint32_t ka[KT][4], va[KT][4];
-  load_a<KT>(ka, row_base<bf16>(p.k, p.ks, b, h), p.ks[2], kr0, t, S, D);
-  load_a<KT>(va, row_base<bf16>(p.v, p.vs, b, h), p.vs[2], kr0, t, S, D);
-  const float* kbr = p.kb ? p.kb + (long long)b * S : nullptr;
-  const float kb0 = (kbr && kr0 < S) ? kbr[kr0] * kLog2e : 0.f;
-  const float kb1 = (kbr && kr1 < S) ? kbr[kr1] * kLog2e : 0.f;
+  auto issue = [&](int j) {  // copies of query tile j into slot j % NS
+    if (j < nq) {
+      const int slot = j % NS, qq = j * BQ;
+      load_tile<BQ, DP, LD, NTH>(Qs + slot * BQ * LD, qg, p.qs[2], qq, S, D);
+      load_tile<BQ, DP, LD, NTH>(dOs + slot * BQ * LD, dog, p.dos[2], qq, S, D);
+      for (int i = threadIdx.x; i < BQ; i += NTH) {
+        const bool in = qq + i < S;
+        cp_async4(smem_addr(Ls + slot * BQ + i), in ? lg + qq + i : lg, in);
+        cp_async4(smem_addr(Dl + slot * BQ + i), in ? dg + qq + i : dg, in);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
 
+  load_tile<kBKV, DP, LD, NTH>(Ks, row_base<bf16>(p.k, p.ks, b, h), p.ks[2], k0, S, D);
+  load_tile<kBKV, DP, LD, NTH>(Vs, row_base<bf16>(p.v, p.vs, b, h), p.vs[2], k0, S, D);
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) issue(j);  // K and V ride with query tile 0
+
+  uint32_t ka[KREG ? KT : 1][4], va[KREG ? KT : 1][4];
   float dk[DT][4], dv[DT][4];
 #pragma unroll
   for (int i = 0; i < DT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  const int rofs = b_rows_offset(lane, LD), tofs = b_trans_offset(lane, LD);
+  const int rg = warp % RG, dgp = warp / RG;  // this warp's dQ rows and columns
 
-  for (int q0 = 0; q0 < S; q0 += BQ) {
-    __syncthreads();  // the previous tile is fully consumed
-    stage<BQ, DP, DP + 8, BQ + 8>(Qs, Qt, qg, p.qs[2], q0, S, D);
-    stage<BQ, DP, DP + 8, BQ + 8>(dOs, dOt, dog, p.dos[2], q0, S, D);
-    for (int i = threadIdx.x; i < BQ; i += 128) {
-      const bool in = q0 + i < S;
-      Ls[i] = in ? lg[q0 + i] * kLog2e : INFINITY;  // P = 0 on rows past S
-      Ds[i] = in ? dg[q0 + i] : 0.f;
+  for (int j = 0; j < nq; ++j) {
+    cp_async_wait<NS - 2>();  // this thread's copies of tile j have landed
+    __syncthreads();  // everyone's have; tile j - 1 and its dS^T tile are consumed
+    issue(j + NS - 1);  // into the slot tile j - 1 used
+    if (KREG && j == 0) {
+      load_a<KREG ? KT : 1, LD>(ka, Ks, warp * 16, lane);
+      load_a<KREG ? KT : 1, LD>(va, Vs, warp * 16, lane);
     }
-    __syncthreads();
+    const int slot = j % NS;
+    const bf16* Qt = Qs + slot * BQ * LD;
+    const bf16* dOt = dOs + slot * BQ * LD;
+    const float* Lt = Ls + slot * BQ;
+    const float* Dd = Dl + slot * BQ;
 
-    uint32_t pa[QC][4], sa[QC][4];
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
+    float st[NT][4], dpt[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float st[4] = {0.f, 0.f, 0.f, 0.f}, dpt[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        mma_bf16(st, ka[kk], *reinterpret_cast<const uint32_t*>(&Qs[nt * 8 + g][kk * 16 + 2 * t]),
-                 *reinterpret_cast<const uint32_t*>(&Qs[nt * 8 + g][kk * 16 + 8 + 2 * t]));
-        mma_bf16(dpt, va[kk], *reinterpret_cast<const uint32_t*>(&dOs[nt * 8 + g][kk * 16 + 2 * t]),
-                 *reinterpret_cast<const uint32_t*>(&dOs[nt * 8 + g][kk * 16 + 8 + 2 * t]));
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t kf[4], vf[4];
+      if (KREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          kf[e] = ka[KREG ? kk : 0][e];
+          vf[e] = va[KREG ? kk : 0][e];
+        }
+      } else {
+        const int off = (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 +
+                        (lane >> 4) * 8;
+        ldsm_x4(kf, smem_addr(Ks + off));
+        ldsm_x4(vf, smem_addr(Vs + off));
       }
-      // C layout: [0..1] key kr0, [2..3] key kr1; queries nt*8 + 2t + {0,1}
-      float pv[4], dsv[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qc = nt * 8 + 2 * t + j;
-        const float l = Ls[qc], dl = Ds[qc];
-        pv[j] = exp2f(st[j] * p.scale_log2 + kb0 - l);
-        pv[2 + j] = exp2f(st[2 + j] * p.scale_log2 + kb1 - l);
-        dsv[j] = pv[j] * (dpt[j] - dl);
-        dsv[2 + j] = pv[2 + j] * (dpt[2 + j] - dl);
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
+        uint32_t qf[4], df[4];
+        ldsm_x4(qf, smem_addr(Qt + n2 * 16 * LD + kk * 16 + rofs));
+        ldsm_x4(df, smem_addr(dOt + n2 * 16 * LD + kk * 16 + rofs));
+        mma_bf16(st[2 * n2], kf, qf[0], qf[1]);
+        mma_bf16(st[2 * n2 + 1], kf, qf[2], qf[3]);
+        mma_bf16(dpt[2 * n2], vf, df[0], df[1]);
+        mma_bf16(dpt[2 * n2 + 1], vf, df[2], df[3]);
       }
-      pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(pv[0], pv[1]);
-      pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-      sa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(dsv[0], dsv[1]);
-      sa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
     }
 
+    // P^T and dS^T (rows: keys kr0, kr1; columns: queries nt*8 + 2t + {0, 1}),
+    // each exponential once, a k16 chunk of queries at a time: the chunk's
+    // dS^T also goes to shared memory for dQ, then dV += P^T dO and
+    // dK += dS^T Q for the chunk (B operands read with .trans: k = query)
+    bf16* dsw = dSt + (warp * 16 + g) * LDS + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
+    for (int kc = 0; kc < QC; ++kc) {
+      uint32_t pa[4], sa[4];
 #pragma unroll
-      for (int kc = 0; kc < QC; ++kc) {
-        mma_bf16(dv[dt], pa[kc], *reinterpret_cast<const uint32_t*>(&dOt[dt * 8 + g][kc * 16 + 2 * t]),
-                 *reinterpret_cast<const uint32_t*>(&dOt[dt * 8 + g][kc * 16 + 8 + 2 * t]));
-        mma_bf16(dk[dt], sa[kc], *reinterpret_cast<const uint32_t*>(&Qt[dt * 8 + g][kc * 16 + 2 * t]),
-                 *reinterpret_cast<const uint32_t*>(&Qt[dt * 8 + g][kc * 16 + 8 + 2 * t]));
+      for (int e = 0; e < 2; ++e) {
+        const int nt = 2 * kc + e;
+        float2 nl = *reinterpret_cast<const float2*>(Lt + nt * 8 + 2 * t);
+        nl.x *= -kLog2e;  // -lse in log2 units
+        nl.y *= -kLog2e;
+        const float2 dd = *reinterpret_cast<const float2*>(Dd + nt * 8 + 2 * t);
+        const float p0 = ex2(fmaf(st[nt][0], sl2, BIAS ? nl.x + kb0 : nl.x));
+        const float p1 = ex2(fmaf(st[nt][1], sl2, BIAS ? nl.y + kb0 : nl.y));
+        const float p2 = ex2(fmaf(st[nt][2], sl2, BIAS ? nl.x + kb1 : nl.x));
+        const float p3 = ex2(fmaf(st[nt][3], sl2, BIAS ? nl.y + kb1 : nl.y));
+        pa[2 * e] = pack_bf16(p0, p1);
+        pa[2 * e + 1] = pack_bf16(p2, p3);
+        sa[2 * e] = pack_bf16(p0 * (dpt[nt][0] - dd.x), p1 * (dpt[nt][1] - dd.y));
+        sa[2 * e + 1] = pack_bf16(p2 * (dpt[nt][2] - dd.x), p3 * (dpt[nt][3] - dd.y));
+        *reinterpret_cast<uint32_t*>(dsw + nt * 8) = sa[2 * e];
+        *reinterpret_cast<uint32_t*>(dsw + 8 * LDS + nt * 8) = sa[2 * e + 1];
       }
+#pragma unroll
+      for (int d2 = 0; d2 < DT / 2; ++d2) {
+        uint32_t of[4], qf[4];
+        ldsm_x4_trans(of, smem_addr(dOt + kc * 16 * LD + d2 * 16 + tofs));
+        ldsm_x4_trans(qf, smem_addr(Qt + kc * 16 * LD + d2 * 16 + tofs));
+        mma_bf16(dv[2 * d2], pa, of[0], of[1]);
+        mma_bf16(dv[2 * d2 + 1], pa, of[2], of[3]);
+        mma_bf16(dk[2 * d2], sa, qf[0], qf[1]);
+        mma_bf16(dk[2 * d2 + 1], sa, qf[2], qf[3]);
+      }
+    }
+    __syncthreads();  // the dS^T tile is complete
+
+    // dQ (16 queries x NDW n8 tiles of D per warp) += dS K over the block's
+    // keys, added to the f32 accumulator
+    float dq[NDW][4];
+#pragma unroll
+    for (int n = 0; n < NDW; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kBKV / 16; ++kc) {
+      uint32_t sf[4];
+      ldsm_x4_trans(sf, smem_addr(dSt + kc * 16 * LDS + rg * 16 + b_rows_offset(lane, LDS)));
+      const bf16* kt = Ks + kc * 16 * LD + dgp * NDW * 8 + tofs;
+      if (NDW == 1) {
+        uint32_t b0, b1;
+        ldsm_x2_trans(b0, b1, smem_addr(kt));
+        mma_bf16(dq[0], sf, b0, b1);
+      } else {
+#pragma unroll
+        for (int n2 = 0; n2 < NDW / 2; ++n2) {
+          uint32_t kf[4];
+          ldsm_x4_trans(kf, smem_addr(kt + n2 * 16));
+          mma_bf16(dq[2 * n2], sf, kf[0], kf[1]);
+          mma_bf16(dq[2 * n2 + 1], sf, kf[2], kf[3]);
+        }
+      }
+    }
+    // lanes t and t ^ 1 swap halves, so that each adds 4 consecutive columns
+    // of one row (an even lane row g, an odd lane row g + 8) in one float4 RED
+    const bool odd = t & 1;
+    const int qrow = j * BQ + rg * 16 + g + (odd ? 8 : 0);
+#pragma unroll
+    for (int n = 0; n < NDW; ++n) {
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? dq[n][0] : dq[n][2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? dq[n][1] : dq[n][3], 1);
+      const int c = (dgp * NDW + n) * 8 + 2 * t - (odd ? 2 : 0);
+      if (c < D && qrow < S)
+        atomicAdd(reinterpret_cast<float4*>(acc + (long long)qrow * D + c),
+                  odd ? make_float4(r0, r1, dq[n][2], dq[n][3])
+                      : make_float4(dq[n][0], dq[n][1], r0, r1));
     }
   }
+  cp_async_wait<0>();  // no copy may outlive the block
 
   bf16* dkg = row_base_w<bf16>(p.dk, p.dks, b, h);
   bf16* dvg = row_base_w<bf16>(p.dv, p.dvs, b, h);
@@ -283,92 +382,23 @@ __global__ void __launch_bounds__(128) bwd_dkdv_bf16(Params p) {
   }
 }
 
-// dQ for kRows queries per block; BK keys per shared-memory tile
-template <int DP, int BK>
-__global__ void __launch_bounds__(128) bwd_dq_bf16(Params p) {
-  constexpr int KT = DP / 16;
-  constexpr int DT = DP / 8;
-  constexpr int NT = BK / 8;
-  constexpr int KC = BK / 16;
-  __shared__ __align__(16) bf16 Ks[BK][DP + 8];  // B of S = Q K^T
-  __shared__ __align__(16) bf16 Kt[DP][BK + 8];  // B of dQ += dS K
-  __shared__ __align__(16) bf16 Vs[BK][DP + 8];  // B of dP = dO V^T
-  __shared__ float Bs[BK];                       // key bias (log2 units), -inf past S
-
-  const int S = p.S, D = p.D;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kRows + warp * 16 + g, r1 = r0 + 8;
-
-  const bf16* kg = row_base<bf16>(p.k, p.ks, b, h);
-  const bf16* vg = row_base<bf16>(p.v, p.vs, b, h);
-  const float* kbr = p.kb ? p.kb + (long long)b * S : nullptr;
-
-  uint32_t qa[KT][4], da[KT][4];
-  load_a<KT>(qa, row_base<bf16>(p.q, p.qs, b, h), p.qs[2], r0, t, S, D);
-  load_a<KT>(da, row_base<bf16>(p.dO, p.dos, b, h), p.dos[2], r0, t, S, D);
-  const float* lg = p.lse + (long long)bh * S;
-  const float* dg = p.delta + (long long)bh * S;
-  const float L0 = r0 < S ? lg[r0] * kLog2e : 0.f, L1 = r1 < S ? lg[r1] * kLog2e : 0.f;
-  const float D0 = r0 < S ? dg[r0] : 0.f, D1 = r1 < S ? dg[r1] : 0.f;
-
-  float dq[DT][4];
+// dq = D^-1/2 * the f32 accumulator, in bf16 into dq's strides; one thread
+// per 8 columns of a row
+__global__ void __launch_bounds__(256) bwd_dq_store(Params p, long long total) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  const int vpr = p.D / 8;
+  const long long row = i / vpr;  // over B*H*S
+  const int c = (int)(i % vpr) * 8;
+  const int bh = (int)(row / p.S), r = (int)(row % p.S);
+  float a[8];
+  load8(p.dqacc + row * p.D + c, a);
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
-  for (int i = 0; i < DT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();
-    stage<BK, DP, DP + 8, BK + 8>(Ks, Kt, kg, p.ks[2], k0, S, D);
-    stage<BK, DP, DP + 8, BK + 8>(Vs, static_cast<bf16 (*)[BK + 8]>(nullptr), vg, p.vs[2],
-                                  k0, S, D);
-    for (int i = threadIdx.x; i < BK; i += 128)
-      Bs[i] = k0 + i < S ? (kbr ? kbr[k0 + i] * kLog2e : 0.f) : -INFINITY;
-    __syncthreads();
-
-    uint32_t sa[KC][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float sc[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        mma_bf16(sc, qa[kk], *reinterpret_cast<const uint32_t*>(&Ks[nt * 8 + g][kk * 16 + 2 * t]),
-                 *reinterpret_cast<const uint32_t*>(&Ks[nt * 8 + g][kk * 16 + 8 + 2 * t]));
-        mma_bf16(dp, da[kk], *reinterpret_cast<const uint32_t*>(&Vs[nt * 8 + g][kk * 16 + 2 * t]),
-                 *reinterpret_cast<const uint32_t*>(&Vs[nt * 8 + g][kk * 16 + 8 + 2 * t]));
-      }
-      // C layout: [0..1] row r0, [2..3] row r1; keys nt*8 + 2t + {0,1}
-      float dsv[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float bias = Bs[nt * 8 + 2 * t + j];
-        dsv[j] = exp2f(sc[j] * p.scale_log2 + bias - L0) * (dp[j] - D0);
-        dsv[2 + j] = exp2f(sc[2 + j] * p.scale_log2 + bias - L1) * (dp[2 + j] - D1);
-      }
-      sa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(dsv[0], dsv[1]);
-      sa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
-    }
-
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        mma_bf16(dq[dt], sa[kc], *reinterpret_cast<const uint32_t*>(&Kt[dt * 8 + g][kc * 16 + 2 * t]),
-                 *reinterpret_cast<const uint32_t*>(&Kt[dt * 8 + g][kc * 16 + 8 + 2 * t]));
-  }
-
-  bf16* dqg = row_base_w<bf16>(p.dq, p.dqs, b, h);
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (dt * 8 >= D) break;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(dqg + r0 * p.dqs[2] + c) =
-          pack_bf16(dq[dt][0] * p.scale, dq[dt][1] * p.scale);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(dqg + r1 * p.dqs[2] + c) =
-          pack_bf16(dq[dt][2] * p.scale, dq[dt][3] * p.scale);
-  }
+  for (int e = 0; e < 4; ++e) o[e] = pack_bf16(a[2 * e] * p.scale, a[2 * e + 1] * p.scale);
+  *reinterpret_cast<uint4*>(row_base_w<bf16>(p.dq, p.dqs, bh / p.H, bh % p.H) + r * p.dqs[2] +
+                            c) = out;
 }
 
 // ---------------------------------------------------------------- f32 path
@@ -511,6 +541,20 @@ __global__ void __launch_bounds__(128) bwd_dq_f32(Params p) {
   if (qi < S) store_row<DP>(row_base_w<float>(p.dq, p.dqs, b, h), p.dqs[2], qi, D, dq, p.scale);
 }
 
+template <int DP, bool BIAS>
+cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = BwdTile<DP>::kSmem;
+  static bool ready = false;
+  if (!ready) {  // opt in to more than 48 KB of shared memory, all of it shared
+    cudaFuncSetAttribute(bwd_bf16<DP, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(bwd_bf16<DP, BIAS>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    ready = true;
+  }
+  bwd_bf16<DP, BIAS><<<dim3((p.S + kBKV - 1) / kBKV, B * p.H), kNWB * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int DP>
 int launch(const Params& p, int B, int dtype, cudaStream_t stream) {
   const int bh = B * p.H;
@@ -523,14 +567,12 @@ int launch(const Params& p, int B, int dtype, cudaStream_t stream) {
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     bwd_dq_f32<DP><<<rows128, kRowsF, 0, stream>>>(p);
   } else {
-    // the shared-memory tile of the other operand: 64 rows, 32 at D = 128
-    constexpr int T = DP <= 64 ? 64 : 32;
-    const dim3 rows64((p.S + kRows - 1) / kRows, bh);
     bwd_delta<bf16><<<rows128, 128, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_dkdv_bf16<DP, T><<<rows64, 128, 0, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    bwd_dq_bf16<DP, T><<<rows64, 128, 0, stream>>>(p);
+    err = p.kb ? launch_bf16<DP, true>(p, B, stream) : launch_bf16<DP, false>(p, B, stream);
+    if (err != cudaSuccess) return (int)err;
+    const long long total = (long long)bh * p.S * (p.D / 8);
+    bwd_dq_store<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(p, total);
   }
   return (int)cudaGetLastError();
 }
@@ -540,15 +582,17 @@ int launch(const Params& p, int B, int dtype, cudaStream_t stream) {
 // q, k, v, o, dO, dq, dk, dv: (B, H, S, D) with any b/h/s element strides and
 // contiguous d, 16-byte aligned rows; strides holds 24 values, (b, h, s) for
 // each in that order. kbias: (B, S) float32 or null. lse: (B, H, S) float32
-// from the forward (natural log); delta: (B, H, S) float32 scratch.
+// from the forward (natural log); delta: (B, H, S) float32 scratch; dqacc:
+// (B, H, S, D) float32 scratch, zeroed, for bfloat16 (null for float32).
 // dtype: 0 = float32, 1 = bfloat16. D % 8 == 0, D <= 128.
-// Returns the first CUDA error of its three launches, or 0.
+// Returns the first CUDA error of its launches, or 0.
 extern "C" int llt_flash_attn_bwd(const void* q, const void* k, const void* v,
                                   const void* o, const void* dO, const void* kbias,
-                                  const void* lse, void* delta, void* dq, void* dk,
-                                  void* dv, const long long* strides, int dtype, int B,
-                                  int H, int S, int D, void* stream) {
-  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1))
+                                  const void* lse, void* delta, void* dqacc, void* dq,
+                                  void* dk, void* dv, const long long* strides, int dtype,
+                                  int B, int H, int S, int D, void* stream) {
+  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && dqacc == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -559,6 +603,7 @@ extern "C" int llt_flash_attn_bwd(const void* q, const void* k, const void* v,
   p.kb = static_cast<const float*>(kbias);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
+  p.dqacc = static_cast<float*>(dqacc);
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;

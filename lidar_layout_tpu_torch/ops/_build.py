@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a plain C
 interface, on first use, into ``lidar_layout_tpu_torch/_build/`` (listed in
-``.gitignore``). A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a stale one is never loaded. Nothing is
+``.gitignore``). A library's file name carries a hash of its source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt
+and a stale one is never loaded. Nothing is
 built or imported when this module is imported: the CPU tests import every
 module and have no ``nvcc``.
 """
@@ -26,7 +27,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # stream as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
-    "flash_attn_bwd": ("llt_flash_attn_bwd", [_P] * 12 + [_I] * 5 + [_P]),
+    "flash_attn_bwd": ("llt_flash_attn_bwd", [_P] * 13 + [_I] * 5 + [_P]),
     "group_norm": ("llt_group_norm_fwd", [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "chamfer_nn": ("llt_chamfer_nn", [_P] * 4 + [_I] * 2 + [_P]),
 }
@@ -49,8 +50,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The built library of ``csrc/<name>.cu``; its name hashes the source,
+    the shared headers ``csrc/*.cuh`` and the flags."""
+    parts = [SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

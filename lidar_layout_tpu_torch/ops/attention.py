@@ -74,6 +74,20 @@ def _attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_cost(b: int, h: int, s: int, d: int, itemsize: int,
+                   backward: bool = False) -> dict:
+    """Work of one call of K1 (or K2 when ``backward``) on (B, H, S, D) in a
+    dtype of ``itemsize`` bytes, counted as the JAX package's
+    ``pl.CostEstimate`` counts it: ``flops`` (4 B H S^2 D forward, 10 backward),
+    ``transcendentals`` (B H S^2 exponentials) and ``bytes`` (q, k, v read and
+    o written; backward q, k, v, o, dO read and dq, dk, dv written, here in
+    the input dtype where the TPU kernel wrote f32)."""
+    bhsd = b * h * s * d
+    return {"flops": (10 if backward else 4) * bhsd * s,
+            "transcendentals": b * h * s * s,
+            "bytes": (8 if backward else 4) * bhsd * itemsize}
+
+
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     """A view the kernel reads directly (16-byte aligned rows, contiguous D),
     else a contiguous copy."""
@@ -150,13 +164,18 @@ def _launch_bwd(q, k, v, o, do, lse, kbias):
     o, do = (_kernel_ready(t.to(q.dtype)) for t in (o, do))
     lse = lse.to(torch.float32).contiguous()
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # bf16: the main pass adds dS K into this f32 sum with atomics, and a
+    # last pass scales it into dq; the f32 path writes dq directly
+    dqacc = (torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+             if q.dtype == torch.bfloat16 else None)
     dq, dk, dv = _bshd_empty(q), _bshd_empty(q), _bshd_empty(q)
     kbias = _bias_ready(kbias, q)
     strides = _strides(q, k, v, o, do, dq, dk, dv)
     status = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         None if kbias is None else kbias.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if dqacc is None else dqacc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, d,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention_bwd")

@@ -111,7 +111,7 @@ def _stub(t):
     return torch.Tensor._make_subclass(_CudaStub, t)
 
 
-@pytest.mark.parametrize("which", ["flash_attention", "group_norm"])
+@pytest.mark.parametrize("which", ["flash_attention", "flash_attention_bwd", "group_norm"])
 def test_cuda_tensor_with_kernel_unbuilt_raises(which, monkeypatch, tmp_path):
     # no nvcc here: the kernel cannot be built, so the wrapper must raise and
     # must not take the plain version
@@ -123,17 +123,23 @@ def test_cuda_tensor_with_kernel_unbuilt_raises(which, monkeypatch, tmp_path):
     def forbidden(*a, **k):
         raise AssertionError("plain version taken for a CUDA tensor")
 
-    launches = getattr(A.flash_attention if which == "flash_attention" else G.group_norm,
-                       "launches")
+    wrapper = {"flash_attention": A.flash_attention, "flash_attention_bwd": A.flash_attention_bwd,
+               "group_norm": G.group_norm}[which]
+    launches = wrapper.launches
     if which == "flash_attention":
         monkeypatch.setattr(A, "_attend_ref", forbidden)
         q = _stub(torch.zeros(1, 2, 64, 32))
         with pytest.raises(RuntimeError, match="nvcc"):
             A.flash_attention(q, q, q)
-        assert A.flash_attention.launches == launches
+    elif which == "flash_attention_bwd":
+        monkeypatch.setattr(A, "_attend_bwd_ref", forbidden)
+        q = _stub(torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16))
+        lse = _stub(torch.zeros(1, 2, 64))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            A.flash_attention_bwd(q, q, q, q, q, lse)
     else:
         monkeypatch.setattr(G, "_ref", forbidden)
         x = _stub(torch.zeros(1, 64, 4, 4))
         with pytest.raises(RuntimeError, match="nvcc"):
             G.group_norm(x, torch.ones(64), torch.zeros(64))
-        assert G.group_norm.launches == launches
+    assert wrapper.launches == launches

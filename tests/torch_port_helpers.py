@@ -49,6 +49,39 @@ def seed_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     return model
 
 
+# the edges of the attention kernels' bf16 tiles (128 queries; 128 keys at
+# D <= 32, 64 above): one row, one short of a tile, one past a tile (a fused
+# view), one past 16 tiles; D = 8 and 96 (padded to 16 and 128); a whole key
+# tile masked. chip_smoke.py and tests/test_torch_gpu.py both run them.
+ATTN_EDGE_CASES = [((2, 2, 1, 32), False, False), ((2, 2, 127, 32), False, True),
+                   ((2, 2, 129, 32), True, False), ((1, 2, 2049, 32), False, False),
+                   ((2, 2, 200, 8), False, True), ((2, 2, 300, 96), True, True),
+                   ((2, 2, 384, 32), False, "tile")]
+
+
+def attn_inputs(gen: torch.Generator, b: int, h: int, s: int, d: int, dtype: torch.dtype,
+                fused: bool, masked):
+    """q, k, v (B, H, S, D) and a key bias on ``gen``'s device: q, k, v as
+    views of one (B, S, H, 3, D) projection when ``fused``; ``masked`` True
+    pads the last ~quarter of the keys of batch 0, "tile" masks keys 128-255
+    of every batch."""
+    dev = gen.device
+    if fused:
+        qkv = torch.randn((b, s, h, 3, d), generator=gen, device=dev).to(dtype)
+        q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+    kb = None
+    if masked:
+        kb = torch.zeros((b, s), device=dev)
+        if masked == "tile":
+            kb[:, 128:256] = -1e9
+        else:
+            kb[0, s - s // 4:] = -1e9
+    return q, k, v, kb
+
+
 def numpy_state_dict(module: torch.nn.Module, prefix: str = "") -> dict:
     return {prefix + k: v.detach().float().numpy() for k, v in module.state_dict().items()}
 
