@@ -10,12 +10,15 @@ Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
   build        compile every kernel in csrc/ with nvcc (in parallel), print ptxas
   kernels      each kernel vs its plain PyTorch version at the flagship shapes,
-               float32 and bfloat16: K1 (and its log-sum-exp), K2, K3, and the
-               gradients of the attention and GroupNorm Functions, with K1/K2
-               at the edges of their tiles (S = 1, 127, 129, 2049; D = 8, 96;
-               a masked key tile); K1 bit for bit over two launches, K2 within
-               the bf16 tolerance (atomics); K4 (f32) against its plain version
-               and float64, with masks, and its grad guard
+               float32 and bfloat16: K1 (and its log-sum-exp), K2, K3 (forward
+               at every main-path shape, the cluster and two-sweep paths
+               included; backward at every training shape, dgamma and dbeta bit
+               for bit over two launches), and the gradients of the attention
+               and GroupNorm Functions, with K1/K2 at the edges of their tiles
+               (S = 1, 127, 129, 2049; D = 8, 96; a masked key tile); K1 bit for
+               bit over two launches, K2 within the bf16 tolerance (atomics); K4
+               (f32) against its plain version and float64, with masks, and its
+               grad guard
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -24,7 +27,8 @@ Phases (any failure exits non-zero before the final "ok" line):
                DPM-20 and with DDIM-50; checks outputs and the kernel launch counts
   train        the training step at full width, batch 16, bf16 autocast, f32
                weights, synthetic scenes: steps/s, phase split, peak memory,
-               launches per step against module hooks, a fixed-batch overfit check
+               launches per step against module hooks (the plain GroupNorm
+               backward called no time), a fixed-batch overfit check
   eval_slice   the eval modules on the card vs on the CPU, same numpy clouds:
                CD (K4 vs plain), EMD at N = 4096, BEV histograms and bitmaps,
                RangeNet features at 64x1024, FRID
@@ -35,7 +39,8 @@ Phases (any failure exits non-zero before the final "ok" line):
   timing       per-kernel device times at the main paths' shapes beside the
                plain version, one PyTorch library call and the card's bound,
                and for K1/K2 the special-function unit's floor for their
-               exponentials (K4 at the eval's clouds, so it needs the eval
+               exponentials; K3 also summed by shape class, and its backward a
+               training step (K4 at the eval's clouds, so it needs the eval
                phase)
   profile      (only when named) device time of one DPM-20 request and of one
                training step by kernel family
@@ -74,6 +79,8 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "lidar_layout_tpu/ops/pallas_attention.py:205"),
     ("group_norm", "lidar_layout_tpu_torch/csrc/group_norm.cu",
      "lidar_layout_tpu/ops/pallas_groupnorm.py:135"),
+    ("group_norm_bwd", "lidar_layout_tpu_torch/csrc/group_norm.cu",
+     "lidar_layout_tpu/ops/pallas_groupnorm.py:183"),
     ("chamfer_nn", "lidar_layout_tpu_torch/csrc/chamfer_nn.cu",
      "lidar_layout_tpu/ops/pallas_chamfer.py:71"))
 # K1 cases: the flagship's shapes, a fused qkv view, key padding, D = 16 to 128
@@ -84,7 +91,8 @@ ATTN_CASES = [((16, 8, 2048, 32), False, False), ((16, 16, 512, 32), False, Fals
 SFU_EX2_PER_CLOCK = 16   # exp2 per clock per SM on Hopper (special-function unit)
 EVAL_METRICS = ("cd", "jsd", "mmd", "frid")   # emd holds an (N, N) matrix: checked at N = 4096
 EPS32 = float(np.finfo(np.float32).eps)
-PROFILER_TRIES = 3   # profiler sessions a device_ms may take before it raises
+PROFILER_TRIES = 3   # profiler sessions a device_ms tries before it takes CUDA events
+EVENT_TIMINGS = []   # what device_ms timed with CUDA events: no session saw the device
 # FRID from the device twin's inputs (the decoded raster itself) against the
 # host path's (reproject, then rasterise again): reprojected points sit on
 # pixel-floor boundaries, so about a tenth of the valid pixels move to a
@@ -142,6 +150,11 @@ def sfu_ex2_per_ms() -> float:
     return SFU_EX2_PER_CLOCK * sms * mhz * 1e3
 
 
+def path_name(k: int) -> str:
+    """K3's path for a span: the blocks that hold it on chip, or the sweep."""
+    return {0: "two-sweep", 1: "one block"}.get(k, f"cluster of {k}")
+
+
 def max_err(a, b):
     d = (a.float() - b.float()).abs()
     return float(d.max()), float(b.float().abs().max())
@@ -152,7 +165,9 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
     that torch.profiler records over ``reps`` calls, summed. Gaps between
     launches, where the card waits for the host, are not counted. Now and
     then a profiler session records no device activity at all: it is run
-    again, up to PROFILER_TRIES sessions in all, and then this raises."""
+    again, up to PROFILER_TRIES sessions in all. If none saw the device, the
+    call is timed with CUDA events (cuda_time, which counts the gaps too),
+    logged and listed in EVENT_TIMINGS, which the timing phase reports."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -160,7 +175,7 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILER_TRIES):
+    for attempt in range(1, PROFILER_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -170,7 +185,12 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
                  and not getattr(ev, "is_user_annotation", False))
         if us > 0:
             return us / 1e3 / reps
-    raise RuntimeError(f"torch.profiler recorded no device time in {PROFILER_TRIES} sessions")
+        log(f"    torch.profiler session {attempt} of {PROFILER_TRIES} recorded no device time")
+    ms = cuda_time(fn, reps, warmup=0)
+    where = f"{fn.__qualname__} at line {fn.__code__.co_firstlineno}"
+    EVENT_TIMINGS.append(where)
+    log(f"    timed with CUDA events instead: {ms:.4f} ms per call ({where})")
+    return ms
 
 
 def paired_ms(kernel, library, reps: int, rounds: int = 3):
@@ -218,7 +238,8 @@ def counters():
     from lidar_layout_tpu_torch.ops import groupnorm as G
 
     return {"flash_attention": A.flash_attention, "flash_attention_bwd": A.flash_attention_bwd,
-            "group_norm": G.group_norm, "chamfer_nn": C.nn_dist_one_way}
+            "group_norm": G.group_norm, "group_norm_bwd": G.group_norm_bwd,
+            "chamfer_nn": C.nn_dist_one_way}
 
 
 def reset_counts():
@@ -236,6 +257,7 @@ class Smoke:
         self.launches = {}
         self.train_launches = {}
         self.shapes = None   # main-path kernel shapes and their launches per request
+        self.gn_where = None   # K3's main-path launches by (shape, "unet" or "decoder")
         self.train_shapes = None   # the same for one training step
         self.eval_launches = {}
         self.eval_clouds = None    # the eval's (reference, sample) clouds: K4's shapes
@@ -308,19 +330,27 @@ class Smoke:
             if not same:
                 raise AssertionError("K1 is not deterministic")
 
-        log("K3 group_norm vs _ref:")
+        log("K3 group_norm vs _ref (at every main-path shape, then shapes that take the "
+            "two-sweep path: H*W not a multiple of the 16-byte pack, and a span of 4 or 8 MB):")
         shapes = self._main_shapes()["group_norm"]
+        sweep = [(2, 40, 5, 7, 20), (1, 64, 128, 1024, 4)]
+        paths = set()
         for dtype in (torch.float32, torch.bfloat16):
-            for (bsz, c, hh, ww, groups) in sorted({k[:5] for k in shapes}):
+            for (bsz, c, hh, ww, groups) in sorted({k[:5] for k in shapes}) + sweep:
                 x = (torch.randn((bsz, c, hh, ww), generator=gen, device=dev) * 2 + 0.3).to(dtype)
                 gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
                 beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+                path = G.kernel_path(dtype, c, hh * ww, groups)
+                paths.add(min(path, 2))
                 for act in (False, True):
                     got = G.group_norm(x, gamma, beta, groups, 1e-6, act)
                     want = G._ref(x, gamma, beta, groups, 1e-6, act)
                     self._check("group_norm", got, want,
                                 *( (1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 1e-2)),
-                                f"{(bsz, c, hh, ww)} G={groups} {str(dtype)[6:]} act={act}")
+                                f"{(bsz, c, hh, ww)} G={groups} {str(dtype)[6:]} act={act} "
+                                f"path: {path_name(path)}")
+        if paths != {0, 1, 2}:
+            raise AssertionError(f"K3 forward: not every path ran (cluster sizes {paths})")
         # a large-mean group of 262K values, against float64 statistics. The
         # kernel works on x minus the group's first element, which is exact
         # here, so it is held to the f32 tolerance above; a mean formed near
@@ -334,10 +364,60 @@ class Smoke:
         ref64 = ((xd - mean) / torch.sqrt((xd - mean).square().mean(dim=2, keepdim=True)
                                           + 1e-6)).reshape(x.shape).float()
         self._check("group_norm", G.group_norm(x, gamma, beta, 32, 1e-6, False), ref64,
-                    1e-4, 1e-5, "(2, 128, 64, 1024) mean 300 std 0.1 f32 vs f64 statistics")
+                    1e-4, 1e-5, "(2, 128, 64, 1024) mean 300 std 0.1 f32 vs f64 statistics, "
+                    f"path: {path_name(G.kernel_path(torch.float32, 128, 64 * 1024, 32))}")
 
+        self._kernels_gn_bwd()
         self._kernels_train()
         self._kernels_chamfer()
+
+    def _kernels_gn_bwd(self):
+        """K3's backward kernel against _group_norm_bwd_ref at every training
+        shape, f32 and bf16, SiLU off and on, and at shapes that take its
+        two-sweep path; dx, dgamma and dbeta bit for bit over two launches."""
+        import torch
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(8)
+        shapes = sorted({k[:5] for k in self._train_shapes()["group_norm_bwd"]})
+        # H*W = 35 takes the scalar sweep; (1, 128, 64, 1024) has spans of 4
+        # channels of 64K elements, 1 MB (bf16) or 2 MB (f32) of x and dy,
+        # more than 4 blocks of whole channels hold: the sweep too
+        extra = [(2, 40, 5, 7, 20), (1, 128, 64, 1024, 32)]
+        log("K3 backward group_norm_bwd vs _group_norm_bwd_ref (both in f32 arithmetic from "
+            "the same x and dy; dx rounded to x's dtype, dgamma/dbeta sum B*H*W products):")
+        paths = set()
+        for dtype in (torch.float32, torch.bfloat16):
+            tol_dx = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+            for (bsz, c, hh, ww, groups) in shapes + extra:
+                x = (torch.randn((bsz, c, hh, ww), generator=gen, device=dev) * 2 + 0.3).to(dtype)
+                gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+                beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+                dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+                path = G.kernel_path(dtype, c, hh * ww, groups, backward=True)
+                paths.add(min(path, 2))
+                for act in (False, True):
+                    what = (f"{(bsz, c, hh, ww)} G={groups} {str(dtype)[6:]} act={act} "
+                            f"path: {path_name(path)}")
+                    before = G.group_norm_bwd.launches
+                    got = G.group_norm_bwd(x, gamma, beta, dy, groups, 1e-6, act)
+                    want = G._group_norm_bwd_ref(x, gamma, beta, dy, groups, 1e-6, act)
+                    if G.group_norm_bwd.launches != before + 1:
+                        raise AssertionError("group_norm_bwd did not count its launch")
+                    for part, g_, w_, t_ in zip(("dx", "dgamma", "dbeta"), got, want,
+                                                (tol_dx, (1e-3, 1e-4), (1e-3, 1e-4))):
+                        self._check("group_norm_bwd", g_, w_, *t_, f"{part} {what}")
+                    again = G.group_norm_bwd(x, gamma, beta, dy, groups, 1e-6, act)
+                    torch.cuda.synchronize()
+                    same = [bool(torch.equal(a, b)) for a, b in zip(again, got)]
+                    log(f"  group_norm_bwd {what}: two launches bit for bit equal "
+                        f"(dx, dgamma, dbeta): {same}")
+                    if not all(same):
+                        raise AssertionError("K3's backward is not deterministic")
+                del x, dy, got, want, again
+        if paths != {0, 1, 2}:
+            raise AssertionError(f"K3 backward: not every path ran (cluster sizes {paths})")
 
     def _kernels_train(self):
         """K1's log-sum-exp, K2, and the gradients of both autograd Functions
@@ -501,11 +581,14 @@ class Smoke:
 
         model, _ = flagship(dtype=torch.bfloat16)
         seen = {"group_norm": collections.Counter(), "flash_attention": collections.Counter()}
-        phase = {"n": unet_evals(model, 20)}
+        where = collections.Counter()
+        phase = {"n": unet_evals(model, 20), "where": "unet"}
 
         def norm_hook(mod, args):
             b, c, h, w = args[0].shape
-            seen["group_norm"][(b, c, h, w, mod.num_groups, mod.act)] += phase["n"]
+            key = (b, c, h, w, mod.num_groups, mod.act)
+            seen["group_norm"][key] += phase["n"]
+            where[key, phase["where"]] += phase["n"]
 
         def attn_hook(mod, args):
             b, c, h, w = args[0].shape
@@ -524,13 +607,13 @@ class Smoke:
         with torch.inference_mode():
             z = torch.randn((16, lh, lw, lc), device="cuda")
             model.apply_model(z, torch.full((16,), 500, device="cuda"))   # x21 evals
-            phase["n"] = 1
+            phase.update(n=1, where="decoder")
             model.decode_first_stage(z)
         for hk in hooks:
             hk.remove()
         del model
         torch.cuda.empty_cache()
-        self.shapes = seen
+        self.shapes, self.gn_where = seen, where
         for name, cnt in seen.items():
             log(f"main-path {name} launches per DPM-20 request (batch 16): "
                 f"{sum(cnt.values())} over {len(cnt)} shapes")
@@ -726,7 +809,7 @@ class Smoke:
         seen = {"flash_attention": collections.Counter(),
                 "flash_attention_bwd": collections.Counter(),
                 "group_norm": collections.Counter(),
-                "group_norm_bwd": collections.Counter(),   # the plain backward
+                "group_norm_bwd": collections.Counter(),   # K3's backward kernel
                 "chamfer_nn": collections.Counter()}       # none: training scores no CD
 
         def norm_hook(mod, args):
@@ -751,10 +834,33 @@ class Smoke:
                 hooks.append(m.register_forward_pre_hook(attn_hook))
         return seen, hooks
 
+    def _train_shapes(self):
+        """Kernel calls of one training step by shape: the train phase's hooks,
+        or hooks on one step taken here when that phase did not run."""
+        if self.train_shapes is None:
+            import torch
+            from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+            from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+            from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+            model, state = self._train_setup(OVERFIT_LR)
+            seen, hooks = self._train_hooks(model)
+            batch = synthetic_range_batch(np.random.default_rng(6), TRAIN_BATCH,
+                                          KITTI_GEOMETRY, device="cuda")
+            DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
+                state, batch, torch.Generator(device="cuda").manual_seed(0))
+            for hk in hooks:
+                hk.remove()
+            self.train_shapes = seen
+            del model, state
+            torch.cuda.empty_cache()
+        return self.train_shapes
+
     def train(self):
         """The training path: full width, batch 16, bf16 autocast, f32 weights."""
         import torch
         from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+        from lidar_layout_tpu_torch.ops import groupnorm as G
         from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
         from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
@@ -783,13 +889,23 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        t0 = time.perf_counter()
-        losses = []
-        for i in range(TRAIN_STEPS):
-            state, logs = step(state, batches[i % len(batches)], gen)
-            losses.append((logs["loss"], logs["grad_norm"]))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        # every GroupNorm backward must go to the kernel: count the plain one
+        plain_bwd, real_bwd_ref = [0], G._group_norm_bwd_ref
+
+        def counting_bwd_ref(*a, **k):
+            plain_bwd[0] += 1
+            return real_bwd_ref(*a, **k)
+        G._group_norm_bwd_ref = counting_bwd_ref
+        try:
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                state, logs = step(state, batches[i % len(batches)], gen)
+                losses.append((logs["loss"], logs["grad_norm"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            G._group_norm_bwd_ref = real_bwd_ref
         got = read_counts()
         mem = torch.cuda.max_memory_allocated() / 2 ** 30
         per_step = {k: v / TRAIN_STEPS for k, v in got.items()}
@@ -805,11 +921,15 @@ class Smoke:
             f"phases per step (synchronised): encode {phases['encode']:.4f} s, forward+backward "
             f"{phases['fwd_bwd']:.4f} s, optimizer+EMA {phases['opt_ema']:.4f} s; peak memory "
             f"{mem:.2f} GiB; launches per step {per_step} (hooks {want}; first step {first}); "
+            f"plain GroupNorm backward calls {plain_bwd[0]}; "
             f"loss {float(losses[-1][0]):.5f} grad_norm {float(losses[-1][1]):.5f} "
             f"finite={finite}; card {card}")
         self.train_stats = {"steps_per_s": TRAIN_STEPS / wall, "mem_gib": mem, **phases}
         if per_step != {k: float(v) for k, v in want.items()} or first != want:
             raise AssertionError(f"train: launches per step {per_step} != hooks {want}")
+        if plain_bwd[0] or not want["group_norm_bwd"]:
+            raise AssertionError(f"train: {plain_bwd[0]} plain GroupNorm backward calls, "
+                                 f"{want['group_norm_bwd']} kernel launches a step")
         if not finite:
             raise AssertionError("train: loss or gradient norm not finite")
         self.train_launches = got
@@ -972,6 +1092,7 @@ class Smoke:
         want = {"flash_attention": batches * evals * sum(
                     isinstance(m, SelfAttentionBlock) for m in model.unet.modules()),
                 "flash_attention_bwd": 0,
+                "group_norm_bwd": 0,
                 "group_norm": batches * (
                     evals * sum(isinstance(m, Normalize) for m in model.unet.modules())
                     + sum(isinstance(m, Normalize)
@@ -1106,8 +1227,10 @@ class Smoke:
             tot["bound_ops_ms"] += count * bound_flops * (N_MAIN // BATCH)
             tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
         totals["flash_attention"] = tot
-        # K3
+        # K3, by shape and by class (where the launches come from, and the
+        # size of a group's span)
         tot = collections.Counter()
+        classes = collections.defaultdict(collections.Counter)
         for (b, c, hh, ww, groups, act), count in sorted(shapes["group_norm"].items()):
             x = torch.randn((b, c, hh, ww), generator=gen, device=dev).to(torch.bfloat16)
             gamma = torch.ones(c, device=dev)
@@ -1117,31 +1240,52 @@ class Smoke:
             def lib():
                 y = F.group_norm(x, groups, gl, bl, 1e-6)
                 return F.silu(y) if act else y
-            nbytes = 2 * x.numel() * 2 + 2 * c * 4
-            ops = 15 * x.numel()
+            cost = G.group_norm_cost(b, c, hh * ww, groups, 2, act)
+            nbytes, ops = cost["bytes"], cost["flops"]
+            y = torch.empty_like(x)   # copy_ moves the same bytes: the rate the card reaches
+            span_kb = c // groups * hh * ww * 2 / 1024
+            path = path_name(G.kernel_path(torch.bfloat16, c, hh * ww, groups))
             t = {"ms": device_ms(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act), 20),
                  "events_ms": cuda_time(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act),
                                         20),
                  "plain_ms": device_ms(lambda: G._ref(x, gamma, beta, groups, 1e-6, act), 5),
-                 "library_ms": device_ms(lib, 20)}
+                 "library_ms": device_ms(lib, 20), "copy_ms": device_ms(lambda: y.copy_(x), 20)}
             bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_F32 * 1e3
             t["bound_ms"] = max(bound_bytes, bound_ops)
-            log(f"  K3 {(b, c, hh, ww)} G={groups} act={act} bf16 x{count}/request: kernel "
+            log(f"  K3 {(b, c, hh, ww)} G={groups} act={act} bf16 x{count}/request ({span_kb:g} "
+                f"KB groups, {path}): kernel "
                 f"{t['ms']:.4f} (events {t['events_ms']:.4f}) | plain {t['plain_ms']:.4f} | "
                 f"group_norm+silu "
                 f"{t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
                 f"({'bytes' if bound_bytes >= bound_ops else 'operations'}; "
-                f"{nbytes / 1e6:.1f} MB) | {nbytes / t['ms'] / 1e6:.0f} GB/s")
+                f"{nbytes / 1e6:.1f} MB; kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of it) "
+                f"| {nbytes / t['ms'] / 1e6:.0f} GB/s | copy_ of x {t['copy_ms']:.4f} "
+                f"({100 * t['bound_ms'] / t['copy_ms']:.1f}% of the bound)")
             for key, val in t.items():
                 tot[key] += count * val * (N_MAIN // BATCH)
             tot["bound_ops_ms"] += count * bound_ops * (N_MAIN // BATCH)
             tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
+            for origin in ("unet", "decoder"):
+                n = self.gn_where[(b, c, hh, ww, groups, act), origin]
+                name = ("U-Net" if origin == "unet" else
+                        "VQ decoder, 128 KB+ groups" if span_kb >= 128 else
+                        "VQ decoder, groups under 128 KB")
+                for key in ("ms", "library_ms", "bound_ms", "copy_ms"):
+                    classes[name][key] += n * t[key]
+                classes[name]["launches"] += n
+        for name, cl in classes.items():
+            log(f"  K3 class {name}, per DPM-20 request (batch {BATCH}): {cl['launches']} "
+                f"launches | kernel {cl['ms']:.4f} ms | group_norm+silu {cl['library_ms']:.4f} "
+                f"({cl['ms'] / cl['library_ms']:.3f}x) | bound {cl['bound_ms']:.4f} (kernel at "
+                f"{100 * cl['bound_ms'] / cl['ms']:.1f}% of it) | copy_ of x {cl['copy_ms']:.4f}")
         totals["group_norm"] = tot
         totals["flash_attention_bwd"] = self._timing_bwd(gen)
+        totals["group_norm_bwd"] = self._timing_gn_bwd(gen)
         totals["chamfer_nn"] = self._timing_chamfer()
         for name, fn in counters().items():
             fn.launches = saved[name]
         runs = {"flash_attention_bwd": f"{TRAIN_STEPS} training steps (batch {TRAIN_BATCH})",
+                "group_norm_bwd": f"{TRAIN_STEPS} training steps (batch {TRAIN_BATCH})",
                 "chamfer_nn": f"the eval's CD ({N_MAIN} pairs, 2 launches each)"}
         for name, tot in totals.items():
             run = runs.get(name, f"the main DPM-20 run (generate({N_MAIN}), batch {BATCH})")
@@ -1155,6 +1299,8 @@ class Smoke:
                 f"{tot['plain_ms']:.3f} | library "
                 f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | bound "
                 f"{tot['bound_ms']:.3f}{extra}")
+        log(f"  timings taken with CUDA events because torch.profiler saw no device "
+            f"time: {len(EVENT_TIMINGS)} {EVENT_TIMINGS}")
         self.totals = totals
 
     def _timing_bwd(self, gen):
@@ -1164,24 +1310,9 @@ class Smoke:
         import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import attention as A
 
-        if self.train_shapes is None:   # the train phase did not run: count them
-            model, state = self._train_setup(OVERFIT_LR)
-            from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
-            from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
-            from lidar_layout_tpu_torch.train import diffusion_trainer as DT
-            seen, hooks = self._train_hooks(model)
-            batch = synthetic_range_batch(np.random.default_rng(6), TRAIN_BATCH,
-                                          KITTI_GEOMETRY, device="cuda")
-            DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
-                state, batch, torch.Generator(device="cuda").manual_seed(0))
-            for hk in hooks:
-                hk.remove()
-            self.train_shapes = seen
-            del model, state
-            torch.cuda.empty_cache()
         dev = torch.device("cuda")
         tot = collections.Counter()
-        for (b, h, s, d), count in sorted(self.train_shapes["flash_attention_bwd"].items()):
+        for (b, h, s, d), count in sorted(self._train_shapes()["flash_attention_bwd"].items()):
             q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
                            .to(torch.bfloat16) for _ in range(4))
             o, lse = A._launch(q, k, v, None, with_lse=True)
@@ -1223,7 +1354,6 @@ class Smoke:
             f"alone: kernel {tot['step_first_ms']:.3f}, sdpa backward "
             f"{tot['step_first_library_ms']:.3f} "
             f"({tot['step_first_ms'] / tot['step_first_library_ms']:.3f}x)")
-        self._timing_gn_bwd(gen)
         torch.cuda.empty_cache()
         return tot
 
@@ -1269,26 +1399,59 @@ class Smoke:
         return tot
 
     def _timing_gn_bwd(self, gen):
-        """The plain GroupNorm backward (K3's autograd backward) at the
-        training step's shapes, beside the bytes bound of reading x and dy
-        and writing dx."""
+        """K3's backward at the training step's shapes: the kernel, the plain
+        version, the autograd backward of F.group_norm (+ F.silu), and the
+        bytes bound of reading x and dy and writing dx."""
         import torch
+        import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import groupnorm as G
 
         dev = torch.device("cuda")
-        total = bound = 0.0
+        tot = collections.Counter()
         for (b, c, hh, ww, groups, act), count in sorted(
-                self.train_shapes["group_norm_bwd"].items()):
+                self._train_shapes()["group_norm_bwd"].items()):
             x, dy = (torch.randn((b, c, hh, ww), generator=gen, device=dev)
                      .to(torch.bfloat16) for _ in range(2))
             gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-            ms = device_ms(lambda: G._group_norm_bwd_ref(x, gamma, beta, dy, groups, 1e-6,
-                                                         act), 10)
-            total += count * ms
-            bound += count * 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
-        log(f"  plain GroupNorm backward per training step ({sum(self.train_shapes['group_norm_bwd'].values())} "
-            f"calls, bf16): {total:.3f} ms device time | bytes bound {bound:.3f} ms")
-        self.gn_bwd_ms = total
+            xl, gl, bl = (t_.to(torch.bfloat16).requires_grad_() for t_ in (x, gamma, beta))
+            out = F.group_norm(xl, groups, gl, bl, 1e-6)
+            out = F.silu(out) if act else out
+            cost = G.group_norm_cost(b, c, hh * ww, groups, 2, act, backward=True)
+            kms, lms, krounds, lrounds = paired_ms(
+                lambda: G.group_norm_bwd(x, gamma, beta, dy, groups, 1e-6, act),
+                lambda: torch.autograd.grad(out, (xl, gl, bl), dy, retain_graph=True), 10)
+            t = {"ms": kms,
+                 "events_ms": cuda_time(lambda: G.group_norm_bwd(x, gamma, beta, dy, groups,
+                                                                 1e-6, act), 10),
+                 "plain_ms": device_ms(lambda: G._group_norm_bwd_ref(x, gamma, beta, dy, groups,
+                                                                      1e-6, act), 5),
+                 "library_ms": lms}
+            bound_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+            bound_ops = cost["flops"] / PEAK_F32 * 1e3
+            t["bound_ms"] = max(bound_bytes, bound_ops)
+            path = path_name(G.kernel_path(torch.bfloat16, c, hh * ww, groups, backward=True))
+            log(f"  K3 backward {(b, c, hh, ww)} G={groups} act={act} bf16 x{count}/step "
+                f"({path}): kernel {t['ms']:.4f} (events {t['events_ms']:.4f}) | plain "
+                f"{t['plain_ms']:.4f} | group_norm(+silu) backward {t['library_ms']:.4f} "
+                f"({t['ms'] / t['library_ms']:.3f}x) | bound {t['bound_ms']:.4f} "
+                f"({'bytes' if bound_bytes >= bound_ops else 'operations'}; "
+                f"{cost['bytes'] / 1e6:.1f} MB; kernel at {100 * t['bound_ms'] / t['ms']:.1f}% "
+                f"of it) | rounds kernel {[round(v, 4) for v in krounds]} library "
+                f"{[round(v, 4) for v in lrounds]}")
+            for key, val in t.items():
+                tot[key] += count * val * TRAIN_STEPS
+                tot[f"step_{key}"] += count * val
+            tot["bound_ops_ms"] += count * bound_ops * TRAIN_STEPS
+            tot["bound_bytes_ms"] += count * bound_bytes * TRAIN_STEPS
+            del x, dy, xl, gl, bl, out
+        calls = sum(self.train_shapes["group_norm_bwd"].values())
+        log(f"  K3 backward per training step ({calls} calls, bf16; sum over shapes): kernel "
+            f"{tot['step_ms']:.3f} ms | plain {tot['step_plain_ms']:.3f} | group_norm(+silu) "
+            f"backward {tot['step_library_ms']:.3f} "
+            f"({tot['step_ms'] / tot['step_library_ms']:.3f}x) | bytes bound "
+            f"{tot['step_bound_ms']:.3f}")
+        torch.cuda.empty_cache()
+        return tot
 
     # ----------------------------------------------------------------- profile
     def profile(self):
@@ -1342,7 +1505,8 @@ class Smoke:
 
         families = (("K1 flash_attention", ("attn_fwd",)),
                     ("K2 flash_attention_bwd", ("bwd_bf16", "bwd_dkdv", "bwd_dq", "bwd_delta")),
-                    ("K3 group_norm", ("group_norm_fwd",)),
+                    ("K3 group_norm forward", ("group_norm_fwd",)),
+                    ("K3 group_norm backward", ("group_norm_bwd", "group_norm_param")),
                     ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
                     ("convolution / matmul (cuDNN, cuBLAS)",
                      ("conv", "xmma", "gemm", "cudnn", "cutlass", "sm90", "implicit",
@@ -1375,14 +1539,15 @@ class Smoke:
     def summary(self):
         """The kernels line: ``launches`` and the times cover the run each
         kernel serves, the DPM-20 main run for K1/K3, the timed training
-        steps for K2 and the eval's CD for K4; ``train_launches`` counts every
-        kernel over those steps."""
+        steps for K2 and K3's backward, and the eval's CD for K4;
+        ``train_launches`` counts every kernel over those steps."""
         entries = []
         for name, source, replaces in KERNELS:
             tot = getattr(self, "totals", {}).get(name, {})
             bound_by = ("operations" if tot.get("bound_ops_ms", 0) >= tot.get("bound_bytes_ms", 0)
                         else "bytes")
-            launches = (self.train_launches if name == "flash_attention_bwd" else
+            trained = name in ("flash_attention_bwd", "group_norm_bwd")
+            launches = (self.train_launches if trained else
                         self.eval_launches if name == "chamfer_nn" else self.launches).get(name)
             entries.append({
                 "name": name, "route": "cuda", "source": source,

@@ -23,15 +23,26 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# each source's C entry point and its argument types (pointers and the
-# stream as c_void_p, so ctypes never truncates them to 32 bits)
+# each C entry point and its argument types (pointers and the stream as
+# c_void_p, so ctypes never truncates them to 32 bits); an entry lives in
+# csrc/<name>.cu unless SOURCE_OF names another source
 SIGNATURES = {
     "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
     "flash_attn_bwd": ("llt_flash_attn_bwd", [_P] * 13 + [_I] * 5 + [_P]),
     "group_norm": ("llt_group_norm_fwd", [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "group_norm_bwd": ("llt_group_norm_bwd", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "group_norm_path": ("llt_group_norm_path", [_I] * 5),
     "chamfer_nn": ("llt_chamfer_nn", [_P] * 4 + [_I] * 2 + [_P]),
 }
-SOURCES = tuple(SIGNATURES)
+SOURCE_OF = {"group_norm_bwd": "group_norm", "group_norm_path": "group_norm"}
+
+
+def source(name: str) -> str:
+    """The source (csrc/<source>.cu) that holds the entry point ``name``."""
+    return SOURCE_OF.get(name, name)
+
+
+SOURCES = tuple(dict.fromkeys(source(n) for n in SIGNATURES))
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -88,13 +99,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
 
 
 def launcher(name: str) -> Callable[..., int]:
-    """The C entry point of ``csrc/<name>.cu`` with its argument types set;
-    the source is built first if needed. It returns a CUDA error code."""
+    """The C entry point ``name`` with its argument types set; its source is
+    built first if needed. A launcher returns a CUDA error code."""
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        build([name])
+        build([source(name)])
         symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        fn = getattr(ctypes.CDLL(str(library_path(source(name)))), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _LAUNCHERS[name] = fn
     return fn

@@ -7,9 +7,10 @@ and how it is built around that). Tensors here are NCHW, where each
 
 ``group_norm`` takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises. When a gradient is needed it
-runs through ``_GroupNorm``, whose backward is ``_group_norm_bwd_ref``: the
+runs through ``_GroupNorm``, whose backward is ``group_norm_bwd``: the
 analytic GroupNorm(+SiLU) backward that the JAX package writes in plain jnp
-(``_fused_vjp_bwd``), here in plain PyTorch for NCHW.
+(``_fused_vjp_bwd``), a kernel in the same source on the card, and its plain
+version ``_group_norm_bwd_ref`` on the CPU.
 """
 from __future__ import annotations
 
@@ -61,24 +62,53 @@ def _group_norm_bwd_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-            num_groups: int, eps: float, act: bool) -> torch.Tensor:
+def group_norm_cost(b: int, c: int, hw: int, groups: int, itemsize: int, act: bool,
+                    backward: bool = False) -> dict:
+    """Work of one call of K3 (or its backward when ``backward``) on (B, C,
+    H*W) in a dtype of ``itemsize`` bytes. Forward, as the JAX package's
+    ``pl.CostEstimate`` counts it: ``flops`` 10 an element, ``transcendentals``
+    one an element with SiLU; ``bytes`` x read and y written, plus the f32
+    gamma and beta that the estimate leaves out. Backward: about 16 flops an
+    element (26 with SiLU), x and dy read and dx written, gamma and beta read
+    and dgamma and dbeta written in f32."""
+    if c % groups:
+        raise ValueError(f"C={c} is not divisible by groups={groups}")
+    n = b * c * hw
+    if backward:
+        return {"flops": (26 if act else 16) * n, "transcendentals": n if act else 0,
+                "bytes": 3 * n * itemsize + 4 * c * 4}
+    return {"flops": 10 * n, "transcendentals": n if act else 0,
+            "bytes": 2 * n * itemsize + 2 * c * 4}
+
+
+def _shape(x: torch.Tensor, num_groups: int):
+    """(B, C, H*W) of x after the checks the kernels need."""
     if not x.is_cuda:
         raise ValueError(f"group_norm kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"group_norm kernel takes float32/bfloat16, got {x.dtype}")
-    launch = _build.launcher("group_norm")
     b, c = x.shape[:2]
     if c % num_groups:
         raise ValueError(f"C={c} is not divisible by num_groups={num_groups}")
     hw = x.numel() // (b * c)
     if c * hw >= 2 ** 31:
         raise ValueError(f"group span {c // num_groups}x{hw} too large")
+    return b, c, hw
+
+
+def _f32_on(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An affine parameter as the kernels take it: contiguous f32 on x's device."""
+    if p.dtype == torch.float32 and p.device == x.device and p.is_contiguous():
+        return p
+    return p.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            num_groups: int, eps: float, act: bool) -> torch.Tensor:
+    b, c, hw = _shape(x, num_groups)
+    launch = _build.launcher("group_norm")
     x = x.contiguous()
-    gamma, beta = (p if p.dtype == torch.float32 and p.device == x.device
-                   and p.is_contiguous() else
-                   p.to(device=x.device, dtype=torch.float32).contiguous()
-                   for p in (gamma, beta))
+    gamma, beta = _f32_on(gamma, x), _f32_on(beta, x)
     y = torch.empty_like(x)
     status = launch(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
@@ -89,14 +119,55 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y
 
 
+def _launch_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, dy: torch.Tensor,
+                num_groups: int, eps: float, act: bool):
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)}")
+    b, c, hw = _shape(x, num_groups)
+    launch = _build.launcher("group_norm_bwd")
+    xc = x.contiguous()
+    gamma32, beta32 = _f32_on(gamma, xc), _f32_on(beta, xc)
+    dy = dy.to(device=xc.device, dtype=xc.dtype).contiguous()
+    dx = torch.empty_like(xc)
+    part = torch.empty((2, b, c), device=xc.device, dtype=torch.float32)
+    dgamma = torch.empty(c, device=xc.device, dtype=torch.float32)
+    dbeta = torch.empty(c, device=xc.device, dtype=torch.float32)
+    status = launch(
+        xc.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), _DTYPES[xc.dtype], b, c,
+        num_groups, hw, eps, int(act), torch.cuda.current_stream(xc.device).cuda_stream)
+    _build.check(status, "group_norm_bwd")
+    group_norm_bwd.launches += 1
+    return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+def kernel_path(dtype: torch.dtype, c: int, hw: int, num_groups: int,
+                backward: bool = False) -> int:
+    """The path the kernel takes for (C, H*W) with 16-byte aligned tensors:
+    the blocks of the cluster that holds a span on chip (1: one block), or 0
+    for the two-sweep path. Launches nothing."""
+    query = _build.launcher("group_norm_path")
+    return query(_DTYPES[dtype], c, num_groups, hw, int(backward))
+
+
 def _forward(x, gamma, beta, num_groups, eps, act):
     if x.device.type == "cpu":
         return _ref(x, gamma, beta, num_groups, eps, act)
     return _launch(x, gamma, beta, num_groups, eps, act)
 
 
+def group_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   dy: torch.Tensor, num_groups: int = 32, eps: float = 1e-6,
+                   act: bool = False):
+    """(dx, dgamma, dbeta) of GroupNorm(+SiLU) at x for the output gradient
+    dy: the kernel for a CUDA tensor, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return _group_norm_bwd_ref(x, gamma, beta, dy, num_groups, eps, act)
+    return _launch_bwd(x, gamma, beta, dy, num_groups, eps, act)
+
+
 class _GroupNorm(torch.autograd.Function):
-    """K3 forward (the plain version on the CPU), plain analytic backward."""
+    """K3 forward and its backward kernel (the plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, num_groups, eps, act):
@@ -107,7 +178,7 @@ class _GroupNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma, beta = ctx.saved_tensors
-        dx, dgamma, dbeta = _group_norm_bwd_ref(x, gamma, beta, dy, *ctx.cfg)
+        dx, dgamma, dbeta = group_norm_bwd(x, gamma, beta, dy, *ctx.cfg)
         return dx, dgamma, dbeta, None, None, None
 
 
@@ -124,3 +195,4 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 group_norm.launches = 0
+group_norm_bwd.launches = 0

@@ -1,12 +1,13 @@
-"""PyTorch port, the attention kernels' interface and work counts.
+"""PyTorch port, the kernels' interface and the work counts of K1, K2 and K3.
 
 The C entry points of the CUDA kernels are called through ctypes with the
 argument types of ``ops/_build.SIGNATURES``; a mismatch with the prototype in
-``csrc/<name>.cu`` would show only on the card, as a crash. Here each entry
-is held to its prototype, parsed as text. ``ops/attention.attention_cost``
-gives the operations, bytes and exponentials that ``chip_smoke.py`` divides
-by the card's rates; it is held to the ``pl.CostEstimate`` of the JAX
-package's Pallas kernels, captured from a run in interpret mode.
+the source that holds it (``csrc/<source>.cu``) would show only on the card,
+as a crash. Here each entry is held to its prototype, parsed as text.
+``ops/attention.attention_cost`` and ``ops/groupnorm.group_norm_cost`` give
+the operations, bytes and exponentials that ``chip_smoke.py`` divides by the
+card's rates; they are held to the ``pl.CostEstimate`` of the JAX package's
+Pallas kernels, captured from a run in interpret mode.
 """
 import ctypes
 import re
@@ -17,18 +18,21 @@ import pytest
 from jax.experimental import pallas as pl
 
 from lidar_layout_tpu.ops.pallas_attention import _flash_bwd_tpu, _flash_fwd_tpu
+from lidar_layout_tpu.ops.pallas_groupnorm import _fused_fwd
 from lidar_layout_tpu_torch.ops import _build
 from lidar_layout_tpu_torch.ops import attention as A
+from lidar_layout_tpu_torch.ops import groupnorm as G
 
 
-def _prototype(name):
-    """(symbol, [kinds]) of the ``extern "C"`` function in csrc/<name>.cu:
-    'p' for a pointer, 'i' for int, 'f' for float."""
-    text = (_build.SOURCE_DIR / f"{name}.cu").read_text()
-    m = re.search(r'extern "C" int (\w+)\(([^)]*)\)', text)
-    assert m, f"no extern \"C\" int entry point in {name}.cu"
+def _prototype(name, symbol):
+    """[kinds] of the ``extern "C"`` function ``symbol`` in the source of the
+    entry ``name``: 'p' for a pointer, 'i' for int, 'f' for float."""
+    source = f"{_build.source(name)}.cu"
+    text = (_build.SOURCE_DIR / source).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert m, f"no extern \"C\" int {symbol} in {source}"
     kinds = []
-    for arg in m.group(2).split(","):
+    for arg in m.group(1).split(","):
         arg = " ".join(arg.split())
         if "*" in arg:
             kinds.append("p")
@@ -37,8 +41,8 @@ def _prototype(name):
         elif re.match(r"(const )?float \w+$", arg):
             kinds.append("f")
         else:
-            raise AssertionError(f"{name}.cu: argument of unknown kind {arg!r}")
-    return m.group(1), kinds
+            raise AssertionError(f"{source}: argument of unknown kind {arg!r}")
+    return kinds
 
 
 _KIND = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
@@ -47,9 +51,7 @@ _KIND = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_signature_matches_c_prototype(name):
     symbol, argtypes = _build.SIGNATURES[name]
-    proto_symbol, kinds = _prototype(name)
-    assert symbol == proto_symbol
-    assert [_KIND[t] for t in argtypes] == kinds
+    assert [_KIND[t] for t in argtypes] == _prototype(name, symbol)
 
 
 def _pallas_cost(monkeypatch, fn, *args):
@@ -94,3 +96,27 @@ def test_backward_cost_matches_pallas_cost_estimate(monkeypatch, shape):
     # the TPU kernel writes dq, dk and dv in f32, the port in the input dtype
     bhsd = b * h * s * d
     assert got["bytes"] == est.bytes_accessed - 3 * bhsd * 4 + 3 * bhsd * 2
+
+
+@pytest.mark.parametrize("shape,groups,act", [((2, 4, 8, 128), 32, False),
+                                              ((1, 8, 4, 256), 16, True)])
+def test_group_norm_forward_cost_matches_pallas_cost_estimate(monkeypatch, shape, groups, act):
+    b, h, w, c = shape                       # NHWC, as the JAX package lays it out
+    rng = np.random.default_rng(2)
+    x = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    gamma, beta = jnp.ones(c), jnp.zeros(c)
+    est, out = _pallas_cost(monkeypatch, _fused_fwd, x, gamma, beta, groups, 1e-6, act)
+    assert out.shape == shape
+    got = G.group_norm_cost(b, c, h * w, groups, 2, act)
+    assert got["flops"] == est.flops
+    assert got["transcendentals"] == est.transcendentals
+    # the TPU estimate leaves out the f32 gamma and beta, which the port counts
+    assert got["bytes"] == est.bytes_accessed + 2 * c * 4
+
+
+def test_group_norm_backward_cost_counts_x_dy_dx_and_the_affines():
+    got = G.group_norm_cost(16, 256, 2048, 32, 2, True, backward=True)
+    assert got["bytes"] == 3 * 16 * 256 * 2048 * 2 + 4 * 256 * 4
+    assert got["transcendentals"] == 16 * 256 * 2048
+    with pytest.raises(ValueError):
+        G.group_norm_cost(2, 40, 16, 32, 2, False)

@@ -67,6 +67,58 @@ def test_gpu_group_norm_kernel_matches_plain(cuda_device, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_group_norm_bwd_kernel_matches_plain_and_is_deterministic(cuda_device, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    # one block, a cluster of blocks (f32: 192 KB of x a span, 384 KB with
+    # dy), the scalar two-sweep path, and a span too large for the chip
+    for (b, c, h, w) in [(2, 256, 16, 128), (2, 768, 16, 128), (2, 40, 5, 7),
+                         (1, 128, 64, 1024)]:
+        x = (torch.randn((b, c, h, w), generator=gen, device=cuda_device) * 2 + 0.3).to(dt)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        beta = 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        dy = torch.randn(x.shape, generator=gen, device=cuda_device).to(dt)
+        g = num_groups_for(c)
+        for act in (False, True):
+            launches = G.group_norm_bwd.launches
+            got = G.group_norm_bwd(x, gamma, beta, dy, g, 1e-6, act)
+            want = G._group_norm_bwd_ref(x, gamma, beta, dy, g, 1e-6, act)
+            again = G.group_norm_bwd(x, gamma, beta, dy, g, 1e-6, act)
+            torch.cuda.synchronize()
+            assert G.group_norm_bwd.launches == launches + 2
+            # both in f32 from the same x and dy; dx rounded to x's dtype,
+            # dgamma/dbeta sums of B*H*W products in other orders
+            tol_dx = (1e-4, 1e-4) if dt == torch.float32 else (2e-2, 1e-2)
+            for part, ref, (atol, rtol) in zip(got, want, (tol_dx, (1e-3, 1e-4), (1e-3, 1e-4))):
+                assert part.dtype == ref.dtype and part.shape == ref.shape
+                scale = ref.float().abs().max().item()
+                assert (part.float() - ref.float()).abs().max().item() <= atol + rtol * scale
+            # no atomics: a second launch gives the same bits
+            assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_paths(cuda_device):
+    # the flagship's decoder groups of 128-512 KB go to clusters of 2-8
+    # blocks, the U-Net's to one block; a span no 8 blocks hold, or an H*W
+    # that is no multiple of the 16-byte pack, takes the two-sweep path
+    bf, f32 = torch.bfloat16, torch.float32
+    assert G.kernel_path(bf, 768, 16 * 128, 32) == 1
+    assert [G.kernel_path(bf, c, hw, 32) for c, hw in
+            ((256, 32 * 256), (128, 64 * 512), (128, 64 * 1024))] == [2, 4, 8]
+    assert G.kernel_path(f32, 64, 128 * 1024, 4) == 0
+    assert G.kernel_path(f32, 40, 35, 20) == 0
+    assert G.kernel_path(bf, 768, 16 * 128, 32, backward=True) == 2
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn((1, 64, 128, 1024), generator=gen, device=cuda_device) + 0.5
+    gamma, beta = torch.ones(64, device=cuda_device), torch.zeros(64, device=cuda_device)
+    got = G.group_norm(x, gamma, beta, 4, 1e-6, True)
+    want = G._ref(x, gamma, beta, 4, 1e-6, True)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpu_attention_bwd_kernel_matches_plain(cuda_device, dtype):
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(1)

@@ -111,7 +111,8 @@ def _stub(t):
     return torch.Tensor._make_subclass(_CudaStub, t)
 
 
-@pytest.mark.parametrize("which", ["flash_attention", "flash_attention_bwd", "group_norm"])
+@pytest.mark.parametrize("which", ["flash_attention", "flash_attention_bwd", "group_norm",
+                                   "group_norm_bwd"])
 def test_cuda_tensor_with_kernel_unbuilt_raises(which, monkeypatch, tmp_path):
     # no nvcc here: the kernel cannot be built, so the wrapper must raise and
     # must not take the plain version
@@ -124,7 +125,7 @@ def test_cuda_tensor_with_kernel_unbuilt_raises(which, monkeypatch, tmp_path):
         raise AssertionError("plain version taken for a CUDA tensor")
 
     wrapper = {"flash_attention": A.flash_attention, "flash_attention_bwd": A.flash_attention_bwd,
-               "group_norm": G.group_norm}[which]
+               "group_norm": G.group_norm, "group_norm_bwd": G.group_norm_bwd}[which]
     launches = wrapper.launches
     if which == "flash_attention":
         monkeypatch.setattr(A, "_attend_ref", forbidden)
@@ -137,9 +138,14 @@ def test_cuda_tensor_with_kernel_unbuilt_raises(which, monkeypatch, tmp_path):
         lse = _stub(torch.zeros(1, 2, 64))
         with pytest.raises(RuntimeError, match="nvcc"):
             A.flash_attention_bwd(q, q, q, q, q, lse)
-    else:
+    elif which == "group_norm":
         monkeypatch.setattr(G, "_ref", forbidden)
         x = _stub(torch.zeros(1, 64, 4, 4))
         with pytest.raises(RuntimeError, match="nvcc"):
             G.group_norm(x, torch.ones(64), torch.zeros(64))
+    else:
+        monkeypatch.setattr(G, "_group_norm_bwd_ref", forbidden)
+        x = _stub(torch.zeros(1, 64, 4, 4, dtype=torch.bfloat16))
+        with pytest.raises(RuntimeError, match="nvcc"):
+            G.group_norm_bwd(x, torch.ones(64), torch.zeros(64), x, 32, 1e-6, True)
     assert wrapper.launches == launches

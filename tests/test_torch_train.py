@@ -30,6 +30,7 @@ from lidar_layout_tpu.nn.ema import init_ema, update_ema
 from lidar_layout_tpu.ops import lidar as JL
 from lidar_layout_tpu.ops.pallas_attention import _attend_ref as jax_attend_ref
 from lidar_layout_tpu.ops.pallas_attention import _flash_bwd_tpu
+from lidar_layout_tpu.ops import pallas_groupnorm as JGN
 from lidar_layout_tpu.ops.pallas_groupnorm import _fused_vjp_bwd
 from lidar_layout_tpu.train import lr_schedule as JLR
 from lidar_layout_tpu.train.diffusion_trainer import make_optimizer as jax_make_optimizer
@@ -131,6 +132,31 @@ def test_group_norm_backward_matches_jax_fused_vjp(act):
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), atol=1e-4, rtol=1e-5)
     for a, b in zip(fn, got):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("shape,groups,act", [((2, 6, 5, 64), 16, False),
+                                              ((1, 4, 8, 96), 32, True)])
+def test_group_norm_bwd_wrapper_matches_jax_vjp_through_fused(monkeypatch, shape, groups, act):
+    # jax.vjp through the JAX custom_vjp `_fused`: its forward is the Pallas
+    # kernel, run here in interpret mode, its backward `_fused_vjp_bwd`
+    real_fwd = JGN._fused_fwd
+    monkeypatch.setattr(JGN, "_fused_fwd", lambda *a: real_fwd(*a, interpret=True))
+    c = shape[-1]
+    x = _np(*shape, seed=24, scale=2.0) + 0.3           # NHWC
+    gamma, beta = 1 + _np(c, seed=25, scale=0.1), _np(c, seed=26, scale=0.1)
+    dy = _np(*shape, seed=27)
+    y, vjp = jax.vjp(lambda a, g, b: JGN._fused(a, g, b, groups, 1e-6, act),
+                     jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    want = vjp(jnp.asarray(dy))
+    launches = G.group_norm_bwd.launches
+    got = G.group_norm_bwd(nchw(x), torch.from_numpy(gamma), torch.from_numpy(beta), nchw(dy),
+                           groups, 1e-6, act)
+    assert G.group_norm_bwd.launches == launches     # CPU tensors: the plain version
+    assert got[0].dtype == torch.float32 and got[0].shape == nchw(x).shape
+    # f32, reductions over up to 768 values in other orders
+    np.testing.assert_allclose(nhwc(got[0]), np.asarray(want[0]), atol=1e-5, rtol=1e-5)
+    for i in (1, 2):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), atol=1e-4, rtol=1e-5)
 
 
 # -------------------------------------------------------------- schedules
