@@ -15,10 +15,13 @@ Phases (any failure exits non-zero before the final "ok" line):
                included; backward at every training shape, dgamma and dbeta bit
                for bit over two launches), and the gradients of the attention
                and GroupNorm Functions, with K1/K2 at the edges of their tiles
-               (S = 1, 127, 129, 2049; D = 8, 96; a masked key tile); K1 bit for
-               bit over two launches, K2 within the bf16 tolerance (atomics); K4
-               (f32) against its plain version and float64, with masks, and its
-               grad guard
+               (S = 1, 127, 129, 2049; D = 8, 96; a masked key tile) and at
+               B*H = 70,000; K1 bit for bit over two launches, K2's dq, dk and dv
+               bit for bit over two launches at every case; K4 (f32) against its
+               plain version and float64, with masks, on clouds built to trip
+               its candidate selection (near ties, duplicated y, x in y, a 1 cm
+               grid, 500 m from the origin), bit for bit over two launches, its
+               error model checked on the pairs it re-checks, and its grad guard
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -89,6 +92,9 @@ ATTN_CASES = [((16, 8, 2048, 32), False, False), ((16, 16, 512, 32), False, Fals
               ((4, 8, 1000, 32), False, True), ((2, 4, 333, 64), True, True),
               ((2, 2, 200, 128), False, True), ((2, 2, 130, 16), True, False)]
 SFU_EX2_PER_CLOCK = 16   # exp2 per clock per SM on Hopper (special-function unit)
+# 32-bit floating-point compare, minimum, maximum per clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput)
+FMNMX_PER_CLOCK = 64
 EVAL_METRICS = ("cd", "jsd", "mmd", "frid")   # emd holds an (N, N) matrix: checked at N = 4096
 EPS32 = float(np.finfo(np.float32).eps)
 PROFILER_TRIES = 3   # profiler sessions a device_ms tries before it takes CUDA events
@@ -136,9 +142,9 @@ def unet_evals(model, steps: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def sfu_ex2_per_ms() -> float:
-    """Exponentials a millisecond on the special-function units: 16 exp2 a
-    clock per SM at the card's maximum SM clock (nvidia-smi)."""
+def sm_clocks_per_ms() -> float:
+    """SM clocks a millisecond over the whole card: its SMs at its maximum SM
+    clock (nvidia-smi)."""
     import torch
 
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -146,8 +152,14 @@ def sfu_ex2_per_ms() -> float:
                          timeout=60)
     mhz = float(out.stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"SFU floor: {SFU_EX2_PER_CLOCK} exp2/clock/SM x {sms} SMs x {mhz:g} MHz")
-    return SFU_EX2_PER_CLOCK * sms * mhz * 1e3
+    log(f"clock for the floors: {sms} SMs x {mhz:g} MHz")
+    return sms * mhz * 1e3
+
+
+def sfu_ex2_per_ms() -> float:
+    """Exponentials a millisecond on the special-function units: 16 exp2 a
+    clock per SM."""
+    return SFU_EX2_PER_CLOCK * sm_clocks_per_ms()
 
 
 def path_name(k: int) -> str:
@@ -456,16 +468,31 @@ class Smoke:
                 want = A._attend_bwd_ref(q, k, v, o, do, lse, kb)
                 for part, g_, w_ in zip(("dq", "dk", "dv"), got, want):
                     self._check("flash_attention_bwd", g_, w_, *tol[dtype], f"{part} {what}")
-                if dtype == torch.bfloat16 and (b, h, s, d) == (16, 8, 2048, 32):
-                    # dq is summed by atomics in no fixed order: a second launch
-                    # agrees within the bf16 tolerance, not bit for bit
-                    again = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
-                    for part, g_, w_ in zip(("dq", "dk", "dv"), again, got):
-                        self._check("flash_attention_bwd", g_, w_, *tol[dtype],
-                                    f"{part} {what}: second launch vs first", record=False)
-                    log(f"  dq of two launches: {int((again[0] != got[0]).sum())} of "
-                        f"{got[0].numel()} elements differ")
-                del q, k, v, o, lse, do, got, want
+                # every sum in a fixed order (dq's partials of the key blocks
+                # in index order): a second launch gives the same bits
+                again = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
+                torch.cuda.synchronize()
+                same = [bool(torch.equal(a_, g_)) for a_, g_ in zip(again, got)]
+                log(f"  flash_attention_bwd {what} (dq over {A.dq_partials(s)} key blocks): "
+                    f"two launches bit for bit equal (dq, dk, dv): {same}")
+                if not all(same):
+                    raise AssertionError(f"K2 is not deterministic at {what}")
+                del q, k, v, o, lse, do, got, want, again
+
+        # B*H = 70,000, past the 65,535 blocks of gridDim.y: K1 and K2 put B*H
+        # on gridDim.x
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kb = attn_inputs(gen, 70000, 1, 16, 32, dtype, False, False)
+            what = f"(70000, 1, 16, 32) {str(dtype)[6:]}"
+            self._check("flash_attention", A.flash_attention(q, k, v), A._attend_ref(q, k, v),
+                        *((2e-5, 1e-4) if dtype == torch.float32 else (1e-2, 2e-2)), what)
+            o, lse = A._launch(q, k, v, None, with_lse=True)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            got = A.flash_attention_bwd(q, k, v, o, do, lse)
+            want = A._attend_bwd_ref(q, k, v, o, do, lse)
+            for part, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                self._check("flash_attention_bwd", g_, w_, *tol[dtype], f"{part} {what}")
+            del q, k, v, o, lse, do, got, want
 
         log("gradients through the Functions on CUDA vs autograd of the plain versions:")
         for dtype in (torch.float32, torch.bfloat16):
@@ -506,12 +533,15 @@ class Smoke:
     def _kernels_chamfer(self):
         """K4 against its plain version and a float64 computation: a scene
         pair, a 65,536-point pair, ragged sizes, masks (all masked gives
-        BIG exactly), identical clouds (0 exactly); and the grad guard."""
+        BIG exactly), identical clouds (0 exactly), and clouds built to trip
+        its candidate selection; two launches bit for bit; the tensor cores'
+        summation held to the model K4's bound rests on; the grad guard."""
         import torch
         from lidar_layout_tpu_torch.data.synthetic import synthetic_scene
         from lidar_layout_tpu_torch.ops import chamfer as C
         from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
         from lidar_layout_tpu_torch.sample import range_roundtrip
+        from torch_port_helpers import CHAMFER_CLOUDS, chamfer_cloud
 
         dev = torch.device("cuda")
         rng = np.random.default_rng(7)
@@ -528,17 +558,28 @@ class Smoke:
                  ("1000 x 4097 y mask", ragged[:1000] + 0.5, ragged, mask),
                  ("1000 x 4097 all masked", ragged[:1000], ragged, np.zeros(4097, bool)),
                  ("identical 4097", ragged, ragged, None)]
-        log("K4 chamfer_nn vs _nn_dist_ref (plain, f32 expansion) and float64:")
+        # the clouds of tests/test_torch_chamfer_select.py at full size:
+        # 20K-65K points a side
+        cases += [(name, *chamfer_cloud(name, 20000 if name != "1 cm grid" else 65536, 11),
+                   None) for name in sorted(CHAMFER_CLOUDS)]
+        cases.append(("offset by 500 m, range-roundtripped scenes",
+                      scenes[0] + 500.0, scenes[1] + 500.0, None))
+        log("K4 chamfer_nn vs _nn_dist_ref (plain, f32 expansion) and float64; the direct "
+            "forms it formed a point (over its splits) and its largest candidate error as a "
+            "share of the error model (at most 1.1: K4's bound is 1.1x the model, and 4x on "
+            "the tensor cores' summation term):")
         for what, xs, ys, ms in cases:
-            x, y = (torch.from_numpy(a).to(dev) for a in (xs, ys))
+            x, y = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (xs, ys))
             m = None if ms is None else torch.from_numpy(ms).to(dev)
             before = C.nn_dist_one_way.launches
             got = C.nn_dist_one_way(x, y, m)
+            again = C.nn_dist_one_way(x, y, m)
             plain = C._nn_dist_ref(x, y, m)
             d64 = C._nn_dist_ref(x.double(), y.double(), m)
+            stats, direct, splits, worst = C.nn_dist_stats(x, y, m)
             torch.cuda.synchronize()
-            if C.nn_dist_one_way.launches != before + 1:
-                raise AssertionError("K4 did not count its launch")
+            if C.nn_dist_one_way.launches != before + 3:
+                raise AssertionError("K4 did not count its launches")
             # the direct form rounds 3 differences, 3 products and 2 sums:
             # a few eps_f32 of d; the expansion cancels |x|^2 + |y|^2
             err64 = float(((got.double() - d64).abs() - 1e-6 * (1 + d64)).max())
@@ -550,15 +591,24 @@ class Smoke:
             exact = True
             if what.endswith("all masked"):
                 exact = bool((got == C.BIG).all())
-            elif what.startswith("identical"):
+            elif what.startswith("identical") or what == "x equal to some y":
                 exact = bool((got == 0).all())
-            ok = err64 <= 0 and err_exp <= 0 and exact and bool((got >= 0).all())
+            same = bool(torch.equal(got, again)) and bool(torch.equal(got, stats))
+            ok = (err64 <= 0 and err_exp <= 0 and exact and same and bool((got >= 0).all())
+                  and worst <= 1.1)
+            per_x = direct.double() / splits
             log(f"  {what} ({len(xs)} x {len(ys)}): max |K4 - f64| "
                 f"{float((got.double() - d64).abs().max()):.3e} (tol 1e-6*(1+d)), max "
                 f"|plain - K4| {float(err.max()):.3e} (tol 16 eps32 (|x|^2 + max|y|^2)), "
-                f"exact={exact} {'ok' if ok else 'FAIL'}")
+                f"exact={exact}, three launches bit for bit equal: {same}; {splits} splits, "
+                f"direct forms a point and split mean {float(per_x.mean()):.3f} max "
+                f"{float(per_x.max()):.0f}, points re-checked beyond one chunk a split "
+                f"{100 * float((direct > C.RECHECK * splits).double().mean()):.2f}%; "
+                f"largest candidate "
+                f"error {worst:.3f} of the model's bound {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K4 {what} disagrees")
+            del x, y, got, again, plain, d64, stats, direct
         x = torch.from_numpy(ragged[:100]).to(dev).requires_grad_()
         try:
             C.nn_dist_one_way(x, torch.from_numpy(ragged).to(dev))
@@ -1361,7 +1411,10 @@ class Smoke:
         """K4 over the eval's launches (reference -> sample and back for
         every pair), each set run back to back: the kernel, the plain
         version, torch.cdist squared then amin (row-chunked as the plain
-        version), and the bound summed over the launches."""
+        version), the bound summed over the launches (the larger of one
+        FMNMX a pair at 64 a clock per SM and the bytes; beside it the
+        direct form's 9 operations a pair at 67 TFLOP/s), and the share of
+        points K4 re-checked more than once a split."""
         import torch
         from lidar_layout_tpu_torch.ops import chamfer as C
 
@@ -1387,15 +1440,28 @@ class Smoke:
             "library_ms": device_ms(every(library), 1, 1)})
         for x, y in pairs:
             n, m = x.shape[0], y.shape[0]
-            tot["bound_ops_ms"] += 9 * n * m / PEAK_F32 * 1e3
+            tot["bound_ops_ms"] += n * m / (FMNMX_PER_CLOCK * sm_clocks_per_ms())
+            tot["direct_bound_ms"] += 9 * n * m / PEAK_F32 * 1e3
             tot["bound_bytes_ms"] += (12 * (n + m) + 4 * n) / HBM_BYTES_PER_S * 1e3
             tot["pairs"] += n * m
+            _, direct, splits, worst = C.nn_dist_stats(x, y)
+            tot["points"] += n
+            tot["point_splits"] += n * splits
+            tot["direct"] += int(direct.sum())
+            tot["rechecked"] += int((direct > C.RECHECK * splits).sum())
+            tot["worst"] = max(tot["worst"], worst)
         tot["bound_ms"] = max(tot["bound_ops_ms"], tot["bound_bytes_ms"])
         log(f"  K4 over the eval's {len(pairs)} launches ({tot['pairs'] / 1e9:.3f} G point "
             f"pairs): kernel {tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain "
             f"{tot['plain_ms']:.3f} | cdist^2 + amin {tot['library_ms']:.3f} | bound "
-            f"{tot['bound_ms']:.3f} (operations: 9 per pair at 67 TFLOP/s f32) | "
-            f"{9 * tot['pairs'] / tot['ms'] / 1e9:.1f} TFLOP/s")
+            f"{tot['bound_ms']:.3f} ({'operations' if tot['bound_ops_ms'] >= tot['bound_bytes_ms'] else 'bytes'}: "
+            f"one FMNMX a pair at {FMNMX_PER_CLOCK} a clock per SM; kernel at "
+            f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of it) | the direct form's bound "
+            f"{tot['direct_bound_ms']:.3f} (9 operations a pair at 67 TFLOP/s f32) | "
+            f"{tot['pairs'] / tot['ms'] / 1e9:.1f} G pairs/ms | direct forms a point and split "
+            f"{tot['direct'] / tot['point_splits']:.4f}; points re-checked (more than one "
+            f"chunk a split) {100 * tot['rechecked'] / tot['points']:.2f}%; largest "
+            f"candidate error {tot['worst']:.3f} of the model's bound")
         return tot
 
     def _timing_gn_bwd(self, gen):

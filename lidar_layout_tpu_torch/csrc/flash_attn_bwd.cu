@@ -29,16 +29,31 @@
 //     dP^T = V dO^T, then P^T = exp2(S^T * scale_log2 - lse_log2) (one FFMA
 //     and one MUFU.EX2 without a bias) and dS^T = P^T (dP^T - delta), each
 //     exponential taken once; dV += P^T dO and dK += dS^T Q in registers.
-//     dS^T goes to shared memory (bf16) and the block adds dS K for the tile
-//     into an f32 (B, H, S, D) accumulator with float4 atomicAdd (4 columns
-//     of a row a lane, after a swap between neighbouring lanes), which
-//     compiles to one vector RED.E.ADD.F32 on sm_90. A last pass scales it by
-//     D^-1/2 and writes dq in the input dtype, into dq's strides.
+//     dS^T goes to shared memory (bf16), and the block forms its partial
+//     dQ = dS K of the tile over its 128 keys.
 //     So the bf16 path takes B*H*S^2 exponentials and 10*B*H*S^2*D FLOPs.
-//   * dq is summed by atomics in no fixed order: two runs agree within the
-//     rounding of f32 sums of bf16 products (the bf16 tolerance of the
-//     checks, 1e-2 + 2e-2 |ref|, covers it, and dq is rounded to bf16 at the
-//     end). dk and dv are summed by one warp in a fixed order.
+//   * Every output is summed in a fixed order, so two launches give the
+//     same bits (the TPU kernel sums into a revisited output block, also in
+//     order). dk and dv are summed by one warp. dq sums over the key blocks
+//     of a (b, h): each block stores its f32 partial of each query tile
+//     from the fragments (plain stores into its own slice of a scratch
+//     buffer, where an earlier design added them into one accumulator by
+//     float4 RED atomics in no fixed order), and a last pass sums the
+//     partials in index order and writes dq in bf16. No block waits for
+//     another. With one key block (S <= 128) the block writes dq directly.
+//     Tried on the H100 at (16, 8, 2048, 32), in chip_smoke.py's timing
+//     phase, against 0.900 ms for the RED atomics (the partials of this
+//     design were then staged in shared memory behind a block barrier:
+//     1.195 ms; as kept, 1.047 ms): thread block clusters of 8 key blocks
+//     summing their partials through distributed shared memory, one
+//     cluster barrier a tile, 1.454 ms; the block that counts a tile last
+//     on a counter sums it (threadfence reduction), 1.251 ms, its fence on
+//     the path of every tile. Not built: ordered REDs behind a turn counter
+//     per tile (FlashAttention-3's deterministic mode), which spin on global
+//     memory and rest their progress on the order in which blocks are
+//     launched; and a separate dq pass over the key blocks in order
+//     (FlashAttention-2's split), which recomputes S, P and dP: three more
+//     products where this design adds a pass over the partials.
 //   * Copies: K and V of the block, then the Q, dO, lse and delta tiles
 //     through a ring of NS slots filled by cp.async copies (16 bytes; 4 for
 //     lse and delta, whose rows need not be 16-byte aligned), tiles j + 1 ..
@@ -51,17 +66,17 @@
 //     right before the tile's barrier.)
 //   * Two blocks (16 warps) an SM at D <= 32, so at most 128 registers a
 //     thread. Timed against it in turns on the H100 at (16, 8, 2048, 32),
-//     one block an SM (234 registers), a bulk (TMA) reduction of each dQ
-//     tile in place of the REDs, and 256-key blocks of 16 warps (half the
-//     REDs) were each slower.
+//     one block an SM (234 registers), and, while dq was summed by REDs, a
+//     bulk (TMA) reduction of each dQ tile in their place and 256-key blocks
+//     of 16 warps (half the REDs) were each slower.
 //     P, dS and their products go a k16 chunk of queries at a time, so one
 //     chunk of each is live in registers.
-//   * ptxas (sm_90a, CUDA 12.8) at D = 32: 128 registers, 8 bytes of stack,
+//   * ptxas (sm_90a, CUDA 12.8) at D = 32: 128 registers, 16 bytes of stack,
 //     60,416 bytes of dynamic shared memory a block; one MUFU.EX2 per (key,
 //     query) pair in the SASS (32 a tile of 16 x 64 per thread).
 //   * Rows past S are zero-filled, lse and delta too: there P = exp2(0) but
 //     dO = 0, so they add nothing to dV, dS = 0 adds nothing to dK, and their
-//     dq is not added. So S needs no alignment; D is padded to 16/32/64/128.
+//     dq is not stored. So S needs no alignment; D is padded to 16/32/64/128.
 //     Any strides for the b, h and s axes, as in the forward, so q, k and v
 //     can be views of one fused qkv projection and dq/dk/dv can be written in
 //     any layout.
@@ -78,7 +93,6 @@
 namespace {
 
 using namespace mma_tiles;
-
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -90,13 +104,14 @@ struct Params {
   const float* kb;   // (B, S) f32 or nullptr
   const float* lse;  // (B*H, S) f32, natural log
   float* delta;      // (B*H, S) f32, written by the first pass
-  float* dqacc;      // (B*H, S, D) f32, zeroed by the caller (bf16 path)
+  float* dqpart;     // (kblocks, B*H, S, D) f32 partials of dq (bf16 path, kblocks > 1)
   void* dq;
   void* dk;
   void* dv;
   // element strides of b, h, s for q, k, v, o, dO, dq, dk, dv
   long long qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
   int H, S, D;
+  int kblocks;       // key blocks a (b, h), ceil(S / 128)
   float scale;       // D^-1/2
   float scale_log2;  // D^-1/2 * log2(e)
 };
@@ -132,8 +147,9 @@ __device__ __forceinline__ void load8(const float* ptr, float (&out)[8]) {
 
 template <typename T>
 __global__ void __launch_bounds__(128) bwd_delta(Params p) {
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int i = blockIdx.x * 128 + threadIdx.x;
+  const int tiles = (p.S + 127) / 128;  // B*H on x with the row tiles: no 65535 limit
+  const int bh = blockIdx.x / tiles, b = bh / p.H, h = bh % p.H;
+  const int i = blockIdx.x % tiles * 128 + threadIdx.x;
   if (i >= p.S) return;
   const T* og = row_base<T>(p.o, p.os, b, h) + i * p.os[2];
   const T* dg = row_base<T>(p.dO, p.dos, b, h) + i * p.dos[2];
@@ -160,8 +176,8 @@ struct BwdTile {
   static constexpr int LD = DP + 8;              // pitch of K, V, Q, dO tiles
   static constexpr int LDS = BQ + 8;             // pitch of the dS^T tile
   // K, V; NS slots of Q and dO; dS^T; NS slots of lse and delta
-  static constexpr int kSmem =
-      (2 * kBKV + 2 * NS * BQ) * LD * 2 + kBKV * LDS * 2 + 2 * NS * BQ * 4;
+  static constexpr int kSmem = (2 * kBKV + 2 * NS * BQ) * LD * 2 + kBKV * LDS * 2 +
+                               2 * NS * BQ * 4;
 };
 
 template <int DP, bool BIAS>
@@ -188,8 +204,9 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
   float* Dl = Ls + NS * BQ;                                 // NS slots of BQ
 
   const int S = p.S, D = p.D;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kBKV;
+  const int kblk = blockIdx.x % p.kblocks;
+  const int bh = blockIdx.x / p.kblocks, b = bh / p.H, h = bh % p.H;
+  const int k0 = kblk * kBKV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
@@ -199,7 +216,6 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
   const bf16* dog = row_base<bf16>(p.dO, p.dos, b, h);
   const float* lg = p.lse + (long long)bh * S;
   const float* dg = p.delta + (long long)bh * S;
-  float* acc = p.dqacc + (long long)bh * S * D;
   float kb0 = 0.f, kb1 = 0.f;
   if (BIAS) {
     const float* kbr = p.kb + (long long)b * S;
@@ -207,6 +223,33 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
     if (kr1 < S) kb1 = kbr[kr1] * kLog2e;
   }
   const int nq = (S + BQ - 1) / BQ;
+  const int rg = warp % RG, dgp = warp / RG;  // this warp's dQ rows and columns
+
+  // this block's f32 partial of dq
+  float* part = p.kblocks > 1
+                    ? p.dqpart + ((long long)kblk * (gridDim.x / p.kblocks) + bh) * S * D
+                    : nullptr;
+  // this block's partial of query tile jt from its warps' dQ fragments (dq
+  // itself in bf16 when the block is the (b, h)'s only key block)
+  auto store_tile = [&](int jt, const float (&f)[NDW][4]) {
+#pragma unroll
+    for (int n = 0; n < NDW; ++n) {
+      const int c = (dgp * NDW + n) * 8 + 2 * t;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = jt * BQ + rg * 16 + g + 8 * hf;
+        if (row < S && c < D) {
+          if (p.kblocks > 1)
+            *reinterpret_cast<float2*>(part + (long long)row * D + c) =
+                make_float2(f[n][2 * hf], f[n][2 * hf + 1]);
+          else
+            *reinterpret_cast<uint32_t*>(row_base_w<bf16>(p.dq, p.dqs, b, h) +
+                                         row * p.dqs[2] + c) =
+                pack_bf16(f[n][2 * hf] * p.scale, f[n][2 * hf + 1] * p.scale);
+        }
+      }
+    }
+  };
 
   auto issue = [&](int j) {  // copies of query tile j into slot j % NS
     if (j < nq) {
@@ -234,7 +277,6 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
   const int rofs = b_rows_offset(lane, LD), tofs = b_trans_offset(lane, LD);
-  const int rg = warp % RG, dgp = warp / RG;  // this warp's dQ rows and columns
 
   for (int j = 0; j < nq; ++j) {
     cp_async_wait<NS - 2>();  // this thread's copies of tile j have landed
@@ -322,8 +364,8 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
     }
     __syncthreads();  // the dS^T tile is complete
 
-    // dQ (16 queries x NDW n8 tiles of D per warp) += dS K over the block's
-    // keys, added to the f32 accumulator
+    // dQ (16 queries x NDW n8 tiles of D per warp) = dS K over the block's
+    // keys, this block's partial of the tile
     float dq[NDW][4];
 #pragma unroll
     for (int n = 0; n < NDW; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
@@ -346,20 +388,7 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
         }
       }
     }
-    // lanes t and t ^ 1 swap halves, so that each adds 4 consecutive columns
-    // of one row (an even lane row g, an odd lane row g + 8) in one float4 RED
-    const bool odd = t & 1;
-    const int qrow = j * BQ + rg * 16 + g + (odd ? 8 : 0);
-#pragma unroll
-    for (int n = 0; n < NDW; ++n) {
-      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? dq[n][0] : dq[n][2], 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? dq[n][1] : dq[n][3], 1);
-      const int c = (dgp * NDW + n) * 8 + 2 * t - (odd ? 2 : 0);
-      if (c < D && qrow < S)
-        atomicAdd(reinterpret_cast<float4*>(acc + (long long)qrow * D + c),
-                  odd ? make_float4(r0, r1, dq[n][2], dq[n][3])
-                      : make_float4(dq[n][0], dq[n][1], r0, r1));
-    }
+    store_tile(j, dq);
   }
   cp_async_wait<0>();  // no copy may outlive the block
 
@@ -382,21 +411,28 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
   }
 }
 
-// dq = D^-1/2 * the f32 accumulator, in bf16 into dq's strides; one thread
-// per 8 columns of a row
-__global__ void __launch_bounds__(256) bwd_dq_store(Params p, long long total) {
+// dq = D^-1/2 * the key blocks' f32 partials summed in index order, in bf16
+// into dq's strides; one thread per 8 columns of a row
+__global__ void __launch_bounds__(256) bwd_dq_sum(Params p, long long total) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= total) return;
   const int vpr = p.D / 8;
   const long long row = i / vpr;  // over B*H*S
   const int c = (int)(i % vpr) * 8;
   const int bh = (int)(row / p.S), r = (int)(row % p.S);
-  float a[8];
-  load8(p.dqacc + row * p.D + c, a);
+  const long long stride = total / vpr * p.D;  // elements of one partial, B*H*S*D
+  const float* src = p.dqpart + row * p.D + c;
+  float a[8], e[8];
+  load8(src, a);
+  for (int q = 1; q < p.kblocks; ++q) {
+    load8(src + q * stride, e);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] += e[k];
+  }
   uint4 out;
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) o[e] = pack_bf16(a[2 * e] * p.scale, a[2 * e + 1] * p.scale);
+  for (int k = 0; k < 4; ++k) o[k] = pack_bf16(a[2 * k] * p.scale, a[2 * k + 1] * p.scale);
   *reinterpret_cast<uint4*>(row_base_w<bf16>(p.dq, p.dqs, bh / p.H, bh % p.H) + r * p.dqs[2] +
                             c) = out;
 }
@@ -450,8 +486,9 @@ __global__ void __launch_bounds__(128) bwd_dkdv_f32(Params p) {
   __shared__ float Ls[kTileF], Ds[kTileF];
 
   const int S = p.S, D = p.D;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int key = blockIdx.x * kRowsF + threadIdx.x;
+  const int tiles = (S + kRowsF - 1) / kRowsF;
+  const int bh = blockIdx.x / tiles, b = bh / p.H, h = bh % p.H;
+  const int key = blockIdx.x % tiles * kRowsF + threadIdx.x;
   const float* qg = row_base<float>(p.q, p.qs, b, h);
   const float* dog = row_base<float>(p.dO, p.dos, b, h);
   const float* lg = p.lse + (long long)bh * S;
@@ -503,8 +540,9 @@ __global__ void __launch_bounds__(128) bwd_dq_f32(Params p) {
   __shared__ float Bs[kTileF];
 
   const int S = p.S, D = p.D;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int qi = blockIdx.x * kRowsF + threadIdx.x;
+  const int tiles = (S + kRowsF - 1) / kRowsF;
+  const int bh = blockIdx.x / tiles, b = bh / p.H, h = bh % p.H;
+  const int qi = blockIdx.x % tiles * kRowsF + threadIdx.x;
   const float* kg = row_base<float>(p.k, p.ks, b, h);
   const float* vg = row_base<float>(p.v, p.vs, b, h);
   const float* kbr = p.kb ? p.kb + (long long)b * S : nullptr;
@@ -551,14 +589,14 @@ cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
                          cudaSharedmemCarveoutMaxShared);
     ready = true;
   }
-  bwd_bf16<DP, BIAS><<<dim3((p.S + kBKV - 1) / kBKV, B * p.H), kNWB * 32, smem, stream>>>(p);
+  bwd_bf16<DP, BIAS><<<p.kblocks * B * p.H, kNWB * 32, smem, stream>>>(p);  // B*H on x
   return cudaGetLastError();
 }
 
 template <int DP>
 int launch(const Params& p, int B, int dtype, cudaStream_t stream) {
   const int bh = B * p.H;
-  const dim3 rows128((p.S + 127) / 128, bh);
+  const dim3 rows128((p.S + 127) / 128 * bh);  // B*H on x with the row tiles
   cudaError_t err;
   if (dtype == 0) {
     bwd_delta<float><<<rows128, 128, 0, stream>>>(p);
@@ -571,8 +609,10 @@ int launch(const Params& p, int B, int dtype, cudaStream_t stream) {
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     err = p.kb ? launch_bf16<DP, true>(p, B, stream) : launch_bf16<DP, false>(p, B, stream);
     if (err != cudaSuccess) return (int)err;
-    const long long total = (long long)bh * p.S * (p.D / 8);
-    bwd_dq_store<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(p, total);
+    if (p.kblocks > 1) {
+      const long long total = (long long)bh * p.S * (p.D / 8);
+      bwd_dq_sum<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(p, total);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -582,17 +622,19 @@ int launch(const Params& p, int B, int dtype, cudaStream_t stream) {
 // q, k, v, o, dO, dq, dk, dv: (B, H, S, D) with any b/h/s element strides and
 // contiguous d, 16-byte aligned rows; strides holds 24 values, (b, h, s) for
 // each in that order. kbias: (B, S) float32 or null. lse: (B, H, S) float32
-// from the forward (natural log); delta: (B, H, S) float32 scratch; dqacc:
-// (B, H, S, D) float32 scratch, zeroed, for bfloat16 (null for float32).
-// dtype: 0 = float32, 1 = bfloat16. D % 8 == 0, D <= 128.
-// Returns the first CUDA error of its launches, or 0.
+// from the forward (natural log); delta: (B, H, S) float32 scratch. For
+// bfloat16 with S > 128, dqpart: (ceil(S / 128), B, H, S, D) float32
+// scratch, else it may be null. dtype: 0 = float32, 1 = bfloat16. D % 8 == 0,
+// D <= 128. Returns the first CUDA error of its launches, or 0.
 extern "C" int llt_flash_attn_bwd(const void* q, const void* k, const void* v,
                                   const void* o, const void* dO, const void* kbias,
-                                  const void* lse, void* delta, void* dqacc, void* dq,
-                                  void* dk, void* dv, const long long* strides, int dtype,
-                                  int B, int H, int S, int D, void* stream) {
-  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && dqacc == nullptr))
+                                  const void* lse, void* delta, void* dqpart, void* dq,
+                                  void* dk, void* dv, const long long* strides,
+                                  int dtype, int B, int H, int S, int D, void* stream) {
+  const int kb = (S + kBKV - 1) / kBKV;
+  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1) || S <= 0 ||
+      (dtype == 1 && kb > 1 && dqpart == nullptr) ||
+      (long long)B * H * kb > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -603,7 +645,8 @@ extern "C" int llt_flash_attn_bwd(const void* q, const void* k, const void* v,
   p.kb = static_cast<const float*>(kbias);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<float*>(delta);
-  p.dqacc = static_cast<float*>(dqacc);
+  p.dqpart = static_cast<float*>(dqpart);
+  p.kblocks = kb;
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;

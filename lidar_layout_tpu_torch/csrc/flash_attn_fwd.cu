@@ -125,8 +125,9 @@ __global__ void __launch_bounds__(FwdTile<DP>::NW * 32, DP <= 64 ? 2 : 1)
   float* Bs = reinterpret_cast<float*>(Vs + NS * BK * LD);  // NS rows of BK
 
   const int S = p.S, D = p.D;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBQ;
+  const int tiles = (p.S + kBQ - 1) / kBQ;  // B*H on x with the tiles: no 65535 limit
+  const int bh = blockIdx.x / tiles, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x % tiles * kBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const float sl2 = p.scale_log2;
@@ -326,8 +327,9 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
   __shared__ __align__(16) float Vs[kKF][DP];
 
   const int S = p.S, D = p.D;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int qi = blockIdx.x * kQF + threadIdx.x;
+  const int tiles = (p.S + kQF - 1) / kQF;
+  const int bh = blockIdx.x / tiles, b = bh / p.H, h = bh % p.H;
+  const int qi = blockIdx.x % tiles * kQF + threadIdx.x;
   const float* qg = static_cast<const float*>(p.q) + b * p.qs[0] + h * p.qs[1];
   const float* kg = static_cast<const float*>(p.k) + b * p.ks[0] + h * p.ks[1];
   const float* vg = static_cast<const float*>(p.v) + b * p.vs[0] + h * p.vs[1];
@@ -410,14 +412,14 @@ void launch_bf16(const Params& p, int B, cudaStream_t stream) {
                          cudaSharedmemCarveoutMaxShared);
     ready = true;
   }
-  dim3 grid((p.S + kBQ - 1) / kBQ, B * p.H);
+  const dim3 grid((p.S + kBQ - 1) / kBQ * B * p.H);
   attn_fwd_bf16<DP, BIAS><<<grid, T::NW * 32, T::kSmem, stream>>>(p);
 }
 
 template <int DP>
 void launch(const Params& p, int B, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
-    dim3 grid((p.S + kQF - 1) / kQF, B * p.H);
+    const dim3 grid((p.S + kQF - 1) / kQF * B * p.H);
     attn_fwd_f32<DP><<<grid, kQF, 0, stream>>>(p);
   } else if (p.kb) {
     launch_bf16<DP, true>(p, B, stream);
@@ -437,7 +439,9 @@ extern "C" int llt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   const void* kbias, void* o, void* lse,
                                   const long long* strides, int dtype, int B,
                                   int H, int S, int D, void* stream) {
-  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1))
+  // one block per (query tile, b*h), all on gridDim.x (at most 2^31 - 1)
+  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1) || S <= 0 ||
+      (long long)B * H * ((S + kQF - 1) / kQF) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;

@@ -32,7 +32,7 @@ SIGNATURES = {
     "group_norm": ("llt_group_norm_fwd", [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "group_norm_bwd": ("llt_group_norm_bwd", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "group_norm_path": ("llt_group_norm_path", [_I] * 5),
-    "chamfer_nn": ("llt_chamfer_nn", [_P] * 4 + [_I] * 2 + [_P]),
+    "chamfer_nn": ("llt_chamfer_nn", [_P] * 7 + [_I] * 2 + [_P]),
 }
 SOURCE_OF = {"group_norm_bwd": "group_norm", "group_norm_path": "group_norm"}
 

@@ -107,8 +107,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"self-attention needs equal q/k/v shapes, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, h, _, d = q.shape
-    if d % 8 or d > 128 or b * h > 65535:
+    b, h, s, d = q.shape
+    if d % 8 or d > 128 or s == 0 or b * h * -(-s // 128) > 2**31 - 1:
         raise ValueError(f"unsupported attention shape {tuple(q.shape)}")
 
 
@@ -154,6 +154,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+_KEY_BLOCK = 128   # keys a K2 block owns (kBKV in flash_attn_bwd.cu)
+
+
+def dq_partials(s: int) -> int:
+    """f32 partials of dq that K2's bf16 path writes at sequence length s,
+    one a key block of 128 keys, summed in index order by a last pass."""
+    return -(-s // _KEY_BLOCK)
+
+
 def _launch_bwd(q, k, v, o, do, lse, kbias):
     _check_inputs(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
@@ -164,17 +173,17 @@ def _launch_bwd(q, k, v, o, do, lse, kbias):
     o, do = (_kernel_ready(t.to(q.dtype)) for t in (o, do))
     lse = lse.to(torch.float32).contiguous()
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    # bf16: the main pass adds dS K into this f32 sum with atomics, and a
-    # last pass scales it into dq; the f32 path writes dq directly
-    dqacc = (torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
-             if q.dtype == torch.bfloat16 else None)
+    # bf16 over more than one key block: each block's f32 partial of dq
+    blocks = dq_partials(s)
+    dqpart = (torch.empty((blocks, b, h, s, d), dtype=torch.float32, device=q.device)
+              if q.dtype == torch.bfloat16 and blocks > 1 else None)
     dq, dk, dv = _bshd_empty(q), _bshd_empty(q), _bshd_empty(q)
     kbias = _bias_ready(kbias, q)
     strides = _strides(q, k, v, o, do, dq, dk, dv)
     status = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         None if kbias is None else kbias.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        None if dqacc is None else dqacc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        None if dqpart is None else dqpart.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, d,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -240,11 +249,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def _supports_flash(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """Gate on BSHD tensors: S in shape[-3], D in shape[-1]. The kernel masks
-    the ragged S edge, so the TPU kernel's S % 128 rule is gone."""
-    return (q.shape[-3] == k.shape[-3] and q.shape[-1] <= 128
-            and q.shape[-1] % 8 == 0)
+def _supports_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Gate on BSHD tensors, by shape and dtype alone: self-attention
+    shapes (q, k and v alike, S in shape[-3]), D in shape[-1] a multiple of 8
+    up to 128, one float32 or bfloat16 dtype. The kernels mask the ragged S
+    edge, so the TPU kernel's S % 128 rule is gone, and they take any B*H.
+    Anything else goes to plain attention, as JAX's ``attend`` sends what its
+    kernel does not take to XLA."""
+    return (q.ndim == 4 and q.shape == k.shape == v.shape and q.shape[-3] > 0
+            and q.shape[-1] <= 128 and q.shape[-1] % 8 == 0
+            and q.dtype in _DTYPES and k.dtype == v.dtype == q.dtype)
 
 
 def _key_padding_bias(mask: Optional[torch.Tensor], b: int,
@@ -277,7 +291,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """BSHD attention: self-attention-shaped inputs (also key-padding-masked
     ones) go through ``flash_attention``; everything else (other masks,
     cross-length) through plain attention."""
-    if _supports_flash(q, k):
+    if _supports_flash(q, k, v):
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         if mask is None:
             return flash_attention(qh, kh, vh).transpose(1, 2)

@@ -169,6 +169,44 @@ def test_gpu_attention_tile_edges_match_plain(cuda_device, dtype):
             assert (g.float() - w.float()).abs().max().item() <= tol
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_attention_bwd_is_deterministic(cuda_device, dtype):
+    # dq sums the key blocks' partials in index order; dk and dv in one
+    # warp: two launches give the same bits at the training shapes and the
+    # tile edges
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    cases = [((16, 8, 2048, 32), True, False), ((16, 16, 512, 32), True, False),
+             ((16, 32, 128, 32), True, False)] + ATTN_EDGE_CASES
+    for (b, h, s, d), fused, masked in cases:
+        q, k, v, kb = attn_inputs(gen, b, h, s, d, dt, fused, masked)
+        o, lse = A._launch(q, k, v, kb, with_lse=True)
+        do = torch.randn(q.shape, generator=gen, device=cuda_device).to(dt)
+        first = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
+        second = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, second)), (b, h, s, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_attention_past_65535_batch_heads(cuda_device, dtype):
+    # B*H = 70,000 sits on gridDim.x with the tiles, past gridDim.y's limit
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v, _ = attn_inputs(gen, 70000, 1, 16, 32, dt, False, False)
+    o, lse = A._launch(q, k, v, None, with_lse=True)
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    assert (o.float() - A._attend_ref(q, k, v).float()).abs().max().item() <= tol
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(dt)
+    got = A.flash_attention_bwd(q, k, v, o, do, lse)
+    want = A._attend_bwd_ref(q, k, v, o, do, lse)
+    for g, w in zip(got, want):
+        tol = 1e-4 if dt == torch.float32 else 1e-2 + 2e-2 * float(w.float().abs().max())
+        assert (g.float() - w.float()).abs().max().item() <= tol
+
+
 def _qkv_leaves(t):
     q, k, v = (t[:, :, :, i].transpose(1, 2) for i in range(3))
     return q, k, v
@@ -295,6 +333,28 @@ def test_gpu_chamfer_kernel_matches_plain_and_float64(cuda_device):
     assert (C.nn_dist_one_way(y, y) == 0).all()
     none = torch.zeros(4097, dtype=torch.bool, device=cuda_device)
     assert (C.nn_dist_one_way(y[:100], y, none) == C.BIG).all()
+
+
+@pytest.mark.gpu
+def test_gpu_chamfer_selection_on_adversarial_clouds(cuda_device):
+    # the clouds of test_torch_chamfer_select.py, at a few thousand points:
+    # float64 within 1e-6 (1 + d), 0 where x lies in y, bit for bit over two
+    # launches, and the emulation of both stages gives the same values
+    from lidar_layout_tpu_torch.ops import chamfer as C
+    from torch_port_helpers import CHAMFER_CLOUDS, chamfer_cloud
+
+    for name in sorted(CHAMFER_CLOUDS):
+        x, y = (torch.from_numpy(a).to(cuda_device) for a in chamfer_cloud(name, 3000, 4))
+        got = C.nn_dist_one_way(x, y)
+        again = C.nn_dist_one_way(x, y)
+        d64 = C._nn_dist_ref(x.double(), y.double())
+        emulated, _ = C._nn_dist_emulated(x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), name
+        assert ((got.double() - d64).abs() <= 1e-6 * (1 + d64)).all(), name
+        assert ((got.double() - emulated.double()).abs() <= 1e-6 * (1 + d64)).all(), name
+        if name == "x equal to some y":
+            assert (got == 0).all()
 
 
 @pytest.mark.gpu

@@ -58,9 +58,9 @@ def test_attend_routes_like_jax():
     q = torch.from_numpy(rng.standard_normal((2, 100, 4, 16)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((2, 100, 4, 16)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((2, 100, 4, 16)).astype(np.float32))
-    assert A._supports_flash(q, k)
-    assert not A._supports_flash(q, k[:, :50])
-    assert not A._supports_flash(q[..., :12], k[..., :12])
+    assert A._supports_flash(q, k, v)
+    assert not A._supports_flash(q, k[:, :50], v[:, :50])
+    assert not A._supports_flash(q[..., :12], k[..., :12], v[..., :12])
     mask = torch.from_numpy(rng.random((2, 1, 1, 100)) > 0.2)
     mask[:, :, :, 0] = True
     kb = A._key_padding_bias(mask, 2, 100)

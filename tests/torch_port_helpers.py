@@ -59,6 +59,63 @@ ATTN_EDGE_CASES = [((2, 2, 1, 32), False, False), ((2, 2, 127, 32), False, True)
                    ((2, 2, 384, 32), False, "tile")]
 
 
+def _scene(rng: np.random.Generator, n: int) -> np.ndarray:
+    from lidar_layout_tpu_torch.data.synthetic import synthetic_scene
+
+    return synthetic_scene(np.random.default_rng(int(rng.integers(1 << 30))), n)
+
+
+def _near_ties(rng, n):
+    # each x has two y whose squared distances to it differ by 1e-7 relative,
+    # among far filler points
+    x = rng.uniform(-40, 40, (n, 3))
+    u = rng.normal(size=(n, 2, 3))
+    u /= np.linalg.norm(u, axis=2, keepdims=True)
+    r = rng.uniform(0.05, 0.5, (n, 1))
+    filler = rng.uniform(-60, 60, (n, 3))
+    return x, np.concatenate([x + r * u[:, 0], x + r * np.sqrt(1 + 1e-7) * u[:, 1], filler])
+
+
+def _duplicated(rng, n):
+    y = rng.uniform(-30, 30, (n, 3))
+    return rng.uniform(-30, 30, (2 * n, 3)), rng.permutation(np.concatenate([y, y, y]))
+
+
+def _x_in_y(rng, n):
+    y = rng.uniform(-50, 50, (3 * n, 3))
+    return y[rng.choice(3 * n, n, replace=False)], y
+
+
+def _grid_1cm(rng, n):
+    side = max(int(round((n / 4) ** 0.5)), 2)
+    g = np.stack(np.meshgrid(np.arange(side), np.arange(side), np.arange(4), indexing="ij"),
+                 -1).reshape(-1, 3) * 0.01 + np.array([30.0, 10.0, -1.5])
+    x = np.concatenate([g[rng.choice(len(g), n // 3, replace=False)],
+                        g[rng.choice(len(g), n)] + rng.uniform(-0.005, 0.005, (n, 3))])
+    return x, g
+
+
+def _offset_500m(rng, n):
+    return _scene(rng, n) + 500.0, _scene(rng, n) + 500.0
+
+
+def _scene_pair(rng, n):
+    return _scene(rng, n), _scene(rng, n * 6 // 5)
+
+
+# clouds built to trip K4's candidate selection: name -> fn(rng, n) giving
+# (x, y) of about n to 3n points each
+CHAMFER_CLOUDS = {"near ties": _near_ties, "duplicated y": _duplicated,
+                  "x equal to some y": _x_in_y, "1 cm grid": _grid_1cm,
+                  "offset by 500 m": _offset_500m, "scene pair": _scene_pair}
+
+
+def chamfer_cloud(name: str, n: int, seed: int = 0):
+    """(x, y) contiguous float32 numpy arrays of CHAMFER_CLOUDS[name]."""
+    x, y = CHAMFER_CLOUDS[name](np.random.default_rng(seed), n)
+    return (np.ascontiguousarray(x, dtype=np.float32), np.ascontiguousarray(y, dtype=np.float32))
+
+
 def attn_inputs(gen: torch.Generator, b: int, h: int, s: int, d: int, dtype: torch.dtype,
                 fused: bool, masked):
     """q, k, v (B, H, S, D) and a key bias on ``gen``'s device: q, k, v as
