@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,kernels,train_slice,train
     python3 chip_smoke.py --phases device,build,kernels,eval_slice,eval
+    python3 chip_smoke.py --phases device,build,kernels,layout_slice,layout
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero before the final "ok" line):
                plain version and float64, with masks, on clouds built to trip
                its candidate selection (near ties, duplicated y, x in y, a 1 cm
                grid, 500 m from the origin), bit for bit over two launches, its
-               error model checked on the pairs it re-checks, and its grad guard
+               error model checked on the pairs it re-checks, and its grad guard;
+               K3 also at every group shape of the layout path (the layout
+               U-Net at batch 16 and, guided, 32; the nuScenes VQ decoder)
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -39,14 +42,25 @@ Phases (any failure exits non-zero before the final "ok" line):
                DPM-20 at batch 16, bf16; 32 synthetic references range-
                roundtripped on the card; CD, JSD, MMD, FRID; launch counts; the
                device-side statistics of JSD, MMD and FRID against the host's
+  layout_slice the full-width layout-conditioned model, f32, batch 2, seeded
+               weights: layout encoding, DDIM-4 with cfg_scale 2.0 and decode on
+               the card (K3) vs on the CPU (plain versions)
+  layout       GenerationPipeline.from_config of the layout model at full width,
+               bf16: 32 synthetic layouts encoded, generate(32) at batch 16 with
+               DPM-20 and DDIM-50, each at cfg_scale 1.0 and 2.0 (the all-padding
+               layout's encoding as uncond); samples/s, phase split, peak memory,
+               K3 launches against the model's structure and module hooks (no
+               other kernel), finite (32, 32, 1024, 1) images, and different
+               images from different layouts
   timing       per-kernel device times at the main paths' shapes beside the
                plain version, one PyTorch library call and the card's bound,
                and for K1/K2 the special-function unit's floor for their
                exponentials; K3 also summed by shape class, and its backward a
                training step (K4 at the eval's clouds, so it needs the eval
-               phase)
-  profile      (only when named) device time of one DPM-20 request and of one
-               training step by kernel family
+               phase); K3 also at the layout path's shapes, summed over the
+               guided layout run
+  profile      (only when named) device time of one DPM-20 request, of one
+               guided layout request and of one training step by kernel family
 
 The weights are random, drawn from a seed (no trained checkpoint is used). It
 imports nothing of JAX.
@@ -66,7 +80,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "eval_slice",
-          "eval", "timing")
+          "eval", "layout_slice", "layout", "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -75,6 +89,7 @@ PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 TRAIN_BATCH, TRAIN_STEPS = 16, 10   # the training path: timed steps at batch 16
 OVERFIT_STEPS, OVERFIT_LR = 30, 1e-4
+LAYOUT_CFG_SCALE = 2.0   # the guided layout run: DPM-20, generate(32) at batch 16
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -273,6 +288,9 @@ class Smoke:
         self.train_shapes = None   # the same for one training step
         self.eval_launches = {}
         self.eval_clouds = None    # the eval's (reference, sample) clouds: K4's shapes
+        self.layout_shapes = None  # K3's layout-path launches by (shape, origin)
+        self.layout_launches = {}
+        self.layout_totals = {}
 
     # ------------------------------------------------------------------ device
     def device(self):
@@ -342,13 +360,16 @@ class Smoke:
             if not same:
                 raise AssertionError("K1 is not deterministic")
 
-        log("K3 group_norm vs _ref (at every main-path shape, then shapes that take the "
-            "two-sweep path: H*W not a multiple of the 16-byte pack, and a span of 4 or 8 MB):")
-        shapes = self._main_shapes()["group_norm"]
+        log("K3 group_norm vs _ref (at every main-path shape and every layout-path shape: the "
+            "layout U-Net at batch 16 and, guided, 32, the nuScenes VQ decoder; then shapes "
+            "that take the two-sweep path: H*W not a multiple of the 16-byte pack, and a span "
+            "of 4 or 8 MB):")
+        shapes = ({k[:5] for k in self._main_shapes()["group_norm"]}
+                  | {k[0][:5] for k in self._layout_shapes()})
         sweep = [(2, 40, 5, 7, 20), (1, 64, 128, 1024, 4)]
         paths = set()
         for dtype in (torch.float32, torch.bfloat16):
-            for (bsz, c, hh, ww, groups) in sorted({k[:5] for k in shapes}) + sweep:
+            for (bsz, c, hh, ww, groups) in sorted(shapes) + sweep:
                 x = (torch.randn((bsz, c, hh, ww), generator=gen, device=dev) * 2 + 0.3).to(dtype)
                 gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
                 beta = 0.1 * torch.randn(c, generator=gen, device=dev)
@@ -1227,12 +1248,185 @@ class Smoke:
         del model, pipe, net, feature_fn
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------- layout-path shapes
+    def _layout_shapes(self):
+        """K3 calls of one layout request (DPM-20, batch 16) by (shape, origin):
+        the U-Net at batch 16 ("unet cfg 1") and at the guided request's
+        doubled batch 32 ("unet cfg 2"), and the decoder ("decoder"); hooks on
+        one eval of each record them."""
+        if self.layout_shapes is not None:
+            return self.layout_shapes
+        import torch
+        from lidar_layout_tpu_torch.flagship import layout_flagship
+        from lidar_layout_tpu_torch.models.samplers import _tree_cat
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+        model, _ = layout_flagship(dtype=torch.bfloat16)
+        seen = collections.Counter()
+        phase = {"n": unet_evals(model, 20), "where": "unet cfg 1"}
+
+        def norm_hook(mod, args):
+            b, c, h, w = args[0].shape
+            seen[(b, c, h, w, mod.num_groups, mod.act), phase["where"]] += phase["n"]
+
+        hooks = [m.register_forward_pre_hook(norm_hook)
+                 for part in (model.unet, model.first_stage_model.decoder)
+                 for m in part.modules() if isinstance(m, Normalize)]
+        lh, lw, lc = model.cfg.latent_shape
+        with torch.inference_mode():
+            cond = model.get_learned_conditioning(np.zeros((BATCH, 13, 13), np.float32))
+            z = torch.randn((BATCH, lh, lw, lc), device="cuda")
+            t = torch.full((BATCH,), 500, device="cuda")
+            model.apply_model(z, t, cond)        # one eval, counted for each of a request's
+            phase["where"] = "unet cfg 2"
+            model.apply_model(torch.cat([z, z]), torch.cat([t, t]), _tree_cat(cond, cond))
+            phase.update(n=1, where="decoder")
+            model.decode_first_stage(z)
+        for hk in hooks:
+            hk.remove()
+        del model
+        torch.cuda.empty_cache()
+        self.layout_shapes = seen
+        for origin in ("unet cfg 1", "unet cfg 2", "decoder"):
+            cnt = {k: n for (k, o), n in seen.items() if o == origin}
+            log(f"layout-path K3 launches per DPM-20 request (batch {BATCH}), {origin}: "
+                f"{sum(cnt.values())} over {len(cnt)} shapes")
+        return seen
+
+    # ------------------------------------------------------------ layout_slice
+    def layout_slice(self):
+        """The full-width layout model, f32, batch 2, seeded weights: layout
+        encoding, guided DDIM-4 and decode on the card (K3) and on the CPU
+        (plain versions), from the same x_T and layouts."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_layouts
+        from lidar_layout_tpu_torch.flagship import layout_flagship
+        from lidar_layout_tpu_torch.models.samplers import ddim_sample
+        from lidar_layout_tpu_torch.ops.lidar import NUSCENES_GEOMETRY
+
+        model_gpu, _ = layout_flagship(device="cuda")
+        seed_weights(model_gpu, 0)
+        model_cpu, _ = layout_flagship(device="cpu")
+        model_cpu.load_state_dict({k: v.cpu() for k, v in model_gpu.state_dict().items()})
+        layouts = synthetic_layouts(np.random.default_rng(7), 2, NUSCENES_GEOMETRY)
+        lh, lw, lc = model_gpu.cfg.latent_shape
+        x_T = torch.randn((2, lh, lw, lc), generator=torch.Generator().manual_seed(3))
+        out = {}
+        for name, model, dev in (("cuda", model_gpu, "cuda"), ("cpu", model_cpu, "cpu")):
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                c = model.get_learned_conditioning(layouts)
+                u = model.get_learned_conditioning(np.zeros_like(layouts))
+                z = ddim_sample(model, x_T.shape, steps=4, cond=c, uncond=u,
+                                cfg_scale=LAYOUT_CFG_SCALE, x_T=x_T, device=dev)
+                zq = model.first_stage_model.quantize((z / model.cfg.scale_factor)
+                                                      .permute(0, 3, 1, 2))[2]
+                img = model.decode_first_stage(z)
+                out[name] = ({k: v.cpu() for k, v in c.items()}, z.cpu(), zq.cpu(), img.cpu())
+            log(f"layout_slice on {name}: {time.perf_counter() - t0:.1f} s")
+        with torch.inference_mode():   # the card's latent decoded on the CPU too
+            img_cpu_same = model_cpu.decode_first_stage(out["cuda"][1])
+        (c_g, z_g, idx_g, img_g), (c_c, z_c, idx_c, _) = out["cuda"], out["cpu"]
+        cerr = max(max_err(c_g[k], c_c[k])[0] / max(1.0, max_err(c_g[k], c_c[k])[1])
+                   for k in c_c if c_c[k].dtype != torch.bool)
+        mask_same = bool(torch.equal(c_g["key_padding_mask"], c_c["key_padding_mask"]))
+        zerr, zscale = max_err(z_g, z_c)
+        agree = float((idx_g == idx_c).float().mean())
+        ierr, iscale = max_err(img_g, img_cpu_same)
+        log(f"layout_slice: encoder outputs max err/max(1, |ref|max) {cerr:.3e}, padding mask "
+            f"equal {mask_same}; latent max_abs_err={zerr:.3e} (|z|max {zscale:.3e}); VQ "
+            f"index agreement {agree:.5f}; same-latent decode: image max_abs_err={ierr:.3e} "
+            f"(|img|max {iscale:.3e})")
+        # the slice phase's tolerances (f32, TF32 off, other summation orders
+        # amplified by the sampler; VQ near-ties may flip an index); the
+        # encoder, one transformer with no sampler behind it, to 1e-4
+        if not (cerr <= 1e-4 and mask_same and zerr <= 1e-3 * max(zscale, 1.0)
+                and agree >= 0.99 and ierr <= 1e-3 * max(1.0, iscale)):
+            raise AssertionError("card layout slice disagrees with the CPU slice")
+        if not bool(torch.isfinite(img_g).all()) or img_g.shape != (2, 32, 1024, 1):
+            raise AssertionError(f"card layout slice image {tuple(img_g.shape)} not finite "
+                                 f"or of the wrong shape")
+        del model_gpu, model_cpu
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ layout
+    def layout(self):
+        """Serving the layout-conditioned model at full width through the
+        entry points a user calls: from_config, get_learned_conditioning,
+        generate with cond, uncond and cfg_scale."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_layouts
+        from lidar_layout_tpu_torch.flagship import LAYOUT_YAML
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+        from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+
+        pipe = GenerationPipeline.from_config(LAYOUT_YAML, dataset="32", bf16=True)
+        model = pipe.model
+        seed_weights(model, 0)   # else the zero-initialised projections leave layouts unread
+        card = card_line()
+        n, batch = N_MAIN, BATCH
+        layouts = synthetic_layouts(np.random.default_rng(11), n, pipe.geom)
+        with torch.inference_mode():
+            cond = model.get_learned_conditioning(layouts)
+            uncond = model.get_learned_conditioning(np.zeros((batch, 13, 13), np.float32))
+        unet_norms = sum(isinstance(m, Normalize) for m in model.unet.modules())
+        dec_norms = sum(isinstance(m, Normalize)
+                        for m in model.first_stage_model.decoder.modules())
+        hooked = collections.Counter()
+        hooks = [m.register_forward_pre_hook(lambda mod, args: hooked.update(["gn"]))
+                 for part in (model.unet, model.first_stage_model.decoder)
+                 for m in part.modules() if isinstance(m, Normalize)]
+        first = {k: v[:batch] for k, v in cond.items()}
+        for sampler, steps, scale in (("dpm", 20, 1.0), ("dpm", 20, LAYOUT_CFG_SCALE),
+                                      ("ddim", 50, 1.0), ("ddim", 50, LAYOUT_CFG_SCALE)):
+            pipe.sampler, pipe.steps = sampler, steps
+            u = uncond if scale != 1.0 else None
+            pipe.generate(batch, seed=99, batch=batch, cond=first, uncond=u, cfg_scale=scale)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            hooked.clear()
+            res = pipe.generate(n, seed=0, batch=batch, cond=cond, uncond=u, cfg_scale=scale)
+            got = read_counts()
+            evals = unet_evals(model, steps)
+            want = {name: 0 for name in got}
+            want["group_norm"] = (n // batch) * (evals * unet_norms + dec_norms)
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            imgs = res.images
+            log(f"layout {sampler}-{steps} cfg_scale {scale:g}: images {imgs.shape} finite="
+                f"{bool(np.isfinite(imgs).all())} clouds={len(res.clouds)} (median "
+                f"{int(np.median([len(c) for c in res.clouds]))} points); "
+                f"{res.samples_per_sec:.3f} samples/s; phases "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in res.phase_seconds.items())
+                + f"; peak memory {mem:.2f} GiB; launches {got} expected {want}, module hooks "
+                f"saw {hooked['gn']} K3 calls; card {card}")
+            if imgs.shape != (n, 32, 1024, 1) or not np.isfinite(imgs).all() \
+                    or len(res.clouds) != n:
+                raise AssertionError(f"layout {sampler} cfg_scale {scale:g}: bad output")
+            if got != want or hooked["gn"] != got["group_norm"]:
+                raise AssertionError(f"layout {sampler} cfg_scale {scale:g}: launch counts "
+                                     f"{got} != {want} (hooks {hooked['gn']})")
+            if (sampler, scale) == ("dpm", LAYOUT_CFG_SCALE):
+                self.layout_launches = got
+        for hk in hooks:
+            hk.remove()
+        # the same x_T under two pairs of layouts: every image differs
+        pipe.sampler, pipe.steps = "dpm", 20
+        pair = [pipe.generate(2, seed=5, batch=2, cond={k: v[i:i + 2] for k, v in cond.items()},
+                              uncond={k: v[:2] for k, v in uncond.items()},
+                              cfg_scale=LAYOUT_CFG_SCALE).images for i in (0, 2)]
+        diff = np.abs(pair[0] - pair[1]).reshape(2, -1).max(axis=1)
+        log(f"layout: same x_T, layouts 0-1 against 2-3: per-image max |difference| {diff}")
+        if not (diff > 1e-3).all():
+            raise AssertionError("layout: different layouts gave the same image")
+        del model, pipe, cond, uncond
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
         import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import attention as A
-        from lidar_layout_tpu_torch.ops import groupnorm as G
 
         shapes = self._main_shapes()
         dev = torch.device("cuda")
@@ -1282,39 +1476,10 @@ class Smoke:
         tot = collections.Counter()
         classes = collections.defaultdict(collections.Counter)
         for (b, c, hh, ww, groups, act), count in sorted(shapes["group_norm"].items()):
-            x = torch.randn((b, c, hh, ww), generator=gen, device=dev).to(torch.bfloat16)
-            gamma = torch.ones(c, device=dev)
-            beta = torch.zeros(c, device=dev)
-            gl, bl = gamma.to(x.dtype), beta.to(x.dtype)
-
-            def lib():
-                y = F.group_norm(x, groups, gl, bl, 1e-6)
-                return F.silu(y) if act else y
-            cost = G.group_norm_cost(b, c, hh * ww, groups, 2, act)
-            nbytes, ops = cost["bytes"], cost["flops"]
-            y = torch.empty_like(x)   # copy_ moves the same bytes: the rate the card reaches
+            t = self._time_k3(gen, (b, c, hh, ww, groups, act), f"x{count}/request")
             span_kb = c // groups * hh * ww * 2 / 1024
-            path = path_name(G.kernel_path(torch.bfloat16, c, hh * ww, groups))
-            t = {"ms": device_ms(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act), 20),
-                 "events_ms": cuda_time(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act),
-                                        20),
-                 "plain_ms": device_ms(lambda: G._ref(x, gamma, beta, groups, 1e-6, act), 5),
-                 "library_ms": device_ms(lib, 20), "copy_ms": device_ms(lambda: y.copy_(x), 20)}
-            bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_F32 * 1e3
-            t["bound_ms"] = max(bound_bytes, bound_ops)
-            log(f"  K3 {(b, c, hh, ww)} G={groups} act={act} bf16 x{count}/request ({span_kb:g} "
-                f"KB groups, {path}): kernel "
-                f"{t['ms']:.4f} (events {t['events_ms']:.4f}) | plain {t['plain_ms']:.4f} | "
-                f"group_norm+silu "
-                f"{t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
-                f"({'bytes' if bound_bytes >= bound_ops else 'operations'}; "
-                f"{nbytes / 1e6:.1f} MB; kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of it) "
-                f"| {nbytes / t['ms'] / 1e6:.0f} GB/s | copy_ of x {t['copy_ms']:.4f} "
-                f"({100 * t['bound_ms'] / t['copy_ms']:.1f}% of the bound)")
             for key, val in t.items():
                 tot[key] += count * val * (N_MAIN // BATCH)
-            tot["bound_ops_ms"] += count * bound_ops * (N_MAIN // BATCH)
-            tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
             for origin in ("unet", "decoder"):
                 n = self.gn_where[(b, c, hh, ww, groups, act), origin]
                 name = ("U-Net" if origin == "unet" else
@@ -1329,6 +1494,21 @@ class Smoke:
                 f"({cl['ms'] / cl['library_ms']:.3f}x) | bound {cl['bound_ms']:.4f} (kernel at "
                 f"{100 * cl['bound_ms'] / cl['ms']:.1f}% of it) | copy_ of x {cl['copy_ms']:.4f}")
         totals["group_norm"] = tot
+        # K3 at the layout path's shapes; summed over the guided layout run
+        # (generate(32), DPM-20, cfg_scale 2.0: the U-Net at the doubled batch)
+        log(f"  K3 at the layout path's shapes (per DPM-20 request, batch {BATCH}):")
+        tot = collections.Counter()
+        for (key, origin), count in sorted(self._layout_shapes().items()):
+            t = self._time_k3(gen, key, f"x{count}/request, layout {origin}")
+            if origin != "unet cfg 1":
+                for name, val in t.items():
+                    tot[name] += count * val * (N_MAIN // BATCH)
+        self.layout_totals = tot
+        log(f"  group_norm over the guided layout run (generate({N_MAIN}), DPM-20, cfg_scale "
+            f"{LAYOUT_CFG_SCALE:g}, batch {BATCH}; sum over shapes of launches x time): kernel "
+            f"{tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain {tot['plain_ms']:.3f} | "
+            f"library {tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | bound "
+            f"{tot['bound_ms']:.3f} (kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}% of it)")
         totals["flash_attention_bwd"] = self._timing_bwd(gen)
         totals["group_norm_bwd"] = self._timing_gn_bwd(gen)
         totals["chamfer_nn"] = self._timing_chamfer()
@@ -1352,6 +1532,48 @@ class Smoke:
         log(f"  timings taken with CUDA events because torch.profiler saw no device "
             f"time: {len(EVENT_TIMINGS)} {EVENT_TIMINGS}")
         self.totals = totals
+
+    def _time_k3(self, gen, key, label):
+        """K3 forward at one bf16 shape: device ms of the kernel (and wall ms
+        from CUDA events), the plain version, F.group_norm + F.silu and
+        copy_ of the same bytes, and the bound with its two parts."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        b, c, hh, ww, groups, act = key
+        dev = torch.device("cuda")
+        x = torch.randn((b, c, hh, ww), generator=gen, device=dev).to(torch.bfloat16)
+        gamma = torch.ones(c, device=dev)
+        beta = torch.zeros(c, device=dev)
+        gl, bl = gamma.to(x.dtype), beta.to(x.dtype)
+
+        def lib():
+            y = F.group_norm(x, groups, gl, bl, 1e-6)
+            return F.silu(y) if act else y
+        cost = G.group_norm_cost(b, c, hh * ww, groups, 2, act)
+        nbytes, ops = cost["bytes"], cost["flops"]
+        y = torch.empty_like(x)   # copy_ moves the same bytes: the rate the card reaches
+        span_kb = c // groups * hh * ww * 2 / 1024
+        path = path_name(G.kernel_path(torch.bfloat16, c, hh * ww, groups))
+        t = {"ms": device_ms(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act), 20),
+             "events_ms": cuda_time(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act),
+                                    20),
+             "plain_ms": device_ms(lambda: G._ref(x, gamma, beta, groups, 1e-6, act), 5),
+             "library_ms": device_ms(lib, 20), "copy_ms": device_ms(lambda: y.copy_(x), 20)}
+        t["bound_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        t["bound_ops_ms"] = ops / PEAK_F32 * 1e3
+        t["bound_ms"] = max(t["bound_bytes_ms"], t["bound_ops_ms"])
+        log(f"  K3 {(b, c, hh, ww)} G={groups} act={act} bf16 {label} ({span_kb:g} "
+            f"KB groups, {path}): kernel "
+            f"{t['ms']:.4f} (events {t['events_ms']:.4f}) | plain {t['plain_ms']:.4f} | "
+            f"group_norm+silu "
+            f"{t['library_ms']:.4f} | bound {t['bound_ms']:.4f} "
+            f"({'bytes' if t['bound_bytes_ms'] >= t['bound_ops_ms'] else 'operations'}; "
+            f"{nbytes / 1e6:.1f} MB; kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of it) "
+            f"| {nbytes / t['ms'] / 1e6:.0f} GB/s | copy_ of x {t['copy_ms']:.4f} "
+            f"({100 * t['bound_ms'] / t['copy_ms']:.1f}% of the bound)")
+        return t
 
     def _timing_bwd(self, gen):
         """K2 at the training step's shapes: kernel, plain version, the
@@ -1527,8 +1749,8 @@ class Smoke:
         import torch
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
-        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
-        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_layouts, synthetic_range_batch
+        from lidar_layout_tpu_torch.flagship import LAYOUT_YAML, flagship
         from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
         from lidar_layout_tpu_torch.pipeline import GenerationPipeline
         from lidar_layout_tpu_torch.train import diffusion_trainer as DT
@@ -1546,6 +1768,26 @@ class Smoke:
         self._families(prof, wall_ms, f"one DPM-20 request, batch {BATCH}, bf16 (host phases "
                                       f"{res.phase_seconds})")
         del model, pipe
+        torch.cuda.empty_cache()
+
+        pipe = GenerationPipeline.from_config(LAYOUT_YAML, dataset="32", bf16=True)
+        seed_weights(pipe.model, 0)
+        layouts = synthetic_layouts(np.random.default_rng(12), BATCH, pipe.geom)
+        with torch.inference_mode():
+            cond = pipe.model.get_learned_conditioning(layouts)
+            uncond = pipe.model.get_learned_conditioning(np.zeros_like(layouts))
+        kw = dict(batch=BATCH, cond=cond, uncond=uncond, cfg_scale=LAYOUT_CFG_SCALE)
+        pipe.generate(BATCH, seed=1, **kw)            # warm-up
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = pipe.generate(BATCH, seed=2, **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        self._families(prof, wall_ms, f"one guided layout request (DPM-20, cfg_scale "
+                                      f"{LAYOUT_CFG_SCALE:g}), batch {BATCH}, bf16 (host "
+                                      f"phases {res.phase_seconds})")
+        del pipe, cond, uncond
         torch.cuda.empty_cache()
 
         model, state = self._train_setup(OVERFIT_LR)
@@ -1606,7 +1848,9 @@ class Smoke:
         """The kernels line: ``launches`` and the times cover the run each
         kernel serves, the DPM-20 main run for K1/K3, the timed training
         steps for K2 and K3's backward, and the eval's CD for K4;
-        ``train_launches`` counts every kernel over those steps."""
+        ``train_launches`` counts every kernel over those steps;
+        ``layout_launches`` over the guided layout run, and the ``layout_*``
+        times K3's over that run."""
         entries = []
         for name, source, replaces in KERNELS:
             tot = getattr(self, "totals", {}).get(name, {})
@@ -1622,7 +1866,10 @@ class Smoke:
                 "max_abs_err": self.kernel_err[name],
                 "ms": tot.get("ms"), "plain_ms": tot.get("plain_ms"),
                 "bound_ms": tot.get("bound_ms"), "bound_by": bound_by,
-                "library_ms": tot.get("library_ms")})
+                "library_ms": tot.get("library_ms"),
+                "layout_launches": self.layout_launches.get(name),
+                **{f"layout_{k}": (self.layout_totals.get(k) if name == "group_norm" else None)
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         return {"kernels": entries}
 
 

@@ -1,9 +1,10 @@
 """YAML configs with ``target:``/``params:`` instantiation, for the ported models.
 
-Counterpart of the ``latent_diffusion``, ``unet`` and ``vq_model_interface``
-builders of ``lidar_layout_tpu/config.py`` (with the reference's target-name
-aliases) and of its ``load_yaml`` and ``apply_dotlist``. Targets not ported
-yet raise KeyError.
+Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model_interface``,
+``layout_unet`` and ``layout_encoder`` builders of
+``lidar_layout_tpu/config.py`` (with the reference's target-name aliases) and
+of its ``load_yaml`` and ``apply_dotlist``. Targets not ported yet raise
+KeyError.
 """
 from __future__ import annotations
 
@@ -11,9 +12,17 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from .encoders.layout_encoder import LayoutEncoderConfig, LayoutTransformerEncoder
 from .models.autoencoder import AEConfig, VQModelInterface
 from .models.diffusion import DiffusionConfig, LatentDiffusion
+from .models.object_cross_unet import LayoutDiffusionUNetModel, LayoutUNetConfig
 from .models.unet import UNetConfig, UNetModel
+
+UNET_TARGETS = ("unet", "lidm.modules.diffusion.openaimodel.UNetModel")
+LAYOUT_UNET_TARGETS = ("layout_unet",
+                       "lidm.modules.unets.object_cross_unet.LayoutDiffusionUNetModel")
+LAYOUT_ENCODER_TARGETS = ("layout_encoder",
+                          "lidm.modules.encoders.layout_encoder.LayoutTransformerEncoder")
 
 
 def _ae_cfg(dd: Dict[str, Any]) -> AEConfig:
@@ -47,6 +56,38 @@ def build_unet_cfg(params: Dict[str, Any]) -> UNetConfig:
         cconv=params.get("lib_name", "lidm") in ("lidm", "lidm_v0"))
 
 
+def build_layout_unet_cfg(params: Dict[str, Any]) -> LayoutUNetConfig:
+    """As the JAX package's: ``resblock_updown`` is not read (the layout
+    U-Net resamples with convs)."""
+    return LayoutUNetConfig(
+        in_channels=params.get("in_channels", 8),
+        model_channels=params.get("model_channels", 256),
+        out_channels=params.get("out_channels", 8),
+        num_res_blocks=params.get("num_res_blocks", 2),
+        channel_mult=tuple(params.get("channel_mult", (1, 2, 4))),
+        attention_ds=tuple(params.get("attention_ds", (1, 2, 4))),
+        encoder_channels=params.get("encoder_channels", 256),
+        num_head_channels=params.get("num_head_channels", 64),
+        dropout=params.get("dropout", 0.1),
+        use_scale_shift_norm=params.get("use_scale_shift_norm", True),
+        image_size=tuple(params.get("image_size", (8, 128))),
+        cconv=params.get("lib_name", "lidm") in ("lidm", "lidm_v0"))
+
+
+def build_layout_encoder_cfg(params: Dict[str, Any]) -> LayoutEncoderConfig:
+    return LayoutEncoderConfig(
+        layout_length=params.get("layout_length", 13),
+        hidden_dim=params.get("hidden_dim", 256),
+        output_dim=params.get("output_dim", 1024),
+        num_layers=params.get("num_layers", 6),
+        num_heads=params.get("num_heads", 8),
+        num_classes=params.get("num_classes_for_layout_object", 9),
+        use_final_ln=params.get("use_final_ln", True),
+        use_positional_embedding=params.get("use_positional_embedding", False),
+        feature_map_size=tuple(params.get("feature_map_size", (8, 128))),
+        resolution_to_attention=tuple(params.get("resolution_to_attention", (8, 4, 2))))
+
+
 def _build_vq_interface(params: Dict[str, Any], **_) -> VQModelInterface:
     return VQModelInterface(_ae_cfg(params["ddconfig"]),
                             n_embed=params.get("n_embed", 16384),
@@ -75,13 +116,21 @@ def _build_latent_diffusion(params: Dict[str, Any],
         learn_logvar=params.get("learn_logvar", False),
         latent_shape=(image_size[0], image_size[1], params.get("channels", 8)))
     unet_target = params["unet_config"].get("target", "")
-    if unet_target not in ("unet", "lidm.modules.diffusion.openaimodel.UNetModel"):
+    unet_cfg, unet = None, None
+    if unet_target in LAYOUT_UNET_TARGETS:
+        unet = instantiate_from_config(params["unet_config"])
+    elif unet_target in UNET_TARGETS:
+        unet_cfg = build_unet_cfg(params["unet_config"]["params"])
+    else:
         raise NotImplementedError(f"U-Net target {unet_target!r} is not ported yet "
                                   f"(ROADMAP queue 1)")
+    cond_stage = None
     csc = params.get("cond_stage_config")
     if isinstance(csc, dict):
-        raise NotImplementedError("conditioning stages are not ported yet "
-                                  "(ROADMAP queue 1, item 11)")
+        if csc.get("target") not in LAYOUT_ENCODER_TARGETS:
+            raise NotImplementedError(f"conditioning stage {csc.get('target')!r} is not "
+                                      f'ported yet (ROADMAP queue 1, "Conditioning")')
+        cond_stage = instantiate_from_config(csc)
     fs_cfg = None
     n_embed, embed_dim, use_mask = 16384, 8, True
     fsc = params.get("first_stage_config")
@@ -91,16 +140,20 @@ def _build_latent_diffusion(params: Dict[str, Any],
         n_embed = fsp.get("n_embed", 16384)
         embed_dim = fsp.get("embed_dim", 8)
         use_mask = fsp.get("use_mask", False)
-    return LatentDiffusion(diff_cfg, build_unet_cfg(params["unet_config"]["params"]),
-                           first_stage_cfg=fs_cfg, n_embed=n_embed,
-                           embed_dim=embed_dim, use_mask=use_mask, dtype=dtype)
+    return LatentDiffusion(diff_cfg, unet_cfg, first_stage_cfg=fs_cfg, n_embed=n_embed,
+                           embed_dim=embed_dim, use_mask=use_mask, cond_stage=cond_stage,
+                           unet=unet, dtype=dtype)
 
 
 REGISTRY: Dict[str, Callable] = {}
 for _names, _fn in (
         (("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion"),
          _build_latent_diffusion),
-        (("unet", "lidm.modules.diffusion.openaimodel.UNetModel"), _build_unet),
+        (UNET_TARGETS, _build_unet),
+        (LAYOUT_UNET_TARGETS,
+         lambda params, **_: LayoutDiffusionUNetModel(build_layout_unet_cfg(params))),
+        (LAYOUT_ENCODER_TARGETS,
+         lambda params, **_: LayoutTransformerEncoder(build_layout_encoder_cfg(params))),
         (("vq_model_interface", "lidm.models.autoencoder.VQModelInterface",
           "lidm.models.ae.autoencoder.VQModelInterface"), _build_vq_interface)):
     for _n in _names:

@@ -58,7 +58,7 @@ class RangeImageDataset:
                  device: Union[str, torch.device] = "cpu"):
         if degradation is not None:
             raise NotImplementedError("the degradation transform is not ported yet "
-                                      "(ROADMAP queue 1, item 15)")
+                                      '(ROADMAP queue 1, "First stage and AE training")')
         self.geom = geom or (NUSCENES_GEOMETRY if dataset.startswith("nusc")
                              else KITTI_GEOMETRY)
         self.batch_size = batch_size

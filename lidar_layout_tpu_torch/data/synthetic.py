@@ -3,7 +3,9 @@
 Counterpart of ``lidar_layout_tpu/data/synthetic.py``: street-like scans
 (ground plane, random boxes, poles) drawn with numpy, with the same random
 number consumption as the JAX package, then projected through the port's
-``pcd2range`` and ``process_scan``.
+``pcd2range`` and ``process_scan``; and the 13-slot layouts of the
+layout-conditioned LiDM (the layout half of the JAX package's
+``data/factory._synthetic_layout_range_batch``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from ..ops import lidar as L
 from ..ops.lidar import KITTI_GEOMETRY, LidarGeometry
+from .readers import NUSC_CLASS_NAMES, build_layout13
 
 
 def synthetic_scene(rng: np.random.Generator, n_points: int = 120000) -> np.ndarray:
@@ -73,3 +76,22 @@ def synthetic_range_batch(rng: np.random.Generator, batch: int,
     if with_pcd:
         out["points"] = pts
     return out
+
+
+def synthetic_layouts(rng: np.random.Generator, batch: int, geom: LidarGeometry
+                      ) -> np.ndarray:
+    """(B, 13, 13) float32 layouts of 1-7 random nuScenes boxes each, with the
+    JAX package's draws in its order (``_synthetic_layout_range_batch`` draws
+    them right after the batch's scenes)."""
+    layouts = np.zeros((batch, 13, 13), np.float32)
+    for b in range(batch):
+        k = int(rng.integers(1, 8))
+        boxes7 = np.stack([
+            rng.uniform(-30, 30, k), rng.uniform(-30, 30, k),
+            rng.uniform(-2, 1, k), rng.uniform(1.5, 8, k),
+            rng.uniform(1.5, 3, k), rng.uniform(1, 3, k),
+            rng.uniform(-np.pi, np.pi, k)], 1).astype(np.float32)
+        names = [NUSC_CLASS_NAMES[int(i)]
+                 for i in rng.integers(0, len(NUSC_CLASS_NAMES), k)]
+        layouts[b] = build_layout13(boxes7, names, geom, (-50, 50), (-50, 50), (-4, 2))
+    return layouts

@@ -1,12 +1,13 @@
 """Device-side sufficient statistics of JSD, MMD and FRID, per generated batch.
 
 Counterpart of ``lidar_layout_tpu/eval/device_metrics.py``, without
-``make_voxel_descriptor_fn`` (it waits for the sparse nets, ROADMAP queue 1,
-item 9). The host metrics (``eval/metrics.py``) take ragged numpy clouds;
-these take the fixed-shape (B, N, 3) points and (B, N) validity that
-``range2pcd`` gives on the device and return only a (nx, ny) histogram,
-(B, nx*ny) occupancy bitmaps and (B, H, W, 4) RangeNet inputs. The binning
-is the host's: strict range bounds, floor / voxel, min-corner shift.
+``make_voxel_descriptor_fn``, which waits for the sparse nets
+(ROADMAP queue 1, "Main-path remainder"). The host metrics
+(``eval/metrics.py``) take ragged numpy clouds; these take the fixed-shape
+(B, N, 3) points and (B, N) validity that ``range2pcd`` gives on the device
+and return only a (nx, ny) histogram, (B, nx*ny) occupancy bitmaps and
+(B, H, W, 4) RangeNet inputs. The binning is the host's: strict range
+bounds, floor / voxel, min-corner shift.
 """
 from __future__ import annotations
 

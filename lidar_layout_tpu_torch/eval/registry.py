@@ -69,7 +69,7 @@ def build_feature_fn(data_type: str = "64", modality: str = "range",
     if modality != "range":
         raise NotImplementedError(
             f"the {modality} feature net ({MODALITY2MODEL[modality]}) is not ported yet: "
-            f"FSVD/FPVD wait for the sparse nets (ROADMAP queue 1, item 9)")
+            f'FSVD/FPVD wait for the sparse nets (ROADMAP queue 1, "Main-path remainder")')
     geom = KITTI_GEOMETRY if data_type == "64" else NUSCENES_GEOMETRY
     net = build_range_feature_net(data_type, weights_root, device)
     dev = next(net.parameters()).device

@@ -8,10 +8,17 @@ calibration.
 Latents at this API are NHWC (B, 16, 128, 8) and images (B, H, W, 1), as in
 the JAX package; the modules inside are NCHW.
 
+With ``conditioning_key: layout_crossattn`` the U-Net is the object-aware
+cross-attention one (``models/object_cross_unet.py``, passed as ``unet``) and
+the conditioning stage the layout encoder: ``get_learned_conditioning``
+encodes layouts and ``apply_model`` hands the encoder's dict to the U-Net.
+Other conditioning keys are not ported yet.
+
 The state_dict uses the reference LatentDiffusion checkpoint prefixes,
-``model.diffusion_model.`` for the U-Net and ``first_stage_model.`` for the
-autoencoder. ``logvar`` is a non-persistent buffer, or a parameter when
-``learn_logvar`` is set, as in the reference.
+``model.diffusion_model.`` for the U-Net, ``first_stage_model.`` for the
+autoencoder and ``cond_stage_model.`` for the conditioning stage. ``logvar``
+is a non-persistent buffer, or a parameter when ``learn_logvar`` is set, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from ..nn.quantize import VectorQuantizer
 from .autoencoder import AEConfig, VQModelInterface
 from .schedules import DiffusionSchedule, extract, q_sample
 from .unet import UNetConfig, UNetModel
+
+CONDITIONING_KEYS = (None, "layout_crossattn")   # the ported ones
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,17 +72,23 @@ class DiffusionWrapper(nn.Module):
 
 
 class LatentDiffusion(nn.Module):
-    """U-Net + frozen VQ first stage. ``dtype`` is the activation and weight
-    dtype of the convs and linears; norms, the codebook and softmax stay f32."""
+    """U-Net + frozen VQ first stage + optional conditioning stage. ``dtype``
+    is the activation and weight dtype of the convs and linears; norms, the
+    codebook, softmax and the modules' ``f32_parameters`` stay f32.
 
-    def __init__(self, cfg: DiffusionConfig, unet_cfg: UNetConfig,
+    ``unet`` overrides the openaimodel U-Net built from ``unet_cfg`` (the
+    layout model's object-aware U-Net takes the encoder's dict)."""
+
+    def __init__(self, cfg: DiffusionConfig, unet_cfg: Optional[UNetConfig],
                  first_stage_cfg: Optional[AEConfig] = None, n_embed: int = 16384,
                  embed_dim: int = 8, use_mask: bool = True,
+                 cond_stage: Optional[nn.Module] = None, unet: Optional[nn.Module] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.conditioning_key is not None:
-            raise NotImplementedError("conditioning waits for its port (ROADMAP "
-                                      "queue 1, item 11)")
+        if cfg.conditioning_key not in CONDITIONING_KEYS:
+            raise NotImplementedError(
+                f"conditioning_key {cfg.conditioning_key!r} is not ported yet "
+                f'(ROADMAP queue 1, "Conditioning")')
         if cfg.split_ks is not None:
             raise NotImplementedError("the split_ks patched path waits for the "
                                       "foldunfold port (ROADMAP queue 1)")
@@ -83,10 +98,11 @@ class LatentDiffusion(nn.Module):
             linear_start=cfg.linear_start, linear_end=cfg.linear_end,
             cosine_s=cfg.cosine_s, v_posterior=cfg.v_posterior,
             parameterization=cfg.parameterization)
-        self.model = DiffusionWrapper(UNetModel(unet_cfg))
+        self.model = DiffusionWrapper(unet if unet is not None else UNetModel(unet_cfg))
         self.first_stage_model = (VQModelInterface(first_stage_cfg, n_embed=n_embed,
                                                    embed_dim=embed_dim, use_mask=use_mask)
                                   if first_stage_cfg is not None else None)
+        self.cond_stage_model = cond_stage
         logvar = torch.full((cfg.timesteps,), float(cfg.logvar_init))
         if cfg.learn_logvar:
             self.logvar = nn.Parameter(logvar)
@@ -95,7 +111,7 @@ class LatentDiffusion(nn.Module):
         self.cast_(dtype)
 
     @property
-    def unet(self) -> UNetModel:
+    def unet(self) -> nn.Module:
         return self.model.diffusion_model
 
     def cast_(self, dtype: torch.dtype) -> "LatentDiffusion":
@@ -105,6 +121,8 @@ class LatentDiffusion(nn.Module):
         small learning rate vanish in bf16 weights.)"""
         keep = {id(p) for m in self.modules() if isinstance(m, (Normalize, VectorQuantizer))
                 for p in m.parameters()}
+        keep.update(id(p) for m in self.modules() if hasattr(m, "f32_parameters")
+                    for p in m.f32_parameters())
         if isinstance(self.logvar, nn.Parameter):
             keep.add(id(self.logvar))
         for p in self.parameters():
@@ -131,14 +149,34 @@ class LatentDiffusion(nn.Module):
         img = self.first_stage_model.decode_latent(z, force_not_quantize)
         return img.float().permute(0, 2, 3, 1)
 
+    # ---------------------------------------------------------- conditioning
+    def get_learned_conditioning(self, cond: Any) -> Any:
+        """Encode raw conditioning (for the layout model a (B, L, 13) layout,
+        tensor or numpy) with the conditioning stage, on the model's device;
+        detached unless ``cond_stage_trainable``. Without a stage: ``cond``."""
+        if self.cond_stage_model is None:
+            return cond
+        dev = next(self.parameters()).device
+        out = self.cond_stage_model(torch.as_tensor(cond, device=dev))
+        if not self.cfg.cond_stage_trainable:
+            out = {k: v.detach() for k, v in out.items()}
+        return out
+
     # ------------------------------------------------------------- the model
     def apply_model(self, x_noisy: torch.Tensor, t: torch.Tensor,
                     cond: Any = None) -> torch.Tensor:
-        """One U-Net eval: NHWC float32 latent in, NHWC float32 out."""
-        if cond is not None:
-            raise NotImplementedError("conditioning waits for its port (ROADMAP "
-                                      "queue 1, item 11)")
-        out = self.unet(x_noisy.permute(0, 3, 1, 2), t)
+        """One U-Net eval: NHWC float32 latent in, NHWC float32 out. The
+        layout model takes the encoder's dict as ``cond``."""
+        x = x_noisy.permute(0, 3, 1, 2)
+        if self.cfg.conditioning_key == "layout_crossattn":
+            if not (isinstance(cond, dict) and "xf_proj" in cond):
+                raise ValueError("the layout model needs the encoded layout "
+                                 "(get_learned_conditioning) as cond")
+            out = self.unet(x, t, cond)
+        elif cond is not None:
+            raise ValueError("an unconditional model takes no cond")
+        else:
+            out = self.unet(x, t)
         return out.permute(0, 2, 3, 1)
 
     # ----------------------------------------------------------------- loss

@@ -23,13 +23,23 @@ from .diffusion import LatentDiffusion
 from .schedules import DDIMSchedule
 
 
+def _tree_cat(u: Any, c: Any) -> Any:
+    """``torch.cat([u, c])`` leaf by leaf over matching (nested) dicts, as
+    JAX's ``jax.tree.map`` of the concatenation, booleans included."""
+    if isinstance(u, dict):
+        if set(u) != set(c):
+            raise ValueError(f"uncond keys {sorted(u)} differ from cond keys {sorted(c)}")
+        return {k: _tree_cat(u[k], c[k]) for k in c}
+    return torch.cat([u, c])
+
+
 def _cfg_apply(model: LatentDiffusion, x: torch.Tensor, t: torch.Tensor, cond: Any,
                uncond: Any, scale: float) -> torch.Tensor:
-    """Model eval with classifier-free guidance (one doubled batch)."""
+    """Model eval with classifier-free guidance (one doubled batch; a
+    conditioning pytree is doubled leaf by leaf)."""
     if uncond is None or scale == 1.0:
         return model.apply_model(x, t, cond)
-    out = model.apply_model(torch.cat([x, x]), torch.cat([t, t]),
-                            torch.cat([uncond, cond]))
+    out = model.apply_model(torch.cat([x, x]), torch.cat([t, t]), _tree_cat(uncond, cond))
     e_uncond, e_cond = out.chunk(2)
     return e_uncond + scale * (e_cond - e_uncond)
 

@@ -200,10 +200,10 @@ class UNetModel(nn.Module):
         super().__init__()
         if cfg.use_spatial_transformer:
             raise NotImplementedError("SpatialTransformer U-Net waits for the "
-                                      "conditioning port (ROADMAP queue 1, item 11)")
+                                      'conditioning port (ROADMAP queue 1, "Conditioning")')
         if cfg.num_classes is not None:
             raise NotImplementedError("class-conditional U-Net waits for the "
-                                      "conditioning port (ROADMAP queue 1, item 11)")
+                                      'conditioning port (ROADMAP queue 1, "Conditioning")')
         self.cfg = cfg
         mc = cfg.model_channels
         ted = mc * 4

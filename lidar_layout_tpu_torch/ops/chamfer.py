@@ -192,8 +192,8 @@ def nn_dist_one_way(x: torch.Tensor, y: torch.Tensor, y_mask: Optional[torch.Ten
     y and needs none. Forward-only: it raises where a gradient is asked for."""
     if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
         raise RuntimeError("nn_dist_one_way is forward-only (kernel K4 has no backward); "
-                           "chamfer_loss with its gradient is open in ROADMAP queue 1, "
-                           "item 8")
+                           "chamfer_loss with its gradient is not ported yet "
+                           '(ROADMAP queue 1, "Remaining families and infrastructure")')
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != 3 or y.shape[1] != 3:
         raise ValueError(f"expected (N, 3) and (M, 3) points, got {tuple(x.shape)} and "
                          f"{tuple(y.shape)}")

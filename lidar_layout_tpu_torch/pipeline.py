@@ -6,9 +6,17 @@ Counterpart of ``lidar_layout_tpu/pipeline.py`` (``geometry_from_config``,
     pipe = GenerationPipeline.from_config("configs/lidar_diffusion/kitti/uncond_c2_p4.yaml")
     out = pipe.generate(64, seed=0)          # out.images, out.clouds
 
+    # the layout-conditioned model, with classifier-free guidance
+    pipe = GenerationPipeline.from_config(
+        "configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml", dataset="32")
+    c = pipe.model.get_learned_conditioning(layouts)          # (n, 13, 13)
+    u = pipe.model.get_learned_conditioning(np.zeros_like(layouts))
+    out = pipe.generate(len(layouts), cond=c, uncond=u, cfg_scale=2.0)
+
 Each batch runs sample -> VQ decode -> reprojection on the device. Samplers
-are cached per (batch, sampler, steps, eta) key. ``from_run_dir`` loads a run
-that ``train.train_lidm`` wrote: its ``config.yaml`` and latest checkpoint.
+are cached per (batch, conditioning shapes, cfg_scale, sampler, steps, eta)
+key. ``from_run_dir`` loads a run that ``train.train_lidm`` wrote: its
+``config.yaml`` and latest checkpoint.
 """
 from __future__ import annotations
 
@@ -115,46 +123,59 @@ class GenerationPipeline:
         return cls.from_config(cfg, state_dict=sd, dataset=dataset, bf16=bf16,
                                device=device, **kw)
 
-    def _program(self, batch: int) -> Callable[[torch.Generator], torch.Tensor]:
-        key = (batch, self.sampler, self.steps, self.eta)
+    def _program(self, batch: int, cond_shapes: Tuple, cfg_scale: float
+                 ) -> Callable[[torch.Generator, Any, Any], torch.Tensor]:
+        key = (batch, cond_shapes, cfg_scale, self.sampler, self.steps, self.eta)
         if key not in self._cache:
             lh, lw, lc = self.model.cfg.latent_shape
             shape = (batch, lh, lw, lc)
             dev = self.device
             if self.sampler == "ddim":
-                def draw(gen):
-                    return S.ddim_sample(self.model, shape, steps=self.steps,
-                                         eta=self.eta, generator=gen, device=dev)
-            elif self.sampler == "dpm":
-                def draw(gen):
-                    return S.dpm_solver_sample(self.model, shape, steps=self.steps,
-                                               generator=gen, device=dev)
-            elif self.sampler == "plms":
-                def draw(gen):
-                    return S.plms_sample(self.model, shape, steps=self.steps,
+                def draw(gen, c, u):
+                    return S.ddim_sample(self.model, shape, steps=self.steps, eta=self.eta,
+                                         cond=c, uncond=u, cfg_scale=cfg_scale,
                                          generator=gen, device=dev)
+            elif self.sampler == "dpm":
+                def draw(gen, c, u):
+                    return S.dpm_solver_sample(self.model, shape, steps=self.steps, cond=c,
+                                               uncond=u, cfg_scale=cfg_scale, generator=gen,
+                                               device=dev)
+            elif self.sampler == "plms":
+                def draw(gen, c, u):
+                    return S.plms_sample(self.model, shape, steps=self.steps, cond=c,
+                                         uncond=u, cfg_scale=cfg_scale, generator=gen,
+                                         device=dev)
             elif self.sampler == "ddpm":
-                def draw(gen):
-                    return S.ddpm_sample(self.model, shape, generator=gen, device=dev)
+                def draw(gen, c, u):
+                    return S.ddpm_sample(self.model, shape, cond=c, generator=gen, device=dev)
             else:
                 raise NotImplementedError(
                     f"sampler {self.sampler!r} is not ported yet (ROADMAP queue 1)")
             self._cache[key] = draw
         return self._cache[key]
 
-    def generate(self, n: int, seed: int = 0, batch: int = 16) -> GenerationResult:
-        """Generate ``n`` scenes, ``batch`` at a time, from ``seed``."""
+    def generate(self, n: int, seed: int = 0, batch: int = 16, cond: Any = None,
+                 uncond: Any = None, cfg_scale: float = 1.0) -> GenerationResult:
+        """Generate ``n`` scenes, ``batch`` at a time, from ``seed``.
+
+        ``cond``/``uncond`` are conditioning pytrees, already encoded and
+        batch-leading (``model.get_learned_conditioning``); ``cfg_scale`` > 1
+        with an ``uncond`` turns on classifier-free guidance. A pytree whose
+        leaves hold ``batch`` rows serves every batch; one of ``n`` rows is
+        cut into the batches in order (the last one wraps to the first rows
+        when ``batch`` does not divide ``n``)."""
         b = min(batch, n)
-        draw = self._program(b)
         dev = self.device
+        draw = self._program(b, _shapes(cond), cfg_scale)
         gen = torch.Generator(device=dev).manual_seed(seed)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
         imgs_all, clouds = [], []
         phases = {"sample": 0.0, "decode": 0.0, "reproject": 0.0}
         with torch.inference_mode():
-            for _ in range((n + b - 1) // b):
+            for i in range((n + b - 1) // b):
+                rows = torch.arange(i * b, i * b + b, device=dev) % n
                 t0 = time.perf_counter()
-                z = draw(gen)
+                z = draw(gen, _rows(cond, rows, b, n, dev), _rows(uncond, rows, b, n, dev))
                 sync()
                 t1 = time.perf_counter()
                 imgs = self.model.decode_first_stage(z)
@@ -170,3 +191,28 @@ class GenerationPipeline:
                 clouds.extend(pc[v] for pc, v in zip(xyz_np, valid_np))
         return GenerationResult(images=np.concatenate(imgs_all)[:n], clouds=clouds[:n],
                                 seconds=sum(phases.values()), phase_seconds=phases)
+
+
+def _shapes(tree: Any) -> Tuple:
+    """The leaf shapes of a conditioning pytree (nested dicts of tensors)."""
+    if tree is None:
+        return ()
+    if isinstance(tree, dict):
+        return tuple((k, _shapes(tree[k])) for k in sorted(tree))
+    return tuple(tree.shape)
+
+
+def _rows(tree: Any, rows: torch.Tensor, b: int, n: int, dev: torch.device) -> Any:
+    """One batch of a batch-leading conditioning pytree, on ``dev``: the whole
+    leaf when it has ``b`` rows, the given rows when it has ``n``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _rows(v, rows, b, n, dev) for k, v in tree.items()}
+    leaf = torch.as_tensor(tree, device=dev)
+    if leaf.shape[0] == b:
+        return leaf
+    if leaf.shape[0] == n:
+        return leaf[rows]
+    raise ValueError(f"a conditioning leaf has {leaf.shape[0]} rows; expected the batch "
+                     f"({b}) or n ({n})")

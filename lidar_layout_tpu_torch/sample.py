@@ -132,7 +132,7 @@ def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
     if args.html:
         raise NotImplementedError("--html needs utils/vis, which is not ported yet "
-                                  "(ROADMAP queue 1, item 15)")
+                                  '(ROADMAP queue 1, "Main-path remainder")')
     from .config import load_yaml
     from .pipeline import GenerationPipeline, geometry_from_config
 

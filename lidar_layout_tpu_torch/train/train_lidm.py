@@ -103,7 +103,12 @@ def main(argv=None):
     if model_cfg["target"] not in LDM_TARGETS:
         raise NotImplementedError(
             f"training {model_cfg['target']!r} is not ported yet: the autoencoder and "
-            f"the other families' trainers are open in ROADMAP queue 1, item 10")
+            f"the other families' trainers wait for their port "
+            f'(ROADMAP queue 1, "First stage and AE training")')
+    if model_cfg.get("params", {}).get("conditioning_key") is not None:
+        raise NotImplementedError(
+            "the conditioned training step is not ported yet "
+            '(ROADMAP queue 1, "Layout-conditioned training")')
     data_cfg = cfg.get("data", {}).get("params", {})
     name = os.path.splitext(os.path.basename(args.base))[0]
     workdir = args.workdir or f"./runs/{name}"
@@ -115,7 +120,8 @@ def main(argv=None):
         blk = data_cfg.get(split) or data_cfg.get("train")
         if blk and blk.get("target") and not args.synthetic:
             raise NotImplementedError("dataset targets (data/factory.py) are not ported "
-                                      "yet (ROADMAP queue 1, item 15); use --synthetic")
+                                      'yet (ROADMAP queue 1, "First stage and AE training"); '
+                                      "use --synthetic")
         ds = RangeImageDataset(None if args.synthetic else args.data_root,
                                batch_size=batch_size, geom=geom, seed=seed, device=device)
         return ds.batches()

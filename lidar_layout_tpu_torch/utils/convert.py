@@ -12,15 +12,25 @@ Conventions: flax conv kernels HWIO -> torch OIHW; flax ``Dense`` kernels
 [h0:(q, k, v), h1:(q, k, v), ...] in the reference conv1d (QKVAttentionLegacy).
 ``rangenet_state_dict`` carries the JAX ``RangeNet`` init tree (``params`` and
 ``batch_stats``) into the port's ``eval/rangenet.RangeNet``.
+
+The layout-conditioned model (``layout_unet_state_dict``,
+``layout_encoder_state_dict``, and ``latent_diffusion_state_dict`` with a
+``cond_stage`` tree): the repository holds no reference torch names for its
+object-aware U-Net and layout encoder, so their port modules keep the JAX
+module names (``in_1_0_attn.layout_position_proj``, ``attn_0.query``, ...),
+except where the layout U-Net shares the flagship's structure: the timestep
+MLP is ``time_embed.0``/``.2`` and a ResBlock's layers are ``in_layers``,
+``emb_layers``, ``out_layers`` and ``skip_connection``, as above.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..models.object_cross_unet import LayoutUNetConfig
 from ..models.unet import UNetConfig
 
 _RES = {"in_norm": "in_layers.0", "in_conv": "in_layers.2", "emb_proj": "emb_layers.1",
@@ -118,6 +128,48 @@ def unet_state_dict(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, torch.
     return out
 
 
+_LAYOUT_RES = re.compile(r"^(in_\d+_\d+|out_\d+_\d+|mid_res\d)$")
+
+
+def layout_unet_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``LayoutDiffusionUNetModel`` params -> the port's
+    ``models/object_cross_unet.LayoutDiffusionUNetModel`` state_dict."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        top, mods, leaf = path[0], path[1:-1], path[-1]
+        if top in ("time_0", "time_2"):
+            top = "time_embed." + top[-1]
+        elif _LAYOUT_RES.match(top):
+            mods = (_RES[mods[0]],) + mods[1:]
+        name, value = _leaf(mods, leaf, value)
+        out[".".join((top,) + name)] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def layout_encoder_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``LayoutTransformerEncoder`` params -> the port's
+    ``encoders/layout_encoder.LayoutTransformerEncoder`` state_dict. The
+    attention's ``DenseGeneral`` kernels, (in, heads, dh) for q/k/v and
+    (heads, dh, out) for ``out``, become (heads*dh, in) and (out, heads*dh)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        mods, leaf = path[:-1], path[-1]
+        if leaf == "embedding":
+            name = mods + ("weight",)
+        elif leaf == "kernel" and value.ndim == 3:
+            name = mods + ("weight",)
+            value = (value.reshape(-1, value.shape[-1]).T if mods[-1] == "out"
+                     else value.reshape(value.shape[0], -1).T)
+        elif leaf == "bias" and value.ndim == 2:
+            name, value = mods + (leaf,), value.reshape(-1)
+        else:
+            name, value = _leaf(mods, leaf, value)
+        out[".".join(name)] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
 def vq_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``VQModelInterface`` params -> the port's ``VQModelInterface``
     state_dict."""
@@ -134,15 +186,21 @@ def vq_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def latent_diffusion_state_dict(params: Dict[str, Any],
-                                unet_cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+def latent_diffusion_state_dict(params: Dict[str, Any], unet_cfg: Union[UNetConfig,
+                                                                         LayoutUNetConfig]
+                                ) -> Dict[str, torch.Tensor]:
     """JAX ``LatentDiffusion.init`` tree -> the port's ``LatentDiffusion``
-    state_dict (``model.diffusion_model.*`` and ``first_stage_model.*``)."""
-    sd = {f"model.diffusion_model.{k}": v
-          for k, v in unet_state_dict(params["unet"], unet_cfg).items()}
+    state_dict (``model.diffusion_model.*``, ``first_stage_model.*`` and, for
+    the layout model, ``cond_stage_model.*``)."""
+    unet = (layout_unet_state_dict(params["unet"]) if isinstance(unet_cfg, LayoutUNetConfig)
+            else unet_state_dict(params["unet"], unet_cfg))
+    sd = {f"model.diffusion_model.{k}": v for k, v in unet.items()}
     if params.get("first_stage"):
         sd.update({f"first_stage_model.{k}": v
                    for k, v in vq_state_dict(params["first_stage"]).items()})
+    if params.get("cond_stage"):
+        sd.update({f"cond_stage_model.{k}": v
+                   for k, v in layout_encoder_state_dict(params["cond_stage"]).items()})
     return sd
 
 

@@ -383,3 +383,87 @@ def test_gpu_rangenet_matches_cpu(cuda_device):
     # f32 on both, summed in other orders through 40 convolutions
     rel = (feats[1] - feats[0]).norm() / feats[0].norm()
     assert rel.item() <= 1e-4
+
+
+def _layout_gn_shapes(dev):
+    """(B, C, H, W, groups, act) of every K3 call of the full-width layout
+    model: the U-Net at batch 16 and, guided, 32; the VQ decoder at 16."""
+    import numpy as np
+    from lidar_layout_tpu_torch.flagship import layout_flagship
+    from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+    model, _ = layout_flagship(dtype=torch.bfloat16, device=dev)
+    seen, batch = set(), {}
+
+    def hook(mod, args):
+        _, c, h, w = args[0].shape
+        seen.update((b, c, h, w, mod.num_groups, mod.act) for b in batch["b"])
+
+    hooks = [m.register_forward_pre_hook(hook)
+             for part in (model.unet, model.first_stage_model.decoder)
+             for m in part.modules() if isinstance(m, Normalize)]
+    with torch.inference_mode():
+        cond = model.get_learned_conditioning(np.zeros((1, 13, 13), np.float32))
+        z = torch.zeros((1, 8, 128, 8), device=dev)
+        batch["b"] = (16, 32)
+        model.apply_model(z, torch.zeros(1, dtype=torch.long, device=dev), cond)
+        batch["b"] = (16,)
+        model.decode_first_stage(z)
+    for hk in hooks:
+        hk.remove()
+    return sorted(seen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_group_norm_at_layout_shapes(cuda_device, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    shapes = _layout_gn_shapes(cuda_device)
+    # the U-Net's 8x128 latents and concatenated widths, the 32-beam decoder
+    assert (16, 2048, 2, 32, 32, True) in shapes and (16, 64, 32, 1024, 32, True) in shapes
+    for (b, c, h, w, g, act) in shapes:
+        x = (torch.randn((b, c, h, w), generator=gen, device=cuda_device) * 2 + 0.3).to(dt)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        beta = 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        launches = G.group_norm.launches
+        got = G.group_norm(x, gamma, beta, g, 1e-6, act)
+        want = G._ref(x, gamma, beta, g, 1e-6, act)
+        torch.cuda.synchronize()
+        assert G.group_norm.launches == launches + 1
+        # f32: summation order only; bf16: one output rounding (|y| < 8)
+        tol = 1e-4 if dt == torch.float32 else 5e-2
+        assert (got.float() - want.float()).abs().max().item() <= tol, (b, c, h, w, g, act)
+
+
+@pytest.mark.gpu
+def test_gpu_layout_unet_matches_cpu(cuda_device):
+    import numpy as np
+    from lidar_layout_tpu_torch.data.synthetic import synthetic_layouts
+    from lidar_layout_tpu_torch.flagship import layout_flagship
+    from lidar_layout_tpu_torch.ops.lidar import NUSCENES_GEOMETRY
+    from torch_port_helpers import seed_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    layouts = np.concatenate([synthetic_layouts(np.random.default_rng(3), 1, NUSCENES_GEOMETRY),
+                              np.zeros((1, 13, 13), np.float32)])
+    z = torch.randn((2, 8, 32, 8), generator=torch.Generator().manual_seed(4))
+    t = torch.tensor([5, 40])
+    outs, sd = [], None
+    for dev in ("cpu", cuda_device):
+        model, _ = layout_flagship(tiny=True, device=dev)
+        if sd is None:
+            sd = seed_weights(model, 2).state_dict()
+        else:
+            model.load_state_dict(sd)
+        launches = G.group_norm.launches
+        with torch.inference_mode():
+            cond = model.get_learned_conditioning(layouts)
+            outs.append(model.apply_model(z.to(dev), t.to(dev), cond).cpu())
+        ran = G.group_norm.launches - launches
+    # the card ran every Normalize of the U-Net through K3
+    from lidar_layout_tpu_torch.nn.blocks import Normalize
+    assert ran == sum(isinstance(m, Normalize) for m in model.unet.modules())
+    # f32 on both, summed in other orders through a dozen layers
+    assert outs[0].abs().max() > 0.1
+    assert (outs[1] - outs[0]).abs().max().item() <= 1e-4 * max(1.0, outs[0].abs().max().item())
