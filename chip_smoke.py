@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases device,build,kernels,train_slice,train
     python3 chip_smoke.py --phases device,build,kernels,eval_slice,eval
     python3 chip_smoke.py --phases device,build,kernels,layout_slice,layout
+    python3 chip_smoke.py --phases device,build,kernels,layout_train_slice,layout_train
+    python3 chip_smoke.py --phases device,build,kernels,layout_boxes_slice,layout_boxes
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -24,7 +26,9 @@ Phases (any failure exits non-zero before the final "ok" line):
                grid, 500 m from the origin), bit for bit over two launches, its
                error model checked on the pairs it re-checks, and its grad guard;
                K3 also at every group shape of the layout path (the layout
-               U-Net at batch 16 and, guided, 32; the nuScenes VQ decoder)
+               U-Net at batch 16 and, guided, 32; the nuScenes VQ decoder); K3's
+               backward also at every layout training shape; K1 at
+               LayoutDiffusion's (256, 8, 1, 64) f32, bit for bit over two launches
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -52,15 +56,34 @@ Phases (any failure exits non-zero before the final "ok" line):
                K3 launches against the model's structure and module hooks (no
                other kernel), finite (32, 32, 1024, 1) images, and different
                images from different layouts
+  layout_train_slice  train_slice's step for the full-width layout model, f32,
+               batch 2, dropout off, at fixed t, noise and layout: loss, U-Net
+               and layout-encoder gradients, parameters and EMA after AdamW
+  layout_train the layout model's training step at batch 16, bf16 autocast, f32
+               weights, synthetic nusc_layout_range batches: steps/s, phase split,
+               peak memory, K3 forward and backward launches per step against the
+               model's structure and module hooks (the plain GroupNorm backward
+               called no time), non-zero finite encoder gradients, an overfit check
+  layout_boxes_slice  the full-width LayoutDiffusion (layout_nusc.yaml), f32,
+               16 scenes x 16 objects, card vs CPU: the scene-graph encoder's two
+               outputs, one U-Net eval, a DDIM-4 request from the same x_T
+  layout_boxes sample_layout's path at 16 scenes x 16 objects, DDIM-100, f32:
+               scenes/s and boxes/s over three requests, K1 launches (22 a U-Net
+               eval) against the structure and module hooks, no plain attention,
+               finite (256, 7) boxes, different boxes from different graphs
   timing       per-kernel device times at the main paths' shapes beside the
                plain version, one PyTorch library call and the card's bound,
                and for K1/K2 the special-function unit's floor for their
                exponentials; K3 also summed by shape class, and its backward a
                training step (K4 at the eval's clouds, so it needs the eval
                phase); K3 also at the layout path's shapes, summed over the
-               guided layout run
+               guided layout run; K1 at LayoutDiffusion's (256, 8, 1, 64) f32,
+               summed over a request (its launches counted by hooks on one
+               request when layout_boxes did not run); K3's backward at the
+               layout model's training shapes, summed over its timed steps
   profile      (only when named) device time of one DPM-20 request, of one
-               guided layout request and of one training step by kernel family
+               guided layout request, of one training step, of one layout
+               training step and of one LayoutDiffusion request by kernel family
 
 The weights are random, drawn from a seed (no trained checkpoint is used). It
 imports nothing of JAX.
@@ -70,6 +93,7 @@ from __future__ import annotations
 import argparse
 import collections
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -80,7 +104,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "eval_slice",
-          "eval", "layout_slice", "layout", "timing")
+          "eval", "layout_slice", "layout", "layout_train_slice", "layout_train",
+          "layout_boxes_slice", "layout_boxes", "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -90,6 +115,9 @@ HBM_BYTES_PER_S = 3.35e12
 TRAIN_BATCH, TRAIN_STEPS = 16, 10   # the training path: timed steps at batch 16
 OVERFIT_STEPS, OVERFIT_LR = 30, 1e-4
 LAYOUT_CFG_SCALE = 2.0   # the guided layout run: DPM-20, generate(32) at batch 16
+# LayoutDiffusion serving: 16 scenes at the nuScenes layout dataset's capacity
+# of 16 objects and 32 triples a scene (N = 256 boxes), DDIM-100, f32
+BOX_SCENES, BOX_STEPS, BOX_CALLS = 16, 100, 3
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -285,12 +313,15 @@ class Smoke:
         self.train_launches = {}
         self.shapes = None   # main-path kernel shapes and their launches per request
         self.gn_where = None   # K3's main-path launches by (shape, "unet" or "decoder")
-        self.train_shapes = None   # the same for one training step
+        self.train_shapes = {}   # the same for one training step, by layout (False, True)
         self.eval_launches = {}
         self.eval_clouds = None    # the eval's (reference, sample) clouds: K4's shapes
         self.layout_shapes = None  # K3's layout-path launches by (shape, origin)
         self.layout_launches = {}
-        self.layout_totals = {}
+        self.layout_train_launches = {}
+        self.layout_boxes_launches = {}
+        self.box_attention_calls = None   # K1 calls of one LayoutDiffusion request (hooks)
+        self.run_totals = {}   # kernel -> {run: summed times} of the layout paths
 
     # ------------------------------------------------------------------ device
     def device(self):
@@ -359,6 +390,7 @@ class Smoke:
                 f"bit equal (o and lse): {same}")
             if not same:
                 raise AssertionError("K1 is not deterministic")
+        self._kernels_boxes_attention(gen)
 
         log("K3 group_norm vs _ref (at every main-path shape and every layout-path shape: the "
             "layout U-Net at batch 16 and, guided, 32, the nuScenes VQ decoder; then shapes "
@@ -404,6 +436,30 @@ class Smoke:
         self._kernels_train()
         self._kernels_chamfer()
 
+    def _kernels_boxes_attention(self, gen):
+        """K1 at LayoutDiffusion's shape, as its CrossAttention hands it q, k
+        and v: (N, 1, 8, 64) projections viewed as (N, 8, 1, 64), f32; against
+        the plain version, and bit for bit over two launches."""
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+
+        dev = torch.device("cuda")
+        n, heads, dh = BOX_SCENES * 16, 8, 64
+        what = f"({n}, {heads}, 1, {dh}) f32 (S = 1: one row of a 128-row tile)"
+        log(f"K1 at LayoutDiffusion's shape {what}:")
+        q, k, v = (torch.randn((n, 1, heads * dh), generator=gen, device=dev)
+                   .reshape(n, 1, heads, dh).transpose(1, 2) for _ in range(3))
+        got = A.flash_attention(q, k, v)
+        want = A._attend_ref(q, k, v)
+        self._check("flash_attention", got, want, 2e-5, 1e-4, what, record=False)
+        self.kernel_err["flash_attention_boxes"] = max_err(got, want)[0]
+        again = A.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, again))
+        log(f"  flash_attention {what}: two launches bit for bit equal: {same}")
+        if not same:
+            raise AssertionError("K1 at S = 1 is not deterministic")
+
     def _kernels_gn_bwd(self):
         """K3's backward kernel against _group_norm_bwd_ref at every training
         shape, f32 and bf16, SiLU off and on, and at shapes that take its
@@ -413,12 +469,14 @@ class Smoke:
 
         dev = torch.device("cuda")
         gen = torch.Generator(device=dev).manual_seed(8)
-        shapes = sorted({k[:5] for k in self._train_shapes()["group_norm_bwd"]})
+        shapes = sorted({k[:5] for k in self._train_shapes()["group_norm_bwd"]}
+                        | {k[:5] for k in self._train_shapes(layout=True)["group_norm_bwd"]})
         # H*W = 35 takes the scalar sweep; (1, 128, 64, 1024) has spans of 4
         # channels of 64K elements, 1 MB (bf16) or 2 MB (f32) of x and dy,
         # more than 4 blocks of whole channels hold: the sweep too
         extra = [(2, 40, 5, 7, 20), (1, 128, 64, 1024, 32)]
-        log("K3 backward group_norm_bwd vs _group_norm_bwd_ref (both in f32 arithmetic from "
+        log("K3 backward group_norm_bwd vs _group_norm_bwd_ref at every training shape of "
+            "the flagship and of the layout model (both in f32 arithmetic from "
             "the same x and dy; dx rounded to x's dtype, dgamma/dbeta sum B*H*W products):")
         paths = set()
         for dtype in (torch.float32, torch.bfloat16):
@@ -741,26 +799,59 @@ class Smoke:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- train_slice
+    # The two trained models: the flagship on synthetic KITTI scenes, and the
+    # layout model on synthetic nusc_layout_range batches, whose layout
+    # encoder trains with the U-Net. One body drives each phase for both.
+    @staticmethod
+    def _train_model(layout, device="cuda"):
+        """The flagship or the layout model from its YAML, f32 weights."""
+        from lidar_layout_tpu_torch.flagship import flagship, layout_flagship
+
+        return (layout_flagship if layout else flagship)(device=device)[0]
+
+    @staticmethod
+    def _train_batches(layout, n, seed=6, batch=TRAIN_BATCH, device="cuda"):
+        """``n`` synthetic training batches: image (B, 64, 1024, 1) for the
+        flagship; image (B, 32, 1024, 1) and cond = layout (B, 13, 13) for
+        the layout model."""
+        from lidar_layout_tpu_torch.data.synthetic import (synthetic_layout_range_batch,
+                                                           synthetic_range_batch)
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY, NUSCENES_GEOMETRY
+
+        make, geom = ((synthetic_layout_range_batch, NUSCENES_GEOMETRY) if layout
+                      else (synthetic_range_batch, KITTI_GEOMETRY))
+        rng = np.random.default_rng(seed)
+        return [make(rng, batch, geom, device=device) for _ in range(n)]
+
     def train_slice(self):
-        """One training step at full width, f32, batch 1, on the card and on
-        the CPU: same weights, batch, t and noise (drawn on the CPU)."""
+        """One training step of the full-width flagship, f32, batch 1, on the
+        card and on the CPU (_train_slice)."""
+        self._train_slice(layout=False)
+
+    def _train_slice(self, layout):
+        """One make_train_step at full width, f32, on the card and on the
+        CPU: the same weights, batch, t and noise (drawn on the CPU), dropout
+        off (the layout U-Net's 0.1 set to 0). The loss, the gradients of the
+        U-Net and, for the layout model, of its layout encoder, and the
+        parameters and EMA after AdamW."""
         import torch
-        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
-        from lidar_layout_tpu_torch.flagship import flagship
-        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
         from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
-        lr = 1.6e-5       # the flagship's: base 1e-6 x batch 16
-        batch = synthetic_range_batch(np.random.default_rng(4), 1, KITTI_GEOMETRY)
-        runs = {}
-        sd = None
+        name = "layout_train_slice" if layout else "train_slice"
+        lr = 1.6e-5       # both YAMLs': base 1e-6 x batch 16
+        batch = self._train_batches(layout, 1, seed=4, batch=2 if layout else 1,
+                                    device="cpu")[0]
+        runs, sd = {}, None
         for dev in ("cuda", "cpu"):
-            model, _ = flagship(device=dev)
+            model = self._train_model(layout, dev)
             if sd is None:
                 seed_weights(model, 0)
                 sd = {k: v.cpu() for k, v in model.state_dict().items()}
             else:
                 model.load_state_dict(sd)
+            for m in model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
             params = DT.trainable_params(model)
             state = DT.create_train_state(model, DT.make_optimizer(params, lr), params)
             grads = {}
@@ -778,35 +869,47 @@ class Smoke:
                          "grads": grads,
                          "params": {k: p.detach().cpu().clone() for k, p in params.items()},
                          "ema": {k: v.cpu().clone() for k, v in state.ema.params.items()}}
-            log(f"train_slice on {dev}: {time.perf_counter() - t0:.1f} s, loss "
+            log(f"{name} on {dev}: {time.perf_counter() - t0:.1f} s, loss "
                 f"{runs[dev]['loss']:.6f}, grad_norm {runs[dev]['grad_norm']:.6f}")
             del model, state, params
+            gc.collect()   # the train state holds reference cycles: free its card memory now
             torch.cuda.empty_cache()
         g, c = runs["cuda"], runs["cpu"]
         loss_err = abs(g["loss"] - c["loss"])
-        num = sum(float((g["grads"][k] - c["grads"][k]).square().sum()) for k in c["grads"])
-        den = sum(float(c["grads"][k].square().sum()) for k in c["grads"])
-        gmax = max(float(v.abs().max()) for v in c["grads"].values())
-        gerr = max(float((g["grads"][k] - c["grads"][k]).abs().max()) for k in c["grads"])
-        worst = max(c["grads"], key=lambda k: float((g["grads"][k] - c["grads"][k]).abs().max()))
+        # tolerances: f32 on both, TF32 off; the devices sum in other orders
+        # through ~50 layers forward and back
+        ok = loss_err <= 1e-5 * max(1.0, abs(c["loss"]))
+        parts = []
+        for part, is_encoder in (("U-Net", False), ("layout encoder", True)):
+            keys = [k for k in c["grads"] if k.startswith("cond_stage_model.") == is_encoder]
+            if not keys:
+                continue
+            diff = {k: float((g["grads"][k] - c["grads"][k]).abs().max()) for k in keys}
+            num = sum(float((g["grads"][k] - c["grads"][k]).square().sum()) for k in keys)
+            den = sum(float(c["grads"][k].square().sum()) for k in keys)
+            gmax = max(float(c["grads"][k].abs().max()) for k in keys)
+            rel = (num / max(den, 1e-30)) ** 0.5
+            worst = max(diff, key=diff.get)
+            parts.append(f"{part} gradients ({len(keys)} tensors): relative L2 error "
+                         f"{rel:.3e}, max_abs_err {diff[worst]:.3e} at {worst} (|g|max "
+                         f"{gmax:.3e})")
+            ok = ok and rel <= 1e-4 and diff[worst] <= 1e-4 * gmax and gmax > 0
         # Adam's first update is about lr * sign(g): where a gradient is within
         # rounding of 0 the two devices may step in opposite directions, so
         # parameters and EMA may differ by up to 2 lr, on few elements
-        upd = [(g["params"][k] - c["params"][k]).abs().flatten() for k in c["params"]]
-        upd = torch.cat(upd)
+        upd = torch.cat([(g["params"][k] - c["params"][k]).abs().flatten() for k in c["params"]])
         far = float((upd > 0.01 * lr).float().mean())
         perr = float(upd.max())
         eerr = max(float((g["ema"][k] - c["ema"][k]).abs().max()) for k in c["ema"])
-        log(f"train_slice: loss |diff| {loss_err:.3e} (loss {c['loss']:.6f}); U-Net gradients: "
-            f"relative L2 error {(num / den) ** 0.5:.3e}, max_abs_err {gerr:.3e} at {worst} "
-            f"(|g|max {gmax:.3e}); parameters after AdamW: max_abs_err {perr:.3e}, share of "
-            f"elements off by > 0.01 lr {far:.2e}; EMA max_abs_err {eerr:.3e} (lr {lr:g})")
-        # tolerances: f32 on both, TF32 off; the devices sum in other orders
-        # through ~50 layers forward and back
-        if not (loss_err <= 1e-5 * max(1.0, abs(c["loss"])) and (num / den) ** 0.5 <= 1e-4
-                and gerr <= 1e-4 * gmax and far <= 1e-3 and perr <= 2 * lr
-                and eerr <= 2 * lr):
-            raise AssertionError("card training step disagrees with the CPU step")
+        log(f"{name}: loss |diff| {loss_err:.3e} (loss {c['loss']:.6f}); " + "; ".join(parts)
+            + f"; parameters after AdamW: max_abs_err {perr:.3e}, share of elements off by > "
+            f"0.01 lr {far:.2e}; EMA max_abs_err {eerr:.3e} (lr {lr:g})")
+        ok = ok and far <= 1e-3 and perr <= 2 * lr and eerr <= 2 * lr
+        if layout and len(parts) != 2:
+            raise AssertionError(f"{name}: the layout encoder is not among the trained "
+                                 f"parameters")
+        if not ok:
+            raise AssertionError(f"{name}: the card's training step disagrees with the CPU's")
 
     # -------------------------------------------------------------------- main
     def main(self):
@@ -859,12 +962,12 @@ class Smoke:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------- train
-    def _train_setup(self, lr):
-        import torch
-        from lidar_layout_tpu_torch.flagship import flagship
+    def _train_setup(self, lr, layout=False):
+        """A trained model (_train_model) on the card, seeded, and its train
+        state: AdamW and the EMA over the U-Net (and the layout encoder)."""
         from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
-        model, _ = flagship(device="cuda")    # f32 weights; bf16 under autocast
+        model = self._train_model(layout)    # f32 weights; bf16 under autocast
         seed_weights(model, 0)
         params = DT.trainable_params(model)
         state = DT.create_train_state(model, DT.make_optimizer(params, lr), params)
@@ -872,7 +975,8 @@ class Smoke:
 
     def _train_hooks(self, model):
         """Module-hook counts of one training step: kernel calls by name and
-        by shape (K2 runs once for every attention call that needs grad)."""
+        by shape (K2 and K3's backward run once for every call that needs
+        grad; the frozen VQ encoder's run under no_grad)."""
         import torch
         from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
         from lidar_layout_tpu_torch.nn.blocks import Normalize
@@ -905,57 +1009,73 @@ class Smoke:
                 hooks.append(m.register_forward_pre_hook(attn_hook))
         return seen, hooks
 
-    def _train_shapes(self):
-        """Kernel calls of one training step by shape: the train phase's hooks,
-        or hooks on one step taken here when that phase did not run."""
-        if self.train_shapes is None:
+    def _train_shapes(self, layout=False):
+        """Kernel calls of one training step by shape: the train (or
+        layout_train) phase's hooks, or hooks on one step taken here when
+        that phase did not run."""
+        if layout not in self.train_shapes:
             import torch
-            from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
-            from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
             from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
-            model, state = self._train_setup(OVERFIT_LR)
+            model, state = self._train_setup(OVERFIT_LR, layout)
             seen, hooks = self._train_hooks(model)
-            batch = synthetic_range_batch(np.random.default_rng(6), TRAIN_BATCH,
-                                          KITTI_GEOMETRY, device="cuda")
             DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
-                state, batch, torch.Generator(device="cuda").manual_seed(0))
+                state, self._train_batches(layout, 1)[0],
+                torch.Generator(device="cuda").manual_seed(0))
             for hk in hooks:
                 hk.remove()
-            self.train_shapes = seen
+            self.train_shapes[layout] = seen
             del model, state
+            gc.collect()
             torch.cuda.empty_cache()
-        return self.train_shapes
+        return self.train_shapes[layout]
 
     def train(self):
-        """The training path: full width, batch 16, bf16 autocast, f32 weights."""
+        """The flagship's training path (_train_run)."""
+        self._train_run(layout=False)
+
+    def _train_run(self, layout):
+        """A training path: full width, batch 16, bf16 autocast, f32 weights,
+        synthetic batches. Launches per step against module hooks (and, for
+        the layout model, its structure: every U-Net norm forward and
+        backward, every frozen VQ encoder norm forward), no plain GroupNorm
+        backward, for the layout model non-zero finite encoder gradients,
+        and a falling loss on one fixed batch."""
         import torch
-        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
         from lidar_layout_tpu_torch.ops import groupnorm as G
-        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
         from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
+        name = "layout_train" if layout else "train"
         card = card_line()
-        rng = np.random.default_rng(6)
         t0 = time.perf_counter()   # scenes projected on the card, outside the timed window
-        batches = [synthetic_range_batch(rng, TRAIN_BATCH, KITTI_GEOMETRY, device="cuda")
-                   for _ in range(3)]
+        batches = self._train_batches(layout, 3)
         torch.cuda.synchronize()
-        log(f"train: {len(batches)} synthetic batches of {TRAIN_BATCH} scenes in "
+        log(f"{name}: {len(batches)} synthetic batches of {TRAIN_BATCH} scenes in "
             f"{time.perf_counter() - t0:.1f} s")
-        model, state = self._train_setup(OVERFIT_LR)
+        model, state = self._train_setup(OVERFIT_LR, layout)
         step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        # module hooks on one warm-up step give the expected launches per step
+        # one warm-up step under hooks gives the expected launches per step;
+        # its encoder gradients are kept
         seen, hooks = self._train_hooks(model)
+        enc_grads = {}
+        step_opt = state.optimizer.step
+
+        def spy():
+            enc_grads.update({k: p.grad.detach().clone() for k, p in state.params.items()
+                              if k.startswith("cond_stage_model.")})
+            return step_opt()
+        state.optimizer.step = spy
         reset_counts()
         state, logs = step(state, batches[0], gen)
         torch.cuda.synchronize()
         first = read_counts()
+        state.optimizer.step = step_opt
         for hk in hooks:
             hk.remove()
         want = {k: sum(seen[k].values()) for k in counters()}
-        self.train_shapes = seen
+        self.train_shapes[layout] = seen
         step(state, batches[1], gen)              # second warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -987,40 +1107,63 @@ class Smoke:
             for k in ("encode", "fwd_bwd", "opt_ema"):
                 phases[k] += tl[f"seconds_{k}"] / 3
         finite = all(bool(torch.isfinite(l_)) and bool(torch.isfinite(g_)) for l_, g_ in losses)
-        log(f"train (batch {TRAIN_BATCH}, bf16 autocast, f32 weights, {TRAIN_STEPS} steps): "
+        extra, structure = "", None
+        if layout:
+            unet_norms = sum(isinstance(m, Normalize) for m in model.unet.modules())
+            enc_norms = sum(isinstance(m, Normalize)
+                            for m in model.first_stage_model.encoder.modules())
+            structure = {k: 0 for k in counters()}
+            structure.update(group_norm=unet_norms + enc_norms, group_norm_bwd=unet_norms)
+            enc_norm = float(torch.linalg.vector_norm(torch.stack(
+                [g_.float().norm() for g_ in enc_grads.values()]))) if enc_grads else 0.0
+            enc_ok = (all(bool(torch.isfinite(g_).all()) for g_ in enc_grads.values())
+                      and enc_norm > 0)
+            extra = (f"; structure {structure} ({unet_norms} U-Net norms forward and backward, "
+                     f"{enc_norms} in the frozen VQ encoder); encoder gradients: "
+                     f"{len(enc_grads)} tensors, global norm {enc_norm:.4e}, "
+                     f"non-zero and finite={enc_ok}")
+        log(f"{name} (batch {TRAIN_BATCH}, bf16 autocast, f32 weights, {TRAIN_STEPS} steps): "
             f"{TRAIN_STEPS / wall:.3f} steps/s, {TRAIN_STEPS * TRAIN_BATCH / wall:.2f} samples/s; "
             f"phases per step (synchronised): encode {phases['encode']:.4f} s, forward+backward "
             f"{phases['fwd_bwd']:.4f} s, optimizer+EMA {phases['opt_ema']:.4f} s; peak memory "
             f"{mem:.2f} GiB; launches per step {per_step} (hooks {want}; first step {first}); "
             f"plain GroupNorm backward calls {plain_bwd[0]}; "
             f"loss {float(losses[-1][0]):.5f} grad_norm {float(losses[-1][1]):.5f} "
-            f"finite={finite}; card {card}")
-        self.train_stats = {"steps_per_s": TRAIN_STEPS / wall, "mem_gib": mem, **phases}
+            f"finite={finite}{extra}; card {card}")
         if per_step != {k: float(v) for k, v in want.items()} or first != want:
-            raise AssertionError(f"train: launches per step {per_step} != hooks {want}")
+            raise AssertionError(f"{name}: launches per step {per_step} != hooks {want}")
+        if structure is not None and want != structure:
+            raise AssertionError(f"{name}: hooks {want} != structure {structure}")
         if plain_bwd[0] or not want["group_norm_bwd"]:
-            raise AssertionError(f"train: {plain_bwd[0]} plain GroupNorm backward calls, "
+            raise AssertionError(f"{name}: {plain_bwd[0]} plain GroupNorm backward calls, "
                                  f"{want['group_norm_bwd']} kernel launches a step")
         if not finite:
-            raise AssertionError("train: loss or gradient norm not finite")
-        self.train_launches = got
+            raise AssertionError(f"{name}: loss or gradient norm not finite")
+        if layout and not enc_ok:
+            raise AssertionError(f"{name}: the encoder's gradients are zero or not finite")
+        if layout:
+            self.layout_train_launches = got
+        else:
+            self.train_launches = got
 
         # overfit check: one fixed batch, t and noise (the generator reset
         # each step), fresh weights, lr 1e-4
-        del state
-        model, state = self._train_setup(OVERFIT_LR)
+        del model, state, step, timed
+        gc.collect()
+        model, state = self._train_setup(OVERFIT_LR, layout)
         step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
         curve = []
         for i in range(OVERFIT_STEPS + 1):
             state, logs = step(state, batches[0], torch.Generator(device="cuda").manual_seed(3))
             curve.append(float(logs["loss"]))
         ratio = curve[-1] / curve[0]
-        log(f"train overfit ({OVERFIT_STEPS} AdamW steps at lr {OVERFIT_LR:g} on one batch): "
+        log(f"{name} overfit ({OVERFIT_STEPS} AdamW steps at lr {OVERFIT_LR:g} on one batch): "
             f"loss step 0 {curve[0]:.5f} -> step {OVERFIT_STEPS} {curve[-1]:.5f}, ratio "
             f"{ratio:.4f}; curve {[round(c_, 5) for c_ in curve[::5]]}")
         if not curve[-1] < curve[0]:
-            raise AssertionError("train: the loss on a fixed batch did not fall")
+            raise AssertionError(f"{name}: the loss on a fixed batch did not fall")
         del model, state, batches
+        gc.collect()
         torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- eval_slice
@@ -1422,6 +1565,181 @@ class Smoke:
         del model, pipe, cond, uncond
         torch.cuda.empty_cache()
 
+    # ----------------------------------------------------- layout training
+    def layout_train_slice(self):
+        """One training step of the full-width layout model, f32, batch 2,
+        on the card and on the CPU (_train_slice)."""
+        self._train_slice(layout=True)
+
+    def layout_train(self):
+        """The layout model's training path, its encoder trained with the
+        U-Net (_train_run)."""
+        self._train_run(layout=True)
+
+    # ------------------------------------------------------ LayoutDiffusion
+    @staticmethod
+    def _box_graph(seed):
+        from lidar_layout_tpu_torch.data.layout_synthetic import synthetic_graph_batch
+        from lidar_layout_tpu_torch.sample_layout import MAX_OBJS, MAX_TRIPLES
+
+        return synthetic_graph_batch(np.random.default_rng(seed), n_scenes=BOX_SCENES,
+                                     max_objs_per_scene=MAX_OBJS,
+                                     max_triples_per_scene=MAX_TRIPLES)
+
+    def _box_attention_count(self):
+        """K1 calls of one LayoutDiffusion request: the layout_boxes phase's
+        module hooks, or hooks on one request taken here when that phase
+        did not run."""
+        if self.box_attention_calls is None:
+            import torch
+            from lidar_layout_tpu_torch.nn.attention import CrossAttention
+            from lidar_layout_tpu_torch.sample_layout import build_model, sample_layouts
+
+            model = build_model(device="cuda")
+            seed_weights(model, 0)
+            hooked = [0]
+
+            def hook(mod, args):
+                hooked[0] += 1
+            hooks = [m.register_forward_pre_hook(hook)
+                     for m in model.unet.modules() if isinstance(m, CrossAttention)]
+            sample_layouts(model, self._box_graph(11), BOX_STEPS, seed=0)
+            for hk in hooks:
+                hk.remove()
+            self.box_attention_calls = hooked[0]
+            del model
+            torch.cuda.empty_cache()
+        return self.box_attention_calls
+
+    def layout_boxes_slice(self):
+        """The full-width LayoutDiffusion, f32, on the card (K1) and on the
+        CPU (plain versions): the same seeded weights, graph, change noise
+        and x_T; the encoder's two outputs, one U-Net eval, DDIM-4."""
+        import torch
+        from lidar_layout_tpu_torch.sample_layout import build_model
+
+        graph = self._box_graph(7)
+        n = graph["dec_objs"].shape[0]
+        cpu_gen = torch.Generator().manual_seed(3)
+        change = torch.randn((n, 64), generator=cpu_gen)
+        x_T = torch.randn((n, 8), generator=cpu_gen)
+        box_t = torch.randn((n, 8), generator=cpu_gen)
+        t = torch.randint(0, 1000, (n,), generator=cpu_gen)
+        out, sd = {}, None
+        for dev in ("cuda", "cpu"):
+            model = build_model(device=dev)
+            if sd is None:
+                seed_weights(model, 0)
+                sd = {k: v.cpu() for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(sd)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                latent, obj = model.encode_graph(graph, change_noise=change)
+                g = {k: torch.as_tensor(np.asarray(graph[k])).to(dev)
+                     for k in ("dec_triples", "dec_pred_mask")}
+                eps = model.apply_model(box_t.to(dev), t.to(dev), obj, g["dec_triples"].long(),
+                                        latent, g["dec_pred_mask"])
+                boxes = model.ddim_sample(graph, steps=4, x_T=x_T, change_noise=change)
+            out[dev] = [v.cpu() for v in (latent, obj, eps, boxes)]
+            log(f"layout_boxes_slice on {dev}: {time.perf_counter() - t0:.1f} s")
+            del model
+            torch.cuda.empty_cache()
+        errs = {}
+        for name, a, b in zip(("latent", "obj_embed", "unet eval", "DDIM-4 boxes"),
+                              out["cuda"], out["cpu"]):
+            err, scale = max_err(a, b)
+            errs[name] = (err, scale, err / max(1.0, scale))
+        log("layout_boxes_slice: " + "; ".join(
+            f"{k} max_abs_err {e:.3e} (|ref|max {s:.3e}, {r:.3e} of max(1, |ref|max))"
+            for k, (e, s, r) in errs.items()))
+        # f32 on both, TF32 off: the encoder's 10 graph convs and one U-Net
+        # eval sum in other orders (1e-4 of their scale); DDIM-4 amplifies
+        # that, as the slice phase's sampler does (1e-3)
+        tol = {"latent": 1e-4, "obj_embed": 1e-4, "unet eval": 1e-4, "DDIM-4 boxes": 1e-3}
+        bad = [k for k, (_, _, r) in errs.items() if not r <= tol[k]]
+        if bad or not all(bool(torch.isfinite(v).all()) for v in out["cuda"]):
+            raise AssertionError(f"card LayoutDiffusion slice disagrees with the CPU: {bad}")
+        if errs["unet eval"][1] == 0:
+            raise AssertionError("layout_boxes_slice: the U-Net's output is all zeros")
+
+    def layout_boxes(self):
+        """Serving LayoutDiffusion through sample_layout's path: build_model
+        from the YAML, sample_layouts over 16 scenes x 16 objects, DDIM-100."""
+        import torch
+        from lidar_layout_tpu_torch.nn.attention import CrossAttention
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.sample_layout import build_model, sample_layouts
+
+        card = card_line()
+        model = build_model(device="cuda")
+        seed_weights(model, 0)   # else the zero-initialised projections leave graphs unread
+        graph = self._box_graph(11)
+        n = graph["dec_objs"].shape[0]
+        per_eval = sum(isinstance(m, CrossAttention) for m in model.unet.modules())
+        structure = {name: 0 for name in counters()}
+        structure["flash_attention"] = per_eval * BOX_STEPS
+        hooked = collections.Counter()
+        hooks = [m.register_forward_pre_hook(lambda mod, args: hooked.update(["attn"]))
+                 for m in model.unet.modules() if isinstance(m, CrossAttention)]
+        plain = collections.Counter()
+        real = {name: getattr(A, name) for name in ("_attend_ref", "_dot_product_attention")}
+
+        def counting(name):
+            def fn(*a, **k):
+                plain[name] += 1
+                return real[name](*a, **k)
+            return fn
+        sample_layouts(model, graph, BOX_STEPS, seed=99)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rates = []
+        for name in real:
+            setattr(A, name, counting(name))
+        try:
+            for call in range(BOX_CALLS):
+                reset_counts()
+                hooked.clear()
+                t0 = time.perf_counter()
+                res = sample_layouts(model, graph, BOX_STEPS, seed=call)
+                wall = time.perf_counter() - t0       # ends in the copy to the host
+                got = read_counts()
+                rates.append((BOX_SCENES / wall, n / wall, wall))
+                log(f"layout_boxes call {call}: {BOX_SCENES} scenes ({n} boxes), DDIM-"
+                    f"{BOX_STEPS}, f32: {wall:.3f} s, {BOX_SCENES / wall:.3f} scenes/s, "
+                    f"{n / wall:.1f} boxes/s; launches {got} (structure {structure}: "
+                    f"{per_eval} CrossAttentions x {BOX_STEPS} U-Net evals; module hooks "
+                    f"{hooked['attn']})")
+                if got != structure or hooked["attn"] != got["flash_attention"]:
+                    raise AssertionError(f"layout_boxes: launches {got} != structure "
+                                         f"{structure} (hooks {hooked['attn']})")
+        finally:
+            for name, fn in real.items():
+                setattr(A, name, fn)
+            for hk in hooks:
+                hk.remove()
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        boxes = res["boxes"]
+        log(f"layout_boxes: boxes {boxes.shape} finite={bool(np.isfinite(boxes).all())}; plain "
+            f"attention calls {dict(plain)}; peak memory {mem:.2f} GiB; scenes/s over "
+            f"{BOX_CALLS} calls {[round(r[0], 3) for r in rates]}; card {card}")
+        if boxes.shape != (n, 7) or not np.isfinite(boxes).all() or n != 256:
+            raise AssertionError(f"layout_boxes: bad boxes {boxes.shape}")
+        if sum(plain.values()):
+            raise AssertionError(f"layout_boxes: plain attention ran {dict(plain)}")
+        self.layout_boxes_launches = got
+        self.box_attention_calls = hooked["attn"]
+        # two graphs under the same x_T: different boxes
+        x_T = torch.randn((n, 8), generator=torch.Generator().manual_seed(5))
+        pair = [sample_layouts(model, self._box_graph(s), BOX_STEPS, seed=5, x_T=x_T)["boxes"]
+                for s in (11, 12)]
+        diff = np.abs(pair[0] - pair[1]).max()
+        log(f"layout_boxes: same x_T, graphs of seeds 11 and 12: max |box difference| {diff:.4e}")
+        if not diff > 1e-3:
+            raise AssertionError("layout_boxes: different graphs gave the same boxes")
+        del model
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
@@ -1503,14 +1821,19 @@ class Smoke:
             if origin != "unet cfg 1":
                 for name, val in t.items():
                     tot[name] += count * val * (N_MAIN // BATCH)
-        self.layout_totals = tot
+        self.run_totals = {"group_norm": {"layout": tot}}
         log(f"  group_norm over the guided layout run (generate({N_MAIN}), DPM-20, cfg_scale "
             f"{LAYOUT_CFG_SCALE:g}, batch {BATCH}; sum over shapes of launches x time): kernel "
             f"{tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain {tot['plain_ms']:.3f} | "
             f"library {tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | bound "
             f"{tot['bound_ms']:.3f} (kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}% of it)")
         totals["flash_attention_bwd"] = self._timing_bwd(gen)
-        totals["group_norm_bwd"] = self._timing_gn_bwd(gen)
+        totals["group_norm_bwd"] = self._timing_gn_bwd(gen, self._train_shapes(), "flagship")
+        # the layout paths: K1 over a LayoutDiffusion request, K3's backward
+        # over the layout model's timed training steps
+        self.run_totals["flash_attention"] = {"layout_boxes": self._timing_boxes_attention(gen)}
+        self.run_totals["group_norm_bwd"] = {"layout_train": self._timing_gn_bwd(
+            gen, self._train_shapes(layout=True), "layout model")}
         totals["chamfer_nn"] = self._timing_chamfer()
         for name, fn in counters().items():
             fn.launches = saved[name]
@@ -1686,18 +2009,56 @@ class Smoke:
             f"candidate error {tot['worst']:.3f} of the model's bound")
         return tot
 
-    def _timing_gn_bwd(self, gen):
-        """K3's backward at the training step's shapes: the kernel, the plain
-        version, the autograd backward of F.group_norm (+ F.silu), and the
-        bytes bound of reading x and dy and writing dx."""
+    def _timing_boxes_attention(self, gen):
+        """K1 at LayoutDiffusion's (256, 8, 1, 64) f32, as its CrossAttention
+        hands it q, k and v: the kernel and SDPA in turns, the plain version,
+        the bound (operations at the f32 rate, or the bytes), summed over the
+        launches of one DDIM-100 request."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import attention as A
+
+        dev = torch.device("cuda")
+        n, h, d = BOX_SCENES * 16, 8, 64
+        q, k, v = (torch.randn((n, 1, h * d), generator=gen, device=dev)
+                   .reshape(n, 1, h, d).transpose(1, 2) for _ in range(3))
+        cost = A.attention_cost(n, h, 1, d, 4)
+        kms, lms, krounds, lrounds = paired_ms(
+            lambda: A.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v), 50)
+        t = {"ms": kms, "events_ms": cuda_time(lambda: A.flash_attention(q, k, v), 50),
+             "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 20), "library_ms": lms}
+        bound_ops = cost["flops"] / PEAK_F32 * 1e3
+        bound_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = max(bound_ops, bound_bytes)
+        count = self._box_attention_count()
+        log(f"  K1 ({n}, {h}, 1, {d}) f32 x{count}/LayoutDiffusion request: kernel "
+            f"{t['ms']:.5f} (events {t['events_ms']:.5f}) | plain {t['plain_ms']:.5f} | sdpa "
+            f"{t['library_ms']:.5f} ({t['ms'] / t['library_ms']:.3f}x) | bound "
+            f"{t['bound_ms']:.6f} ({'operations' if bound_ops >= bound_bytes else 'bytes'}; "
+            f"{cost['flops'] / 1e6:.2f} MFLOP, {cost['bytes'] / 1e6:.2f} MB; kernel at "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) | rounds kernel "
+            f"{[round(x, 5) for x in krounds]} sdpa {[round(x, 5) for x in lrounds]}")
+        tot = collections.Counter({key: count * val for key, val in t.items()})
+        tot["bound_ops_ms"], tot["bound_bytes_ms"] = count * bound_ops, count * bound_bytes
+        log(f"  K1 over a LayoutDiffusion request ({count} launches): kernel {tot['ms']:.3f} ms "
+            f"(events {tot['events_ms']:.3f}) | plain {tot['plain_ms']:.3f} | sdpa "
+            f"{tot['library_ms']:.3f} | bound {tot['bound_ms']:.4f}")
+        return tot
+
+    def _timing_gn_bwd(self, gen, shapes, model_name):
+        """K3's backward at a training step's shapes (``shapes``, the hooks'
+        counts): the kernel, the plain version, the autograd backward of
+        F.group_norm (+ F.silu), and the bytes bound of reading x and dy and
+        writing dx; summed over the TRAIN_STEPS timed steps."""
         import torch
         import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import groupnorm as G
 
         dev = torch.device("cuda")
         tot = collections.Counter()
-        for (b, c, hh, ww, groups, act), count in sorted(
-                self._train_shapes()["group_norm_bwd"].items()):
+        log(f"  K3 backward at the {model_name}'s training shapes:")
+        for (b, c, hh, ww, groups, act), count in sorted(shapes["group_norm_bwd"].items()):
             x, dy = (torch.randn((b, c, hh, ww), generator=gen, device=dev)
                      .to(torch.bfloat16) for _ in range(2))
             gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
@@ -1732,8 +2093,9 @@ class Smoke:
             tot["bound_ops_ms"] += count * bound_ops * TRAIN_STEPS
             tot["bound_bytes_ms"] += count * bound_bytes * TRAIN_STEPS
             del x, dy, xl, gl, bl, out
-        calls = sum(self.train_shapes["group_norm_bwd"].values())
-        log(f"  K3 backward per training step ({calls} calls, bf16; sum over shapes): kernel "
+        calls = sum(shapes["group_norm_bwd"].values())
+        log(f"  K3 backward per {model_name} training step ({calls} calls, bf16; sum over "
+            f"shapes): kernel "
             f"{tot['step_ms']:.3f} ms | plain {tot['step_plain_ms']:.3f} | group_norm(+silu) "
             f"backward {tot['step_library_ms']:.3f} "
             f"({tot['step_ms'] / tot['step_library_ms']:.3f}x) | bytes bound "
@@ -1743,16 +2105,18 @@ class Smoke:
 
     # ----------------------------------------------------------------- profile
     def profile(self):
-        """Device time of one DPM-20 request (batch 16, bf16) and of one
-        training step (batch 16, bf16 autocast) by kernel family, from
-        torch.profiler, beside their wall times."""
+        """Device time of one DPM-20 request (batch 16, bf16), one guided
+        layout request, one training step of each model (batch 16, bf16
+        autocast) and one LayoutDiffusion request (DDIM-100, f32) by kernel
+        family, from torch.profiler, beside their wall times."""
         import torch
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
-        from lidar_layout_tpu_torch.data.synthetic import synthetic_layouts, synthetic_range_batch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_layouts
         from lidar_layout_tpu_torch.flagship import LAYOUT_YAML, flagship
         from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
         from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+        from lidar_layout_tpu_torch.sample_layout import build_model, sample_layouts
         from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
         model, _ = flagship(dtype=torch.bfloat16, device="cuda")
@@ -1790,21 +2154,36 @@ class Smoke:
         del pipe, cond, uncond
         torch.cuda.empty_cache()
 
-        model, state = self._train_setup(OVERFIT_LR)
-        step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
-        batch = synthetic_range_batch(np.random.default_rng(6), TRAIN_BATCH, KITTI_GEOMETRY,
-                                      device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for _ in range(2):                            # warm-up
-            state, _ = step(state, batch, gen)
+        for layout, title in ((False, "one training step"), (True, "one layout training step")):
+            model, state = self._train_setup(OVERFIT_LR, layout)
+            step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
+            batch = self._train_batches(layout, 1)[0]
+            for _ in range(2):                            # warm-up
+                state, _ = step(state, batch, gen)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, gen)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            self._families(prof, wall_ms, f"{title}, batch {TRAIN_BATCH}, bf16 autocast")
+            del model, state
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        model = build_model(device="cuda")
+        seed_weights(model, 0)
+        graph = self._box_graph(11)
+        sample_layouts(model, graph, BOX_STEPS, seed=1)   # warm-up
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state, _ = step(state, batch, gen)
-            torch.cuda.synchronize()
+            sample_layouts(model, graph, BOX_STEPS, seed=2)
             wall_ms = (time.perf_counter() - t0) * 1e3
-        self._families(prof, wall_ms, f"one training step, batch {TRAIN_BATCH}, bf16 autocast")
-        del model, state
+        self._families(prof, wall_ms, f"one LayoutDiffusion request ({BOX_SCENES} scenes x 16 "
+                                      f"objects, DDIM-{BOX_STEPS}, f32)")
+        del model
         torch.cuda.empty_cache()
 
     @staticmethod
@@ -1850,7 +2229,11 @@ class Smoke:
         steps for K2 and K3's backward, and the eval's CD for K4;
         ``train_launches`` counts every kernel over those steps;
         ``layout_launches`` over the guided layout run, and the ``layout_*``
-        times K3's over that run."""
+        times K3's over that run; ``layout_train_launches`` over the layout
+        model's timed training steps and ``layout_boxes_launches`` over one
+        LayoutDiffusion request, with ``layout_train_*`` the times of K3's
+        backward over those steps and ``layout_boxes_*`` K1's over that
+        request."""
         entries = []
         for name, source, replaces in KERNELS:
             tot = getattr(self, "totals", {}).get(name, {})
@@ -1868,7 +2251,12 @@ class Smoke:
                 "bound_ms": tot.get("bound_ms"), "bound_by": bound_by,
                 "library_ms": tot.get("library_ms"),
                 "layout_launches": self.layout_launches.get(name),
-                **{f"layout_{k}": (self.layout_totals.get(k) if name == "group_norm" else None)
+                "layout_boxes_max_abs_err": (self.kernel_err.get("flash_attention_boxes")
+                                             if name == "flash_attention" else None),
+                "layout_train_launches": self.layout_train_launches.get(name),
+                "layout_boxes_launches": self.layout_boxes_launches.get(name),
+                **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
+                   for run in ("layout", "layout_train", "layout_boxes")
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         return {"kernels": entries}
 

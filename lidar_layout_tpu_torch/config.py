@@ -1,10 +1,10 @@
 """YAML configs with ``target:``/``params:`` instantiation, for the ported models.
 
 Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model_interface``,
-``layout_unet`` and ``layout_encoder`` builders of
-``lidar_layout_tpu/config.py`` (with the reference's target-name aliases) and
-of its ``load_yaml`` and ``apply_dotlist``. Targets not ported yet raise
-KeyError.
+``layout_unet``, ``layout_encoder``, ``unet1d`` and ``layout_diffusion``
+builders of ``lidar_layout_tpu/config.py`` (with the reference's target-name
+aliases) and of its ``load_yaml`` and ``apply_dotlist``. Targets not ported
+yet raise KeyError.
 """
 from __future__ import annotations
 
@@ -15,8 +15,10 @@ import torch
 from .encoders.layout_encoder import LayoutEncoderConfig, LayoutTransformerEncoder
 from .models.autoencoder import AEConfig, VQModelInterface
 from .models.diffusion import DiffusionConfig, LatentDiffusion
+from .models.layout_diffusion import LayoutDiffusion, LayoutDiffusionConfig
 from .models.object_cross_unet import LayoutDiffusionUNetModel, LayoutUNetConfig
 from .models.unet import UNetConfig, UNetModel
+from .models.unet1d import UNet1DConfig
 
 UNET_TARGETS = ("unet", "lidm.modules.diffusion.openaimodel.UNetModel")
 LAYOUT_UNET_TARGETS = ("layout_unet",
@@ -88,6 +90,44 @@ def build_layout_encoder_cfg(params: Dict[str, Any]) -> LayoutEncoderConfig:
         resolution_to_attention=tuple(params.get("resolution_to_attention", (8, 4, 2))))
 
 
+def build_unet1d_cfg(params: Dict[str, Any]) -> UNet1DConfig:
+    """As the JAX package's: the GCN head keeps its defaults (``gconv_dim``
+    64, 16 predicates)."""
+    return UNet1DConfig(
+        in_channels=params.get("in_channels", 8),
+        model_channels=params.get("model_channels", 512),
+        out_channels=params.get("out_channels", 8),
+        num_res_blocks=params.get("num_res_blocks", 2),
+        attention_resolutions=tuple(params.get("attention_resolutions", (4, 2))),
+        channel_mult=tuple(params.get("channel_mult", (1, 1, 1, 1))),
+        num_heads=params.get("num_heads", 8),
+        transformer_depth=params.get("transformer_depth", 1),
+        conditioning_key=params.get("conditioning_key", "crossattn"),
+        concat_dim=params.get("concat_dim", 1280),
+        crossattn_dim=params.get("crossattn_dim", 1280),
+        enable_t_emb=params.get("enable_t_emb", True),
+        dropout=params.get("dropout", 0.0))
+
+
+def _build_layout_diffusion(params: Dict[str, Any], **_) -> LayoutDiffusion:
+    """``vocab`` ({num_objs, num_preds}) is injected into ``params`` by the
+    caller, as ``scripts/train_layout.py`` does from its dataset; 32 and 16
+    without it."""
+    csc = params.get("cond_stage_config", {}) or {}
+    csp = csc.get("params", {}) if isinstance(csc, dict) else {}
+    vocab = params.get("vocab", {})
+    return LayoutDiffusion(
+        LayoutDiffusionConfig(
+            timesteps=params.get("timesteps", 1000),
+            linear_start=params.get("linear_start", 1e-4),
+            linear_end=params.get("linear_end", 2e-2),
+            loss_type=params.get("loss_type", "l2"),
+            parameterization=params.get("parameterization", "eps")),
+        build_unet1d_cfg(params["unet_config"]["params"]),
+        num_objs=vocab.get("num_objs", 32), num_preds=vocab.get("num_preds", 16),
+        sg_embedding_dim=csp.get("embedding_dim", 64), use_clip=csp.get("use_clip", True))
+
+
 def _build_vq_interface(params: Dict[str, Any], **_) -> VQModelInterface:
     return VQModelInterface(_ae_cfg(params["ddconfig"]),
                             n_embed=params.get("n_embed", 16384),
@@ -154,6 +194,10 @@ for _names, _fn in (
          lambda params, **_: LayoutDiffusionUNetModel(build_layout_unet_cfg(params))),
         (LAYOUT_ENCODER_TARGETS,
          lambda params, **_: LayoutTransformerEncoder(build_layout_encoder_cfg(params))),
+        (("unet1d", "lidm.modules.unets.unet_1d.UNet1DModel"),
+         lambda params, **_: build_unet1d_cfg(params)),
+        (("layout_diffusion", "lidm.models.diffusion.ddpm.LayoutDiffusion"),
+         _build_layout_diffusion),
         (("vq_model_interface", "lidm.models.autoencoder.VQModelInterface",
           "lidm.models.ae.autoencoder.VQModelInterface"), _build_vq_interface)):
     for _n in _names:

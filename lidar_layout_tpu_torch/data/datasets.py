@@ -5,6 +5,9 @@ with its python ``.bin`` reader: velodyne scans are read with numpy and
 projected with the port's ``pcd2range`` / ``process_scan``. When no dataset
 root exists the synthetic generator stands in (and says so). The native
 loader and the degradation transform are not ported yet (ROADMAP queue 1).
+``layout_range_batches`` loops over the nuScenes layout dataset
+(``readers.NuScenesLayoutRangeDataset``) as the JAX package's
+``data/factory`` does.
 """
 from __future__ import annotations
 
@@ -97,3 +100,21 @@ class RangeImageDataset:
                     masks[j, :n] = True
                 yield project_batch(torch.from_numpy(clouds).to(self.device), self.geom,
                                     mask=torch.from_numpy(masks).to(self.device))
+
+
+def layout_range_batches(ds, batch_size: int, seed: int = 0,
+                         device: Union[str, torch.device] = "cpu"
+                         ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless shuffled batches of a ``NuScenesLayoutRangeDataset`` as
+    tensors on ``device``, with ``cond`` = ``layout``."""
+    if len(ds) < batch_size:
+        raise ValueError(f"{len(ds)} samples are fewer than a batch of {batch_size}")
+    rng = np.random.default_rng(seed)
+    order = np.arange(len(ds))
+    while True:
+        rng.shuffle(order)
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            b = ds.collate([ds[int(k)] for k in order[i:i + batch_size]])
+            out = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+            out["cond"] = out["layout"]
+            yield out

@@ -1,17 +1,19 @@
-"""nuScenes LiDAR sweeps and layouts: the file list, the ``.bin`` reader and
-the 13-slot layout tensors of the layout-conditioned LiDM.
+"""nuScenes LiDAR sweeps and layouts: the file list, the ``.bin`` reader, the
+13-slot layout tensors of the layout-conditioned LiDM and its dataset.
 
 Counterpart of ``list_nuscenes_sweeps``, ``read_nuscenes_bin``,
-``NUSC_CLASS_NAMES``, ``project_coords_np``, ``box_corners_3d``,
-``boxes_to_range_bbox2d``, ``scale_boxes8`` and ``build_layout13`` in
-``lidar_layout_tpu/data/readers.py`` (the KITTI listers and reader are in
-``data/datasets.py``). All numpy, as there.
+``NUSC_CLASS_NAMES``, ``project_coords_np``, ``pcd2range_np``,
+``process_scan_np``, ``box_corners_3d``, ``boxes_to_range_bbox2d``,
+``scale_boxes8``, ``build_layout13``, ``balanced_infos_resampling`` and
+``NuScenesLayoutRangeDataset`` in ``lidar_layout_tpu/data/readers.py`` (the
+KITTI listers and reader are in ``data/datasets.py``). All numpy, as there.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Sequence, Tuple
+import pickle
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -51,6 +53,34 @@ def project_coords_np(points: np.ndarray, geom: LidarGeometry
     px = 0.5 * (yaw / np.pi + 1.0)
     py = 1.0 - (pitch + abs(geom.fov_down)) / geom.fov_range
     return px, py, depth
+
+
+def pcd2range_np(points: np.ndarray, geom: LidarGeometry) -> np.ndarray:
+    """(N, 3) points -> (H, W) depth image, -1 where no point falls: farthest
+    first, so the nearest point of a pixel overwrites the others."""
+    h, w = geom.size
+    px, py, depth = project_coords_np(points, geom)
+    valid = ((depth > geom.depth_range[0]) & (depth < geom.depth_range[1])
+             & np.isfinite(px) & np.isfinite(py))
+    xi = np.clip(np.floor(px * w), 0, w - 1).astype(np.int64)
+    yi = np.clip(np.floor(py * h), 0, h - 1).astype(np.int64)
+    order = np.argsort(depth)[::-1]
+    order = order[valid[order]]
+    img = np.full((h, w), -1.0, np.float32)
+    img[yi[order], xi[order]] = depth[order]
+    return img
+
+
+def process_scan_np(range_img: np.ndarray, geom: LidarGeometry
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Metric depth -> log2 (or linear) scale -> [-1, 1], and the hit mask."""
+    img = range_img.copy()
+    hit = img > 0
+    if geom.log_scale:
+        img[hit] = np.log2(img[hit] + 1.0)
+    img = np.clip(img / geom.depth_scale * 2.0 - 1.0, -1.0, 1.0)
+    img[~hit] = -1.0
+    return img.astype(np.float32), hit
 
 
 def box_corners_3d(boxes7: np.ndarray) -> np.ndarray:
@@ -109,3 +139,70 @@ def build_layout13(boxes7: np.ndarray, names: Sequence[str], geom: LidarGeometry
                           boxes_to_range_bbox2d(boxes7, geom), cls[:, None]], 1)
     out[: len(row)] = row
     return out
+
+
+def balanced_infos_resampling(infos: List[dict], rng: np.random.Generator) -> List[dict]:
+    """Class-balanced resampling (CBGS): each class's infos drawn with ratio
+    (1/C) / the class's frequency, so rare classes are drawn more often."""
+    class_names = NUSC_CLASS_NAMES
+    cls_infos = {n: [] for n in class_names}
+    for info in infos:
+        for name in set(info.get("gt_names", ())):
+            if name in cls_infos:
+                cls_infos[name].append(info)
+    total = sum(len(v) for v in cls_infos.values())
+    if total == 0:
+        return list(infos)
+    frac = 1.0 / len(class_names)
+    sampled: List[dict] = []
+    for name in class_names:
+        pool = cls_infos[name]
+        if not pool:
+            continue
+        take = int(len(pool) * (frac / (len(pool) / total)))
+        sampled.extend(pool[i] for i in rng.integers(0, len(pool), take))
+    return sampled
+
+
+class NuScenesLayoutRangeDataset:
+    """Layout-conditioned range images: an infos pickle (``lidar_path`` and
+    the scene graph's ``keep_box`` / ``keep_box_names``), class-balanced
+    resampling for the train split, and 13-slot layout tensors."""
+
+    def __init__(self, root: str, split: str = "train", info_path: Optional[str] = None,
+                 geom: Optional[LidarGeometry] = None, x_range=(-50.0, 50.0),
+                 y_range=(-50.0, 50.0), z_range=(-4.0, 2.0), seed: int = 0):
+        self.root = root
+        self.geom = geom or LidarGeometry(size=(32, 1024), fov=(10.0, -30.0))
+        self.x_range, self.y_range, self.z_range = x_range, y_range, z_range
+        info_path = info_path or os.path.join(root, f"nuscenes_infos_{split}.pkl")
+        with open(info_path, "rb") as f:   # the dataset's own infos file
+            self.infos = pickle.load(f)
+        if split == "train":
+            self.infos = balanced_infos_resampling(self.infos, np.random.default_rng(seed))
+
+    def __len__(self) -> int:
+        return len(self.infos)
+
+    def _lidar_path(self, rel: str) -> str:
+        """The reference's data root is the version directory; a root one
+        level up is accepted too."""
+        p = os.path.join(self.root, rel)
+        if os.path.isfile(p):
+            return p
+        return os.path.join(self.root, "v1.0-trainval", rel)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        info = self.infos[idx]
+        pts = read_nuscenes_bin(self._lidar_path(info["lidar_path"]))[:, :3]
+        model, mask = process_scan_np(pcd2range_np(pts, self.geom), self.geom)
+        sg = info.get("scene_graph", info)
+        layout = build_layout13(np.asarray(sg.get("keep_box", np.zeros((0, 7))), np.float32),
+                                list(sg.get("keep_box_names", ())), self.geom,
+                                self.x_range, self.y_range, self.z_range)
+        return {"image": model[..., None], "mask": mask[..., None], "layout": layout}
+
+    @staticmethod
+    def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        """Stack the samples' fixed-shape arrays."""
+        return {k: np.stack([s[k] for s in samples], 0) for k in samples[0]}

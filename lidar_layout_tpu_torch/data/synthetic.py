@@ -3,9 +3,9 @@
 Counterpart of ``lidar_layout_tpu/data/synthetic.py``: street-like scans
 (ground plane, random boxes, poles) drawn with numpy, with the same random
 number consumption as the JAX package, then projected through the port's
-``pcd2range`` and ``process_scan``; and the 13-slot layouts of the
-layout-conditioned LiDM (the layout half of the JAX package's
-``data/factory._synthetic_layout_range_batch``).
+``pcd2range`` and ``process_scan``; the 13-slot layouts of the
+layout-conditioned LiDM; and its training batches, scenes and layouts, as
+the JAX package's ``data/factory._synthetic_layout_range_batch`` draws them.
 """
 from __future__ import annotations
 
@@ -95,3 +95,14 @@ def synthetic_layouts(rng: np.random.Generator, batch: int, geom: LidarGeometry
                  for i in rng.integers(0, len(NUSC_CLASS_NAMES), k)]
         layouts[b] = build_layout13(boxes7, names, geom, (-50, 50), (-50, 50), (-4, 2))
     return layouts
+
+
+def synthetic_layout_range_batch(rng: np.random.Generator, batch: int, geom: LidarGeometry,
+                                 device: Union[str, torch.device] = "cpu"
+                                 ) -> Dict[str, torch.Tensor]:
+    """A ``nusc_layout_range`` training batch: ``image`` and ``mask`` of
+    ``batch`` synthetic scenes, then their (B, 13, 13) layouts as ``layout``
+    and ``cond``, on ``device``; the JAX package's draws in its order."""
+    out = synthetic_range_batch(rng, batch, geom, device=device)
+    out["layout"] = out["cond"] = torch.from_numpy(synthetic_layouts(rng, batch, geom)).to(device)
+    return out

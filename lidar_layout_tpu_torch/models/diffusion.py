@@ -12,6 +12,8 @@ With ``conditioning_key: layout_crossattn`` the U-Net is the object-aware
 cross-attention one (``models/object_cross_unet.py``, passed as ``unet``) and
 the conditioning stage the layout encoder: ``get_learned_conditioning``
 encodes layouts and ``apply_model`` hands the encoder's dict to the U-Net.
+Training encodes the batch's raw layout inside the graph
+(``batch_conditioning``), so the gradient reaches a trainable encoder.
 Other conditioning keys are not ported yet.
 
 The state_dict uses the reference LatentDiffusion checkpoint prefixes,
@@ -152,12 +154,17 @@ class LatentDiffusion(nn.Module):
     # ---------------------------------------------------------- conditioning
     def get_learned_conditioning(self, cond: Any) -> Any:
         """Encode raw conditioning (for the layout model a (B, L, 13) layout,
-        tensor or numpy) with the conditioning stage, on the model's device;
-        detached unless ``cond_stage_trainable``. Without a stage: ``cond``."""
+        tensor or numpy) with the conditioning stage, on the model's device,
+        in float32; detached unless ``cond_stage_trainable``, so that in
+        training the gradient reaches the encoder when it is trainable.
+        Without a stage: ``cond``."""
         if self.cond_stage_model is None:
             return cond
         dev = next(self.parameters()).device
-        out = self.cond_stage_model(torch.as_tensor(cond, device=dev))
+        # float32 under autocast too: the JAX package builds the encoder
+        # without a dtype
+        with torch.autocast(dev.type, enabled=False):
+            out = self.cond_stage_model(torch.as_tensor(cond, device=dev))
         if not self.cfg.cond_stage_trainable:
             out = {k: v.detach() for k, v in out.items()}
         return out
@@ -205,9 +212,18 @@ class LatentDiffusion(nn.Module):
     def training_loss(self, batch: Dict[str, torch.Tensor], generator: torch.Generator
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One shared step: encode (frozen), draw t and the noise from
-        ``generator`` (on its device, then moved to the batch's), p_losses."""
+        ``generator`` (on its device, then moved to the batch's), encode the
+        batch's raw conditioning, p_losses."""
         z = self.encode_first_stage(batch["image"])
-        return self.p_losses(z, *self.draw_t_noise(z, generator))
+        return self.p_losses(z, *self.draw_t_noise(z, generator), self.batch_conditioning(batch))
+
+    def batch_conditioning(self, batch: Dict[str, Any]) -> Any:
+        """A training batch's conditioning: its raw ``cond`` (the layout)
+        through ``get_learned_conditioning``, inside the graph; None for an
+        unconditional model."""
+        if self.cfg.conditioning_key is None:
+            return None
+        return self.get_learned_conditioning(batch["cond"])
 
     def draw_t_noise(self, z: torch.Tensor, generator: torch.Generator
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -94,13 +94,24 @@ class ObjectAwareCrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: Dict[str, torch.Tensor]) -> torch.Tensor:
         b, c, h, w = x.shape
-        l1, heads = h * w, self.heads
-        dh = c // heads
+        l1 = h * w
         y = self.norm_qkv(x).reshape(b, c, l1).transpose(1, 2)              # (B, L1, C)
         qkv = F.linear(y, self.qkv.weight[:, :, 0, 0], self.qkv.bias)
         # [q(all heads) | k | v], not the heads-major order of SelfAttentionBlock;
         # the rest is float32, as JAX promotes it next to the f32 embeddings
-        q, k, v = qkv.float().split(c, dim=-1)
+        # (under autocast too)
+        with torch.autocast(x.device.type, enabled=False):
+            out = self._attend(qkv.float(), cond, b, c, l1)
+        # in a model of another dtype the sum returns in x's dtype (JAX
+        # promotes it to float32)
+        return x + out.transpose(1, 2).reshape(b, c, h, w).to(x.dtype)
+
+    def _attend(self, qkv: torch.Tensor, cond: Dict[str, torch.Tensor], b: int, c: int,
+                l1: int) -> torch.Tensor:
+        """(B, L1, 3C) f32 projections -> (B, L1, C) f32 attention output."""
+        heads = self.heads
+        dh = c // heads
+        q, k, v = qkv.split(c, dim=-1)
 
         img_pos = self.norm_img_pos(self.layout_position_proj(
             cond[f"image_patch_bbox_embedding_res{self.res_key}"].float()))
@@ -118,15 +129,12 @@ class ObjectAwareCrossAttention(nn.Module):
         scale = 1.0 / math.sqrt(math.sqrt(qh.shape[-1]))
         logits = torch.einsum("bqhd,bkhd->bhqk", qh * scale, kh * scale)
         if "key_padding_mask" in cond:
-            valid = torch.cat([torch.ones((b, l1), dtype=torch.bool, device=x.device),
+            valid = torch.cat([torch.ones((b, l1), dtype=torch.bool, device=qkv.device),
                                cond["key_padding_mask"].to(torch.bool)], 1)
             logits = torch.where(valid[:, None, None, :], logits, -1e9)
         wgt = torch.softmax(logits.float(), dim=-1).to(vh.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", wgt, vh).reshape(b, l1, c)
-        out = self.proj_out(out)
-        # in a model of another dtype the sum returns in x's dtype (JAX
-        # promotes it to float32)
-        return x + out.transpose(1, 2).reshape(b, c, h, w).to(x.dtype)
+        return self.proj_out(out)
 
 
 class LayoutDiffusionUNetModel(nn.Module):

@@ -23,19 +23,27 @@ from ..nn.ema import Ema
 
 
 def trainable_keys(model: LatentDiffusion) -> Tuple[str, ...]:
+    """The U-Net, the conditioning stage when it is trainable, and logvar
+    when it is learned (the JAX ``trainable_keys``)."""
     keys = ["unet"]
+    if model.cfg.cond_stage_trainable and model.cond_stage_model is not None:
+        keys.append("cond_stage")
     if model.cfg.learn_logvar:
         keys.append("logvar")
     return tuple(keys)
 
 
 def trainable_params(model: LatentDiffusion) -> Dict[str, torch.nn.Parameter]:
-    """The trained parameters under their state_dict names."""
+    """The trained parameters under their state_dict names; AdamW and the
+    EMA cover exactly these."""
     out: Dict[str, torch.nn.Parameter] = {}
     for key in trainable_keys(model):
         if key == "unet":
             out.update({f"model.diffusion_model.{n}": p
                         for n, p in model.unet.named_parameters()})
+        elif key == "cond_stage":
+            out.update({f"cond_stage_model.{n}": p
+                        for n, p in model.cond_stage_model.named_parameters()})
         else:
             out["logvar"] = model.logvar
     return out
@@ -162,7 +170,10 @@ def make_train_step(model: LatentDiffusion, ema_decay: float = 0.9999,
     """step(state, batch, generator) -> (state, logs).
 
     t and the noise come from ``generator``; dropout (when the U-Net config
-    has any) from torch's default generator of the device. ``logs`` holds
+    has any, as the layout model's 0.1) from torch's default generator of the
+    device. A conditioned model encodes the batch's raw ``cond`` inside the
+    forward+backward phase, so a trainable encoder gets its gradient; it
+    runs in float32 under autocast. ``logs`` holds
     0-d device tensors: loss, loss_simple, loss_vlb and grad_norm (before
     clipping). With ``timed`` the step synchronises the device at its phase
     boundaries and adds ``seconds_encode``, ``seconds_fwd_bwd`` and
@@ -188,7 +199,8 @@ def make_train_step(model: LatentDiffusion, ema_decay: float = 0.9999,
             z = model.encode_first_stage(batch["image"])
         mark()
         with _autocast(model, autocast_dtype):
-            loss, logs = model.p_losses(z, *model.draw_t_noise(z, generator))
+            cond = model.batch_conditioning(batch)
+            loss, logs = model.p_losses(z, *model.draw_t_noise(z, generator), cond)
         loss.backward()
         mark()
         logs["grad_norm"] = state.optimizer.step()

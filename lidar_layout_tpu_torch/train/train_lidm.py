@@ -6,10 +6,14 @@
 Counterpart of ``scripts/train_lidm.py`` with the same flags:
 ``-b/--base -t/--train -r/--resume -d/--data-root -s/--seed --steps
 --workdir --synthetic --bf16`` and trailing ``a.b.c=value`` overrides;
-``--cpu`` runs on the CPU. Only the LatentDiffusion branch is ported: the
-autoencoder and the other families' trainers raise NotImplementedError.
-Weights start from torch's initialisers under ``--seed`` unless the first
-stage names a ``ckpt_path``.
+``--cpu`` runs on the CPU. Only the LatentDiffusion branch is ported,
+unconditional or layout-conditioned
+(``configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml``, whose encoder
+trains with the U-Net): the autoencoder and the other families' trainers
+raise NotImplementedError. The layout model's ``nusc_layout_range`` batches
+are synthetic with ``--synthetic`` or read from ``--data-root``'s infos
+pickle. Weights start from torch's initialisers under ``--seed`` unless the
+first stage names a ``ckpt_path``.
 """
 from __future__ import annotations
 
@@ -17,9 +21,13 @@ import argparse
 import os
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 LDM_TARGETS = ("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion")
+LAYOUT_DIFFUSION_TARGETS = ("layout_diffusion", "lidm.models.diffusion.ddpm.LayoutDiffusion")
+LAYOUT_RANGE_TARGETS = ("nusc_layout_range", "lidm.data.nusc_dataset.nuScenesLayoutTrain",
+                        "lidm.data.nusc_dataset.nuScenesLayoutValidation")
 
 
 def parse_args(argv=None):
@@ -76,7 +84,9 @@ def main(argv=None):
     args = parse_args(argv)
 
     from ..config import apply_dotlist, instantiate_from_config, load_yaml
-    from ..data.datasets import RangeImageDataset
+    from ..data.datasets import RangeImageDataset, layout_range_batches
+    from ..data.readers import NuScenesLayoutRangeDataset
+    from ..data.synthetic import synthetic_layout_range_batch
     from ..models.diffusion import apply_scale_by_std
     from ..pipeline import geometry_from_config
     from ..utils.device import resolve_device
@@ -100,15 +110,15 @@ def main(argv=None):
         apply_dotlist(cfg, args.overrides)
         print(f"dotlist overrides: {args.overrides}")
     model_cfg = cfg["model"]
+    if model_cfg["target"] in LAYOUT_DIFFUSION_TARGETS:
+        raise NotImplementedError(
+            "LayoutDiffusion's trainer (scripts/train_layout.py) is not ported yet "
+            '(ROADMAP queue 1, "LayoutDiffusion training and data")')
     if model_cfg["target"] not in LDM_TARGETS:
         raise NotImplementedError(
             f"training {model_cfg['target']!r} is not ported yet: the autoencoder and "
             f"the other families' trainers wait for their port "
             f'(ROADMAP queue 1, "First stage and AE training")')
-    if model_cfg.get("params", {}).get("conditioning_key") is not None:
-        raise NotImplementedError(
-            "the conditioned training step is not ported yet "
-            '(ROADMAP queue 1, "Layout-conditioned training")')
     data_cfg = cfg.get("data", {}).get("params", {})
     name = os.path.splitext(os.path.basename(args.base))[0]
     workdir = args.workdir or f"./runs/{name}"
@@ -117,14 +127,35 @@ def main(argv=None):
     accumulate = int(data_cfg.get("accumulate_grad_batches", 1))
 
     def make_batches(split: str, seed: int):
-        blk = data_cfg.get(split) or data_cfg.get("train")
-        if blk and blk.get("target") and not args.synthetic:
+        blk = data_cfg.get(split) or data_cfg.get("train") or {}
+        if blk.get("target") in LAYOUT_RANGE_TARGETS:
+            return layout_batches(blk.get("params") or {}, split, seed)
+        if blk.get("target") and not args.synthetic:
             raise NotImplementedError("dataset targets (data/factory.py) are not ported "
                                       'yet (ROADMAP queue 1, "First stage and AE training"); '
                                       "use --synthetic")
         ds = RangeImageDataset(None if args.synthetic else args.data_root,
                                batch_size=batch_size, geom=geom, seed=seed, device=device)
         return ds.batches()
+
+    def layout_batches(params: Dict[str, Any], split: str, seed: int):
+        """nuScenes layout batches: synthetic scenes and layouts, or the
+        reader over ``--data-root``'s infos pickle."""
+        if args.synthetic:
+            rng = np.random.default_rng(seed)
+            return iter(lambda: synthetic_layout_range_batch(rng, batch_size, geom, device),
+                        None)
+        if not args.data_root:
+            raise ValueError("the nusc_layout_range dataset needs --data-root (a nuScenes "
+                             "root with nuscenes_infos_<split>.pkl) or --synthetic")
+        dset = data_cfg.get("dataset", {})
+        ds = NuScenesLayoutRangeDataset(
+            args.data_root, params.get("split", "train" if split == "train" else "val"),
+            params.get("info_path"), geom,
+            *(tuple(dset.get(k, d)) for k, d in (("x_range", (-50, 50)),
+                                                  ("y_range", (-50, 50)),
+                                                  ("z_range", (-4, 2)))), seed=seed)
+        return layout_range_batches(ds, batch_size, seed, device)
 
     train_batches = make_batches("train", args.seed)
     val_every = max(int(data_cfg.get("val_every_steps", args.steps // 10 or 1)), 1)

@@ -21,6 +21,12 @@ module names (``in_1_0_attn.layout_position_proj``, ``attn_0.query``, ...),
 except where the layout U-Net shares the flagship's structure: the timestep
 MLP is ``time_embed.0``/``.2`` and a ResBlock's layers are ``in_layers``,
 ``emb_layers``, ``out_layers`` and ``skip_connection``, as above.
+
+LayoutDiffusion (``layout_diffusion_state_dict``): the port's modules keep
+every flax name, so a leaf's path is its module path: Dense ``(in, out)``
+and width-3 Conv ``(3, in, out)`` kernels are reversed to torch's ``(out,
+in)`` and ``(out, in, 3)``, Embed tables and the GroupNorm / LayerNorm
+scale and bias carry across as ``weight`` and ``bias``.
 """
 from __future__ import annotations
 
@@ -202,6 +208,24 @@ def latent_diffusion_state_dict(params: Dict[str, Any], unet_cfg: Union[UNetConf
         sd.update({f"cond_stage_model.{k}": v
                    for k, v in layout_encoder_state_dict(params["cond_stage"]).items()})
     return sd
+
+
+def layout_diffusion_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``LayoutDiffusion.init`` tree ``{"unet", "cond_stage"}`` (numpy)
+    -> the port's ``models/layout_diffusion.LayoutDiffusion`` state_dict
+    (``unet.*``, ``cond_stage.*``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for part in ("unet", "cond_stage"):
+        tree = params[part].get("params", params[part])
+        for path, value in _flatten(tree):
+            mods, leaf = tuple(m for m in path[:-1] if m != "GroupNorm_0"), path[-1]
+            if leaf == "kernel":
+                leaf, value = "weight", value.T      # (in, out) / (3, in, out) reversed
+            elif leaf in ("scale", "embedding"):
+                leaf = "weight"
+            out[".".join((part,) + mods + (leaf,))] = torch.from_numpy(
+                np.ascontiguousarray(value))
+    return out
 
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}

@@ -467,3 +467,136 @@ def test_gpu_layout_unet_matches_cpu(cuda_device):
     # f32 on both, summed in other orders through a dozen layers
     assert outs[0].abs().max() > 0.1
     assert (outs[1] - outs[0]).abs().max().item() <= 1e-4 * max(1.0, outs[0].abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gpu_attention_kernel_at_layout_diffusion_shape(cuda_device):
+    # LayoutDiffusion's CrossAttentions: (N, 1, 8, 64) projections seen as
+    # (N, 8, 1, 64), f32; one query row of a 128-row tile
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = (torch.randn((256, 1, 512), generator=gen, device=cuda_device)
+               .reshape(256, 1, 8, 64).transpose(1, 2) for _ in range(3))
+    launches = A.flash_attention.launches
+    got = A.flash_attention(q, k, v)
+    again = A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert A.flash_attention.launches == launches + 2
+    assert (got - A._attend_ref(q, k, v)).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)
+
+
+def _layout_train_gn_shapes(dev):
+    """(B, C, H, W, groups, act) of the layout U-Net's K3 calls in a training
+    step at batch 16 (each also runs K3's backward)."""
+    from lidar_layout_tpu_torch.flagship import layout_flagship
+    from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+    model, _ = layout_flagship(device=dev)
+    seen = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.add((16, *args[0].shape[1:], mod.num_groups, mod.act)))
+        for m in model.unet.modules() if isinstance(m, Normalize)]
+    with torch.no_grad():
+        cond = model.get_learned_conditioning(torch.zeros((1, 13, 13)))
+        model.apply_model(torch.zeros((1, 8, 128, 8), device=dev),
+                          torch.zeros(1, dtype=torch.long, device=dev), cond)
+    for h in hooks:
+        h.remove()
+    return sorted(seen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_group_norm_bwd_at_layout_training_shapes(cuda_device, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    shapes = _layout_train_gn_shapes(cuda_device)
+    assert (16, 256, 8, 128, 32, True) in shapes and (16, 2048, 2, 32, 32, True) in shapes
+    for (b, c, h, w, g, act) in shapes:
+        x = (torch.randn((b, c, h, w), generator=gen, device=cuda_device) * 2 + 0.3).to(dt)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        beta = 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        dy = torch.randn(x.shape, generator=gen, device=cuda_device).to(dt)
+        launches = G.group_norm_bwd.launches
+        got = G.group_norm_bwd(x, gamma, beta, dy, g, 1e-6, act)
+        again = G.group_norm_bwd(x, gamma, beta, dy, g, 1e-6, act)
+        want = G._group_norm_bwd_ref(x, gamma, beta, dy, g, 1e-6, act)
+        torch.cuda.synchronize()
+        assert G.group_norm_bwd.launches == launches + 2
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), (b, c, h, w)
+        # both in f32 arithmetic from the same x and dy: dx rounded to x's
+        # dtype, dgamma/dbeta sums of B*H*W products
+        tol_dx = 1e-4 if dt == torch.float32 else 5e-2
+        assert (got[0].float() - want[0].float()).abs().max().item() <= tol_dx, (b, c, h, w)
+        for i in (1, 2):
+            assert ((got[i] - want[i]).abs().max().item()
+                    <= 1e-3 + 1e-4 * want[i].abs().max().item()), (b, c, h, w, i)
+
+
+@pytest.mark.gpu
+def test_gpu_tiny_layout_training_step_under_autocast(cuda_device):
+    import numpy as np
+    from lidar_layout_tpu_torch.data.synthetic import synthetic_layout_range_batch
+    from lidar_layout_tpu_torch.flagship import layout_flagship
+    from lidar_layout_tpu_torch.ops.lidar import LidarGeometry
+    from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+    from torch_port_helpers import seed_weights
+
+    model, _ = layout_flagship(tiny=True, device="cuda")
+    seed_weights(model, 3)
+    params = DT.trainable_params(model)
+    state = DT.create_train_state(model, DT.make_optimizer(params, 1e-4), params)
+    batch = synthetic_layout_range_batch(np.random.default_rng(1), 2,
+                                         LidarGeometry(size=(32, 256), fov=(10, -30)),
+                                         device="cuda")
+    grads = {}
+    step_opt = state.optimizer.step
+
+    def spy():
+        grads.update({k: p.grad for k, p in params.items()})
+        return step_opt()
+    state.optimizer.step = spy
+    before = (A.flash_attention.launches, G.group_norm.launches, G.group_norm_bwd.launches)
+    state, logs = DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
+        state, batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(logs["loss"]) and torch.isfinite(logs["grad_norm"])
+    for name, g in grads.items():
+        assert g is not None and g.dtype == torch.float32 and torch.isfinite(g).all(), name
+    enc = [g for k, g in grads.items() if k.startswith("cond_stage_model.")]
+    assert enc and sum(float(g.abs().sum()) for g in enc) > 0
+    # K3 forward and backward; the object-aware attention is plain matmuls
+    assert A.flash_attention.launches == before[0]
+    assert G.group_norm.launches > before[1] and G.group_norm_bwd.launches > before[2]
+
+
+@pytest.mark.gpu
+def test_gpu_tiny_layout_diffusion_matches_cpu(cuda_device):
+    import numpy as np
+    from lidar_layout_tpu_torch.data.layout_synthetic import synthetic_graph_batch
+    from lidar_layout_tpu_torch.models.layout_diffusion import (LayoutDiffusion,
+                                                                LayoutDiffusionConfig)
+    from lidar_layout_tpu_torch.models.unet1d import UNet1DConfig
+    from lidar_layout_tpu_torch.nn.attention import CrossAttention
+    from torch_port_helpers import seed_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    graph = synthetic_graph_batch(np.random.default_rng(2), n_scenes=2, max_objs_per_scene=4,
+                                  max_triples_per_scene=6)
+    x_T = torch.randn((8, 8), generator=torch.Generator().manual_seed(3))
+    outs, sd = [], None
+    for dev in ("cpu", cuda_device):
+        model = LayoutDiffusion(LayoutDiffusionConfig(), UNet1DConfig(
+            model_channels=64, concat_dim=96, crossattn_dim=96), sg_embedding_dim=16).to(dev)
+        if sd is None:
+            sd = seed_weights(model, 4).state_dict()
+        else:
+            model.load_state_dict(sd)
+        launches = A.flash_attention.launches
+        outs.append(model.ddim_sample(graph, steps=4, x_T=x_T).cpu())
+        ran = A.flash_attention.launches - launches
+    # every CrossAttention of the 4 U-Net evals went to K1 on the card
+    assert ran == 4 * sum(isinstance(m, CrossAttention) for m in model.unet.modules()) > 0
+    # f32 on both, summed in other orders; DDIM-4 amplifies the differences
+    assert outs[0].abs().max() > 0.1
+    assert (outs[1] - outs[0]).abs().max().item() <= 1e-3 * max(1.0, outs[0].abs().max().item())

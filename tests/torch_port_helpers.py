@@ -139,6 +139,33 @@ def attn_inputs(gen: torch.Generator, b: int, h: int, s: int, d: int, dtype: tor
     return q, k, v, kb
 
 
+def random_flax_params(init, seed: int, *args, **kw) -> dict:
+    """A flax parameter tree with the structure ``init(*args, **kw)`` gives
+    (from ``jax.eval_shape``: traced, not compiled) and values drawn with
+    numpy: kernels at 1/sqrt(fan_in) (so zero-initialised projections are
+    live), embeddings and codebooks N(0, 1), norm scales 1 + 0.1 N(0, 1),
+    every other leaf 0.1 N(0, 1). A jitted init of a whole model takes tens
+    of seconds on the CPU; this takes a few."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(init, *args, **kw)
+
+    def leaf(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "kernel":
+            a = rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        elif name == "embedding":
+            a = rng.standard_normal(s.shape)
+        elif name == "scale":
+            a = 1.0 + 0.1 * rng.standard_normal(s.shape)
+        else:
+            a = 0.1 * rng.standard_normal(s.shape)
+        return jnp.asarray(a, jnp.float32)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 def numpy_state_dict(module: torch.nn.Module, prefix: str = "") -> dict:
     return {prefix + k: v.detach().float().numpy() for k, v in module.state_dict().items()}
 
