@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases device,build,kernels,layout_slice,layout
     python3 chip_smoke.py --phases device,build,kernels,layout_train_slice,layout_train
     python3 chip_smoke.py --phases device,build,kernels,layout_boxes_slice,layout_boxes
+    python3 chip_smoke.py --phases device,build,kernels,layout_boxes_train_slice,layout_boxes_train
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -27,8 +28,10 @@ Phases (any failure exits non-zero before the final "ok" line):
                error model checked on the pairs it re-checks, and its grad guard;
                K3 also at every group shape of the layout path (the layout
                U-Net at batch 16 and, guided, 32; the nuScenes VQ decoder); K3's
-               backward also at every layout training shape; K1 at
-               LayoutDiffusion's (256, 8, 1, 64) f32, bit for bit over two launches
+               backward also at every layout training shape; K1 (with its
+               log-sum-exp) and K2 at LayoutDiffusion's (256, 8, 1, 64) f32 on
+               CrossAttention's strides, bit for bit over two launches, K2's dq
+               and dk required to be exactly 0 (one key), as JAX's are
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -71,6 +74,18 @@ Phases (any failure exits non-zero before the final "ok" line):
                scenes/s and boxes/s over three requests, K1 launches (22 a U-Net
                eval) against the structure and module hooks, no plain attention,
                finite (256, 7) boxes, different boxes from different graphs
+  layout_boxes_train_slice  one LayoutDiffusion training step at full width,
+               f32, 16 scenes x 16 objects, card vs CPU, at fixed t, noise and
+               change noise, dropout off: loss, U-Net1D and scene-graph encoder
+               gradients (relative L2 over each), parameters and EMA after
+               AdamW, to_q/to_k gradients exactly 0
+  layout_boxes_train  train_layout's step at 16 scenes x 16 objects, f32:
+               synthetic graphs and one batch read from a tiny infos pickle;
+               steps/s, scenes/s, phase split, peak memory, K1 and K2 launches
+               per step (22 each) against the structure and module hooks, no
+               plain attention, non-zero finite encoder gradients, an overfit
+               check; then the train_layout CLI (--synthetic --steps 2) and
+               sample_layout -r on its run directory
   timing       per-kernel device times at the main paths' shapes beside the
                plain version, one PyTorch library call and the card's bound,
                and for K1/K2 the special-function unit's floor for their
@@ -80,10 +95,14 @@ Phases (any failure exits non-zero before the final "ok" line):
                guided layout run; K1 at LayoutDiffusion's (256, 8, 1, 64) f32,
                summed over a request (its launches counted by hooks on one
                request when layout_boxes did not run); K3's backward at the
-               layout model's training shapes, summed over its timed steps
+               layout model's training shapes, summed over its timed steps;
+               K1 (with its log-sum-exp) and K2 at (256, 8, 1, 64) f32 beside
+               SDPA's forward and backward, summed over LayoutDiffusion's 10
+               timed training steps
   profile      (only when named) device time of one DPM-20 request, of one
                guided layout request, of one training step, of one layout
-               training step and of one LayoutDiffusion request by kernel family
+               training step, of one LayoutDiffusion request and of one
+               LayoutDiffusion training step by kernel family
 
 The weights are random, drawn from a seed (no trained checkpoint is used). It
 imports nothing of JAX.
@@ -105,7 +124,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "eval_slice",
           "eval", "layout_slice", "layout", "layout_train_slice", "layout_train",
-          "layout_boxes_slice", "layout_boxes", "timing")
+          "layout_boxes_slice", "layout_boxes", "layout_boxes_train_slice", "layout_boxes_train",
+          "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -118,6 +138,7 @@ LAYOUT_CFG_SCALE = 2.0   # the guided layout run: DPM-20, generate(32) at batch 
 # LayoutDiffusion serving: 16 scenes at the nuScenes layout dataset's capacity
 # of 16 objects and 32 triples a scene (N = 256 boxes), DDIM-100, f32
 BOX_SCENES, BOX_STEPS, BOX_CALLS = 16, 100, 3
+BOX_LR = 1.6e-5   # layout_nusc.yaml's: base 1e-6 x 16 scenes
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -320,6 +341,7 @@ class Smoke:
         self.layout_launches = {}
         self.layout_train_launches = {}
         self.layout_boxes_launches = {}
+        self.layout_boxes_train_launches = {}   # over LayoutDiffusion's timed training steps
         self.box_attention_calls = None   # K1 calls of one LayoutDiffusion request (hooks)
         self.run_totals = {}   # kernel -> {run: summed times} of the layout paths
 
@@ -436,29 +458,60 @@ class Smoke:
         self._kernels_train()
         self._kernels_chamfer()
 
+    @staticmethod
+    def _box_qkv(gen, count=3):
+        """``count`` (256, 8, 1, 64) f32 tensors laid out as LayoutDiffusion's
+        CrossAttention hands them to K1 and K2: (N, 1, 8 * 64) projections
+        reshaped to (N, 1, 8, 64) and viewed as (N, 8, 1, 64)."""
+        import torch
+
+        n, heads, dh = BOX_SCENES * 16, 8, 64
+        return [torch.randn((n, 1, heads * dh), generator=gen, device="cuda")
+                .reshape(n, 1, heads, dh).transpose(1, 2) for _ in range(count)]
+
     def _kernels_boxes_attention(self, gen):
-        """K1 at LayoutDiffusion's shape, as its CrossAttention hands it q, k
-        and v: (N, 1, 8, 64) projections viewed as (N, 8, 1, 64), f32; against
-        the plain version, and bit for bit over two launches."""
+        """K1 and K2 at LayoutDiffusion's shape, on q, k, v and dO laid out
+        as its CrossAttention makes them, f32: K1 (and its log-sum-exp)
+        against the plain version, K2 against _attend_bwd_ref, each bit for
+        bit over two launches. With one key the softmax is exactly 1, and
+        JAX's dq and dk are exactly 0: K2's must be too."""
         import torch
         from lidar_layout_tpu_torch.ops import attention as A
 
-        dev = torch.device("cuda")
-        n, heads, dh = BOX_SCENES * 16, 8, 64
-        what = f"({n}, {heads}, 1, {dh}) f32 (S = 1: one row of a 128-row tile)"
-        log(f"K1 at LayoutDiffusion's shape {what}:")
-        q, k, v = (torch.randn((n, 1, heads * dh), generator=gen, device=dev)
-                   .reshape(n, 1, heads, dh).transpose(1, 2) for _ in range(3))
+        q, k, v, do = self._box_qkv(gen, 4)
+        what = f"{tuple(q.shape)} f32 (S = 1: one row of a 128-row tile; CrossAttention's strides)"
+        log(f"K1 and K2 at LayoutDiffusion's shape {what}:")
         got = A.flash_attention(q, k, v)
         want = A._attend_ref(q, k, v)
         self._check("flash_attention", got, want, 2e-5, 1e-4, what, record=False)
         self.kernel_err["flash_attention_boxes"] = max_err(got, want)[0]
-        again = A.flash_attention(q, k, v)
+        o, lse = A._launch(q, k, v, None, with_lse=True)
+        o2, lse2 = A._launch(q, k, v, None, with_lse=True)
         torch.cuda.synchronize()
-        same = bool(torch.equal(got, again))
-        log(f"  flash_attention {what}: two launches bit for bit equal: {same}")
-        if not same:
-            raise AssertionError("K1 at S = 1 is not deterministic")
+        err, scale = max_err(lse, A._lse_ref(q, k))
+        same = (bool(torch.equal(got, A.flash_attention(q, k, v))) and bool(torch.equal(o, o2))
+                and bool(torch.equal(lse, lse2)))
+        log(f"  lse {what}: max_abs_err={err:.3e} (tol 2e-4+1e-5*|ref|); K1 two launches bit for "
+            f"bit equal (o, and o and lse): {same}")
+        if not same or not err <= 2e-4 + 1e-5 * scale:
+            raise AssertionError("K1 at S = 1: log-sum-exp off or not deterministic")
+        grads = A.flash_attention_bwd(q, k, v, o, do, lse)
+        want = A._attend_bwd_ref(q, k, v, o, do, lse)
+        for part, g_, w_ in zip(("dq", "dk", "dv"), grads, want):
+            self._check("flash_attention_bwd", g_, w_, 1e-4, 1e-4, f"{part} {what}", record=False)
+            self.kernel_err["flash_attention_bwd_boxes"] = max(
+                self.kernel_err.get("flash_attention_bwd_boxes", 0.0), max_err(g_, w_)[0])
+        again = A.flash_attention_bwd(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a_, g_)) for a_, g_ in zip(again, grads)]
+        dq_max, dk_max = (float(t_.abs().max()) for t_ in grads[:2])
+        log(f"  flash_attention_bwd {what}: two launches bit for bit equal (dq, dk, dv): {same}; "
+            f"largest |dq| {dq_max:.3e}, |dk| {dk_max:.3e} (JAX's: 0 exactly); largest |dv - dO| "
+            f"{float((grads[2] - do).abs().max()):.3e}")
+        if not all(same):
+            raise AssertionError("K2 at S = 1 is not deterministic")
+        if dq_max or dk_max:
+            raise AssertionError("K2 at S = 1: dq and dk are not exactly 0, as JAX's are")
 
     def _kernels_gn_bwd(self):
         """K3's backward kernel against _group_norm_bwd_ref at every training
@@ -874,26 +927,38 @@ class Smoke:
             del model, state, params
             gc.collect()   # the train state holds reference cycles: free its card memory now
             torch.cuda.empty_cache()
+        parts = [("U-Net", lambda k: not k.startswith("cond_stage_model."))]
+        if layout:
+            parts.append(("layout encoder", lambda k: k.startswith("cond_stage_model.")))
+        self._compare_train_runs(name, runs, BOX_LR, parts)
+
+    @staticmethod
+    def _compare_train_runs(name, runs, lr, parts):
+        """A training step on the card against the CPU's (``runs``: loss,
+        gradients, parameters and EMA after AdamW on each): the loss, each
+        part's whole gradient (``parts``: (label, key predicate)) by its
+        relative L2 error and its largest error against its largest value,
+        and the parameters and EMA within 2 lr."""
+        import torch
+
         g, c = runs["cuda"], runs["cpu"]
         loss_err = abs(g["loss"] - c["loss"])
         # tolerances: f32 on both, TF32 off; the devices sum in other orders
         # through ~50 layers forward and back
         ok = loss_err <= 1e-5 * max(1.0, abs(c["loss"]))
-        parts = []
-        for part, is_encoder in (("U-Net", False), ("layout encoder", True)):
-            keys = [k for k in c["grads"] if k.startswith("cond_stage_model.") == is_encoder]
-            if not keys:
-                continue
+        logs = []
+        for part, pred in parts:
+            keys = [k for k in c["grads"] if pred(k)]
             diff = {k: float((g["grads"][k] - c["grads"][k]).abs().max()) for k in keys}
             num = sum(float((g["grads"][k] - c["grads"][k]).square().sum()) for k in keys)
             den = sum(float(c["grads"][k].square().sum()) for k in keys)
-            gmax = max(float(c["grads"][k].abs().max()) for k in keys)
+            gmax = max(float(c["grads"][k].abs().max()) for k in keys) if keys else 0.0
             rel = (num / max(den, 1e-30)) ** 0.5
-            worst = max(diff, key=diff.get)
-            parts.append(f"{part} gradients ({len(keys)} tensors): relative L2 error "
-                         f"{rel:.3e}, max_abs_err {diff[worst]:.3e} at {worst} (|g|max "
-                         f"{gmax:.3e})")
-            ok = ok and rel <= 1e-4 and diff[worst] <= 1e-4 * gmax and gmax > 0
+            worst = max(diff, key=diff.get) if keys else None
+            logs.append(f"{part} gradients ({len(keys)} tensors): relative L2 error "
+                        f"{rel:.3e}, max_abs_err {diff.get(worst, 0.0):.3e} at {worst} (|g|max "
+                        f"{gmax:.3e})")
+            ok = ok and bool(keys) and rel <= 1e-4 and diff[worst] <= 1e-4 * gmax and gmax > 0
         # Adam's first update is about lr * sign(g): where a gradient is within
         # rounding of 0 the two devices may step in opposite directions, so
         # parameters and EMA may differ by up to 2 lr, on few elements
@@ -901,13 +966,10 @@ class Smoke:
         far = float((upd > 0.01 * lr).float().mean())
         perr = float(upd.max())
         eerr = max(float((g["ema"][k] - c["ema"][k]).abs().max()) for k in c["ema"])
-        log(f"{name}: loss |diff| {loss_err:.3e} (loss {c['loss']:.6f}); " + "; ".join(parts)
+        log(f"{name}: loss |diff| {loss_err:.3e} (loss {c['loss']:.6f}); " + "; ".join(logs)
             + f"; parameters after AdamW: max_abs_err {perr:.3e}, share of elements off by > "
             f"0.01 lr {far:.2e}; EMA max_abs_err {eerr:.3e} (lr {lr:g})")
         ok = ok and far <= 1e-3 and perr <= 2 * lr and eerr <= 2 * lr
-        if layout and len(parts) != 2:
-            raise AssertionError(f"{name}: the layout encoder is not among the trained "
-                                 f"parameters")
         if not ok:
             raise AssertionError(f"{name}: the card's training step disagrees with the CPU's")
 
@@ -1740,6 +1802,249 @@ class Smoke:
         del model
         torch.cuda.empty_cache()
 
+    # --------------------------------------------- LayoutDiffusion training
+    @staticmethod
+    def _box_train_model(device="cuda", lr=BOX_LR):
+        """LayoutDiffusion from its YAML with the seeded weights, f32, and
+        its train state: AdamW with clipping and the EMA over every
+        parameter."""
+        from lidar_layout_tpu_torch.sample_layout import build_model
+        from lidar_layout_tpu_torch.train import layout_trainer as LT
+
+        model = build_model(device=device)
+        seed_weights(model, 0)   # else the zero-initialised projections leave graphs unread
+        return model, LT.create_layout_train_state(model, lr)
+
+    @staticmethod
+    def _write_box_infos(root, n=24, seed=0):
+        """A tiny nuScenes layout infos pickle (train split) of n scene
+        graphs of 6-20 objects and 10-40 relations, no CLIP features."""
+        import pickle
+
+        rng = np.random.default_rng(seed)
+        names = ["car", "truck", "bus", "pedestrian", "barrier", "traffic_cone", "bicycle"]
+        infos = []
+        for _ in range(n):
+            k, r = int(rng.integers(6, 21)), int(rng.integers(10, 41))
+            boxes = np.stack([rng.uniform(-45, 45, k), rng.uniform(-45, 45, k),
+                              rng.uniform(-3, 1, k), rng.uniform(0.5, 8, k),
+                              rng.uniform(0.5, 3, k), rng.uniform(0.5, 4, k),
+                              rng.uniform(-np.pi, np.pi, k)], 1).astype(np.float32)
+            rel = np.stack([rng.integers(0, k + 1, r), rng.integers(0, 16, r),
+                            rng.integers(0, k + 1, r)], 1).tolist()
+            infos.append({"scene_graph": {"keep_box": boxes, "keep_box_relationships": rel,
+                                          "keep_box_names": [names[j] for j in
+                                                             rng.integers(0, len(names), k)]}})
+        with open(os.path.join(root, "nuscenes_infos_train.pkl"), "wb") as f:
+            pickle.dump(infos, f)
+
+    def layout_boxes_train_slice(self):
+        """One LayoutDiffusion training step at full width, f32, 16 scenes x
+        16 objects, on the card and on the CPU: the same seeded weights,
+        graph, change noise, t and noise, through make_layout_train_step
+        (dropout off, as JAX's training). The loss, the U-Net1D's and the
+        scene-graph encoder's whole gradients, the parameters and EMA after
+        AdamW (_compare_train_runs), and to_q/to_k's gradients (0 with one
+        key)."""
+        import torch
+        from lidar_layout_tpu_torch.train import layout_trainer as LT
+
+        name = "layout_boxes_train_slice"
+        graph = self._box_graph(7)
+        n = graph["dec_objs"].shape[0]
+        cpu_gen = torch.Generator().manual_seed(3)
+        draws = {"change_noise": torch.randn((n, 64), generator=cpu_gen),
+                 "t_scene": torch.randint(0, 1000, (BOX_SCENES,), generator=cpu_gen),
+                 "noise": torch.randn((n, 8), generator=cpu_gen)}
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model, state = self._box_train_model(dev)   # the same seeded weights on both
+            grads, step_opt = {}, state.optimizer.step
+
+            def spy(step_opt=step_opt, params=state.params, grads=grads):
+                grads.update({k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                              .detach().cpu().clone() for k, p in params.items()})
+                return step_opt()
+            state.optimizer.step = spy
+            t0 = time.perf_counter()
+            state, logs = LT.make_layout_train_step(model)(state, graph, None, **draws)
+            runs[dev] = {"loss": float(logs["loss"]), "grads": grads,
+                         "params": {k: p.detach().cpu().clone() for k, p in state.params.items()},
+                         "ema": {k: v.cpu().clone() for k, v in state.ema.params.items()}}
+            qk = max(float(g_.abs().max()) for k, g_ in grads.items()
+                     if k.endswith(("to_q.weight", "to_k.weight")))
+            log(f"{name} on {dev}: {time.perf_counter() - t0:.1f} s, loss "
+                f"{runs[dev]['loss']:.6f}, grad_norm {float(logs['grad_norm']):.6f}, largest "
+                f"|gradient| of the 44 to_q/to_k weights {qk:.3e}")
+            if qk:
+                raise AssertionError(f"{name} on {dev}: to_q/to_k gradients are not 0 with one key")
+            del model, state
+            gc.collect()   # the train state holds reference cycles: free its card memory now
+            torch.cuda.empty_cache()
+        self._compare_train_runs(name, runs, BOX_LR,
+                                 [("U-Net1D", lambda k: k.startswith("unet.")),
+                                  ("scene-graph encoder", lambda k: k.startswith("cond_stage."))])
+
+    def layout_boxes_train(self):
+        """train_layout's path at 16 scenes x 16 objects, f32: synthetic
+        graphs at the dataset's capacity and one batch read from a tiny
+        infos pickle through the data factory; two warm-ups and 10 timed
+        steps (steps/s, scenes/s, phase split, peak memory), K1 and K2
+        launches per step against the structure (every CrossAttention
+        forward and backward) and module hooks, no plain attention, non-zero
+        finite encoder gradients, a fixed-batch overfit check; then the CLI
+        itself (--synthetic --steps 2) and sample_layout -r on its run."""
+        import shutil
+        import tempfile
+
+        import torch
+        from lidar_layout_tpu_torch import sample_layout as SL
+        from lidar_layout_tpu_torch.data.factory import build_batches
+        from lidar_layout_tpu_torch.nn.attention import CrossAttention
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.train import layout_trainer as LT
+        from lidar_layout_tpu_torch.train import train_layout as TL
+
+        name, card = "layout_boxes_train", card_line()
+        tmp = tempfile.mkdtemp(prefix="layout_boxes_train_")
+        try:
+            self._write_box_infos(tmp)
+            read = next(build_batches("nusc_layout_graph", {"with_changes": True}, {}, tmp,
+                                      BOX_SCENES, seed=1))
+            batches = [self._box_graph(20 + i) for i in range(3)] + [read]
+            log(f"{name}: batches of {BOX_SCENES} scenes: 3 synthetic, 1 read from a "
+                f"{len(read['obj_mask'])}-slot infos pickle ({int(read['obj_mask'].sum())} "
+                f"objects, {int(read['dec_pred_mask'].sum())} triples)")
+            model, state = self._box_train_model()
+            step = LT.make_layout_train_step(model)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            attns = [m for m in model.unet.modules() if isinstance(m, CrossAttention)]
+            structure = {k: 0 for k in counters()}
+            structure.update(flash_attention=len(attns), flash_attention_bwd=len(attns))
+            seen = collections.Counter()
+
+            def hook(mod, args):
+                seen["flash_attention"] += 1
+                seen["flash_attention_bwd"] += int(torch.is_grad_enabled())
+            hooks = [m.register_forward_pre_hook(hook) for m in attns]
+            enc_grads, step_opt = {}, state.optimizer.step
+
+            def spy():
+                enc_grads.update({k: p.grad.detach().clone() for k, p in state.params.items()
+                                  if k.startswith("cond_stage.") and p.grad is not None})
+                return step_opt()
+            state.optimizer.step = spy
+            plain = collections.Counter()
+            real = {n_: getattr(A, n_) for n_ in ("_attend_ref", "_lse_ref", "_attend_bwd_ref",
+                                                  "_dot_product_attention")}
+
+            def counting(n_):
+                def fn(*a, **k):
+                    plain[n_] += 1
+                    return real[n_](*a, **k)
+                return fn
+            for n_ in real:
+                setattr(A, n_, counting(n_))
+            try:
+                reset_counts()
+                state, logs = step(state, batches[0], gen)          # warm-up 1, hooked
+                torch.cuda.synchronize()
+                first = read_counts()
+                hooked = {k: seen.get(k, 0) for k in structure}
+                state.optimizer.step = step_opt
+                for hk in hooks:
+                    hk.remove()
+                step(state, batches[1], gen)                        # warm-up 2
+                torch.cuda.synchronize()
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                losses = []
+                for i in range(TRAIN_STEPS):
+                    state, logs = step(state, batches[i % len(batches)], gen)
+                    losses.append((logs["loss"], logs["grad_norm"]))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for n_, fn in real.items():
+                    setattr(A, n_, fn)
+            got = read_counts()
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            per_step = {k: v / TRAIN_STEPS for k, v in got.items()}
+            timed = LT.make_layout_train_step(model, timed=True)
+            phases = collections.Counter()
+            for i in range(3):
+                state, tl = timed(state, batches[i], gen)
+                for k in ("fwd_bwd", "opt_ema"):
+                    phases[k] += tl[f"seconds_{k}"] / 3
+            finite = all(bool(torch.isfinite(l_)) and bool(torch.isfinite(g_))
+                         for l_, g_ in losses)
+            enc_norm = float(torch.linalg.vector_norm(torch.stack(
+                [g_.norm() for g_ in enc_grads.values()]))) if enc_grads else 0.0
+            enc_ok = enc_norm > 0 and all(bool(torch.isfinite(g_).all())
+                                          for g_ in enc_grads.values())
+            log(f"{name} ({BOX_SCENES} scenes x 16 objects, f32, {TRAIN_STEPS} steps): "
+                f"{TRAIN_STEPS / wall:.3f} steps/s, {TRAIN_STEPS * BOX_SCENES / wall:.2f} scenes/s;"
+                f" phases per step (synchronised): forward+backward {phases['fwd_bwd']:.4f} s, "
+                f"optimizer+EMA {phases['opt_ema']:.4f} s; peak memory {mem:.2f} GiB; launches "
+                f"per step {per_step} (structure {structure}: {len(attns)} CrossAttentions "
+                f"forward and backward; hooks {hooked}; first step {first}); plain attention "
+                f"calls {dict(plain)}; encoder gradients: {len(enc_grads)} tensors, global norm "
+                f"{enc_norm:.4e}, non-zero and finite={enc_ok}; loss {float(losses[-1][0]):.5f} "
+                f"grad_norm {float(losses[-1][1]):.5f} finite={finite}; card {card}")
+            if per_step != {k: float(v) for k, v in structure.items()} or first != structure \
+                    or hooked != structure:
+                raise AssertionError(f"{name}: launches per step {per_step} (first {first}, "
+                                     f"hooks {hooked}) != structure {structure}")
+            if sum(plain.values()):
+                raise AssertionError(f"{name}: plain attention ran {dict(plain)}")
+            if not finite or not enc_ok:
+                raise AssertionError(f"{name}: loss or gradients not finite, or the encoder's "
+                                     f"gradients are zero")
+            self.layout_boxes_train_launches = got
+            del model, state, step, timed
+            gc.collect()
+
+            # overfit check: one fixed batch, t, noise and change noise (the
+            # generator reset each step), fresh weights, lr 1e-4
+            model, state = self._box_train_model(lr=OVERFIT_LR)
+            step = LT.make_layout_train_step(model)
+            curve = []
+            for i in range(OVERFIT_STEPS + 1):
+                state, logs = step(state, batches[0], torch.Generator(device="cuda").manual_seed(3))
+                curve.append(float(logs["loss"]))
+            log(f"{name} overfit ({OVERFIT_STEPS} AdamW steps at lr {OVERFIT_LR:g} on one batch): "
+                f"loss step 0 {curve[0]:.5f} -> step {OVERFIT_STEPS} {curve[-1]:.5f}, ratio "
+                f"{curve[-1] / curve[0]:.4f}; curve {[round(c_, 5) for c_ in curve[::5]]}")
+            if not curve[-1] < curve[0]:
+                raise AssertionError(f"{name}: the loss on a fixed batch did not fall")
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # the CLI on the card, then sample_layout from its run directory
+            run = os.path.join(tmp, "run")
+            t0 = time.perf_counter()
+            trainer = TL.main(["--synthetic", "--steps", "2", "--workdir", run])
+            log(f"{name}: train_layout --synthetic --steps 2 in {time.perf_counter() - t0:.1f} s "
+                f"on {next(trainer.state.model.parameters()).device}; run files "
+                f"{sorted(os.listdir(run))}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            out = SL.main(["-r", run, "-n", str(BOX_SCENES), "--steps", "10", "--outdir",
+                           os.path.join(tmp, "samples")])
+            boxes = out["boxes"]
+            log(f"{name}: sample_layout -r <run> -n {BOX_SCENES} --steps 10: boxes {boxes.shape} "
+                f"finite={bool(np.isfinite(boxes).all())}")
+            if boxes.shape != (BOX_SCENES * 16, 7) or not np.isfinite(boxes).all():
+                raise AssertionError(f"{name}: sample_layout from the run gave bad boxes")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
@@ -1832,6 +2137,9 @@ class Smoke:
         # the layout paths: K1 over a LayoutDiffusion request, K3's backward
         # over the layout model's timed training steps
         self.run_totals["flash_attention"] = {"layout_boxes": self._timing_boxes_attention(gen)}
+        fwd, bwd = self._timing_boxes_train_attention(gen)
+        self.run_totals["flash_attention"]["layout_boxes_train"] = fwd
+        self.run_totals["flash_attention_bwd"] = {"layout_boxes_train": bwd}
         self.run_totals["group_norm_bwd"] = {"layout_train": self._timing_gn_bwd(
             gen, self._train_shapes(layout=True), "layout model")}
         totals["chamfer_nn"] = self._timing_chamfer()
@@ -2018,10 +2326,8 @@ class Smoke:
         import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import attention as A
 
-        dev = torch.device("cuda")
-        n, h, d = BOX_SCENES * 16, 8, 64
-        q, k, v = (torch.randn((n, 1, h * d), generator=gen, device=dev)
-                   .reshape(n, 1, h, d).transpose(1, 2) for _ in range(3))
+        q, k, v = self._box_qkv(gen)
+        n, h, _, d = q.shape
         cost = A.attention_cost(n, h, 1, d, 4)
         kms, lms, krounds, lrounds = paired_ms(
             lambda: A.flash_attention(q, k, v),
@@ -2045,6 +2351,68 @@ class Smoke:
             f"(events {tot['events_ms']:.3f}) | plain {tot['plain_ms']:.3f} | sdpa "
             f"{tot['library_ms']:.3f} | bound {tot['bound_ms']:.4f}")
         return tot
+
+    def _timing_boxes_train_attention(self, gen):
+        """K1 with its log-sum-exp and K2 at LayoutDiffusion's (256, 8, 1, 64)
+        f32, on CrossAttention's layout, summed over the TRAIN_STEPS timed
+        training steps (the layout_boxes_train phase's launches, or every
+        CrossAttention forward and backward a step): each beside SDPA's
+        forward and backward (in turns), the plain versions, and the bound
+        (operations at the f32 rate, or the bytes: q, k, v read and o
+        written; backward q, k, v, o, dO read and dq, dk, dv written)."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.nn.attention import CrossAttention
+        from lidar_layout_tpu_torch.ops import attention as A
+
+        q, k, v, do = self._box_qkv(gen, 4)
+        n, h, _, d = q.shape
+        o, lse = A._launch(q, k, v, None, with_lse=True)
+        ql, kl, vl = (t_.clone().requires_grad_() for t_ in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl)
+        launches = self.layout_boxes_train_launches
+        if not launches:
+            from lidar_layout_tpu_torch.sample_layout import build_model
+
+            model = build_model(device="cuda")
+            per_step = sum(isinstance(m, CrossAttention) for m in model.unet.modules())
+            launches = {"flash_attention": per_step * TRAIN_STEPS,
+                        "flash_attention_bwd": per_step * TRAIN_STEPS}
+            del model
+            torch.cuda.empty_cache()
+        totals = []
+        for name, kernel, library, plain, backward in (
+                ("K1 with lse", lambda: A._launch(q, k, v, None, with_lse=True),
+                 lambda: F.scaled_dot_product_attention(q, k, v),
+                 lambda: (A._attend_ref(q, k, v), A._lse_ref(q, k)), False),
+                ("K2", lambda: A.flash_attention_bwd(q, k, v, o, do, lse),
+                 lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
+                 lambda: A._attend_bwd_ref(q, k, v, o, do, lse), True)):
+            cost = A.attention_cost(n, h, 1, d, 4, backward=backward)
+            kms, lms, krounds, lrounds = paired_ms(kernel, library, 50)
+            t = {"ms": kms, "events_ms": cuda_time(kernel, 50), "plain_ms": device_ms(plain, 20),
+                 "library_ms": lms}
+            bound_ops = cost["flops"] / PEAK_F32 * 1e3
+            bound_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+            t["bound_ms"] = max(bound_ops, bound_bytes)
+            count = launches["flash_attention_bwd" if backward else "flash_attention"]
+            log(f"  {name} ({n}, {h}, 1, {d}) f32 x{count // TRAIN_STEPS}/LayoutDiffusion "
+                f"training step: kernel {t['ms']:.5f} (events {t['events_ms']:.5f}) | plain "
+                f"{t['plain_ms']:.5f} | sdpa {'backward' if backward else 'forward'} "
+                f"{t['library_ms']:.5f} ({t['ms'] / t['library_ms']:.3f}x) | bound "
+                f"{t['bound_ms']:.6f} ({'operations' if bound_ops >= bound_bytes else 'bytes'}; "
+                f"{cost['flops'] / 1e6:.2f} MFLOP, {cost['bytes'] / 1e6:.2f} MB; kernel at "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) | rounds kernel "
+                f"{[round(x, 5) for x in krounds]} sdpa {[round(x, 5) for x in lrounds]}")
+            tot = collections.Counter({key: count * val for key, val in t.items()})
+            tot["bound_ops_ms"], tot["bound_bytes_ms"] = count * bound_ops, count * bound_bytes
+            log(f"  {name} over {TRAIN_STEPS} LayoutDiffusion training steps ({count} launches): "
+                f"kernel {tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain "
+                f"{tot['plain_ms']:.3f} | sdpa {tot['library_ms']:.3f} | bound "
+                f"{tot['bound_ms']:.4f}")
+            totals.append(tot)
+        del q, k, v, do, o, lse, ql, kl, vl, out
+        return totals
 
     def _timing_gn_bwd(self, gen, shapes, model_name):
         """K3's backward at a training step's shapes (``shapes``, the hooks'
@@ -2107,7 +2475,8 @@ class Smoke:
     def profile(self):
         """Device time of one DPM-20 request (batch 16, bf16), one guided
         layout request, one training step of each model (batch 16, bf16
-        autocast) and one LayoutDiffusion request (DDIM-100, f32) by kernel
+        autocast), one LayoutDiffusion request (DDIM-100, f32) and one
+        LayoutDiffusion training step (16 scenes x 16 objects, f32) by kernel
         family, from torch.profiler, beside their wall times."""
         import torch
         from torch.profiler import ProfilerActivity
@@ -2186,6 +2555,24 @@ class Smoke:
         del model
         torch.cuda.empty_cache()
 
+        from lidar_layout_tpu_torch.train import layout_trainer as LT
+
+        model, state = self._box_train_model()
+        step = LT.make_layout_train_step(model)
+        for _ in range(2):                                # warm-up
+            state, _ = step(state, graph, gen)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, graph, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        self._families(prof, wall_ms, f"one LayoutDiffusion training step ({BOX_SCENES} scenes "
+                                      f"x 16 objects, f32)")
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
     @staticmethod
     def _families(prof, wall_ms, title):
         from torch.autograd import DeviceType
@@ -2233,7 +2620,9 @@ class Smoke:
         model's timed training steps and ``layout_boxes_launches`` over one
         LayoutDiffusion request, with ``layout_train_*`` the times of K3's
         backward over those steps and ``layout_boxes_*`` K1's over that
-        request."""
+        request; ``layout_boxes_train_launches`` over LayoutDiffusion's timed
+        training steps, with ``layout_boxes_train_*`` the times of K1 (with
+        its log-sum-exp) and K2 over those steps."""
         entries = []
         for name, source, replaces in KERNELS:
             tot = getattr(self, "totals", {}).get(name, {})
@@ -2255,8 +2644,12 @@ class Smoke:
                                              if name == "flash_attention" else None),
                 "layout_train_launches": self.layout_train_launches.get(name),
                 "layout_boxes_launches": self.layout_boxes_launches.get(name),
+                "layout_boxes_train_launches": self.layout_boxes_train_launches.get(name),
+                "layout_boxes_train_max_abs_err": (
+                    self.kernel_err.get("flash_attention_bwd_boxes")
+                    if name == "flash_attention_bwd" else None),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
-                   for run in ("layout", "layout_train", "layout_boxes")
+                   for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train")
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         return {"kernels": entries}
 

@@ -1,0 +1,127 @@
+"""Dataset factory: a config's ``data.params.<split>.target`` -> batches.
+
+Counterpart of ``lidar_layout_tpu/data/factory.py`` for the targets the port
+has: ``build_batches`` resolves the reference's class paths through
+``ALIASES``, reads the dataset under the root when there is one, and
+otherwise falls back to the family's synthetic generator and says so (the
+``[data] <name>: <reason> — synthetic fallback`` line).
+
+- ``nusc_layout_graph`` (LayoutDiffusion): ``NuScenesLayoutDataset``
+  collates ``batch_size`` scenes drawn with replacement into one padded
+  graph (numpy arrays; ``encoders/scene_graph.graph_tensors`` moves them);
+  the fallback is ``synthetic_graph_batch`` at its default capacity of 8
+  objects and 12 triples a scene, as the JAX package draws it. The params'
+  ``with_changes`` reaches the dataset (its default, True, when absent);
+  the JAX factory drops it, so its trainer manipulates every scene whatever
+  the YAML says (ROADMAP section 3).
+- ``nusc_layout_range`` (the layout-conditioned LiDM):
+  ``readers.NuScenesLayoutRangeDataset`` through
+  ``datasets.layout_range_batches``, or ``synthetic_layout_range_batch``;
+  tensors on ``device``, with ``cond`` = ``layout``.
+
+The other targets of the JAX factory raise NotImplementedError, naming the
+ROADMAP queue 1 item that ports them.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Dict, Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+from ..ops.lidar import LidarGeometry
+from .layout_synthetic import synthetic_graph_batch
+
+ALIASES = {
+    "lidm.data.nusc_dataset.nuScenesImageTrain": "nusc_range",
+    "lidm.data.nusc_dataset.nuScenesImageValidation": "nusc_range",
+    "lidm.data.nusc_dataset.nuScenesLayoutTrain": "nusc_layout_range",
+    "lidm.data.nusc_dataset.nuScenesLayoutValidation": "nusc_layout_range",
+    "lidm.data.nuscenes_layout_dataset.nuScenesLayoutTrain": "nusc_layout_graph",
+    "lidm.data.nuscenes_layout_dataset.nuScenesLayoutVal": "nusc_layout_graph",
+    "lidm.data.nuscenes_object_detaset.NuscenesObject": "nusc_object",
+    "lidm.data.nusc_dataset_final.NuScenesGen": "nusc_r2dm",
+    "lidm.data.nuscenes_cube_dataset.NUSC_CUBE_DATASET": "nusc_cube",
+    "NuScenesCubeDecodeDataset": "nusc_cube_decode",
+    "lidm.data.kitti.KITTI360Train": "kitti_range",
+    "lidm.data.kitti.KITTI360Validation": "kitti_range",
+    "lidm.data.kitti.SemanticKITTITrain": "sem_kitti",
+    "lidm.data.kitti.SemanticKITTIValidation": "sem_kitti",
+}
+# the targets still to port, and the ROADMAP item that ports each
+_AE = 'ROADMAP queue 1, "First stage and AE training"'
+_FAMILIES = 'ROADMAP queue 1, "Remaining families and infrastructure"'
+NOT_PORTED = {
+    "nusc_range": _AE, "kitti_range": _AE, "sem_kitti": _AE, "kitti_camera": _AE,
+    "kitti_annotated": _AE, "nusc_object": _FAMILIES, "nusc_r2dm": _FAMILIES,
+    "nusc_cube": 'ROADMAP queue 1, "Cube stage"',
+    "nusc_cube_decode": 'ROADMAP queue 1, "Dense decoder"',
+}
+
+
+def _geom_from_cfg(dset_cfg: Dict[str, Any]) -> LidarGeometry:
+    return LidarGeometry(
+        size=tuple(dset_cfg.get("size", (32, 1024))),
+        fov=tuple(dset_cfg.get("fov", (10, -30))),
+        depth_range=tuple(dset_cfg.get("depth_range", (1.0, 56.0))),
+        depth_scale=dset_cfg.get("depth_scale", 5.84),
+        log_scale=dset_cfg.get("log_scale", True))
+
+
+def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
+                  data_root: Optional[str], batch_size: int, seed: int = 0,
+                  force_synthetic: bool = False,
+                  device: Union[str, torch.device] = "cpu") -> Iterator[Dict[str, Any]]:
+    """An endless iterator of batches of ``target`` (see the module's doc);
+    the root is ``data_root``, else the params' ``data_root`` or ``root``."""
+    name = ALIASES.get(target, target)
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"the {name!r} dataset is not ported yet "
+                                  f"({NOT_PORTED[name]})")
+    if name not in ("nusc_layout_graph", "nusc_layout_range"):
+        raise KeyError(f"unknown dataset target '{target}' "
+                       f"(known: {sorted(set(ALIASES.values()))})")
+    rng = np.random.default_rng(seed)
+    geom = _geom_from_cfg(dset_cfg)
+    root = data_root or params.get("data_root") or params.get("root")
+    have_root = bool(root) and os.path.isdir(str(root)) and not force_synthetic
+    split = params.get("split", "train")
+
+    def synth(reason: str, gen: Callable[[], Dict[str, Any]]):
+        print(f"[data] {name}: {reason} — synthetic fallback")
+        while True:
+            yield gen()
+
+    if name == "nusc_layout_graph":
+        if have_root and os.path.isfile(os.path.join(str(root),
+                                                     f"nuscenes_infos_{split}.pkl")):
+            from .nuscenes_layout import NuScenesLayoutDataset
+
+            ds = NuScenesLayoutDataset(str(root), split,
+                                       with_changes=bool(params.get("with_changes", True)))
+            if len(ds):   # an empty infos pickle falls back below
+                while True:
+                    yield ds.collate([int(i) for i in rng.integers(0, len(ds), batch_size)])
+        yield from synth(f"no infos pkl under {root!r}",
+                         lambda: synthetic_graph_batch(rng, n_scenes=batch_size))
+        return
+
+    from . import readers
+    from .datasets import layout_range_batches
+    from .synthetic import synthetic_layout_range_batch
+
+    if have_root:
+        info = params.get("info_path") or os.path.join(str(root),
+                                                       f"nuscenes_infos_{split}.pkl")
+        if os.path.isfile(info):
+            ds = readers.NuScenesLayoutRangeDataset(
+                str(root), split, info, geom,
+                *(tuple(dset_cfg.get(k, d)) for k, d in (("x_range", (-50, 50)),
+                                                         ("y_range", (-50, 50)),
+                                                         ("z_range", (-4, 2)))), seed=seed)
+            if len(ds) >= batch_size:
+                yield from layout_range_batches(ds, batch_size, seed, device)
+                return
+    yield from synth(f"no infos pkl under {root!r}",
+                     lambda: synthetic_layout_range_batch(rng, batch_size, geom, device))

@@ -5,8 +5,11 @@ Counterpart of ``lidar_layout_tpu/models/unet1d.py`` (``UNet1DConfig``,
 ``Norm32``, ``ResBlock1D``, ``Transformer1D``, ``UNet1DModel``). Each box is
 a length-1 "sequence" of 8 channels (size3 + loc3 + sincos2). A 5-layer
 GraphTripleConv over [object embedding | box embedding | box time embedding]
-and the predicates gives each box a relation token, which the U-Net's
-Transformer1Ds attend to (``conditioning_key: crossattn``). The width-3
+and the predicates gives each box a relation token. With
+``conditioning_key`` "crossattn" (the YAML's) the U-Net's Transformer1Ds
+attend to it; with "concat" it is concatenated to the box before
+``conv_in``, and the Transformer1Ds attend to the scene-graph encoder's
+latent; "hybrid" does both, attending to the token. The width-3
 convolutions run over that length-1 signal, the stride-2 "downsample" too,
 and the upsample is a no-op resize and a conv, as in the JAX package.
 Activations are (N, L, C), as there; modules keep the flax names
@@ -139,10 +142,9 @@ class UNet1DModel(nn.Module):
 
     def __init__(self, cfg: UNet1DConfig, obj_dim: int):
         super().__init__()
-        if cfg.conditioning_key != "crossattn":
-            raise NotImplementedError(
-                f"unet1d conditioning_key {cfg.conditioning_key!r} is not ported yet "
-                f'(ROADMAP queue 1, "LayoutDiffusion training and data")')
+        if cfg.conditioning_key not in ("concat", "crossattn", "hybrid"):
+            raise ValueError(f"unet1d conditioning_key {cfg.conditioning_key!r}: expected "
+                             f"'concat', 'crossattn' or 'hybrid'")
         self.cfg = cfg
         mc = cfg.model_channels
         time_dim = mc * 4
@@ -158,15 +160,19 @@ class UNet1DModel(nn.Module):
                                                 hidden_dim=cfg.gconv_dim * 4,
                                                 output_dim=cfg.concat_dim)
         dim_head = mc // cfg.num_heads
+        concat = cfg.conditioning_key in ("concat", "hybrid")
+        # the Transformer1Ds attend to the relation token, or with "concat"
+        # to the context the caller passes (the encoder's latent, obj_dim wide)
+        context_dim = obj_dim if cfg.conditioning_key == "concat" else cfg.concat_dim
 
         def res(name, cin, cout):
             self.add_module(name, ResBlock1D(cin, cout, time_dim, cfg.dropout))
 
         def attn(name, ch):
             self.add_module(name, Transformer1D(ch, cfg.num_heads, dim_head,
-                                                cfg.transformer_depth, cfg.concat_dim))
+                                                cfg.transformer_depth, context_dim))
 
-        self.conv_in = Conv3(cfg.in_channels, mc)
+        self.conv_in = Conv3(cfg.in_channels + (cfg.concat_dim if concat else 0), mc)
         chans, ch, ds = [mc], mc, 1
         levels = len(cfg.channel_mult)
         for level, mult in enumerate(cfg.channel_mult):
@@ -215,10 +221,16 @@ class UNet1DModel(nn.Module):
         rel, _ = self.box_graph_cov(torch.cat(obj_box, -1),
                                     self.pred_embeddings(triples[:, 1]),
                                     triples[:, [0, 2]], pred_mask)
-        ctx = rel[:, None, :]                       # (N, 1, concat_dim): crossattn
+        h, rel, ctx = box_t[:, None, :], rel[:, None, :], context
+        if cfg.conditioning_key in ("concat", "hybrid"):
+            h = torch.cat([h, rel], -1)             # (N, 1, 8 + concat_dim)
+        if cfg.conditioning_key in ("crossattn", "hybrid"):
+            ctx = rel                               # (N, 1, concat_dim)
+        if ctx is not None and ctx.ndim == 2:
+            ctx = ctx[:, None, :]
 
         levels = len(cfg.channel_mult)
-        h = self.conv_in(box_t[:, None, :])
+        h = self.conv_in(h)
         hs = [h]
         for level in range(levels):
             for i in range(cfg.num_res_blocks):

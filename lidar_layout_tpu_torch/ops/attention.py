@@ -56,16 +56,21 @@ def _attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain attention backward, the math of kernel K2.
 
-    P is recomputed from the saved log-sum-exp, ``delta = rowsum(dO*O)``,
-    ``dS = P*(dP - delta)``; P and dS are rounded to the input dtype before
-    their products (as the TPU kernel rounds them), everything is summed in
-    f32 and dq/dk/dv come back in the input dtypes.
+    P is recomputed from the saved log-sum-exp, ``dS = P*(dP - delta)``; P
+    and dS are rounded to the input dtype before their products (as the TPU
+    kernel rounds them), everything is summed in f32 and dq/dk/dv come back
+    in the input dtypes. ``delta`` is ``rowsum(P*dP)``, the softmax vjp's own
+    sum as XLA takes it. It equals K2's ``rowsum(dO*O)`` in exact arithmetic,
+    and with one key (P = 1 exactly) it makes dS exactly 0, so dq and dk are
+    JAX's zeros: ``rowsum(dO*O)`` and ``dP = dO v`` are two sums of the same
+    products in other orders here, which can differ in the last bit.
+    ``o`` is unused; it stays in the signature K2 shares.
     """
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     p = torch.exp(_logits_ref(q, k, kbias) - lse.float()[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     pc, dsc = p.to(v.dtype).float(), ds.to(q.dtype).float()
     dv = torch.matmul(pc.transpose(-1, -2), dof)

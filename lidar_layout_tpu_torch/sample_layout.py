@@ -8,13 +8,14 @@ Counterpart of ``scripts/sample_layout.py`` with its flags (``-r/--resume
 ``obj_mask``. ``--cpu`` runs on the CPU. The model is built from
 ``configs/layout_diffusion/nuscenes/layout_nusc.yaml`` (``-b`` for another)
 with the vocabulary {32 objects, 16 predicates} injected, as the training
-script injects its dataset's. ``--resume`` loads a ``.pt`` file holding the
-model's state_dict (``utils/convert.layout_diffusion_state_dict`` makes one
-from a JAX tree, such as the EMA weights of a JAX run); without it the
-weights are random, from ``--seed``. LayoutDiffusion's trainer is not
-ported yet (ROADMAP queue 1, "LayoutDiffusion training and data").
-The scene graphs are synthetic (``data/layout_synthetic``), at the nuScenes
-dataset's capacity of 16 objects and 32 triples a scene.
+script injects its dataset's. ``--resume`` takes a run directory of
+``train.train_layout``, whose saved config (with the vocabulary the trainer
+injected) builds the model and whose latest checkpoint gives the EMA
+weights, as the JAX script samples with its run's EMA; or a ``.pt`` file
+holding the model's state_dict (``utils/convert.layout_diffusion_state_dict``
+makes one from a JAX tree). Without it the weights are random, from
+``--seed``. The scene graphs are synthetic (``data/layout_synthetic``), at
+the nuScenes dataset's capacity of 16 objects and 32 triples a scene.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ MAX_OBJS, MAX_TRIPLES = 16, 32    # a scene's capacity in the nuScenes layout da
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("-b", "--base", default=LAYOUT_DIFFUSION_YAML, help="model YAML config")
-    p.add_argument("-r", "--resume", default=None, help="a state_dict .pt file")
+    p.add_argument("-r", "--resume", default=None,
+                   help="a train_layout run directory, or a state_dict .pt file")
     p.add_argument("-n", "--n-scenes", type=int, default=4)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--outdir", default="./samples_layout")
@@ -48,13 +50,14 @@ def parse_args(argv=None):
 def build_model(base: str = LAYOUT_DIFFUSION_YAML, device: Union[str, torch.device] = "cuda",
                 seed: int = 0):
     """The LayoutDiffusion of ``base`` on ``device`` in eval mode, with
-    torch's initial weights under ``seed``."""
+    torch's initial weights under ``seed``; the vocabulary is the config's
+    (a training run's) or ``VOCAB``."""
     from .config import instantiate_from_config, load_yaml
     from .utils.device import resolve_device
 
     dev = resolve_device(device)
     cfg = load_yaml(base)["model"]
-    cfg.setdefault("params", {})["vocab"] = dict(VOCAB)
+    cfg.setdefault("params", {}).setdefault("vocab", dict(VOCAB))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = instantiate_from_config(cfg)
@@ -74,12 +77,35 @@ def sample_layouts(model, graph: Dict[str, np.ndarray], steps: int = 100, seed: 
             "obj_mask": np.asarray(graph["obj_mask"])}
 
 
+def load_run_ema(model, run_dir: str) -> int:
+    """The EMA weights of the latest checkpoint of a ``train_layout`` run
+    into ``model``; returns the checkpoint's step."""
+    from .train.checkpoint import checkpoint_path, latest_step
+
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    ckpt = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu", weights_only=True)
+    sd = ckpt["model"]
+    sd.update(ckpt["ema"]["params"])
+    model.load_state_dict(sd)
+    return step
+
+
 def main(argv=None):
     from .data.layout_synthetic import synthetic_graph_batch
 
     args = parse_args(argv)
-    model = build_model(args.base, "cpu" if args.cpu else "cuda", args.seed)
-    if args.resume:
+    run_dir = args.resume if args.resume and os.path.isdir(args.resume) else None
+    base = args.base
+    if run_dir and os.path.isfile(os.path.join(run_dir, "config.yaml")):
+        base = os.path.join(run_dir, "config.yaml")   # the vocabulary the trainer injected
+    model = build_model(base, "cpu" if args.cpu else "cuda", args.seed)
+    if run_dir:
+        step = load_run_ema(model, run_dir)
+        print(f"loaded EMA weights from {run_dir} (step {step})")
+    elif args.resume:
         sd = torch.load(args.resume, map_location="cpu", weights_only=True)
         model.load_state_dict(sd.get("state_dict", sd))
         print(f"loaded weights from {args.resume}")

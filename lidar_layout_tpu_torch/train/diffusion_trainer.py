@@ -138,7 +138,7 @@ def make_optimizer(params: Dict[str, torch.nn.Parameter], lr: float,
 
 @dataclasses.dataclass
 class DiffusionTrainState:
-    model: LatentDiffusion
+    model: torch.nn.Module                  # LatentDiffusion; LayoutDiffusion in layout_trainer
     params: Dict[str, torch.nn.Parameter]   # the trained ones, by state_dict name
     optimizer: Optimizer
     ema: Ema                                # over ``params``

@@ -10,10 +10,11 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
 unconditional or layout-conditioned
 (``configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml``, whose encoder
 trains with the U-Net): the autoencoder and the other families' trainers
-raise NotImplementedError. The layout model's ``nusc_layout_range`` batches
-are synthetic with ``--synthetic`` or read from ``--data-root``'s infos
-pickle. Weights start from torch's initialisers under ``--seed`` unless the
-first stage names a ``ckpt_path``.
+raise NotImplementedError, and LayoutDiffusion trains with
+``train_layout``. The layout model's ``nusc_layout_range`` batches come
+from ``data/factory``: synthetic with ``--synthetic``, or read from
+``--data-root``'s infos pickle. Weights start from torch's initialisers
+under ``--seed`` unless the first stage names a ``ckpt_path``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ import argparse
 import os
 from typing import Any, Dict
 
-import numpy as np
 import torch
 
 LDM_TARGETS = ("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion")
@@ -84,9 +84,8 @@ def main(argv=None):
     args = parse_args(argv)
 
     from ..config import apply_dotlist, instantiate_from_config, load_yaml
-    from ..data.datasets import RangeImageDataset, layout_range_batches
-    from ..data.readers import NuScenesLayoutRangeDataset
-    from ..data.synthetic import synthetic_layout_range_batch
+    from ..data.datasets import RangeImageDataset
+    from ..data.factory import build_batches
     from ..models.diffusion import apply_scale_by_std
     from ..pipeline import geometry_from_config
     from ..utils.device import resolve_device
@@ -112,8 +111,8 @@ def main(argv=None):
     model_cfg = cfg["model"]
     if model_cfg["target"] in LAYOUT_DIFFUSION_TARGETS:
         raise NotImplementedError(
-            "LayoutDiffusion's trainer (scripts/train_layout.py) is not ported yet "
-            '(ROADMAP queue 1, "LayoutDiffusion training and data")')
+            "LayoutDiffusion trains with its own CLI, as scripts/train_layout.py in the "
+            "JAX package: python -m lidar_layout_tpu_torch.train.train_layout -b <config>")
     if model_cfg["target"] not in LDM_TARGETS:
         raise NotImplementedError(
             f"training {model_cfg['target']!r} is not ported yet: the autoencoder and "
@@ -139,23 +138,15 @@ def main(argv=None):
         return ds.batches()
 
     def layout_batches(params: Dict[str, Any], split: str, seed: int):
-        """nuScenes layout batches: synthetic scenes and layouts, or the
-        reader over ``--data-root``'s infos pickle."""
-        if args.synthetic:
-            rng = np.random.default_rng(seed)
-            return iter(lambda: synthetic_layout_range_batch(rng, batch_size, geom, device),
-                        None)
-        if not args.data_root:
+        """nuScenes layout batches from the data factory: synthetic scenes
+        and layouts, or the reader over ``--data-root``'s infos pickle."""
+        if not args.synthetic and not args.data_root:
             raise ValueError("the nusc_layout_range dataset needs --data-root (a nuScenes "
                              "root with nuscenes_infos_<split>.pkl) or --synthetic")
-        dset = data_cfg.get("dataset", {})
-        ds = NuScenesLayoutRangeDataset(
-            args.data_root, params.get("split", "train" if split == "train" else "val"),
-            params.get("info_path"), geom,
-            *(tuple(dset.get(k, d)) for k, d in (("x_range", (-50, 50)),
-                                                  ("y_range", (-50, 50)),
-                                                  ("z_range", (-4, 2)))), seed=seed)
-        return layout_range_batches(ds, batch_size, seed, device)
+        params = {**params, "split": params.get("split", "train" if split == "train" else "val")}
+        return build_batches("nusc_layout_range", params, data_cfg.get("dataset", {}),
+                             args.data_root, batch_size, seed, force_synthetic=args.synthetic,
+                             device=device)
 
     train_batches = make_batches("train", args.seed)
     val_every = max(int(data_cfg.get("val_every_steps", args.steps // 10 or 1)), 1)

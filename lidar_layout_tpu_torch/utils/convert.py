@@ -27,6 +27,8 @@ every flax name, so a leaf's path is its module path: Dense ``(in, out)``
 and width-3 Conv ``(3, in, out)`` kernels are reversed to torch's ``(out,
 in)`` and ``(out, in, 3)``, Embed tables and the GroupNorm / LayerNorm
 scale and bias carry across as ``weight`` and ``bias``.
+``layout_train_state_dicts`` carries a JAX LayoutDiffusion train state's
+``params`` and ``ema`` so.
 """
 from __future__ import annotations
 
@@ -226,6 +228,15 @@ def layout_diffusion_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tenso
             out[".".join((part,) + mods + (leaf,))] = torch.from_numpy(
                 np.ascontiguousarray(value))
     return out
+
+
+def layout_train_state_dicts(state: Any) -> Tuple[Dict[str, torch.Tensor],
+                                                   Dict[str, torch.Tensor]]:
+    """A JAX ``SimpleTrainState`` of LayoutDiffusion (``train/build``; its
+    ``params`` and ``ema`` trees, numpy or JAX leaves) -> (the port model's
+    state_dict, its EMA's), both through ``layout_diffusion_state_dict``."""
+    return (layout_diffusion_state_dict(state.params),
+            layout_diffusion_state_dict(state.ema))
 
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}

@@ -485,6 +485,26 @@ def test_gpu_attention_kernel_at_layout_diffusion_shape(cuda_device):
     assert torch.equal(got, again)
 
 
+@pytest.mark.gpu
+def test_gpu_attention_bwd_at_layout_diffusion_shape(cuda_device):
+    # LayoutDiffusion's training: K2 at (256, 8, 1, 64) f32 on CrossAttention's
+    # strides, against the plain version, bit for bit over two launches; one
+    # key, so dq and dk are exactly 0, as JAX's
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v, do = (torch.randn((256, 1, 512), generator=gen, device=cuda_device)
+                   .reshape(256, 1, 8, 64).transpose(1, 2) for _ in range(4))
+    o, lse = A._launch(q, k, v, None, with_lse=True)
+    launches = A.flash_attention_bwd.launches
+    first = A.flash_attention_bwd(q, k, v, o, do, lse)
+    second = A.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bwd.launches == launches + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    for got, want in zip(first, A._attend_bwd_ref(q, k, v, o, do, lse)):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    assert not first[0].any() and not first[1].any()
+
+
 def _layout_train_gn_shapes(dev):
     """(B, C, H, W, groups, act) of the layout U-Net's K3 calls in a training
     step at batch 16 (each also runs K3's backward)."""

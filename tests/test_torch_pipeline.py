@@ -247,6 +247,9 @@ import lidar_layout_tpu_torch.eval.rangenet, lidar_layout_tpu_torch.eval.registr
 import lidar_layout_tpu_torch.ops.chamfer, lidar_layout_tpu_torch.ops.emd
 import lidar_layout_tpu_torch.data.readers, lidar_layout_tpu_torch.sample
 import lidar_layout_tpu_torch.encoders.layout_encoder, lidar_layout_tpu_torch.models.object_cross_unet
+import lidar_layout_tpu_torch.train.train_layout, lidar_layout_tpu_torch.train.layout_trainer
+import lidar_layout_tpu_torch.data.factory, lidar_layout_tpu_torch.data.nuscenes_layout
+import lidar_layout_tpu_torch.data.graph_aug, lidar_layout_tpu_torch.utils.memory
 assert "jax" not in sys.modules
 assert not [m for m in sys.modules if m.split(".")[0] in BAD]
 print("clean")
