@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,build,kernels,layout_train_slice,layout_train
     python3 chip_smoke.py --phases device,build,kernels,layout_boxes_slice,layout_boxes
     python3 chip_smoke.py --phases device,build,kernels,layout_boxes_train_slice,layout_boxes_train
+    python3 chip_smoke.py --phases device,build,kernels,ae_train_slice,ae_train
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -31,7 +32,9 @@ Phases (any failure exits non-zero before the final "ok" line):
                backward also at every layout training shape; K1 (with its
                log-sum-exp) and K2 at LayoutDiffusion's (256, 8, 1, 64) f32 on
                CrossAttention's strides, bit for bit over two launches, K2's dq
-               and dk required to be exactly 0 (one key), as JAX's are
+               and dk required to be exactly 0 (one key), as JAX's are; K3
+               forward and backward in f32 at every group shape of the
+               autoencoder's training step (encoder, decoder, discriminator)
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -86,6 +89,21 @@ Phases (any failure exits non-zero before the final "ok" line):
                plain attention, non-zero finite encoder gradients, an overfit
                check; then the train_layout CLI (--synthetic --steps 2) and
                sample_layout -r on its run directory
+  ae_train_slice  one VQ-GAN step of the full-width kitti autoencoder
+               (configs/autoencoder/kitti/autoencoder_c2_p4.yaml), batch 4, f32,
+               TF32 off, card vs CPU from the same weights at step 0 (GAN terms
+               on) and 2 (off): every loss part, d_weight, disc_loss, both
+               models' gradients (relative L2) and parameters after Adam; K3
+               launches against the structure and module hooks; at step 0 a
+               TF32-on control that the same gates must reject
+  ae_train     the autoencoder's training step at batch 4, f32: steps/s,
+               samples/s, the split into generator (with the adaptive weight),
+               discriminator and both Adams, peak memory, K3 forward and
+               backward launches (52 + 52 in the autoencoder, 9 + 12 in the
+               discriminator) against the structure and hooks, no plain
+               GroupNorm, a falling rec_loss on one batch; then train_lidm
+               --synthetic --steps 2 on the kitti and nuScenes AE YAMLs, and the
+               kitti run's checkpoint as the flagship LiDM's first stage
   timing       per-kernel device times at the main paths' shapes beside the
                plain version, one PyTorch library call and the card's bound,
                and for K1/K2 the special-function unit's floor for their
@@ -98,11 +116,13 @@ Phases (any failure exits non-zero before the final "ok" line):
                layout model's training shapes, summed over its timed steps;
                K1 (with its log-sum-exp) and K2 at (256, 8, 1, 64) f32 beside
                SDPA's forward and backward, summed over LayoutDiffusion's 10
-               timed training steps
+               timed training steps; K3 forward and backward in f32 at the
+               autoencoder step's shapes, summed over ae_train's 10 timed steps
   profile      (only when named) device time of one DPM-20 request, of one
                guided layout request, of one training step, of one layout
-               training step, of one LayoutDiffusion request and of one
-               LayoutDiffusion training step by kernel family
+               training step, of one LayoutDiffusion request, of one
+               LayoutDiffusion training step and of one autoencoder training
+               step by kernel family
 
 The weights are random, drawn from a seed (no trained checkpoint is used). It
 imports nothing of JAX.
@@ -125,7 +145,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "eval_slice",
           "eval", "layout_slice", "layout", "layout_train_slice", "layout_train",
           "layout_boxes_slice", "layout_boxes", "layout_boxes_train_slice", "layout_boxes_train",
-          "timing")
+          "ae_train_slice", "ae_train", "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -139,6 +159,12 @@ LAYOUT_CFG_SCALE = 2.0   # the guided layout run: DPM-20, generate(32) at batch 
 # of 16 objects and 32 triples a scene (N = 256 boxes), DDIM-100, f32
 BOX_SCENES, BOX_STEPS, BOX_CALLS = 16, 100, 3
 BOX_LR = 1.6e-5   # layout_nusc.yaml's: base 1e-6 x 16 scenes
+# the range VQ autoencoder (VQ-GAN) in f32 at its YAML's batch of 4; the
+# flagship LiDM whose first stage it is loads the CLI run's checkpoint
+AE_YAML = os.path.join(HERE, "configs", "autoencoder", "kitti", "autoencoder_c2_p4.yaml")
+AE_NUSC_YAML = os.path.join(HERE, "configs", "autoencoder", "nuscenes", "autoencoder_c2_p4.yaml")
+LIDM_YAML = os.path.join(HERE, "configs", "lidar_diffusion", "kitti", "uncond_c2_p4.yaml")
+AE_BATCH, AE_LR = 4, 1.8e-5   # the YAML's batch, and its lr: base 4.5e-6 x batch 4
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -343,7 +369,9 @@ class Smoke:
         self.layout_boxes_launches = {}
         self.layout_boxes_train_launches = {}   # over LayoutDiffusion's timed training steps
         self.box_attention_calls = None   # K1 calls of one LayoutDiffusion request (hooks)
-        self.run_totals = {}   # kernel -> {run: summed times} of the layout paths
+        self.run_totals = {}   # kernel -> {run: summed times} of the layout and AE paths
+        self.ae_shapes = None   # K3's (forward, backward) calls of one AE step by shape
+        self.ae_train_launches = {}   # over the AE's timed training steps
 
     # ------------------------------------------------------------------ device
     def device(self):
@@ -455,6 +483,7 @@ class Smoke:
                     f"path: {path_name(G.kernel_path(torch.float32, 128, 64 * 1024, 32))}")
 
         self._kernels_gn_bwd()
+        self._kernels_ae()
         self._kernels_train()
         self._kernels_chamfer()
 
@@ -2045,6 +2074,432 @@ class Smoke:
             gc.collect()
             torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------- ae_train_slice
+    @staticmethod
+    def _ae_setup(device="cuda", lr=AE_LR, seed=0):
+        """The kitti autoencoder YAML's VQModel, its loss config and geometry,
+        and JAX's discriminator (v1, 64 filters, 3 layers, as the CLI builds
+        it), seeded weights (the same on every device), two Adams: (model,
+        disc, loss_cfg, geo, state)."""
+        from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
+        from lidar_layout_tpu_torch.losses.discriminator import LiDARNLayerDiscriminator
+        from lidar_layout_tpu_torch.losses.geometric import GeoConverter
+        from lidar_layout_tpu_torch.pipeline import geometry_from_config
+        from lidar_layout_tpu_torch.train import ae_trainer as AT
+
+        cfg = load_yaml(AE_YAML)
+        loss_cfg = instantiate_from_config(cfg["model"]["params"]["lossconfig"])
+        geo = GeoConverter(geometry_from_config(cfg), curve_length=loss_cfg.curve_length)
+        model = seed_weights(instantiate_from_config(cfg["model"]), seed).to(device)
+        disc = seed_weights(LiDARNLayerDiscriminator(
+            AT.disc_in_channels(model.cfg.out_ch, loss_cfg, geo)), seed + 1).to(device)
+        return model, disc, loss_cfg, geo, AT.create_ae_state(model, disc, lr, lr)
+
+    @staticmethod
+    def _ae_batches(n, seed=6, device="cuda"):
+        """``n`` synthetic batches of AE_BATCH scenes in the AE YAML's
+        geometry, image (B, 64, 1024, 1)."""
+        from lidar_layout_tpu_torch.config import load_yaml
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+        from lidar_layout_tpu_torch.pipeline import geometry_from_config
+
+        rng, geom = np.random.default_rng(seed), geometry_from_config(load_yaml(AE_YAML))
+        return [synthetic_range_batch(rng, AE_BATCH, geom, device=device) for _ in range(n)]
+
+    @staticmethod
+    def _ae_structure(model, disc):
+        """K3 launches of one AE step from the structure: every autoencoder
+        norm forward and backward; each discriminator norm forward three
+        times (the reconstruction in the generator pass, then real and
+        reconstruction), backward four times (the reconstruction's twice:
+        the adaptive weight's GAN gradient and the loss's)."""
+        from lidar_layout_tpu_torch.losses.discriminator import GroupNorm32
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+        n_ae = sum(isinstance(m, Normalize) for m in model.modules())
+        n_disc = sum(isinstance(m, GroupNorm32) for m in disc.modules())
+        out = {k: 0 for k in counters()}
+        out.update(group_norm=n_ae + 3 * n_disc, group_norm_bwd=n_ae + 4 * n_disc)
+        return out, n_ae, n_disc
+
+    def _ae_shapes(self):
+        """K3's calls of one AE training step by shape, (forward, backward)
+        Counters keyed (B, C, H, W, groups, act, eps): the ae_train phase's
+        hooks, or hooks on one step taken here when it did not run."""
+        if self.ae_shapes is None:
+            import torch
+            from lidar_layout_tpu_torch.train import ae_trainer as AT
+            from torch_port_helpers import count_group_norms
+
+            model, disc, loss_cfg, geo, state = self._ae_setup()
+            with count_group_norms(model, disc) as shapes:
+                AT.make_ae_train_step(model, disc, loss_cfg, geo)(
+                    state, self._ae_batches(1)[0], torch.Generator(device="cuda").manual_seed(0))
+            self.ae_shapes = shapes
+            del model, disc, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        return self.ae_shapes
+
+    def _kernels_ae(self):
+        """K3 forward and backward in f32 at every group shape of one AE
+        training step (encoder, decoder, discriminator; eps 1e-6, and 1e-5
+        in the discriminator), against the plain versions; the backward bit
+        for bit over two launches."""
+        import torch
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        fwd, bwd = self._ae_shapes()
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(9)
+        log(f"K3 forward and backward, f32, at every group shape of the AE's training step "
+            f"({len(fwd)} shapes; batch {AE_BATCH}):")
+        for (b, c, hh, ww, groups, act, eps) in sorted(set(fwd) | set(bwd)):
+            x = torch.randn((b, c, hh, ww), generator=gen, device=dev) * 2 + 0.3
+            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+            dy = torch.randn(x.shape, generator=gen, device=dev)
+            span_kb = c // groups * hh * ww * 4 / 1024
+            what = (f"{(b, c, hh, ww)} G={groups} act={act} eps={eps:g} f32 ({span_kb:g} KB "
+                    f"groups; paths: forward "
+                    f"{path_name(G.kernel_path(torch.float32, c, hh * ww, groups))}, backward "
+                    f"{path_name(G.kernel_path(torch.float32, c, hh * ww, groups, True))})")
+            got = G.group_norm(x, gamma, beta, groups, eps, act)
+            want = G._ref(x, gamma, beta, groups, eps, act)
+            self._check("group_norm", got, want, 1e-4, 1e-5, what, record=False)
+            self.kernel_err["ae_group_norm"] = max(self.kernel_err.get("ae_group_norm", 0.0),
+                                                   max_err(got, want)[0])
+            got = G.group_norm_bwd(x, gamma, beta, dy, groups, eps, act)
+            want = G._group_norm_bwd_ref(x, gamma, beta, dy, groups, eps, act)
+            for part, g_, w_, t_ in zip(("dx", "dgamma", "dbeta"), got, want,
+                                        ((1e-4, 1e-4), (1e-3, 1e-4), (1e-3, 1e-4))):
+                self._check("group_norm_bwd", g_, w_, *t_, f"{part} {what}", record=False)
+                self.kernel_err["ae_group_norm_bwd"] = max(
+                    self.kernel_err.get("ae_group_norm_bwd", 0.0), max_err(g_, w_)[0])
+            again = G.group_norm_bwd(x, gamma, beta, dy, groups, eps, act)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a_, g_) for a_, g_ in zip(again, got)):
+                raise AssertionError(f"K3's backward is not deterministic at {what}")
+            del x, dy, got, want, again
+        torch.cuda.empty_cache()
+
+    def ae_train_slice(self):
+        """One VQ-GAN step of the full-width kitti autoencoder at batch 4,
+        f32 (TF32 off), on the card and on the CPU from the same weights and
+        batch, at step 0 (GAN terms on) and step 2 (past disc_start 1: off):
+        every loss part, d_weight and disc_loss, the generator's and the
+        discriminator's gradients by relative L2, and both models after
+        Adam; on the card, K3's launches against the structure and hooks.
+        At step 0 a control runs the card's step again with TF32 on for
+        matmuls and cuDNN: the same gates must find it not correct."""
+        import torch
+        from lidar_layout_tpu_torch.train import ae_trainer as AT
+        from torch_port_helpers import count_group_norms
+
+        batch = self._ae_batches(1, seed=4, device="cpu")[0]
+        for step_no in (0, 2):
+            runs = {}
+            for run in ("cuda", "cuda_tf32", "cpu") if step_no == 0 else ("cuda", "cpu"):
+                dev = run.split("_")[0]
+                model, disc, loss_cfg, geo, state = self._ae_setup(dev)
+                state.step = step_no
+                grads = {}
+                for part, opt, module in (("generator", state.opt_g, model),
+                                          ("discriminator", state.opt_d, disc)):
+                    def spy(gs, real=opt.step, part=part, module=module):
+                        grads.update({f"{part}.{n}": g_.detach().cpu().clone()
+                                      for (n, _), g_ in zip(module.named_parameters(), gs)})
+                        return real(gs)
+                    opt.step = spy
+                structure, n_ae, n_disc = self._ae_structure(model, disc)
+                reset_counts()
+                t0 = time.perf_counter()
+                tf32 = run == "cuda_tf32"
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+                try:
+                    with count_group_norms(model, disc) as (fwd, bwd):
+                        state, logs = AT.make_ae_train_step(model, disc, loss_cfg, geo)(
+                            state, {k: v.to(dev) for k, v in batch.items()},
+                            torch.Generator(device=dev))
+                        if dev == "cuda":
+                            torch.cuda.synchronize()
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                launches = read_counts()
+                hooked = {**{k: 0 for k in counters()}, "group_norm": sum(fwd.values()),
+                          "group_norm_bwd": sum(bwd.values())}
+                runs[run] = {"logs": {k: float(v) for k, v in logs.items()}, "grads": grads,
+                             "params": {f"{p_}.{n}": t_.detach().cpu().clone()
+                                        for p_, m in (("generator", model),
+                                                      ("discriminator", disc))
+                                        for n, t_ in m.named_parameters()}}
+                log(f"ae_train_slice step {step_no} on {run}: {time.perf_counter() - t0:.1f} s; "
+                    + ", ".join(f"{k} {v:.6g}" for k, v in sorted(runs[run]["logs"].items())))
+                if dev == "cuda":
+                    log(f"ae_train_slice step {step_no} ({run}): K3 launches {launches}, hooks "
+                        f"{hooked}, structure {structure} ({n_ae} autoencoder norms, {n_disc} "
+                        f"in the discriminator)")
+                    if not launches == hooked == structure:
+                        raise AssertionError("ae_train_slice: K3 launches differ from the "
+                                             "structure or the hooks")
+                del model, disc, state
+                gc.collect()
+                torch.cuda.empty_cache()
+            if not self._compare_ae_runs(step_no, "f32", runs["cuda"], runs["cpu"]):
+                raise AssertionError(f"ae_train_slice step {step_no}: the card's AE step "
+                                     f"disagrees with the CPU's")
+            if step_no == 0 and self._compare_ae_runs(step_no, "TF32 control",
+                                                      runs["cuda_tf32"], runs["cpu"]):
+                raise AssertionError("ae_train_slice: the gates pass the card's step with "
+                                     "TF32 on; they cannot tell it from f32")
+
+    @staticmethod
+    def _compare_ae_runs(step_no, label, g, c):
+        """The card's AE step ``g`` against the CPU's ``c`` (f32 on both;
+        the two sum in other orders through ~60 layers forward and back):
+        True when it agrees. Fixed gates, set from the f32 runs with room on
+        both sides (the card read d_weight 4.3e-6, the generator's gradients
+        1.1e-4 at step 0 and 1.0e-5 at step 2, the discriminator's 1.8e-5;
+        PERF.md section 6), which TF32 must fail. Every logged loss part
+        within 1e-5 relative, except d_weight, held to 1e-4: it reads the
+        norm of the GAN loss's gradient for conv_out's weight, whose sums
+        over B*H*W = 262,144 products cancel. The gradients by relative L2:
+        the discriminator's within 1e-4; the generator's within 3e-4 at step
+        0, where the GAN term's gradient (d_weight times the discriminator's
+        backward) adds its cancellation, and 1e-4 at step 2, since the
+        weight gradients of its 64x1024 convolutions sum 262,144 products a
+        weight, which cuDNN's and oneDNN's wgrad add in other orders; the
+        three tensors with the largest share of the error are logged. Both
+        models after Adam within 2 lr and the rounding of the parameter
+        (the first update is about lr * sign(g), which flips where g is
+        within rounding of 0), under 1e-3 of the elements off by more than
+        0.01 lr."""
+        import torch
+
+        rel = {k: abs(g["logs"][k] - c["logs"][k]) / max(abs(c["logs"][k]), 1e-30)
+               for k in c["logs"]}
+        gan_on = c["logs"]["disc_loss"] != 0
+        ok = rel["d_weight"] <= 1e-4 and all(
+            v <= 1e-5 or abs(g["logs"][k] - c["logs"][k]) <= 1e-7
+            for k, v in rel.items() if k != "d_weight")
+        parts = []
+        for part, tol in (("generator", 3e-4 if gan_on else 1e-4), ("discriminator", 1e-4)):
+            keys = [k for k in c["grads"] if k.startswith(part)]
+            err = {k: float((g["grads"][k] - c["grads"][k]).square().sum()) for k in keys}
+            num = sum(err.values())
+            den = sum(float(c["grads"][k].square().sum()) for k in keys)
+            r = (num / den) ** 0.5 if den else num ** 0.5
+            worst = ", ".join(
+                f"{k} {err[k] / max(num, 1e-300):.2f} (own relative L2 "
+                f"{(err[k] / max(float(c['grads'][k].square().sum()), 1e-300)) ** 0.5:.1e})"
+                for k in sorted(err, key=err.get, reverse=True)[:3])
+            parts.append(f"{part} gradients ({len(keys)} tensors): relative L2 {r:.3e} "
+                         f"(tol {tol:.0e}); largest shares of the error: {worst}")
+            ok = ok and bool(keys) and r <= tol and (den > 0) == (part == "generator" or gan_on)
+        upd = torch.cat([(g["params"][k] - c["params"][k]).abs().flatten() for k in c["params"]])
+        pmax = max(float(t_.abs().max()) for t_ in c["params"].values())
+        far = float((upd > 0.01 * AE_LR).float().mean())
+        ok = ok and float(upd.max()) <= 2 * AE_LR + 2 * EPS32 * pmax and far <= 1e-3
+        log(f"ae_train_slice step {step_no} {label} (GAN terms {'on' if gan_on else 'off'}): "
+            f"{'correct' if ok else 'NOT correct'}; relative errors "
+            + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rel.items()))
+            + " (tol d_weight 1e-4, others 1e-5); " + "; ".join(parts)
+            + f"; parameters after Adam: max_abs_err {float(upd.max()):.3e}, share off by > "
+            f"0.01 lr {far:.2e} (lr {AE_LR:g})")
+        return ok
+
+    # ---------------------------------------------------------------- ae_train
+    def ae_train(self):
+        """The autoencoder's training path: the kitti YAML at full width,
+        batch 4, f32 with TF32 off, synthetic scenes. Two warm-ups (the
+        first under hooks), 10 timed steps: steps/s, samples/s, peak memory,
+        K3's launches a step against the structure and hooks, no plain
+        GroupNorm; the phase split over 3 synchronised steps; a falling
+        rec_loss over 30 steps on one batch; then the CLI on the kitti and
+        nuScenes YAMLs (--synthetic --steps 2), and the kitti run's
+        checkpoint as the flagship LiDM's first stage, decoding."""
+        import torch
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+        from lidar_layout_tpu_torch.train import ae_trainer as AT
+        from torch_port_helpers import count_group_norms
+
+        name, card = "ae_train", card_line()
+        t0 = time.perf_counter()
+        batches = self._ae_batches(3)
+        torch.cuda.synchronize()
+        log(f"{name}: {len(batches)} synthetic batches of {AE_BATCH} scenes in "
+            f"{time.perf_counter() - t0:.1f} s")
+        model, disc, loss_cfg, geo, state = self._ae_setup()
+        step = AT.make_ae_train_step(model, disc, loss_cfg, geo)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        structure, n_ae, n_disc = self._ae_structure(model, disc)
+        reset_counts()
+        with count_group_norms(model, disc) as shapes:
+            state, logs = step(state, batches[0], gen)           # warm-up 1, hooked
+            torch.cuda.synchronize()
+        first = read_counts()
+        hooked = {**{k: 0 for k in counters()}, "group_norm": sum(shapes[0].values()),
+                  "group_norm_bwd": sum(shapes[1].values())}
+        self.ae_shapes = shapes
+        step(state, batches[1], gen)                              # warm-up 2
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        plain, real = collections.Counter(), (G._ref, G._group_norm_bwd_ref)
+
+        def counting(n_, fn):
+            def wrapped(*a, **k):
+                plain[n_] += 1
+                return fn(*a, **k)
+            return wrapped
+        G._ref, G._group_norm_bwd_ref = (counting("_ref", real[0]),
+                                         counting("_group_norm_bwd_ref", real[1]))
+        try:
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                state, logs = step(state, batches[i % len(batches)], gen)
+                losses.append((logs["total_loss"], logs["rec_loss"], logs["d_weight"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            G._ref, G._group_norm_bwd_ref = real
+        got = read_counts()
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = {k: v / TRAIN_STEPS for k, v in got.items()}
+        timed = AT.make_ae_train_step(model, disc, loss_cfg, geo, timed=True)
+        phases = collections.Counter()
+        for i in range(3):
+            state, tl = timed(state, batches[i], gen)
+            for k in ("gen", "disc", "opt"):
+                phases[k] += tl[f"seconds_{k}"] / 3
+        finite = all(bool(torch.isfinite(torch.stack(v)).all()) for v in losses)
+        log(f"{name} (kitti autoencoder_c2_p4.yaml, batch {AE_BATCH}, f32, TF32 off, "
+            f"{TRAIN_STEPS} steps): {TRAIN_STEPS / wall:.3f} steps/s, "
+            f"{TRAIN_STEPS * AE_BATCH / wall:.2f} samples/s; phases per step (synchronised): "
+            f"generator forward+backward with the adaptive weight {phases['gen']:.4f} s, "
+            f"discriminator {phases['disc']:.4f} s, both Adams {phases['opt']:.4f} s; peak "
+            f"memory {mem:.2f} GiB; launches per step {per_step} (structure {structure}: "
+            f"{n_ae} autoencoder norms, {n_disc} discriminator norms; hooks {hooked}; first "
+            f"step {first}); plain GroupNorm calls {dict(plain)}; last total_loss "
+            f"{float(losses[-1][0]):.5f} rec_loss {float(losses[-1][1]):.5f} d_weight "
+            f"{float(losses[-1][2]):.5f} finite={finite}; card {card}")
+        if (per_step != {k: float(v) for k, v in structure.items()} or first != structure
+                or hooked != structure):
+            raise AssertionError(f"{name}: launches per step {per_step} (first {first}, hooks "
+                                 f"{hooked}) != structure {structure}")
+        if sum(plain.values()) or not finite:
+            raise AssertionError(f"{name}: plain GroupNorm ran {dict(plain)}, or a loss is "
+                                 f"not finite")
+        self.ae_train_launches = got
+        del model, disc, state, step, timed
+        gc.collect()
+
+        # overfit check: one fixed batch, fresh weights, lr 1e-4
+        model, disc, loss_cfg, geo, state = self._ae_setup(lr=OVERFIT_LR)
+        step = AT.make_ae_train_step(model, disc, loss_cfg, geo)
+        curve = []
+        for i in range(OVERFIT_STEPS + 1):
+            state, logs = step(state, batches[0], gen)
+            curve.append(float(logs["rec_loss"]))
+        log(f"{name} overfit ({OVERFIT_STEPS} Adam steps at lr {OVERFIT_LR:g} on one batch; GAN "
+            f"terms on at steps 0-1): rec_loss step 0 {curve[0]:.5f} -> step {OVERFIT_STEPS} "
+            f"{curve[-1]:.5f}, ratio {curve[-1] / curve[0]:.4f}; curve "
+            f"{[round(c_, 5) for c_ in curve[::5]]}")
+        if not curve[-1] < curve[0]:
+            raise AssertionError(f"{name}: rec_loss on a fixed batch did not fall")
+        del model, disc, state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._ae_cli()
+
+    @staticmethod
+    def _ae_cli():
+        """train_lidm --synthetic --steps 2 on the kitti and nuScenes AE
+        YAMLs (full width, on the card), then the kitti run's checkpoint
+        read by load_first_stage_params as the flagship LiDM's first stage
+        (the LiDM YAML with the AE YAML's ddconfig, codebook and mask
+        setting: the AE YAML trains a 1-channel decoder, the LiDM YAML names
+        a 2-channel one; ROADMAP section 3) and two decoded images."""
+        import shutil
+        import tempfile
+
+        import torch
+        from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
+        from lidar_layout_tpu_torch.train import checkpoint as CK
+        from lidar_layout_tpu_torch.train import train_lidm as TL
+
+        tmp = tempfile.mkdtemp(prefix="ae_train_")
+        try:
+            for data, yaml_path in (("kitti", AE_YAML), ("nuscenes", AE_NUSC_YAML)):
+                run = os.path.join(tmp, data)
+                t0 = time.perf_counter()
+                trainer = TL.main(["-b", yaml_path, "--synthetic", "--steps", "2",
+                                   "--workdir", run])
+                dev = next(trainer.state.model.parameters()).device
+                log(f"ae_train: train_lidm -b {os.path.relpath(yaml_path, HERE)} --synthetic "
+                    f"--steps 2 in {time.perf_counter() - t0:.1f} s on {dev}; run files "
+                    f"{sorted(os.listdir(run))}")
+                if trainer.global_step != 2 or dev.type != "cuda":
+                    raise AssertionError("ae_train: the CLI did not train 2 steps on the card")
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            path = CK.checkpoint_path(os.path.join(tmp, "kitti", "ckpt"), 2)
+            cfg, ae = load_yaml(LIDM_YAML), load_yaml(AE_YAML)["model"]["params"]
+            fsp = cfg["model"]["params"]["first_stage_config"]["params"]
+            fsp.update({k: ae[k] for k in ("ddconfig", "n_embed", "embed_dim", "use_mask")},
+                       ckpt_path=path)
+            model = instantiate_from_config(cfg["model"]).to("cuda").eval()
+            CK.load_first_stage_params(fsp["ckpt_path"], model)
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+            same = all(torch.equal(v.cpu(), ckpt[k])
+                       for k, v in model.first_stage_model.state_dict().items())
+            (h, w), dd = load_yaml(AE_YAML)["data"]["params"]["dataset"]["size"], ae["ddconfig"]
+            fh, fw = np.prod(dd["strides"], axis=0)
+            with torch.inference_mode():
+                img = model.decode_first_stage(
+                    torch.randn((2, h // fh, w // fw, ae["embed_dim"]), device="cuda"))
+            finite = bool(torch.isfinite(img).all())
+            log(f"ae_train: the kitti run's checkpoint as the flagship LiDM's first stage: "
+                f"weights equal to the file's {same}; decode {tuple(img.shape)} finite={finite}")
+            if not same or not finite or tuple(img.shape) != (2, h, w, 1):
+                raise AssertionError("ae_train: the run's checkpoint did not load as a first "
+                                     "stage or decoded bad images")
+            del model, img
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def _timing_ae(self, gen):
+        """K3 forward and backward at the AE step's shapes in f32, summed
+        over the ae_train phase's 10 timed steps: (forward totals, backward
+        totals)."""
+        import torch
+
+        fwd, bwd = self._ae_shapes()
+        tots = []
+        for counts, fn, what in ((fwd, self._time_k3, "forward"),
+                                 (bwd, self._time_k3_bwd, "backward")):
+            log(f"  K3 {what} at the AE training step's shapes (f32):")
+            tot = collections.Counter()
+            for (b, c, hh, ww, groups, act, eps), count in sorted(counts.items()):
+                t = fn(gen, (b, c, hh, ww, groups, act), f"eps={eps:g} x{count}/step",
+                       dtype=torch.float32, eps=eps)
+                for k, v in t.items():
+                    tot[k] += count * v * TRAIN_STEPS
+            log(f"  K3 {what} over the AE's {TRAIN_STEPS} timed steps ({sum(counts.values())} "
+                f"calls a step, f32): kernel {tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | "
+                f"plain {tot['plain_ms']:.3f} | library {tot['library_ms']:.3f} "
+                f"({tot['ms'] / tot['library_ms']:.3f}x) | bound {tot['bound_ms']:.3f} (kernel "
+                f"at {100 * tot['bound_ms'] / tot['ms']:.1f}% of it)")
+            tots.append(tot)
+            torch.cuda.empty_cache()
+        return tots
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
@@ -2142,6 +2597,9 @@ class Smoke:
         self.run_totals["flash_attention_bwd"] = {"layout_boxes_train": bwd}
         self.run_totals["group_norm_bwd"] = {"layout_train": self._timing_gn_bwd(
             gen, self._train_shapes(layout=True), "layout model")}
+        ae_fwd, ae_bwd = self._timing_ae(gen)
+        self.run_totals["group_norm"]["ae_train"] = ae_fwd
+        self.run_totals["group_norm_bwd"]["ae_train"] = ae_bwd
         totals["chamfer_nn"] = self._timing_chamfer()
         for name, fn in counters().items():
             fn.launches = saved[name]
@@ -2164,38 +2622,40 @@ class Smoke:
             f"time: {len(EVENT_TIMINGS)} {EVENT_TIMINGS}")
         self.totals = totals
 
-    def _time_k3(self, gen, key, label):
-        """K3 forward at one bf16 shape: device ms of the kernel (and wall ms
-        from CUDA events), the plain version, F.group_norm + F.silu and
-        copy_ of the same bytes, and the bound with its two parts."""
+    def _time_k3(self, gen, key, label, dtype=None, eps=1e-6):
+        """K3 forward at one shape (bf16 unless ``dtype``): device ms of the
+        kernel (and wall ms from CUDA events), the plain version,
+        F.group_norm (+ F.silu) and copy_ of the same bytes, and the bound
+        with its two parts."""
         import torch
         import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import groupnorm as G
 
         b, c, hh, ww, groups, act = key
+        dtype = dtype or torch.bfloat16
         dev = torch.device("cuda")
-        x = torch.randn((b, c, hh, ww), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((b, c, hh, ww), generator=gen, device=dev).to(dtype)
         gamma = torch.ones(c, device=dev)
         beta = torch.zeros(c, device=dev)
         gl, bl = gamma.to(x.dtype), beta.to(x.dtype)
 
         def lib():
-            y = F.group_norm(x, groups, gl, bl, 1e-6)
+            y = F.group_norm(x, groups, gl, bl, eps)
             return F.silu(y) if act else y
-        cost = G.group_norm_cost(b, c, hh * ww, groups, 2, act)
+        cost = G.group_norm_cost(b, c, hh * ww, groups, x.element_size(), act)
         nbytes, ops = cost["bytes"], cost["flops"]
         y = torch.empty_like(x)   # copy_ moves the same bytes: the rate the card reaches
-        span_kb = c // groups * hh * ww * 2 / 1024
-        path = path_name(G.kernel_path(torch.bfloat16, c, hh * ww, groups))
-        t = {"ms": device_ms(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act), 20),
-             "events_ms": cuda_time(lambda: G.group_norm(x, gamma, beta, groups, 1e-6, act),
+        span_kb = c // groups * hh * ww * x.element_size() / 1024
+        path = path_name(G.kernel_path(dtype, c, hh * ww, groups))
+        t = {"ms": device_ms(lambda: G.group_norm(x, gamma, beta, groups, eps, act), 20),
+             "events_ms": cuda_time(lambda: G.group_norm(x, gamma, beta, groups, eps, act),
                                     20),
-             "plain_ms": device_ms(lambda: G._ref(x, gamma, beta, groups, 1e-6, act), 5),
+             "plain_ms": device_ms(lambda: G._ref(x, gamma, beta, groups, eps, act), 5),
              "library_ms": device_ms(lib, 20), "copy_ms": device_ms(lambda: y.copy_(x), 20)}
         t["bound_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         t["bound_ops_ms"] = ops / PEAK_F32 * 1e3
         t["bound_ms"] = max(t["bound_bytes_ms"], t["bound_ops_ms"])
-        log(f"  K3 {(b, c, hh, ww)} G={groups} act={act} bf16 {label} ({span_kb:g} "
+        log(f"  K3 {(b, c, hh, ww)} G={groups} act={act} {str(dtype)[6:]} {label} ({span_kb:g} "
             f"KB groups, {path}): kernel "
             f"{t['ms']:.4f} (events {t['events_ms']:.4f}) | plain {t['plain_ms']:.4f} | "
             f"group_norm+silu "
@@ -2414,53 +2874,61 @@ class Smoke:
         del q, k, v, do, o, lse, ql, kl, vl, out
         return totals
 
+    def _time_k3_bwd(self, gen, key, label, dtype=None, eps=1e-6):
+        """K3's backward at one shape (bf16 unless ``dtype``): the kernel,
+        the plain version, the autograd backward of F.group_norm (+ F.silu),
+        in turns with the kernel, and the bound with its two parts."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        b, c, hh, ww, groups, act = key
+        dtype = dtype or torch.bfloat16
+        dev = torch.device("cuda")
+        x, dy = (torch.randn((b, c, hh, ww), generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+        xl, gl, bl = (t_.to(dtype).requires_grad_() for t_ in (x, gamma, beta))
+        out = F.group_norm(xl, groups, gl, bl, eps)
+        out = F.silu(out) if act else out
+        cost = G.group_norm_cost(b, c, hh * ww, groups, x.element_size(), act, backward=True)
+        kms, lms, krounds, lrounds = paired_ms(
+            lambda: G.group_norm_bwd(x, gamma, beta, dy, groups, eps, act),
+            lambda: torch.autograd.grad(out, (xl, gl, bl), dy, retain_graph=True), 10)
+        t = {"ms": kms,
+             "events_ms": cuda_time(lambda: G.group_norm_bwd(x, gamma, beta, dy, groups, eps,
+                                                             act), 10),
+             "plain_ms": device_ms(lambda: G._group_norm_bwd_ref(x, gamma, beta, dy, groups,
+                                                                  eps, act), 5),
+             "library_ms": lms}
+        t["bound_bytes_ms"] = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["bound_ops_ms"] = cost["flops"] / PEAK_F32 * 1e3
+        t["bound_ms"] = max(t["bound_bytes_ms"], t["bound_ops_ms"])
+        path = path_name(G.kernel_path(dtype, c, hh * ww, groups, backward=True))
+        log(f"  K3 backward {(b, c, hh, ww)} G={groups} act={act} {str(dtype)[6:]} {label} "
+            f"({path}): kernel {t['ms']:.4f} (events {t['events_ms']:.4f}) | plain "
+            f"{t['plain_ms']:.4f} | group_norm(+silu) backward {t['library_ms']:.4f} "
+            f"({t['ms'] / t['library_ms']:.3f}x) | bound {t['bound_ms']:.4f} "
+            f"({'bytes' if t['bound_bytes_ms'] >= t['bound_ops_ms'] else 'operations'}; "
+            f"{cost['bytes'] / 1e6:.1f} MB; kernel at {100 * t['bound_ms'] / t['ms']:.1f}% "
+            f"of it) | rounds kernel {[round(v, 4) for v in krounds]} library "
+            f"{[round(v, 4) for v in lrounds]}")
+        return t
+
     def _timing_gn_bwd(self, gen, shapes, model_name):
         """K3's backward at a training step's shapes (``shapes``, the hooks'
         counts): the kernel, the plain version, the autograd backward of
         F.group_norm (+ F.silu), and the bytes bound of reading x and dy and
         writing dx; summed over the TRAIN_STEPS timed steps."""
         import torch
-        import torch.nn.functional as F
-        from lidar_layout_tpu_torch.ops import groupnorm as G
 
-        dev = torch.device("cuda")
         tot = collections.Counter()
         log(f"  K3 backward at the {model_name}'s training shapes:")
-        for (b, c, hh, ww, groups, act), count in sorted(shapes["group_norm_bwd"].items()):
-            x, dy = (torch.randn((b, c, hh, ww), generator=gen, device=dev)
-                     .to(torch.bfloat16) for _ in range(2))
-            gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-            xl, gl, bl = (t_.to(torch.bfloat16).requires_grad_() for t_ in (x, gamma, beta))
-            out = F.group_norm(xl, groups, gl, bl, 1e-6)
-            out = F.silu(out) if act else out
-            cost = G.group_norm_cost(b, c, hh * ww, groups, 2, act, backward=True)
-            kms, lms, krounds, lrounds = paired_ms(
-                lambda: G.group_norm_bwd(x, gamma, beta, dy, groups, 1e-6, act),
-                lambda: torch.autograd.grad(out, (xl, gl, bl), dy, retain_graph=True), 10)
-            t = {"ms": kms,
-                 "events_ms": cuda_time(lambda: G.group_norm_bwd(x, gamma, beta, dy, groups,
-                                                                 1e-6, act), 10),
-                 "plain_ms": device_ms(lambda: G._group_norm_bwd_ref(x, gamma, beta, dy, groups,
-                                                                      1e-6, act), 5),
-                 "library_ms": lms}
-            bound_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
-            bound_ops = cost["flops"] / PEAK_F32 * 1e3
-            t["bound_ms"] = max(bound_bytes, bound_ops)
-            path = path_name(G.kernel_path(torch.bfloat16, c, hh * ww, groups, backward=True))
-            log(f"  K3 backward {(b, c, hh, ww)} G={groups} act={act} bf16 x{count}/step "
-                f"({path}): kernel {t['ms']:.4f} (events {t['events_ms']:.4f}) | plain "
-                f"{t['plain_ms']:.4f} | group_norm(+silu) backward {t['library_ms']:.4f} "
-                f"({t['ms'] / t['library_ms']:.3f}x) | bound {t['bound_ms']:.4f} "
-                f"({'bytes' if bound_bytes >= bound_ops else 'operations'}; "
-                f"{cost['bytes'] / 1e6:.1f} MB; kernel at {100 * t['bound_ms'] / t['ms']:.1f}% "
-                f"of it) | rounds kernel {[round(v, 4) for v in krounds]} library "
-                f"{[round(v, 4) for v in lrounds]}")
-            for key, val in t.items():
-                tot[key] += count * val * TRAIN_STEPS
-                tot[f"step_{key}"] += count * val
-            tot["bound_ops_ms"] += count * bound_ops * TRAIN_STEPS
-            tot["bound_bytes_ms"] += count * bound_bytes * TRAIN_STEPS
-            del x, dy, xl, gl, bl, out
+        for key, count in sorted(shapes["group_norm_bwd"].items()):
+            t = self._time_k3_bwd(gen, key, f"x{count}/step")
+            for name, val in t.items():
+                tot[name] += count * val * TRAIN_STEPS
+                tot[f"step_{name}"] += count * val
         calls = sum(shapes["group_norm_bwd"].values())
         log(f"  K3 backward per {model_name} training step ({calls} calls, bf16; sum over "
             f"shapes): kernel "
@@ -2475,9 +2943,10 @@ class Smoke:
     def profile(self):
         """Device time of one DPM-20 request (batch 16, bf16), one guided
         layout request, one training step of each model (batch 16, bf16
-        autocast), one LayoutDiffusion request (DDIM-100, f32) and one
-        LayoutDiffusion training step (16 scenes x 16 objects, f32) by kernel
-        family, from torch.profiler, beside their wall times."""
+        autocast), one LayoutDiffusion request (DDIM-100, f32), one
+        LayoutDiffusion training step (16 scenes x 16 objects, f32) and one
+        autoencoder training step (batch 4, f32) by kernel family, from
+        torch.profiler, beside their wall times."""
         import torch
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as torch_profile
@@ -2573,6 +3042,25 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
 
+        from lidar_layout_tpu_torch.train import ae_trainer as AT
+
+        model, disc, loss_cfg, geo, state = self._ae_setup()
+        step = AT.make_ae_train_step(model, disc, loss_cfg, geo)
+        batch = self._ae_batches(1)[0]
+        for _ in range(2):                                # warm-up
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        self._families(prof, wall_ms, f"one autoencoder (VQ-GAN) training step, batch "
+                                      f"{AE_BATCH}, f32, TF32 off")
+        del model, disc, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
     @staticmethod
     def _families(prof, wall_ms, title):
         from torch.autograd import DeviceType
@@ -2648,8 +3136,11 @@ class Smoke:
                 "layout_boxes_train_max_abs_err": (
                     self.kernel_err.get("flash_attention_bwd_boxes")
                     if name == "flash_attention_bwd" else None),
+                "ae_train_launches": self.ae_train_launches.get(name),
+                "ae_train_max_abs_err": self.kernel_err.get(f"ae_{name}"),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
-                   for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train")
+                   for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train",
+                               "ae_train")
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         return {"kernels": entries}
 

@@ -7,6 +7,7 @@ its layout so each module's counterpart is found at once:
     ops/       LiDAR geometry and the hand-written kernels (``csrc/*.cu``)
     nn/        circular convs, blocks, embeddings, vector quantizer
     models/    U-Net, VQ autoencoder, latent diffusion, schedules, samplers
+    losses/    the autoencoder's VQ-GAN objective: geometry, discriminators
     utils/     device resolution, weight conversion from the JAX tree
     config.py  YAML -> model builders
     pipeline.py  GenerationPipeline: sample -> VQ decode -> reprojection

@@ -1,10 +1,10 @@
 """YAML configs with ``target:``/``params:`` instantiation, for the ported models.
 
-Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model_interface``,
-``layout_unet``, ``layout_encoder``, ``unet1d`` and ``layout_diffusion``
-builders of ``lidar_layout_tpu/config.py`` (with the reference's target-name
-aliases) and of its ``load_yaml`` and ``apply_dotlist``. Targets not ported
-yet raise KeyError.
+Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model``,
+``vq_model_interface``, ``vq_loss``, ``layout_unet``, ``layout_encoder``,
+``unet1d`` and ``layout_diffusion`` builders of ``lidar_layout_tpu/config.py``
+(with the reference's target-name aliases) and of its ``load_yaml`` and
+``apply_dotlist``. Targets not ported yet raise KeyError.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from .encoders.layout_encoder import LayoutEncoderConfig, LayoutTransformerEncoder
-from .models.autoencoder import AEConfig, VQModelInterface
+from .losses.vq_loss import VQLossConfig
+from .models.autoencoder import AEConfig, VQModel, VQModelInterface
 from .models.diffusion import DiffusionConfig, LatentDiffusion
 from .models.layout_diffusion import LayoutDiffusion, LayoutDiffusionConfig
 from .models.object_cross_unet import LayoutDiffusionUNetModel, LayoutUNetConfig
@@ -128,11 +129,28 @@ def _build_layout_diffusion(params: Dict[str, Any], **_) -> LayoutDiffusion:
         sg_embedding_dim=csp.get("embedding_dim", 64), use_clip=csp.get("use_clip", True))
 
 
-def _build_vq_interface(params: Dict[str, Any], **_) -> VQModelInterface:
-    return VQModelInterface(_ae_cfg(params["ddconfig"]),
-                            n_embed=params.get("n_embed", 16384),
-                            embed_dim=params.get("embed_dim", 8),
-                            use_mask=params.get("use_mask", False))
+def _build_vq(params: Dict[str, Any], interface: bool = False) -> VQModel:
+    cls = VQModelInterface if interface else VQModel
+    return cls(_ae_cfg(params["ddconfig"]), n_embed=params.get("n_embed", 16384),
+               embed_dim=params.get("embed_dim", 8), use_mask=params.get("use_mask", False))
+
+
+def _build_vq_loss(params: Dict[str, Any], **_) -> VQLossConfig:
+    """As the JAX package's ``build_vq_loss``: ``disc_version``,
+    ``disc_num_layers``, ``disc_in_channels``, ``disc_factor`` and
+    ``pixelloss_weight`` are not read (ROADMAP section 3)."""
+    return VQLossConfig(
+        codebook_weight=params.get("codebook_weight", 1.0),
+        pixel_loss=params.get("pixel_loss", "l1"),
+        mask_factor=params.get("mask_factor", 0.0),
+        geo_factor=params.get("geo_factor", 1.0),
+        perceptual_factor=params.get("perceptual_factor", 0.0),
+        smooth_factor=params.get("smooth_factor", 0.1),
+        norm_factor=params.get("norm_factor", 0.1),
+        disc_start=params.get("disc_start", 1),
+        disc_weight=params.get("disc_weight", 1.0),
+        disc_loss=params.get("disc_loss", "hinge"),
+        curve_length=params.get("curve_length", 4))
 
 
 def _build_unet(params: Dict[str, Any], **_) -> UNetModel:
@@ -198,8 +216,13 @@ for _names, _fn in (
          lambda params, **_: build_unet1d_cfg(params)),
         (("layout_diffusion", "lidm.models.diffusion.ddpm.LayoutDiffusion"),
          _build_layout_diffusion),
+        (("vq_model", "lidm.models.autoencoder.VQModel", "lidm.models.ae.autoencoder.VQModel"),
+         lambda params, **_: _build_vq(params)),
         (("vq_model_interface", "lidm.models.autoencoder.VQModelInterface",
-          "lidm.models.ae.autoencoder.VQModelInterface"), _build_vq_interface)):
+          "lidm.models.ae.autoencoder.VQModelInterface"),
+         lambda params, **_: _build_vq(params, interface=True)),
+        (("vq_loss", "lidm.modules.losses.vqperceptual.VQGeoLPIPSWithDiscriminator"),
+         _build_vq_loss)):
     for _n in _names:
         REGISTRY[_n] = _fn
 

@@ -5,9 +5,10 @@ with its python ``.bin`` reader: velodyne scans are read with numpy and
 projected with the port's ``pcd2range`` / ``process_scan``. When no dataset
 root exists the synthetic generator stands in (and says so). The native
 loader and the degradation transform are not ported yet (ROADMAP queue 1).
-``layout_range_batches`` loops over the nuScenes layout dataset
-(``readers.NuScenesLayoutRangeDataset``) as the JAX package's
-``data/factory`` does.
+``dataset_batches`` loops over a map-style dataset (``readers``'
+``NuScenesRangeDataset``, ``NuScenesLayoutRangeDataset``) as the JAX
+package's ``data/factory`` does; ``layout_range_batches`` adds the layout
+model's ``cond``.
 """
 from __future__ import annotations
 
@@ -102,11 +103,12 @@ class RangeImageDataset:
                                     mask=torch.from_numpy(masks).to(self.device))
 
 
-def layout_range_batches(ds, batch_size: int, seed: int = 0,
-                         device: Union[str, torch.device] = "cpu"
-                         ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Endless shuffled batches of a ``NuScenesLayoutRangeDataset`` as
-    tensors on ``device``, with ``cond`` = ``layout``."""
+def dataset_batches(ds, batch_size: int, seed: int = 0,
+                    device: Union[str, torch.device] = "cpu"
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Endless shuffled batches of a dataset of dicts of fixed-shape numpy
+    arrays, stacked, as tensors on ``device``: each pass draws a new order
+    from one generator seeded with ``seed`` and drops the ragged tail."""
     if len(ds) < batch_size:
         raise ValueError(f"{len(ds)} samples are fewer than a batch of {batch_size}")
     rng = np.random.default_rng(seed)
@@ -114,7 +116,16 @@ def layout_range_batches(ds, batch_size: int, seed: int = 0,
     while True:
         rng.shuffle(order)
         for i in range(0, len(order) - batch_size + 1, batch_size):
-            b = ds.collate([ds[int(k)] for k in order[i:i + batch_size]])
-            out = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
-            out["cond"] = out["layout"]
-            yield out
+            samples = [ds[int(k)] for k in order[i:i + batch_size]]
+            yield {k: torch.from_numpy(np.stack([s[k] for s in samples])).to(device)
+                   for k in samples[0]}
+
+
+def layout_range_batches(ds, batch_size: int, seed: int = 0,
+                         device: Union[str, torch.device] = "cpu"
+                         ) -> Iterator[Dict[str, torch.Tensor]]:
+    """``dataset_batches`` of a ``NuScenesLayoutRangeDataset``, with ``cond``
+    = ``layout``."""
+    for out in dataset_batches(ds, batch_size, seed, device):
+        out["cond"] = out["layout"]
+        yield out

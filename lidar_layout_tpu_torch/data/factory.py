@@ -18,6 +18,12 @@ otherwise falls back to the family's synthetic generator and says so (the
   ``readers.NuScenesLayoutRangeDataset`` through
   ``datasets.layout_range_batches``, or ``synthetic_layout_range_batch``;
   tensors on ``device``, with ``cond`` = ``layout``.
+- ``nusc_range`` (the nuScenes autoencoder): ``readers.NuScenesRangeDataset``
+  over the root's ``sample_data.json`` sweeps (``num_channels`` from the
+  dataset block) through ``datasets.dataset_batches``; ``kitti_range`` (the
+  KITTI-360 autoencoder): ``datasets.RangeImageDataset`` over the root's
+  velodyne scans. Both fall back to ``synthetic_range_batch``; tensors on
+  ``device``.
 
 The other targets of the JAX factory raise NotImplementedError, naming the
 ROADMAP queue 1 item that ports them.
@@ -53,8 +59,8 @@ ALIASES = {
 _AE = 'ROADMAP queue 1, "First stage and AE training"'
 _FAMILIES = 'ROADMAP queue 1, "Remaining families and infrastructure"'
 NOT_PORTED = {
-    "nusc_range": _AE, "kitti_range": _AE, "sem_kitti": _AE, "kitti_camera": _AE,
-    "kitti_annotated": _AE, "nusc_object": _FAMILIES, "nusc_r2dm": _FAMILIES,
+    "sem_kitti": _AE, "kitti_camera": _AE, "kitti_annotated": _AE,
+    "nusc_object": _FAMILIES, "nusc_r2dm": _FAMILIES,
     "nusc_cube": 'ROADMAP queue 1, "Cube stage"',
     "nusc_cube_decode": 'ROADMAP queue 1, "Dense decoder"',
 }
@@ -79,7 +85,7 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
     if name in NOT_PORTED:
         raise NotImplementedError(f"the {name!r} dataset is not ported yet "
                                   f"({NOT_PORTED[name]})")
-    if name not in ("nusc_layout_graph", "nusc_layout_range"):
+    if name not in ("nusc_layout_graph", "nusc_layout_range", "nusc_range", "kitti_range"):
         raise KeyError(f"unknown dataset target '{target}' "
                        f"(known: {sorted(set(ALIASES.values()))})")
     rng = np.random.default_rng(seed)
@@ -108,8 +114,25 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
         return
 
     from . import readers
-    from .datasets import layout_range_batches
-    from .synthetic import synthetic_layout_range_batch
+    from .datasets import RangeImageDataset, dataset_batches, layout_range_batches
+    from .synthetic import synthetic_layout_range_batch, synthetic_range_batch
+
+    if name in ("nusc_range", "kitti_range"):
+        if have_root and name == "nusc_range":
+            ds = readers.NuScenesRangeDataset(str(root), split, geom,
+                                              num_channels=dset_cfg.get("num_channels", 1))
+            if len(ds) >= batch_size:
+                yield from dataset_batches(ds, batch_size, seed, device)
+                return
+        elif have_root:
+            rid = RangeImageDataset(str(root), "kitti360", split, batch_size, geom, seed,
+                                    device=device)
+            if not rid.synthetic:
+                yield from rid.batches()
+                return
+        yield from synth(f"no data under {root!r}",
+                         lambda: synthetic_range_batch(rng, batch_size, geom, device=device))
+        return
 
     if have_root:
         info = params.get("info_path") or os.path.join(str(root),

@@ -4,9 +4,10 @@
 Counterpart of ``list_nuscenes_sweeps``, ``read_nuscenes_bin``,
 ``NUSC_CLASS_NAMES``, ``project_coords_np``, ``pcd2range_np``,
 ``process_scan_np``, ``box_corners_3d``, ``boxes_to_range_bbox2d``,
-``scale_boxes8``, ``build_layout13``, ``balanced_infos_resampling`` and
-``NuScenesLayoutRangeDataset`` in ``lidar_layout_tpu/data/readers.py`` (the
-KITTI listers and reader are in ``data/datasets.py``). All numpy, as there.
+``scale_boxes8``, ``build_layout13``, ``balanced_infos_resampling``,
+``NuScenesRangeDataset`` and ``NuScenesLayoutRangeDataset`` in
+``lidar_layout_tpu/data/readers.py`` (the KITTI listers and reader are in
+``data/datasets.py``). All numpy, as there.
 """
 from __future__ import annotations
 
@@ -55,9 +56,12 @@ def project_coords_np(points: np.ndarray, geom: LidarGeometry
     return px, py, depth
 
 
-def pcd2range_np(points: np.ndarray, geom: LidarGeometry) -> np.ndarray:
+def pcd2range_np(points: np.ndarray, geom: LidarGeometry,
+                 features: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """(N, 3) points -> (H, W) depth image, -1 where no point falls: farthest
-    first, so the nearest point of a pixel overwrites the others."""
+    first, so the nearest point of a pixel overwrites the others; and the
+    (N,) ``features`` scattered the same way (None without them)."""
     h, w = geom.size
     px, py, depth = project_coords_np(points, geom)
     valid = ((depth > geom.depth_range[0]) & (depth < geom.depth_range[1])
@@ -68,7 +72,11 @@ def pcd2range_np(points: np.ndarray, geom: LidarGeometry) -> np.ndarray:
     order = order[valid[order]]
     img = np.full((h, w), -1.0, np.float32)
     img[yi[order], xi[order]] = depth[order]
-    return img
+    feat_img = None
+    if features is not None:
+        feat_img = np.full((h, w), -1.0, np.float32)
+        feat_img[yi[order], xi[order]] = features[order]
+    return img, feat_img
 
 
 def process_scan_np(range_img: np.ndarray, geom: LidarGeometry
@@ -141,6 +149,32 @@ def build_layout13(boxes7: np.ndarray, names: Sequence[str], geom: LidarGeometry
     return out
 
 
+class NuScenesRangeDataset:
+    """Range images of nuScenes LIDAR_TOP sweeps (the reference's
+    nuScenesImageTrain/Validation): ``image`` (H, W, 1), or (H, W, 2) with
+    the intensity as a second channel when ``num_channels`` is 2, and the
+    hit mask ``mask`` (H, W, 1), bool."""
+
+    def __init__(self, root: str, split: str = "train", geom: Optional[LidarGeometry] = None,
+                 num_channels: int = 1, kind: str = "sweeps"):
+        self.geom = geom or LidarGeometry(size=(32, 1024), fov=(10.0, -30.0))
+        self.files = list_nuscenes_sweeps(root, split, kind)
+        self.return_remission = num_channels == 2
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        scan = read_nuscenes_bin(self.files[idx])
+        feats = np.clip(scan[:, 3] / 255.0, 0.0, 1.0) if self.return_remission else None
+        img, feat = pcd2range_np(scan[:, :3], self.geom, features=feats)
+        model, mask = process_scan_np(img, self.geom)
+        image = model[..., None]
+        if self.return_remission:
+            image = np.concatenate([image, np.clip(feat, 0.0, 1.0)[..., None]], -1)
+        return {"image": image, "mask": mask[..., None]}
+
+
 def balanced_infos_resampling(infos: List[dict], rng: np.random.Generator) -> List[dict]:
     """Class-balanced resampling (CBGS): each class's infos drawn with ratio
     (1/C) / the class's frequency, so rare classes are drawn more often."""
@@ -195,7 +229,7 @@ class NuScenesLayoutRangeDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         info = self.infos[idx]
         pts = read_nuscenes_bin(self._lidar_path(info["lidar_path"]))[:, :3]
-        model, mask = process_scan_np(pcd2range_np(pts, self.geom), self.geom)
+        model, mask = process_scan_np(pcd2range_np(pts, self.geom)[0], self.geom)
         sg = info.get("scene_graph", info)
         layout = build_layout13(np.asarray(sg.get("keep_box", np.zeros((0, 7))), np.float32),
                                 list(sg.get("keep_box_names", ())), self.geom,

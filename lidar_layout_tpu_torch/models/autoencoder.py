@@ -1,4 +1,4 @@
-"""Range-image VQ autoencoder with curve-wise convs, NCHW (forward).
+"""Range-image VQ autoencoder with curve-wise convs, NCHW.
 
 Counterpart of ``lidar_layout_tpu/models/autoencoder.py`` (``AEConfig``,
 ``Encoder``, ``Decoder``, ``apply_raydrop``, ``VQModel``,
@@ -6,6 +6,8 @@ Counterpart of ``lidar_layout_tpu/models/autoencoder.py`` (``AEConfig``,
 names (``encoder.down.i.block.j.norm1``, ``decoder.up.i.upsample.conv``,
 ``quantize.embedding``, ``post_quant_conv``, ...), so the JAX package's
 ``utils/torch_convert.convert_vq_autoencoder`` reads a port state_dict.
+``VQModel.forward_with_prefinal`` also returns the decoder's last-layer
+input, for the adaptive GAN weight of ``train/ae_trainer``.
 """
 from __future__ import annotations
 
@@ -51,11 +53,11 @@ class _Level(nn.Module):
 
 
 class _Mid(nn.Module):
-    def __init__(self, ch: int, attn_type: str, wrap: bool):
+    def __init__(self, ch: int, attn_type: str, wrap: bool, dropout: float):
         super().__init__()
-        self.block_1 = ResnetBlock(ch, wrap=wrap)
+        self.block_1 = ResnetBlock(ch, dropout=dropout, wrap=wrap)
         self.attn_1 = make_attn(ch, attn_type)
-        self.block_2 = ResnetBlock(ch, wrap=wrap)
+        self.block_2 = ResnetBlock(ch, dropout=dropout, wrap=wrap)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.block_2(self.attn_1(self.block_1(h)))
@@ -75,7 +77,8 @@ class Encoder(nn.Module):
             level = _Level()
             block_in, block_out = cfg.ch * in_mult[i], cfg.ch * mult
             for _ in range(cfg.num_res_blocks):
-                level.block.append(ResnetBlock(block_in, block_out, wrap=wrap))
+                level.block.append(ResnetBlock(block_in, block_out, dropout=cfg.dropout,
+                                               wrap=wrap))
                 block_in = block_out
                 if i in cfg.attn_levels:
                     level.attn.append(make_attn(block_out, cfg.attn_type))
@@ -84,7 +87,7 @@ class Encoder(nn.Module):
                                               cfg.resamp_with_conv, wrap=wrap)
             self.down.append(level)
         ch = cfg.ch * cfg.ch_mult[-1]
-        self.mid = _Mid(ch, cfg.attn_type, wrap)
+        self.mid = _Mid(ch, cfg.attn_type, wrap, cfg.dropout)
         self.norm_out = Normalize(ch, act=True)
         z_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
         self.conv_out = CircularConv(ch, z_ch, (3, 3), (1, 1), 1, wrap=wrap)
@@ -113,7 +116,7 @@ class Decoder(nn.Module):
         stride2kernel = {(2, 2): (3, 3), (1, 2): (1, 4)}
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = CircularConv(cfg.z_channels, block_in, (3, 3), (1, 1), 1, wrap=wrap)
-        self.mid = _Mid(block_in, cfg.attn_type, wrap)
+        self.mid = _Mid(block_in, cfg.attn_type, wrap, cfg.dropout)
         levels = {}
         for i in reversed(range(len(cfg.ch_mult))):
             stride = tuple(cfg.strides[i - 1]) if i > 0 else None
@@ -122,7 +125,7 @@ class Decoder(nn.Module):
             level = _Level()
             for _ in range(cfg.num_res_blocks + 1):
                 level.block.append(ResnetBlock(block_in, block_out, kernel_size=kernel,
-                                               wrap=wrap))
+                                               dropout=cfg.dropout, wrap=wrap))
                 block_in = block_out
                 if i in cfg.attn_levels:
                     level.attn.append(make_attn(block_out, cfg.attn_type))
@@ -135,7 +138,9 @@ class Decoder(nn.Module):
         self.conv_out = CircularConv(block_in, cfg.out_ch, (1, 4), (1, 1), (1, 2, 0, 0),
                                      wrap=wrap)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, return_prefinal: bool = False):
+        """The decoded image; with ``return_prefinal`` also conv_out's input
+        (after ``norm_out`` and SiLU), as ``(image, prefinal)``."""
         h = self.mid(self.conv_in(z))
         for level in reversed(self.up):
             for j, block in enumerate(level.block):
@@ -146,8 +151,10 @@ class Decoder(nn.Module):
                 h = level.upsample(h)
         if self.cfg.give_pre_end:
             return h
-        h = self.conv_out(self.norm_out(h))
-        return torch.tanh(h) if self.cfg.tanh_out else h
+        prefinal = self.norm_out(h)
+        h = self.conv_out(prefinal)
+        h = torch.tanh(h) if self.cfg.tanh_out else h
+        return (h, prefinal) if return_prefinal else h
 
 
 def apply_raydrop(dec: torch.Tensor) -> torch.Tensor:
@@ -157,7 +164,9 @@ def apply_raydrop(dec: torch.Tensor) -> torch.Tensor:
 
 
 class VQModel(nn.Module):
-    """VQ autoencoder over range images (forward only)."""
+    """VQ autoencoder over range images: ``forward`` returns (reconstruction,
+    codebook loss, indices). The VQ-GAN objective is ``losses/vq_loss.py``
+    and its two-optimizer step ``train/ae_trainer.py``."""
 
     def __init__(self, cfg: AEConfig, n_embed: int = 16384, embed_dim: int = 8,
                  use_mask: bool = False):
@@ -183,6 +192,12 @@ class VQModel(nn.Module):
     def forward(self, x: torch.Tensor):
         quant, diff, ind = self.encode(x)
         return self.decode(quant), diff, ind
+
+    def forward_with_prefinal(self, x: torch.Tensor):
+        """(reconstruction, codebook loss, indices, decoder's last-layer input)."""
+        quant, diff, ind = self.encode(x)
+        dec, prefinal = self.decoder(self.post_quant_conv(quant), return_prefinal=True)
+        return dec, diff, ind, prefinal
 
 
 class VQModelInterface(VQModel):

@@ -39,6 +39,8 @@ class Normalize(nn.Module):
     """GroupNorm(32, eps=1e-6) with f32 statistics and f32 affine whatever
     the activation dtype; ``act=True`` fuses the SiLU that follows."""
 
+    eps = 1e-6
+
     def __init__(self, channels: int, num_groups: int = 32, act: bool = False):
         super().__init__()
         self.num_groups = num_groups_for(channels, num_groups)
@@ -47,8 +49,7 @@ class Normalize(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.num_groups, 1e-6,
-                          self.act)
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
 
 
 def resize_align_corners(x: torch.Tensor, scale: Tuple[int, int]) -> torch.Tensor:
@@ -94,11 +95,12 @@ class Downsample(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """norm-swish-cconv x2 with optional timestep projection."""
+    """norm-swish-cconv x2 with optional timestep projection; dropout (in
+    train mode) before the second conv, as the JAX block."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  kernel_size: Tuple[int, int] = (3, 3), conv_shortcut: bool = False,
-                 temb_channels: int = 0, wrap: bool = True):
+                 temb_channels: int = 0, dropout: float = 0.0, wrap: bool = True):
         super().__init__()
         out_channels = out_channels or in_channels
         pad = KERNEL_PAD[tuple(kernel_size)]
@@ -107,6 +109,7 @@ class ResnetBlock(nn.Module):
                                   wrap=wrap)
         self.temb_proj = nn.Linear(temb_channels, out_channels) if temb_channels else None
         self.norm2 = Normalize(out_channels, act=True)
+        self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         self.conv2 = CircularConv(out_channels, out_channels, kernel_size, (1, 1), pad,
                                   wrap=wrap)
         self.nin_shortcut = self.conv_shortcut = None
@@ -121,7 +124,7 @@ class ResnetBlock(nn.Module):
         h = self.conv1(self.norm1(x))
         if temb is not None and self.temb_proj is not None:
             h = h + self.temb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        h = self.conv2(self.dropout(self.norm2(h)))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         elif self.nin_shortcut is not None:

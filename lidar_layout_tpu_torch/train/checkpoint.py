@@ -1,10 +1,15 @@
-"""Checkpoints of a training run (model, optimizer, EMA, step) with torch.save.
+"""Checkpoints of a training run with torch.save.
 
 Counterpart of ``lidar_layout_tpu/train/checkpoint.py``: ``save_checkpoint``
 keeps the newest ``max_to_keep`` files ``step_<n>.pt`` of a directory,
 ``latest_step`` and ``restore_checkpoint`` read them back, and
 ``load_first_stage_params`` loads trained autoencoder weights from a torch
-``state_dict`` file (a reference ``.ckpt``/``.pt``/``.pth``).
+``state_dict`` file (a reference ``.ckpt``/``.pt``/``.pth``). A file holds
+the step and the train state's ``state_dict()``: model, optimizer and EMA
+for a diffusion state; for an autoencoder state (``train/ae_trainer``) a
+Lightning-style ``state_dict`` of the model with the discriminator under
+``loss.discriminator.``, and both optimizers, so that a LiDM's
+``first_stage_config.params.ckpt_path`` can name the file as it is.
 """
 from __future__ import annotations
 
@@ -28,14 +33,12 @@ def checkpoint_path(ckpt_dir: str, step: int) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Any, max_to_keep: int = 3) -> str:
-    """Write ``state`` (a DiffusionTrainState) at ``step``; drop the oldest
-    files beyond ``max_to_keep``. Returns the path written."""
+    """Write ``state`` (a train state with ``state_dict()``) at ``step``;
+    drop the oldest files beyond ``max_to_keep``. Returns the path written."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"step": step, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(), "ema": state.ema.state_dict()},
-               tmp)
+    torch.save({"step": step, **state.state_dict()}, tmp)
     os.replace(tmp, path)
     for old in _steps(ckpt_dir)[:-max_to_keep] if max_to_keep > 0 else []:
         os.remove(checkpoint_path(ckpt_dir, old))
@@ -55,9 +58,7 @@ def restore_checkpoint(ckpt_dir: str, state: Any, step: Optional[int] = None) ->
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     dev = next(state.model.parameters()).device
     ckpt = torch.load(checkpoint_path(ckpt_dir, step), map_location=dev, weights_only=True)
-    state.model.load_state_dict(ckpt["model"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
-    state.ema.load_state_dict(ckpt["ema"])
+    state.load_state_dict(ckpt)
     state.step = int(ckpt["step"])
     return state
 

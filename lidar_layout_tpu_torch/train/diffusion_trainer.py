@@ -58,8 +58,9 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 class Optimizer:
     """optax's ``MultiSteps(chain(clip_by_global_norm, adamw))`` in torch.
 
-    AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay) is the same
-    update as ``optax.adamw``. Clipping scales the gradients by
+    AdamW (``betas`` 0.9 and 0.999 unless given, eps 1e-8, decoupled weight
+    decay) is the same update as ``optax.adamw``; with ``weight_decay`` 0 it
+    is ``optax.adam``. Clipping scales the gradients by
     ``c / max(|g|, c)``, optax's formula (torch's ``clip_grad_norm_`` adds
     1e-6). With ``accumulate = k`` an update happens every k-th call, with
     the mean of the k gradients; the other calls leave the parameters as
@@ -68,9 +69,10 @@ class Optimizer:
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], lr: float,
                  weight_decay: float = 1e-2, grad_clip: Optional[float] = None,
-                 accumulate: int = 1, lr_lambda: Optional[Callable[[int], float]] = None):
+                 accumulate: int = 1, lr_lambda: Optional[Callable[[int], float]] = None,
+                 betas: Tuple[float, float] = (0.9, 0.999)):
         self.params = list(params.values())
-        self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=betas, eps=1e-8,
                                        weight_decay=weight_decay)
         self.scheduler = (torch.optim.lr_scheduler.LambdaLR(self.adamw, lr_lambda)
                           if lr_lambda is not None else None)
@@ -143,6 +145,16 @@ class DiffusionTrainState:
     optimizer: Optimizer
     ema: Ema                                # over ``params``
     step: int = 0
+
+    def state_dict(self) -> Dict:
+        """What a checkpoint holds besides the step (``train/checkpoint``)."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "ema": self.ema.state_dict()}
+
+    def load_state_dict(self, ckpt: Dict) -> None:
+        self.model.load_state_dict(ckpt["model"])
+        self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.ema.load_state_dict(ckpt["ema"])
 
 
 def create_train_state(model: LatentDiffusion, optimizer: Optimizer,

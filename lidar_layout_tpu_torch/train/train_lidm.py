@@ -1,20 +1,32 @@
-"""Train a latent-diffusion model from a YAML config, on one CUDA card.
+"""Train a range autoencoder or a latent-diffusion model from a YAML config,
+on one CUDA card.
 
     python -m lidar_layout_tpu_torch.train.train_lidm \\
         -b configs/lidar_diffusion/kitti/uncond_c2_p4.yaml --synthetic --steps 100 --bf16
+    python -m lidar_layout_tpu_torch.train.train_lidm \\
+        -b configs/autoencoder/kitti/autoencoder_c2_p4.yaml --synthetic --steps 100
 
 Counterpart of ``scripts/train_lidm.py`` with the same flags:
 ``-b/--base -t/--train -r/--resume -d/--data-root -s/--seed --steps
 --workdir --synthetic --bf16`` and trailing ``a.b.c=value`` overrides;
-``--cpu`` runs on the CPU. Only the LatentDiffusion branch is ported,
-unconditional or layout-conditioned
-(``configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml``, whose encoder
-trains with the U-Net): the autoencoder and the other families' trainers
-raise NotImplementedError, and LayoutDiffusion trains with
-``train_layout``. The layout model's ``nusc_layout_range`` batches come
-from ``data/factory``: synthetic with ``--synthetic``, or read from
-``--data-root``'s infos pickle. Weights start from torch's initialisers
-under ``--seed`` unless the first stage names a ``ckpt_path``.
+``--cpu`` runs on the CPU. Two branches are ported:
+
+- ``vq_model`` (``configs/autoencoder/*/autoencoder_c2_p4.yaml``): the
+  VQ-GAN step of ``train/ae_trainer`` in float32, with JAX's
+  ``LiDARNLayerDiscriminator()`` (v1, 64 filters, 3 layers) whatever the
+  loss block's ``disc_version`` or ``disc_num_layers`` say, as the JAX CLI
+  builds it; monitored on ``val/rec_loss``. Its checkpoints hold a
+  Lightning-style ``state_dict`` that a LiDM's
+  ``first_stage_config.params.ckpt_path`` reads as it is.
+- LatentDiffusion, unconditional or layout-conditioned
+  (``configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml``, whose
+  encoder trains with the U-Net).
+
+The KL, gaus, object, cube and R2DM families' trainers raise
+NotImplementedError, and LayoutDiffusion trains with ``train_layout``.
+Dataset targets come from ``data/factory`` (synthetic with
+``--synthetic``). Weights start from torch's initialisers under ``--seed``
+unless a first stage names a ``ckpt_path``.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ from typing import Any, Dict
 import torch
 
 LDM_TARGETS = ("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion")
+AE_TARGETS = ("vq_model", "lidm.models.autoencoder.VQModel", "lidm.models.ae.autoencoder.VQModel")
 LAYOUT_DIFFUSION_TARGETS = ("layout_diffusion", "lidm.models.diffusion.ddpm.LayoutDiffusion")
 LAYOUT_RANGE_TARGETS = ("nusc_layout_range", "lidm.data.nusc_dataset.nuScenesLayoutTrain",
                         "lidm.data.nusc_dataset.nuScenesLayoutValidation")
@@ -86,12 +99,9 @@ def main(argv=None):
     from ..config import apply_dotlist, instantiate_from_config, load_yaml
     from ..data.datasets import RangeImageDataset
     from ..data.factory import build_batches
-    from ..models.diffusion import apply_scale_by_std
     from ..pipeline import geometry_from_config
     from ..utils.device import resolve_device
-    from .checkpoint import load_first_stage_params, restore_checkpoint
-    from .diffusion_trainer import (create_train_state, make_optimizer, make_train_step,
-                                    make_val_step, trainable_params)
+    from .checkpoint import restore_checkpoint
     from .lr_schedule import scale_lr
     from .trainer import (BestCheckpointSaver, CheckpointSaver, InformationWriter,
                           IterationTimer, Trainer, ValidationHook)
@@ -113,11 +123,15 @@ def main(argv=None):
         raise NotImplementedError(
             "LayoutDiffusion trains with its own CLI, as scripts/train_layout.py in the "
             "JAX package: python -m lidar_layout_tpu_torch.train.train_layout -b <config>")
-    if model_cfg["target"] not in LDM_TARGETS:
+    is_ae = model_cfg["target"] in AE_TARGETS
+    if model_cfg["target"] not in LDM_TARGETS + AE_TARGETS:
         raise NotImplementedError(
-            f"training {model_cfg['target']!r} is not ported yet: the autoencoder and "
-            f"the other families' trainers wait for their port "
+            f"training {model_cfg['target']!r} is not ported yet: the KL, gaus, object, "
+            f"cube and R2DM families' trainers wait for their port "
             f'(ROADMAP queue 1, "First stage and AE training")')
+    if is_ae and args.bf16:
+        raise NotImplementedError("the autoencoder trains in float32 (the JAX CLI's default); "
+                                  "--bf16 is not ported for it")
     data_cfg = cfg.get("data", {}).get("params", {})
     name = os.path.splitext(os.path.basename(args.base))[0]
     workdir = args.workdir or f"./runs/{name}"
@@ -129,10 +143,12 @@ def main(argv=None):
         blk = data_cfg.get(split) or data_cfg.get("train") or {}
         if blk.get("target") in LAYOUT_RANGE_TARGETS:
             return layout_batches(blk.get("params") or {}, split, seed)
-        if blk.get("target") and not args.synthetic:
-            raise NotImplementedError("dataset targets (data/factory.py) are not ported "
-                                      'yet (ROADMAP queue 1, "First stage and AE training"); '
-                                      "use --synthetic")
+        if blk.get("target"):
+            params = dict(blk.get("params") or {})
+            params.setdefault("split", "val" if split == "validation" else split)
+            return build_batches(blk["target"], params, data_cfg.get("dataset", {}),
+                                 args.data_root, batch_size, seed,
+                                 force_synthetic=args.synthetic, device=device)
         ds = RangeImageDataset(None if args.synthetic else args.data_root,
                                batch_size=batch_size, geom=geom, seed=seed, device=device)
         return ds.batches()
@@ -153,25 +169,17 @@ def main(argv=None):
     val_iter = make_batches("validation", args.seed + 1000)
     val_cache = [next(val_iter) for _ in range(int(data_cfg.get("num_val_batches", 4)))]
 
+    lr = scale_lr(model_cfg.get("base_learning_rate", 4.5e-6), batch_size, 1, accumulate)
+    lr_lambda = _lr_lambda(model_cfg, args.steps)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = instantiate_from_config(model_cfg).to(device)
-    fsc = model_cfg["params"].get("first_stage_config")
-    fs_ckpt = fsc.get("params", {}).get("ckpt_path") if isinstance(fsc, dict) else None
-    if fs_ckpt and model.first_stage_model is not None:
-        load_first_stage_params(fs_ckpt, model)
-        print(f"first_stage weights <- {fs_ckpt}")
-    if model.cfg.scale_by_std:
-        print(f"scale_by_std: scale_factor={apply_scale_by_std(model, val_cache[0]['image']):.4f}")
-
-    lr = scale_lr(model_cfg.get("base_learning_rate", 4.5e-6), batch_size, 1, accumulate)
-    params = trainable_params(model)
-    optimizer = make_optimizer(params, lr, accumulate=accumulate,
-                               lr_lambda=_lr_lambda(model_cfg, args.steps))
-    state = create_train_state(model, optimizer, params)
-    amp = torch.bfloat16 if args.bf16 else None
-    step = make_train_step(model, autocast_dtype=amp)
-    val_step = make_val_step(model, autocast_dtype=amp)
+        if is_ae:   # the discriminator starts from the seed too
+            state, step, val_step, monitor = _ae_training(model, model_cfg, geom, lr,
+                                                          accumulate, lr_lambda)
+    if not is_ae:
+        state, step, val_step, monitor = _ldm_training(model, model_cfg, val_cache, lr,
+                                                       accumulate, lr_lambda, args.bf16)
     if args.resume:
         restore_checkpoint(os.path.join(args.resume, "ckpt"), state)
         print(f"resumed from {args.resume} at step {state.step}")
@@ -181,7 +189,7 @@ def main(argv=None):
              ValidationHook(val_step, lambda: iter(val_cache), every_steps=val_every),
              InformationWriter(),
              CheckpointSaver(every_steps=max(args.steps // 5, 1)),
-             BestCheckpointSaver(monitor="val/loss_simple_ema", top_k=3)]
+             BestCheckpointSaver(monitor=monitor, top_k=3)]
     trainer = Trainer(step, state, train_batches, workdir=workdir, max_steps=args.steps,
                       hooks=hooks, seed=args.seed)
     try:
@@ -194,6 +202,59 @@ def main(argv=None):
     trainer.train()
     print(f"done: {trainer.global_step} steps -> {workdir}")
     return trainer
+
+
+def _ae_training(model, model_cfg: Dict[str, Any], geom, lr: float, accumulate: int,
+                 lr_lambda):
+    """(state, step, val_step, monitored metric) of the VQ-GAN: the loss
+    block's config (the default ``VQLossConfig`` without one), JAX's
+    discriminator on the model's device, two Adams."""
+    from ..config import instantiate_from_config
+    from ..losses.discriminator import LiDARNLayerDiscriminator
+    from ..losses.geometric import GeoConverter
+    from ..losses.vq_loss import VQLossConfig
+    from .ae_trainer import (create_ae_state, disc_in_channels, make_ae_train_step,
+                             make_ae_val_step)
+
+    lc = model_cfg["params"].get("lossconfig")
+    loss_cfg = (instantiate_from_config(lc)
+                if isinstance(lc, dict) and lc.get("target") not in (None, "torch.nn.Identity")
+                else VQLossConfig())
+    if loss_cfg.perceptual_factor > 0:
+        raise NotImplementedError('the perceptual loss is not ported yet (ROADMAP queue 1, '
+                                  '"First stage and AE training")')
+    geo = GeoConverter(geom, curve_length=loss_cfg.curve_length)
+    dev = next(model.parameters()).device
+    disc = LiDARNLayerDiscriminator(disc_in_channels(model.cfg.out_ch, loss_cfg, geo)).to(dev)
+    state = create_ae_state(model, disc, lr, lr, accumulate, lr_lambda)
+    return (state, make_ae_train_step(model, disc, loss_cfg, geo),
+            make_ae_val_step(model, loss_cfg, geo), "val/rec_loss")
+
+
+def _ldm_training(model, model_cfg: Dict[str, Any], val_cache, lr: float, accumulate: int,
+                  lr_lambda, bf16: bool):
+    """(state, step, val_step, monitored metric) of latent diffusion: the
+    first stage from its ``ckpt_path`` when the config names one,
+    scale_by_std, AdamW and the EMA over the trainable set."""
+    from ..models.diffusion import apply_scale_by_std
+    from .checkpoint import load_first_stage_params
+    from .diffusion_trainer import (create_train_state, make_optimizer, make_train_step,
+                                    make_val_step, trainable_params)
+
+    fsc = model_cfg["params"].get("first_stage_config")
+    fs_ckpt = fsc.get("params", {}).get("ckpt_path") if isinstance(fsc, dict) else None
+    if fs_ckpt and model.first_stage_model is not None:
+        load_first_stage_params(fs_ckpt, model)
+        print(f"first_stage weights <- {fs_ckpt}")
+    if model.cfg.scale_by_std:
+        print(f"scale_by_std: scale_factor={apply_scale_by_std(model, val_cache[0]['image']):.4f}")
+
+    params = trainable_params(model)
+    optimizer = make_optimizer(params, lr, accumulate=accumulate, lr_lambda=lr_lambda)
+    amp = torch.bfloat16 if bf16 else None
+    return (create_train_state(model, optimizer, params),
+            make_train_step(model, autocast_dtype=amp), make_val_step(model, autocast_dtype=amp),
+            "val/loss_simple_ema")
 
 
 if __name__ == "__main__":

@@ -79,7 +79,8 @@ class InformationWriter(HookBase):
         with open(self.path, "a") as f:
             f.write(json.dumps({"step": step, **scal}) + "\n")
         msg = " ".join(f"{k}={v:.4g}" for k, v in sorted(scal.items())
-                       if k in ("loss", "loss_simple", "grad_norm", "iter_time"))
+                       if k in ("loss", "loss_simple", "grad_norm", "total_loss", "rec_loss",
+                                "disc_loss", "iter_time"))
         print(f"[step {step}] {msg}", flush=True)
 
 

@@ -29,6 +29,12 @@ in)`` and ``(out, in, 3)``, Embed tables and the GroupNorm / LayerNorm
 scale and bias carry across as ``weight`` and ``bias``.
 ``layout_train_state_dicts`` carries a JAX LayoutDiffusion train state's
 ``params`` and ``ema`` so.
+
+The autoencoder's train state (``ae_train_state_dicts``): ``params_g``
+through ``vq_state_dict``, and the discriminator's ``params_d``
+(``losses/discriminator``, flax names kept): conv kernels HWIO -> OIHW, the
+``conv`` level of a ``CircularConv`` dropped, GroupNorm ``scale`` ->
+``weight``.
 """
 from __future__ import annotations
 
@@ -237,6 +243,28 @@ def layout_train_state_dicts(state: Any) -> Tuple[Dict[str, torch.Tensor],
     state_dict, its EMA's), both through ``layout_diffusion_state_dict``."""
     return (layout_diffusion_state_dict(state.params),
             layout_diffusion_state_dict(state.ema))
+
+
+def discriminator_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``NLayerDiscriminator`` / ``LiDARNLayerDiscriminator`` params ->
+    the port's discriminator state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params.get("params", params)):
+        mods, leaf = tuple(m for m in path[:-1] if m != "conv"), path[-1]
+        if leaf == "kernel":
+            leaf, value = "weight", np.transpose(value, (3, 2, 0, 1))
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join(mods + (leaf,))] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def ae_train_state_dicts(state: Any) -> Tuple[Dict[str, torch.Tensor],
+                                               Dict[str, torch.Tensor]]:
+    """A JAX ``AETrainState`` (``train/ae_trainer``; its ``params_g`` and
+    ``params_d``, numpy or JAX leaves) -> (the port VQModel's state_dict,
+    the port discriminator's)."""
+    return vq_state_dict(state.params_g), discriminator_state_dict(state.params_d)
 
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}

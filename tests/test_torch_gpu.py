@@ -620,3 +620,116 @@ def test_gpu_tiny_layout_diffusion_matches_cpu(cuda_device):
     # f32 on both, summed in other orders; DDIM-4 amplifies the differences
     assert outs[0].abs().max() > 0.1
     assert (outs[1] - outs[0]).abs().max().item() <= 1e-3 * max(1.0, outs[0].abs().max().item())
+
+
+def _ae_step_norm_shapes(dev):
+    """K3's (forward, backward) calls of one training step of the full-width
+    kitti autoencoder (batch 4) and its discriminator, by shape, from hooks."""
+    import numpy as np
+    from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
+    from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+    from lidar_layout_tpu_torch.losses.discriminator import LiDARNLayerDiscriminator
+    from lidar_layout_tpu_torch.losses.geometric import GeoConverter
+    from lidar_layout_tpu_torch.pipeline import geometry_from_config
+    from lidar_layout_tpu_torch.train import ae_trainer as AT
+    from torch_port_helpers import count_group_norms
+
+    import os
+
+    cfg = load_yaml(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                 "configs", "autoencoder", "kitti", "autoencoder_c2_p4.yaml"))
+    loss_cfg = instantiate_from_config(cfg["model"]["params"]["lossconfig"])
+    geom = geometry_from_config(cfg)
+    geo = GeoConverter(geom, curve_length=loss_cfg.curve_length)
+    model = instantiate_from_config(cfg["model"]).to(dev)
+    disc = LiDARNLayerDiscriminator(AT.disc_in_channels(1, loss_cfg, geo)).to(dev)
+    batch = synthetic_range_batch(np.random.default_rng(0), 4, geom, device=dev)
+    with count_group_norms(model, disc) as shapes:
+        AT.make_ae_train_step(model, disc, loss_cfg, geo)(
+            AT.create_ae_state(model, disc, 1e-5, 1e-5), batch, torch.Generator(device=dev))
+    return shapes
+
+
+@pytest.mark.gpu
+def test_gpu_group_norm_at_ae_training_shapes(cuda_device):
+    """K3 forward and backward in f32 at every group shape of the
+    autoencoder's training step (eps 1e-6; 1e-5 in the discriminator),
+    against the plain versions; the backward bit for bit over two launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    fwd, bwd = _ae_step_norm_shapes(cuda_device)
+    assert sum(fwd.values()) == 52 + 9 and sum(bwd.values()) == 52 + 12
+    assert (4, 64, 64, 1024, 32, True, 1e-6) in fwd and (4, 512, 64, 128, 32, False, 1e-5) in bwd
+    for (b, c, h, w, g, act, eps) in sorted(set(fwd) | set(bwd)):
+        x = torch.randn((b, c, h, w), generator=gen, device=cuda_device) * 2 + 0.3
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        beta = 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        dy = torch.randn(x.shape, generator=gen, device=cuda_device)
+        got = G.group_norm(x, gamma, beta, g, eps, act)
+        want = G._ref(x, gamma, beta, g, eps, act)
+        assert (got - want).abs().max().item() <= 1e-4 + 1e-5 * want.abs().max().item()
+        grads = G.group_norm_bwd(x, gamma, beta, dy, g, eps, act)
+        again = G.group_norm_bwd(x, gamma, beta, dy, g, eps, act)
+        ref = G._group_norm_bwd_ref(x, gamma, beta, dy, g, eps, act)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(grads, again)), (b, c, h, w)
+        # both in f32 from the same x and dy; dgamma/dbeta sum B*H*W products
+        assert (grads[0] - ref[0]).abs().max().item() <= 1e-4, (b, c, h, w)
+        for i in (1, 2):
+            assert ((grads[i] - ref[i]).abs().max().item()
+                    <= 1e-3 + 1e-4 * ref[i].abs().max().item()), (b, c, h, w, i)
+
+
+@pytest.mark.gpu
+def test_gpu_tiny_ae_step_matches_cpu(cuda_device):
+    """One VQ-GAN step of a tiny autoencoder (ch 16, 16x64 images, the mask
+    head and the geometric term) on the card and on the CPU from the same
+    weights: the reconstruction loss, the discriminator's loss and the
+    parameters after Adam; K3 ran forward and backward on the card."""
+    import numpy as np
+    from lidar_layout_tpu_torch.losses.discriminator import LiDARNLayerDiscriminator
+    from lidar_layout_tpu_torch.losses.geometric import GeoConverter
+    from lidar_layout_tpu_torch.losses.vq_loss import VQLossConfig
+    from lidar_layout_tpu_torch.models.autoencoder import AEConfig, VQModel
+    from lidar_layout_tpu_torch.ops.lidar import LidarGeometry
+    from lidar_layout_tpu_torch.train import ae_trainer as AT
+    from torch_port_helpers import seed_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = VQLossConfig(mask_factor=1.0, geo_factor=1.0, curve_length=1)
+    geo = GeoConverter(LidarGeometry(size=(16, 64)), curve_length=1)
+    x = np.clip(np.random.default_rng(1).standard_normal((2, 16, 64, 1)) * 0.3, -1, 1)
+    batch = {"image": torch.tensor(x, dtype=torch.float32), "mask": torch.ones(2, 16, 64, 1)}
+    out = []
+    for dev in ("cpu", cuda_device):
+        model = seed_weights(VQModel(AEConfig(ch=16, ch_mult=(1, 2), strides=((1, 2),),
+                                              z_channels=4, out_ch=2, num_res_blocks=1),
+                                     n_embed=64, embed_dim=4, use_mask=True), 5).to(dev)
+        disc = seed_weights(LiDARNLayerDiscriminator(4, ndf=16, n_layers=2), 6).to(dev)
+        state = AT.create_ae_state(model, disc, 1e-3, 1e-3)
+        grads = []
+
+        def spy(gs, real=state.opt_g.step):
+            grads.extend(g.detach().cpu().flatten() for g in gs)
+            return real(gs)
+        state.opt_g.step = spy
+        before = (G.group_norm.launches, G.group_norm_bwd.launches)
+        _, logs = AT.make_ae_train_step(model, disc, cfg, geo)(
+            state, {k: v.to(dev) for k, v in batch.items()}, torch.Generator(device=dev))
+        ran = (G.group_norm.launches - before[0], G.group_norm_bwd.launches - before[1])
+        out.append((float(logs["rec_loss"]), float(logs["disc_loss"]),
+                    torch.cat([p.detach().cpu().flatten() for p in model.parameters()]),
+                    torch.cat(grads)))
+    # f32 on both, TF32 off, sums in other orders; Adam's first update is
+    # about lr * sign(g), which flips where g is within rounding of 0. The
+    # share check leaves out elements whose CPU gradient is zero to rounding
+    # (under 1e-6 of the largest: the biases that a GroupNorm with one
+    # channel a group removes), which both sides step by lr * sign(noise)
+    assert abs(out[1][0] - out[0][0]) <= 1e-5 * abs(out[0][0])
+    assert abs(out[1][1] - out[0][1]) <= 1e-5 * abs(out[0][1])
+    diff = (out[1][2] - out[0][2]).abs()
+    assert diff.max().item() <= 2e-3
+    live = out[0][3].abs() > 1e-6 * out[0][3].abs().max()
+    assert int((diff[live] > 0.01 * 1e-3).sum()) <= 1e-3 * int(live.sum())
+    # 24 autoencoder norms forward and backward; the discriminator's 2 norms
+    # forward 3 times and backward 4 times (ae_trainer's step)
+    assert ran == (24 + 3 * 2, 24 + 4 * 2)

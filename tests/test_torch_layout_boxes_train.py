@@ -285,7 +285,7 @@ def test_factory_other_targets():
     with pytest.raises(NotImplementedError, match='"Cube stage"'):
         next(PF.build_batches("nusc_cube", {}, {}, None, 1))
     with pytest.raises(NotImplementedError, match='"First stage and AE training"'):
-        next(PF.build_batches("lidm.data.kitti.KITTI360Train", {}, {}, None, 1))
+        next(PF.build_batches("lidm.data.kitti.SemanticKITTITrain", {}, {}, None, 1))
     with pytest.raises(KeyError, match="unknown"):
         next(PF.build_batches("nope", {}, {}, None, 1))
 

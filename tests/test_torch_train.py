@@ -447,7 +447,7 @@ def test_cli_trains_the_tiny_config_on_the_cpu(tmp_path):
                           "data.params.batch_size=2", "data.params.num_val_batches=1"])
     assert resumed.global_step == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bad = dict(cfg, model=dict(cfg["model"], target="vq_model"))
+        bad = dict(cfg, model=dict(cfg["model"], target="autoencoder_kl"))
         (tmp_path / "ae.yaml").write_text(yaml.safe_dump(bad))
         train_main(["-b", str(tmp_path / "ae.yaml"), "--cpu", "--synthetic", "--steps", "1",
                     "--workdir", str(tmp_path / "ae")])

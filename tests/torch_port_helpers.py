@@ -6,6 +6,8 @@ parity tests also check that the port carries the reference state_dict names.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import re
 
 import numpy as np
@@ -29,10 +31,11 @@ def seed_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     zero-initialised output layers included (else the U-Net outputs 0 and
     attention never reaches the result); norm affines near (1, 0); codebooks
     N(0, 1) (the taming +-1/n codebook makes argmin near-ties)."""
+    from lidar_layout_tpu_torch.losses.discriminator import GroupNorm32
     from lidar_layout_tpu_torch.nn.blocks import Normalize
 
     gen = torch.Generator().manual_seed(seed)
-    norm_params = {id(p) for m in model.modules() if isinstance(m, Normalize)
+    norm_params = {id(p) for m in model.modules() if isinstance(m, (Normalize, GroupNorm32))
                    for p in m.parameters()}
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -47,6 +50,35 @@ def seed_weights(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
                 r = 0.1 * r
             p.copy_(r.to(p.dtype))
     return model
+
+
+@contextlib.contextmanager
+def count_group_norms(*modules: torch.nn.Module):
+    """Module hooks on every GroupNorm (``Normalize``, ``GroupNorm32``) of
+    ``modules`` while the block runs: yields (forward calls, backward
+    passes), Counters by (B, C, H, W, groups, act, eps). A norm whose output
+    two gradients pass through (the discriminator's view of a
+    reconstruction, under the adaptive weight and the loss) counts twice."""
+    from lidar_layout_tpu_torch.losses.discriminator import GroupNorm32
+    from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+    fwd, bwd, hooks = collections.Counter(), collections.Counter(), []
+
+    def pre(mod, args):
+        mod.k3_key = (*args[0].shape, mod.num_groups, mod.act, mod.eps)
+        fwd[mod.k3_key] += 1
+
+    def back(mod, grad_in, grad_out):
+        bwd[mod.k3_key] += 1
+
+    for m in (sub for mod in modules for sub in mod.modules()):
+        if isinstance(m, (Normalize, GroupNorm32)):
+            hooks += [m.register_forward_pre_hook(pre), m.register_full_backward_hook(back)]
+    try:
+        yield fwd, bwd
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 # the edges of the attention kernels' bf16 tiles (128 queries; 128 keys at
