@@ -47,10 +47,16 @@ Phases (any failure exits non-zero before the final "ok" line):
                backward called no time), a fixed-batch overfit check
   eval_slice   the eval modules on the card vs on the CPU, same numpy clouds:
                CD (K4 vs plain), EMD at N = 4096, BEV histograms and bitmaps,
-               RangeNet features at 64x1024, FRID
+               RangeNet features at 64x1024, FRID; MinkowskiNet and SPVCNN at
+               the registry's full config on 8 clouds (the grid pyramid integer
+               for integer, the descriptors, FSVD and FPVD), and their device
+               twin (make_voxel_descriptor_fn) against the host feature path
   eval         the sample-and-evaluate path at full width: generate(32) with
                DPM-20 at batch 16, bf16; 32 synthetic references range-
-               roundtripped on the card; CD, JSD, MMD, FRID; launch counts; the
+               roundtripped on the card; CD, JSD, MMD, FRID, FSVD, FPVD, each
+               metric's seconds; the voxel nets' inputs per cloud (points
+               before and after the 30000 cap, the share past 1023 cells,
+               voxels per pyramid level against capacity); launch counts; the
                device-side statistics of JSD, MMD and FRID against the host's
   layout_slice the full-width layout-conditioned model, f32, batch 2, seeded
                weights: layout encoding, DDIM-4 with cfg_scale 2.0 and decode on
@@ -185,7 +191,14 @@ SFU_EX2_PER_CLOCK = 16   # exp2 per clock per SM on Hopper (special-function uni
 # 32-bit floating-point compare, minimum, maximum per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput)
 FMNMX_PER_CLOCK = 64
-EVAL_METRICS = ("cd", "jsd", "mmd", "frid")   # emd holds an (N, N) matrix: checked at N = 4096
+# emd holds an (N, N) matrix: checked at N = 4096
+EVAL_METRICS = ("cd", "jsd", "mmd", "frid", "fsvd", "fpvd")
+# MinkowskiNet / SPVCNN descriptors, card against CPU at the registry's full
+# config (f32, TF32 off; convolutions summed in other orders, scatter-means
+# by atomics on the card): relative L2 over 8 clouds; the device twin (the
+# same nets on the card, from range2pcd's points) against the host path
+VOXEL_DESC_TOL = 1e-4
+VOXEL_TWIN_TOL = 1e-5
 EPS32 = float(np.finfo(np.float32).eps)
 PROFILER_TRIES = 3   # profiler sessions a device_ms tries before it takes CUDA events
 EVENT_TIMINGS = []   # what device_ms timed with CUDA events: no session saw the device
@@ -1367,8 +1380,85 @@ class Smoke:
             f"(tol 1e-3: exp2 of up to 5.84 on each device)")
         if not rin_err <= 1e-3:
             fails.append("rangenet_input_from_model_imgs")
+        fails += self._eval_slice_voxel(raw, clouds)
         if fails:
             raise AssertionError(f"eval_slice: card and CPU disagree on {fails}")
+
+    def _eval_slice_voxel(self, raw, clouds):
+        """MinkowskiNet and SPVCNN (FSVD, FPVD) at the registry's full config
+        on 8 range-roundtripped clouds, card against CPU: the grid pyramid
+        integer for integer, the descriptors (VOXEL_DESC_TOL) and the Fréchet
+        distances (1e-3, FRID's gate); then the device twin from range2pcd's
+        points on the card against the host path on the same clouds
+        (VOXEL_TWIN_TOL, and 1e-3 on the distances). Returns what failed."""
+        import torch
+        from lidar_layout_tpu_torch.eval import device_metrics as D
+        from lidar_layout_tpu_torch.eval import metrics as M
+        from lidar_layout_tpu_torch.eval import registry as R
+        from lidar_layout_tpu_torch.eval.sparse_seg_nets import build_pyramid
+        from lidar_layout_tpu_torch.ops import lidar as L
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY as geom
+
+        fails = []
+        cap = 30000
+        inputs = [torch.from_numpy(np.stack(a))
+                  for a in zip(*(R.voxel_inputs_host(c, cap) for c in clouds))]
+        pyr = {}
+        for d in ("cuda", "cpu"):
+            grids, p2v = build_pyramid(inputs[0].to(d), inputs[3].to(d), R.SEG_NET_CFG)
+            pyr[d] = [t.cpu() for g in grids for t in g] + [p2v.cpu()]
+        same = all(torch.equal(a, b) for a, b in zip(pyr["cuda"], pyr["cpu"]))
+        used = [int(m.sum(1).max()) for m in pyr["cuda"][2:15:3]]
+        log(f"eval_slice voxel pyramid (8 clouds, {[int(n) for n in inputs[3].sum(1)]} points) "
+            f"card == cpu, codes, coords, masks and point-to-voxel: {same}; most voxels a level "
+            f"{used} of {[R.SEG_NET_CFG.level_capacity(lvl) for lvl in range(5)]}")
+        if not same:
+            fails.append("voxel pyramid")
+        nets = {}
+        for modality, metric in (("voxel", "FSVD"), ("point_voxel", "FPVD")):
+            desc, secs = {}, {}
+            for d in ("cuda", "cpu"):
+                nets[modality, d] = fn = R.build_voxel_feature_net("64", modality, device=d)
+                t0 = time.perf_counter()
+                desc[d] = fn(*(t.to(d) for t in inputs)).cpu().numpy()
+                secs[d] = time.perf_counter() - t0
+            rel = float(np.linalg.norm(desc["cuda"] - desc["cpu"]) / np.linalg.norm(desc["cpu"]))
+            fd = {d: M.frechet_distance(f[:4].astype(np.float64), f[4:].astype(np.float64))
+                  for d, f in desc.items()}
+            fd_rel = abs(fd["cuda"] - fd["cpu"]) / abs(fd["cpu"])
+            hashes = {nets[modality, d].param_hash for d in ("cuda", "cpu")}
+            log(f"eval_slice {R.MODALITY2MODEL[modality]} descriptors (8 x 768): card "
+                f"{secs['cuda']:.3f} s, cpu {secs['cpu']:.3f} s; relative L2 {rel:.3e} (tol "
+                f"{VOXEL_DESC_TOL:g}); {metric} card {fd['cuda']:.9g} cpu {fd['cpu']:.9g} "
+                f"relative {fd_rel:.3e} (tol 1e-3); param_hash {sorted(hashes)}")
+            if not (rel <= VOXEL_DESC_TOL and np.isfinite(desc["cuda"]).all()
+                    and len(hashes) == 1):
+                fails.append(f"{metric} descriptors")
+            if not fd_rel <= 1e-3:
+                fails.append(metric)
+
+        # the device twin: range2pcd's (B, H*W) points and validity on the card
+        pts = torch.from_numpy(np.stack(raw)).to("cuda")
+        xyz, valid = L.range2pcd(L.process_scan(L.pcd2range(pts, geom)[0], geom)[0], geom)
+        twin = D.make_voxel_descriptor_fn(nets["voxel", "cuda"], nets["point_voxel", "cuda"],
+                                          geom, cap=cap, group=len(raw))
+        got = [t.cpu().numpy() for t in twin(xyz, valid)]
+        host_clouds = [x[v] for x, v in zip(xyz.cpu().numpy(), valid.cpu().numpy())]
+        for (modality, metric), g in zip((("voxel", "FSVD"), ("point_voxel", "FPVD")), got):
+            host = R.build_feature_fn("64", modality, device="cuda", feat_batch=len(raw))(
+                host_clouds)
+            rel = float(np.linalg.norm(g - host) / np.linalg.norm(host))
+            fd = [M.frechet_distance(f[:4].astype(np.float64), f[4:].astype(np.float64))
+                  for f in (g, host)]
+            fd_rel = abs(fd[0] - fd[1]) / abs(fd[1])
+            log(f"eval_slice device twin {metric}: descriptors relative L2 {rel:.3e} against "
+                f"the host path (tol {VOXEL_TWIN_TOL:g}), {metric} {fd[0]:.9g} vs {fd[1]:.9g} "
+                f"relative {fd_rel:.3e} (tol 1e-3)")
+            if not (rel <= VOXEL_TWIN_TOL and fd_rel <= 1e-3):
+                fails.append(f"{metric} device twin")
+        del nets, twin
+        torch.cuda.empty_cache()
+        return fails
 
     # -------------------------------------------------------------------- eval
     def eval(self):
@@ -1391,6 +1481,9 @@ class Smoke:
         seed_weights(model, 0)
         pipe = GenerationPipeline(model, geom, sampler="dpm", steps=20)
         feature_fn = build_feature_fn("64", "range", device="cuda")
+        feature_fns = {"frid": feature_fn,
+                       "fsvd": build_feature_fn("64", "voxel", device="cuda"),
+                       "fpvd": build_feature_fn("64", "point_voxel", device="cuda")}
         reference = [synthetic_scene(np.random.default_rng(1000 + i)) for i in range(N_MAIN)]
         evals = unet_evals(model, 20)
         batches = N_MAIN // BATCH
@@ -1409,8 +1502,8 @@ class Smoke:
         res = pipe.generate(N_MAIN, seed=0, batch=BATCH)
         t_gen = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = evaluate_samples(res.clouds, reference, EVAL_METRICS, "cuda",
-                               {"frid": feature_fn}, verbose=True)
+        out = evaluate_samples(res.clouds, reference, EVAL_METRICS, "cuda", feature_fns,
+                               verbose=True)
         t_eval = time.perf_counter() - t0
         got = read_counts()
         ref = range_roundtrip(reference, geom, "cuda")   # the clouds evaluate_samples scored
@@ -1421,7 +1514,10 @@ class Smoke:
             f"{t_eval:.3f} s; metrics {json.dumps(out)}; points per reference cloud "
             f"min/median/max {min(n_ref)}/{int(np.median(n_ref))}/{max(n_ref)}, per sample "
             f"{min(n_smp)}/{int(np.median(n_smp))}/{max(n_smp)}; launches {got} expected "
-            f"{want}; RangeNet param_hash {feature_fn.param_hash}; card {card_line()}")
+            f"{want}; param_hash {({k: f.param_hash for k, f in feature_fns.items()})}; "
+            f"card {card_line()}")
+        self._voxel_inputs_log("reference", ref, raw=[len(c) for c in reference])
+        self._voxel_inputs_log("sample", res.clouds)
         if got != want:
             raise AssertionError(f"eval: launch counts {got} != {want}")
         if set(out) != set(EVAL_METRICS) or not all(np.isfinite(v) for v in out.values()):
@@ -1479,8 +1575,41 @@ class Smoke:
                 < min(frid_rel[name] for name in FRID_FAULTS)):
             raise AssertionError("eval: the device-side statistics disagree with the host's, "
                                  "or the FRID limit does not tell a faulty twin from the twin")
-        del model, pipe, net, feature_fn
+        del model, pipe, net, feature_fn, feature_fns
         torch.cuda.empty_cache()
+
+    @staticmethod
+    def _voxel_inputs_log(name, clouds, raw=None, max_points=30000):
+        """What FSVD/FPVD's nets see of each cloud, as the JAX package defines
+        them: points before and after the 30000 cap, the share of kept points
+        whose voxel coords pass 1023 (their codes clip), distinct cells, and
+        voxels per pyramid level against its capacity (an overflow merges
+        into the level's last row); ``raw``, the points before a range round
+        trip."""
+        import torch
+        from lidar_layout_tpu_torch.eval import registry as R
+        from lidar_layout_tpu_torch.eval.sparse_seg_nets import build_pyramid
+
+        inputs = [torch.from_numpy(np.stack(a)).to("cuda")
+                  for a in zip(*(R.voxel_inputs_host(c, max_points) for c in clouds))]
+        vox, mask = inputs[0], inputs[3]
+        past = [float((v[m] > 1023).any(-1).float().mean()) for v, m in zip(vox, mask)]
+        cells = [len(torch.unique(v[m], dim=0)) for v, m in zip(vox, mask)]
+        grids, _ = build_pyramid(vox, mask, R.SEG_NET_CFG)
+
+        def spread(xs):
+            return f"{min(xs):.6g}/{float(np.median(xs)):.6g}/{max(xs):.6g}"
+
+        levels = "; ".join(
+            f"L{lvl} {spread(g.mask.sum(1).tolist())} of {g.mask.shape[1]} "
+            f"(full in {int((g.mask.sum(1) == g.mask.shape[1]).sum())})"
+            for lvl, g in enumerate(grids))
+        log(f"eval voxel inputs, {len(clouds)} {name} clouds (min/median/max): "
+            + (f"raw points {spread(raw)}, roundtripped " if raw else "")
+            + f"points {spread([len(c) for c in clouds])}, kept "
+            f"{spread(mask.sum(1).tolist())} (cap {max_points}); share of kept points past "
+            f"1023 cells {spread(past)}; distinct cells {spread(cells)}; voxels a level: "
+            f"{levels}; card {card_line()}")
 
     # ------------------------------------------------------- layout-path shapes
     def _layout_shapes(self):

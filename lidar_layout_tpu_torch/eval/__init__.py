@@ -1,2 +1,3 @@
-"""Generation metrics: CD, EMD, JSD, MMD and FRID (RangeNet features), on the
-host and their device-side sufficient statistics."""
+"""Generation metrics: CD, EMD, JSD, MMD, FRID (RangeNet features), FSVD and
+FPVD (MinkowskiNet and SPVCNN features), on the host and their device-side
+sufficient statistics."""

@@ -1,12 +1,11 @@
-"""Device-side sufficient statistics of JSD, MMD and FRID, per generated batch.
+"""Device-side sufficient statistics of JSD, MMD, FRID, FSVD and FPVD, per generated batch.
 
-Counterpart of ``lidar_layout_tpu/eval/device_metrics.py``, without
-``make_voxel_descriptor_fn``, which waits for the sparse nets
-(ROADMAP queue 1, "Main-path remainder"). The host metrics
-(``eval/metrics.py``) take ragged numpy clouds; these take the fixed-shape
-(B, N, 3) points and (B, N) validity that ``range2pcd`` gives on the device
-and return only a (nx, ny) histogram, (B, nx*ny) occupancy bitmaps and
-(B, H, W, 4) RangeNet inputs. The binning is the host's: strict range
+Counterpart of ``lidar_layout_tpu/eval/device_metrics.py``. The host
+metrics (``eval/metrics.py``) take ragged numpy clouds; these take the
+fixed-shape (B, N, 3) points and (B, N) validity that ``range2pcd`` gives on
+the device and return only a (nx, ny) histogram, (B, nx*ny) occupancy
+bitmaps, (B, H, W, 4) RangeNet inputs and (B, 768) FSVD/FPVD descriptors
+(``make_voxel_descriptor_fn``). The binning is the host's: strict range
 bounds, floor / voxel, min-corner shift.
 """
 from __future__ import annotations
@@ -102,15 +101,17 @@ def jsd_from_hists(p: np.ndarray, q: np.ndarray) -> float:
 
 def compact_valid_points(xyz: torch.Tensor, valid: torch.Tensor, cap: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, 3) pixel-order points and validity -> (cap, 3) valid-first points
-    (zero rows after them) and a (cap,) mask. A stable sort of ~valid keeps
-    pixel order among the valid points, as the host's compaction does."""
-    order = torch.argsort((~valid).to(torch.uint8), stable=True)
-    pts = xyz[order[:cap]]
-    if pts.shape[0] < cap:
-        pts = torch.nn.functional.pad(pts, (0, 0, 0, cap - pts.shape[0]))
-    mask = torch.arange(cap, device=xyz.device) < valid.sum().clamp(max=cap)
-    return pts * mask[:, None], mask
+    """(..., N, 3) pixel-order points and validity -> (..., cap, 3) valid-first
+    points (zero rows after them) and a (..., cap) mask. A stable sort of
+    ~valid keeps pixel order among the valid points, as the host's
+    compaction does."""
+    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)[..., :cap]
+    pts = xyz.gather(-2, order[..., None].expand(*order.shape, 3))
+    if pts.shape[-2] < cap:
+        pts = torch.nn.functional.pad(pts, (0, 0, 0, cap - pts.shape[-2]))
+    mask = (torch.arange(cap, device=xyz.device)
+            < valid.sum(dim=-1, keepdim=True).clamp(max=cap))
+    return pts * mask[..., None], mask
 
 
 def voxel_feature_inputs(xyz: torch.Tensor, valid: torch.Tensor, cap: int,
@@ -118,13 +119,40 @@ def voxel_feature_inputs(xyz: torch.Tensor, valid: torch.Tensor, cap: int,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The host voxel preprocessing of FSVD/FPVD on the device: 0.05 m
     rounding, min-corner shift over the valid rows, feats = [xyz, -1].
-    Returns (vox int32, pts f32, feats f32, mask bool), each (cap, ...)."""
+    (..., N, 3) points and (..., N) validity -> (vox int32, pts f32, feats
+    f32, mask bool), each (..., cap, ...)."""
     pts, mask = compact_valid_points(xyz, valid, cap)
     vox = torch.round(_div(pts, voxel_size))
-    vmin = torch.where(mask[:, None], vox, float("inf")).amin(dim=0)
-    vox = (vox - torch.where(torch.isfinite(vmin), vmin, 0.0)) * mask[:, None]
-    fts = torch.cat([pts, -torch.ones((cap, 1), dtype=pts.dtype, device=pts.device)], dim=-1)
+    vmin = torch.where(mask[..., None], vox, float("inf")).amin(dim=-2, keepdim=True)
+    vox = (vox - torch.where(torch.isfinite(vmin), vmin, 0.0)) * mask[..., None]
+    fts = torch.cat([pts, -torch.ones_like(pts[..., :1])], dim=-1)
     return vox.to(torch.int32), pts, fts, mask
+
+
+def make_voxel_descriptor_fn(mink_apply, spv_apply, geom: L.LidarGeometry, cap: int = 30000,
+                             voxel_size: float = 0.05, group: int = 16):
+    """FSVD/FPVD featurisation on the device, from ``range2pcd``'s (B, N, 3)
+    points and (B, N) validity: ``batch_fn(xyz, valid) -> (fsvd, fpvd)``, two
+    (B, 768) descriptor rows. ``mink_apply`` and ``spv_apply`` are
+    ``registry.build_voxel_feature_net``'s (their depth range is ``geom``'s).
+    The clouds go through the nets ``group`` at a time, the last group
+    padded by repeating its last cloud, as the host path pads its batches."""
+
+    def batch_fn(xyz_b: torch.Tensor, valid_b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        fsvd, fpvd = [], []
+        for i in range(0, xyz_b.shape[0], group):
+            x, v = xyz_b[i:i + group], valid_b[i:i + group]
+            n = x.shape[0]
+            if n < group:
+                x = torch.cat([x, x[-1:].expand(group - n, *x.shape[1:])])
+                v = torch.cat([v, v[-1:].expand(group - n, *v.shape[1:])])
+            inputs = voxel_feature_inputs(x, v, cap, voxel_size)
+            fsvd.append(mink_apply(*inputs)[:n])
+            fpvd.append(spv_apply(*inputs)[:n])
+        return torch.cat(fsvd), torch.cat(fpvd)
+
+    return batch_fn
 
 
 def rangenet_input_from_model_imgs(imgs: torch.Tensor, geom: L.LidarGeometry) -> torch.Tensor:

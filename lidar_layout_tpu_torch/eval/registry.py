@@ -1,26 +1,39 @@
 """Frozen feature nets of the perceptual metrics, and ``feature_fn`` for evaluate.
 
-Counterpart of ``lidar_layout_tpu/eval/registry.py`` for the ``range``
-modality (RangeNet, FRID). The nets load the reference's pretrained files
-from ``<weights_root>/<dataset>/<model>/`` when they exist; without them the
-metric runs on the same architecture with seeded random weights, which
-serves relative comparisons only (and says so). The ``voxel`` and
-``point_voxel`` modalities (FSVD, FPVD) wait for the sparse nets.
+Counterpart of ``lidar_layout_tpu/eval/registry.py``: the ``range``
+modality (RangeNet, FRID), and the ``voxel`` (MinkowskiNet, FSVD) and
+``point_voxel`` (SPVCNN, FPVD) modalities. The nets load the reference's
+pretrained files from ``<weights_root>/<dataset>/<model>/`` when they exist;
+without them the metric runs on the same architecture with seeded random
+weights, which serves relative comparisons only (and says so).
+
+The voxel modalities follow the JAX package's definition of FSVD/FPVD: each
+cloud keeps its first ``max_points`` (30000) points, rounded to 0.05 m voxels
+shifted to their minimum corner, with features [xyz, -1]; the nets run at
+``SEG_NET_CFG`` (cr 0.5, 32768 level-0 voxels, 10-bit codes), so coords past
+1023 cells share clipped codes and each level's overflow merges into its
+last row (``ops/voxel``); the descriptor's anchors are the level-0 voxel
+coords x 0.05 m (``voxel``) or the points (``point_voxel``).
 """
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Callable, Dict, Sequence, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..ops.lidar import KITTI_GEOMETRY, NUSCENES_GEOMETRY
+from ..utils.convert import load_torchsparse_checkpoint
 from ..utils.device import resolve_device
 from .rangenet import RangeNet, load_reference_weights, preprocess_range_batch
+from .sparse_seg_nets import SPVCNN, MinkowskiNet, SegNetConfig
+from .voxel_nets import depth_sector_descriptor
 
 MODALITY2MODEL = {"range": "rangenet", "voxel": "minkowskinet", "point_voxel": "spvcnn"}
+# cr 0.5 gives the published 768-wide descriptors (16 sectors x 48)
+SEG_NET_CFG = SegNetConfig(cr=0.5, capacity=32768, bits=10)
 
 
 def params_hash(net: Union[torch.nn.Module, Dict[str, torch.Tensor]]) -> str:
@@ -59,17 +72,73 @@ def build_range_feature_net(data_type: str = "64", weights_root: str = "./pretra
     return net.to(dev).eval()
 
 
+def build_voxel_feature_net(data_type: str = "64", modality: str = "voxel",
+                            weights_root: str = "./pretrained_weights",
+                            device: Union[str, torch.device] = "cuda", seed: int = 0
+                            ) -> Callable:
+    """The frozen MinkowskiNet (``voxel``) or SPVCNN (``point_voxel``) as
+    ``apply_fn(vox, pts, fts, msk) -> (B, 768)`` descriptors of (B, cap, ...)
+    batches (``device_metrics.voxel_feature_inputs``' outputs), with
+    ``apply_fn.param_hash`` and ``apply_fn.net``: the reference's
+    ``model.ckpt`` when it exists, else torch's initialisers under ``seed``.
+    ``build_feature_fn`` and ``device_metrics.make_voxel_descriptor_fn``
+    both run it."""
+    dev = resolve_device(device)
+    geom = KITTI_GEOMETRY if data_type == "64" else NUSCENES_GEOMETRY
+    wdir = _weights_dir(weights_root, data_type, modality)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = (SPVCNN if modality == "point_voxel" else MinkowskiNet)(SEG_NET_CFG)
+    if os.path.isdir(wdir):
+        load_torchsparse_checkpoint(net, os.path.join(wdir, "model.ckpt"))
+    else:
+        print(f"[eval] no pretrained weights at {wdir}: {MODALITY2MODEL[modality]} features "
+              f"are randomly initialised (relative comparisons only)")
+    net = net.to(dev).eval()
+
+    def apply_fn(vox, pts, fts, msk):
+        with torch.inference_mode():
+            out = net(vox, fts, msk, return_final_logits=True)
+            anchor = (out["coords"].float() * SEG_NET_CFG.voxel_size if modality == "voxel"
+                      else pts)
+            return depth_sector_descriptor(anchor, out["logits"], out["mask"],
+                                           depth_range=geom.depth_range)
+
+    apply_fn.param_hash = params_hash(net)
+    apply_fn.net = net
+    return apply_fn
+
+
+def voxel_inputs_host(pcd: np.ndarray, cap: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """One cloud's voxel-net inputs on the host, as the JAX package builds
+    them: its first ``cap`` points zero-padded to ``cap`` rows, coords
+    ``round(pts / 0.05)`` less their minimum over the kept points (pad rows
+    keep the shift; the mask drops them), feats [xyz, -1]. Returns (vox
+    int32, pts, feats, mask)."""
+    n = min(len(pcd), cap)
+    pts = np.zeros((cap, 3), np.float32)
+    pts[:n] = pcd[:n, :3]
+    vox = np.round(pts / SEG_NET_CFG.voxel_size)
+    if n:
+        vox -= vox[:n].min(0, keepdims=True)
+    fts = np.concatenate([pts, -np.ones((cap, 1), np.float32)], -1)
+    return vox.astype(np.int32), pts, fts, np.arange(cap) < n
+
+
 def build_feature_fn(data_type: str = "64", modality: str = "range",
                      weights_root: str = "./pretrained_weights", feat_batch: int = 32,
-                     device: Union[str, torch.device] = "cuda") -> Callable:
+                     device: Union[str, torch.device] = "cuda",
+                     max_points: int = 30000) -> Callable:
     """``feature_fn(pcds) -> (B, D)`` descriptors for ``evaluate``, with
-    ``feature_fn.param_hash``. The range modality runs in fixed batches of
-    ``feat_batch`` (the last one padded by repeating its last image, the pad
-    rows dropped), which bounds the activations."""
+    ``feature_fn.param_hash``. Every modality runs in fixed batches of
+    ``feat_batch`` (the last one padded by repeating its last input, the pad
+    rows dropped), which bounds the activations and keeps each cloud's
+    descriptor apart from the batch it rode in. The voxel modalities keep
+    each cloud's first ``max_points`` points."""
     if modality != "range":
-        raise NotImplementedError(
-            f"the {modality} feature net ({MODALITY2MODEL[modality]}) is not ported yet: "
-            f'FSVD/FPVD wait for the sparse nets (ROADMAP queue 1, "Main-path remainder")')
+        return _voxel_feature_fn(data_type, modality, weights_root, feat_batch, device,
+                                 max_points)
     geom = KITTI_GEOMETRY if data_type == "64" else NUSCENES_GEOMETRY
     net = build_range_feature_net(data_type, weights_root, device)
     dev = next(net.parameters()).device
@@ -90,4 +159,23 @@ def build_feature_fn(data_type: str = "64", modality: str = "range",
 
     feature_fn.param_hash = params_hash(net)
     feature_fn.net = net
+    return feature_fn
+
+
+def _voxel_feature_fn(data_type, modality, weights_root, feat_batch, device, max_points):
+    apply_fn = build_voxel_feature_net(data_type, modality, weights_root, device)
+    dev = next(apply_fn.net.parameters()).device
+
+    def feature_fn(pcds: Sequence[np.ndarray]) -> np.ndarray:
+        out = []
+        for i in range(0, len(pcds), feat_batch):
+            chunk = [voxel_inputs_host(p, max_points) for p in pcds[i: i + feat_batch]]
+            pad = feat_batch - len(chunk)
+            chunk += chunk[-1:] * pad
+            vox, pts, fts, msk = (torch.from_numpy(np.stack(a)).to(dev) for a in zip(*chunk))
+            out.append(apply_fn(vox, pts, fts, msk).cpu().numpy()[: feat_batch - pad])
+        return np.concatenate(out)
+
+    feature_fn.param_hash = apply_fn.param_hash
+    feature_fn.net = apply_fn.net
     return feature_fn

@@ -1,1 +1,2 @@
-"""U-Net, VQ autoencoder, latent diffusion wrapper, schedules and samplers."""
+"""U-Net, VQ autoencoder, latent diffusion wrapper, schedules, samplers and the
+sparse-voxel convolution block."""

@@ -20,7 +20,7 @@ import torch
 
 from ..utils.device import resolve_device
 from .diffusion import LatentDiffusion
-from .schedules import DDIMSchedule
+from .schedules import DDIMSchedule, q_sample
 
 
 def _tree_cat(u: Any, c: Any) -> Any:
@@ -66,12 +66,19 @@ def _f32(a: np.ndarray) -> np.ndarray:
 
 def ddim_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int = 50,
                 eta: float = 0.0, cond: Any = None, uncond: Any = None,
-                cfg_scale: float = 1.0, temperature: float = 1.0,
+                cfg_scale: float = 1.0, mask: Optional[torch.Tensor] = None,
+                x0: Optional[torch.Tensor] = None, temperature: float = 1.0,
                 method: str = "uniform", x_T: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
-                device="cuda") -> torch.Tensor:
-    """DDIM loop; returns the NHWC float32 latent. With eta > 0 each step's
-    noise is drawn from ``generator``."""
+                generator: Optional[torch.Generator] = None, device="cuda",
+                return_pred_x0: bool = False):
+    """DDIM loop; returns the NHWC float32 latent, and with ``return_pred_x0``
+    also each step's predicted x0 stacked, (steps, *shape). ``mask`` and
+    ``x0`` inpaint: before each step the region where ``mask`` is 1 is set
+    to ``x0`` diffused to that step (the reference keeps it on the forward
+    trajectory). A step that inpaints or has eta > 0 draws one Gaussian from
+    ``generator`` and uses it for both, as the JAX scan does."""
+    if (mask is None) != (x0 is None):
+        raise ValueError("inpainting needs both mask and x0")
     dsched = DDIMSchedule.create(model.schedule, steps, eta, method)
     ts = dsched.timesteps[::-1]
     a_t, a_prev = _f32(dsched.alphas[::-1]), _f32(dsched.alphas_prev[::-1])
@@ -79,19 +86,25 @@ def ddim_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int = 50,
 
     img = _initial(shape, x_T, generator, device)
     b = shape[0]
+    preds = []
     for i, t_scalar in enumerate(ts):
         t = torch.full((b,), int(t_scalar), dtype=torch.long, device=img.device)
+        at, aprev, s1ma, sigma = a_t[i], a_prev[i], sqrt_1ma[i], sigmas[i]
+        noise = (_randn(shape, generator, img.device) if mask is not None or sigma != 0.0
+                 else None)
+        if mask is not None:
+            img = q_sample(model.schedule, x0, t, noise) * mask + (1.0 - mask) * img
         out = _cfg_apply(model, img, t, cond, uncond, cfg_scale)
         e_t = model.eps_from_model_out(img, t, out)
-        at, aprev, s1ma, sigma = a_t[i], a_prev[i], sqrt_1ma[i], sigmas[i]
         pred_x0 = (img - float(s1ma) * e_t) / float(np.sqrt(at))
         dir_coef = np.sqrt(np.maximum(np.float32(1.0) - aprev - sigma * sigma,
                                       np.float32(0.0)))
         img = float(np.sqrt(aprev)) * pred_x0 + float(dir_coef) * e_t
         if sigma != 0.0:
-            noise = _randn(shape, generator, img.device)
             img = img + float(sigma) * noise * temperature
-    return img
+        if return_pred_x0:
+            preds.append(pred_x0)
+    return (img, torch.stack(preds)) if return_pred_x0 else img
 
 
 def dpm_solver_sample(model: LatentDiffusion, shape: Tuple[int, ...], steps: int = 20,

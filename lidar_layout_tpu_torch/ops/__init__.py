@@ -1,1 +1,2 @@
-"""LiDAR geometry and the hand-written CUDA kernels with their plain versions."""
+"""LiDAR geometry, voxel grids and space-filling-curve codes, and the
+hand-written CUDA kernels with their plain versions."""

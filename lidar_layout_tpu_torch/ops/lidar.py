@@ -4,7 +4,8 @@ range image -> points.
 Counterpart of ``lidar_layout_tpu/ops/lidar.py`` (``LidarGeometry``,
 ``depth_to_model``, ``model_to_depth``, ``raydrop_mask``, ``process_scan``,
 ``project_coords``, ``pcd2coord2d``, ``pcd2range``, ``range2xyz``,
-``range2pcd``). Angle grids are built in numpy float64, as in the JAX
+``range2pcd``, ``pcd2bev``, ``box_corners_3d``, ``box2coord2dx2``,
+``batch_range2xyz``). Angle grids are built in numpy float64, as in the JAX
 package, and moved to the image's device.
 """
 from __future__ import annotations
@@ -198,3 +199,52 @@ def range2pcd(range_img: torch.Tensor, geom: LidarGeometry,
                            fill=0.0)
     lead = range_img.shape[:-2]
     return xyz.reshape(*lead, -1, 3), valid.reshape(*lead, -1)
+
+
+def pcd2bev(points: torch.Tensor, mask: Optional[torch.Tensor] = None,
+            x_range: Tuple[float, float] = (-50.0, 50.0),
+            y_range: Tuple[float, float] = (-50.0, 50.0),
+            z_range: Tuple[float, float] = (-3.0, 1.0),
+            resolution: float = 1.0) -> torch.Tensor:
+    """(..., N, 3) points -> (..., nx, ny) binary f32 BEV occupancy; strict
+    range bounds, floor((x - x0) / resolution) cells."""
+    nx = math.ceil((x_range[1] - x_range[0]) // resolution)
+    ny = math.ceil((y_range[1] - y_range[0]) // resolution)
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    valid = ((x > x_range[0]) & (x < x_range[1]) & (y > y_range[0]) & (y < y_range[1])
+             & (z > z_range[0]) & (z < z_range[1]))
+    if mask is not None:
+        valid = valid & mask
+    res = torch.tensor(resolution, dtype=points.dtype, device=points.device)
+    bx = torch.floor((x - x_range[0]) / res).clamp(0, nx - 1).to(torch.int64)
+    by = torch.floor((y - y_range[0]) / res).clamp(0, ny - 1).to(torch.int64)
+    idx = torch.where(valid, bx * ny + by, nx * ny)
+    lead = points.shape[:-2]
+    grid = torch.zeros((*lead, nx * ny + 1), dtype=torch.float32, device=points.device)
+    grid = grid.scatter_reduce(-1, idx, valid.to(torch.float32), "amax")
+    return grid[..., : nx * ny].reshape(*lead, nx, ny)
+
+
+def box_corners_3d(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 7) boxes [cx, cy, cz, l, w, h, yaw] -> (..., 8, 3) corners."""
+    cx, cy, cz = boxes[..., 0:1], boxes[..., 1:2], boxes[..., 2:3]
+    l, w, h, yaw = boxes[..., 3:4], boxes[..., 4:5], boxes[..., 5:6], boxes[..., 6:7]
+    kw = dict(dtype=boxes.dtype, device=boxes.device)
+    sx = torch.tensor([1, 1, -1, -1, 1, 1, -1, -1], **kw) * 0.5
+    sy = torch.tensor([1, -1, -1, 1, 1, -1, -1, 1], **kw) * 0.5
+    sz = torch.tensor([1, 1, 1, 1, -1, -1, -1, -1], **kw) * 0.5
+    xc, yc, zc = l * sx, w * sy, h * sz
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([c * xc - s * yc + cx, s * xc + c * yc + cy, zc + cz], dim=-1)
+
+
+def box2coord2dx2(boxes: torch.Tensor, geom: LidarGeometry) -> torch.Tensor:
+    """(..., 7) 3-D boxes -> (..., 4) range-view [xmin, ymin, xmax, ymax] in [0, 1]."""
+    c2d = pcd2coord2d(box_corners_3d(boxes), geom, clip=True)      # (..., 8, 2)
+    lo, hi = c2d.amin(dim=-2), c2d.amax(dim=-2)
+    return torch.stack([lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]], dim=-1)
+
+
+def batch_range2xyz(imgs: torch.Tensor, geom: LidarGeometry) -> torch.Tensor:
+    """(B, H, W) model-space images -> (B, H, W, 3) xyz, invalid pixels -1."""
+    return range2xyz(imgs, geom, from_model_space=True)[0]

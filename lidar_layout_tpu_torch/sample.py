@@ -1,12 +1,13 @@
 """Sample a latent-diffusion model and, optionally, evaluate the samples.
 
     python -m lidar_layout_tpu_torch.sample -b configs/lidar_diffusion/kitti/uncond_c2_p4.yaml \\
-        -n 32 --batch 16 --sampler dpm --steps 20 --bf16 --eval --metrics cd,jsd,mmd,frid
+        -n 32 --batch 16 --sampler dpm --steps 20 --bf16 --eval --metrics cd,jsd,mmd,frid,fsvd,fpvd
 
 Counterpart of ``scripts/sample.py`` with the same flags (``-b -r -d -n
 --batch --steps --eta --sampler --eval -f --metrics --data-root
---weights-root --outdir --bf16``) and outputs (``samples_range.npy``,
-``samples_pcd.npz``, ``eval.json``); ``--cpu`` runs on the CPU. The
+--weights-root --outdir --bf16 --html``) and outputs (``samples_range.npy``,
+``samples_pcd.npz``, ``eval.json``, ``viewer.html``); ``--cpu`` runs on the
+CPU. The
 evaluation scores the samples against an equal reference set, real scans
 under ``--data-root`` or else synthetic scenes, each range-roundtripped
 (``pcd2range`` -> ``process_scan`` -> ``range2pcd``) as the reference's
@@ -45,12 +46,13 @@ def parse_args(argv=None):
                    help="evaluate these pre-generated samples instead of sampling: an "
                         ".npz of clouds or an .npy of range images")
     p.add_argument("--metrics", default="jsd,mmd,frid",
-                   help="comma list of cd,emd,jsd,mmd,frid (fsvd, fpvd not ported yet)")
+                   help="comma list of cd,emd,jsd,mmd,frid,fsvd,fpvd")
     p.add_argument("--data-root", default=None, help="real scans for the reference set")
     p.add_argument("--weights-root", default="./pretrained_weights")
     p.add_argument("--outdir", default="./samples")
     p.add_argument("--bf16", action="store_true")
-    p.add_argument("--html", action="store_true", help="viewer.html (not ported yet)")
+    p.add_argument("--html", action="store_true",
+                   help="also write an interactive viewer.html of the first 16 samples")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     return p.parse_args(argv)
 
@@ -130,9 +132,6 @@ def _load_samples(path: str, geom: L.LidarGeometry, device: torch.device) -> Lis
 
 def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
-    if args.html:
-        raise NotImplementedError("--html needs utils/vis, which is not ported yet "
-                                  '(ROADMAP queue 1, "Main-path remainder")')
     from .config import load_yaml
     from .pipeline import GenerationPipeline, geometry_from_config
 
@@ -161,6 +160,11 @@ def main(argv=None) -> Dict[str, float]:
                  **{f"pcd_{i}": p for i, p in enumerate(res.clouds)})
         print(f"wrote {len(res.images)} samples to {args.outdir}")
         samples = res.clouds
+    if args.html:
+        from .utils.vis import save_scene_grid_html
+
+        out = save_scene_grid_html(os.path.join(args.outdir, "viewer.html"), samples[:16])
+        print(f"interactive viewer: {out}")
     if not args.eval:
         return {}
 

@@ -1,1 +1,1 @@
-"""Device resolution and weight conversion."""
+"""Device resolution, weight conversion, host memory and the HTML viewer."""

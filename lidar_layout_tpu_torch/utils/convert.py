@@ -35,6 +35,13 @@ through ``vq_state_dict``, and the discriminator's ``params_d``
 (``losses/discriminator``, flax names kept): conv kernels HWIO -> OIHW, the
 ``conv`` level of a ``CircularConv`` dropped, GroupNorm ``scale`` ->
 ``weight``.
+
+The FSVD/FPVD nets: ``seg_net_state_dict`` carries JAX's MinkowskiNet /
+SPVCNN params into the reference torchsparse names the port keeps (the
+inverse of ``convert_torchsparse_state_dict``), ``dense_tree_state_dict``
+a tree of Dense and LayerNorm modules (``SparseVoxelNet``,
+``SparseConvBlock``), and ``load_torchsparse_checkpoint`` reads the
+reference's ``model.ckpt``.
 """
 from __future__ import annotations
 
@@ -296,3 +303,63 @@ def rangenet_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if leaf == "mean":
                 out[".".join((scope,) + mods + ("num_batches_tracked",))] = torch.tensor(0)
     return out
+
+
+_SEG_RES = {"conv0": "net.0", "bn0": "net.1", "conv1": "net.3", "bn1": "net.4",
+            "down_conv": "downsample.0", "down_bn": "downsample.1"}
+_SEG_MODULES = [(re.compile(r"^stem(\d)$"), lambda m: f"stem.{3 * int(m[1])}"),
+                (re.compile(r"^stem_bn(\d)$"), lambda m: f"stem.{3 * int(m[1]) + 1}"),
+                (re.compile(r"^stage(\d)_down$"), lambda m: f"stage{m[1]}.0.net"),
+                (re.compile(r"^stage(\d)_res(\d)$"), lambda m: f"stage{m[1]}.{int(m[2]) + 1}"),
+                (re.compile(r"^up(\d)_deconv$"), lambda m: f"up{m[1]}.0.net"),
+                (re.compile(r"^up(\d)_res(\d)$"), lambda m: f"up{m[1]}.1.{m[2]}"),
+                (re.compile(r"^pt(\d)$"), lambda m: f"point_transforms.{m[1]}"),
+                (re.compile(r"^classifier$"), lambda m: "classifier.0")]
+_SEG_SUB = {"conv": "0", "bn": "1", "linear": "0", **_SEG_RES}
+
+
+def seg_net_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``MinkowskiNet`` / ``SPVCNN`` params (``{"params":
+    ...}``, numpy or JAX leaves) -> the port's state_dict under the reference
+    torchsparse names: the inverse of ``convert_torchsparse_state_dict``.
+    Conv kernels copy straight across (both packages keep torchsparse's
+    layout); Dense kernels (in, out) -> ``weight`` (out, in); BatchNorm
+    scale/bias/mean/var -> weight/bias/running_mean/running_var, with a
+    ``num_batches_tracked`` of 0."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params.get("params", params)):
+        top, subs, leaf = path[0], path[1:-1], path[-1]
+        name = next(fn(m) for m, fn in ((pat.match(top), fn) for pat, fn in _SEG_MODULES) if m)
+        name = ".".join([name] + [_SEG_SUB[s] for s in subs])
+        if leaf == "kernel" and (top.startswith("pt") or top == "classifier"):
+            leaf, value = "weight", value.T
+        else:
+            leaf = _BN_LEAVES.get(leaf, leaf)
+        out[f"{name}.{leaf}"] = torch.from_numpy(np.array(value))
+        if leaf == "running_mean":
+            out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def dense_tree_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX tree of Dense and LayerNorm modules (``SparseVoxelNet``,
+    ``SparseConvBlock``) -> the port's state_dict under the flax names:
+    kernels (in, out) -> ``weight`` (out, in), LayerNorm ``scale`` ->
+    ``weight``."""
+    return {".".join(name): torch.from_numpy(np.array(value))
+            for name, value in (_leaf(p[:-1], p[-1], v)
+                                for p, v in _flatten(params.get("params", params)))}
+
+
+def load_torchsparse_checkpoint(net: torch.nn.Module, path: str) -> torch.nn.Module:
+    """The reference's MinkowskiNet / SPVCNN ``model.ckpt`` (its
+    ``state_dict``) into ``net``, strict on every key but BatchNorm's
+    ``num_batches_tracked``, which eval mode never reads."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+    sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    result = net.load_state_dict(sd, strict=False)
+    missing = [k for k in result.missing_keys if not k.endswith("num_batches_tracked")]
+    if missing or result.unexpected_keys:
+        raise KeyError(f"{path} does not match {type(net).__name__}: missing {missing[:8]}, "
+                       f"unexpected {result.unexpected_keys[:8]}")
+    return net

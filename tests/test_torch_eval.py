@@ -401,9 +401,10 @@ def test_feature_fn_padding_and_modalities():
     a, b = fn(clouds), one(clouds)
     assert a.shape == (3, 16 * 32)
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
-    for modality in ("voxel", "point_voxel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PREG.build_feature_fn("64", modality, device="cpu")
+    # the voxel modalities build their nets (FSVD, FPVD; run in test_torch_seg_nets.py)
+    for modality, cls in (("voxel", "MinkowskiNet"), ("point_voxel", "SPVCNN")):
+        fn = PREG.build_feature_fn("64", modality, weights_root="/nonexistent", device="cpu")
+        assert type(fn.net).__name__ == cls and len(fn.param_hash) == 16
 
 
 # ----------------------------------------------------------------- samplers
@@ -553,8 +554,13 @@ def test_sample_cli_evaluates_on_the_cpu(tmp_path, monkeypatch):
     for name in ("samples_pcd.npz", "samples_range.npy"):
         again = PSAMPLE.main(common + ["-f", str(out / name), "--outdir", str(tmp_path / name)])
         assert again == pytest.approx(res, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSAMPLE.main(common + ["-f", str(out / "samples_pcd.npz"), "--metrics", "fsvd"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSAMPLE.main(["-b", str(base), "--cpu", "--html"])
+    # FSVD and FPVD, their nets at 2048 level-0 voxels (the CPU's share), and the viewer
+    from lidar_layout_tpu_torch.eval.sparse_seg_nets import SegNetConfig
+
+    monkeypatch.setattr(registry, "SEG_NET_CFG", SegNetConfig(cr=0.5, capacity=2048, bits=10))
+    voxel = PSAMPLE.main(common[:5] + ["fsvd,fpvd", "--weights-root", str(tmp_path / "none"),
+                                       "-f", str(out / "samples_pcd.npz"), "--html",
+                                       "--outdir", str(tmp_path / "voxel")])
+    assert set(voxel) == {"fsvd", "fpvd"} and all(np.isfinite(v) for v in voxel.values())
+    assert (tmp_path / "voxel" / "viewer.html").exists()
     assert not os.path.exists(tmp_path / "none")

@@ -733,3 +733,37 @@ def test_gpu_tiny_ae_step_matches_cpu(cuda_device):
     # 24 autoencoder norms forward and backward; the discriminator's 2 norms
     # forward 3 times and backward 4 times (ae_trainer's step)
     assert ran == (24 + 3 * 2, 24 + 4 * 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["MinkowskiNet", "SPVCNN"])
+def test_gpu_voxel_nets_match_cpu(cuda_device, arch):
+    """MinkowskiNet / SPVCNN at cr 0.5 and 4096 level-0 voxels on two clouds
+    past 1023 cells: the grid pyramid equal integer for integer, the
+    descriptors within 1e-4 relative L2 of the CPU's (f32, TF32 off)."""
+    from lidar_layout_tpu_torch.eval import sparse_seg_nets as S
+    from lidar_layout_tpu_torch.eval.voxel_nets import depth_sector_descriptor
+
+    cfg = S.SegNetConfig(cr=0.5, capacity=4096, bits=10)
+    gen = torch.Generator().manual_seed(0)
+    coords = torch.randint(0, 1500, (2, 3000, 3), generator=gen, dtype=torch.int32)
+    coords[..., 2] //= 20
+    feats = torch.cat([coords * 0.05, -torch.ones(2, 3000, 1)], -1)
+    mask = torch.rand((2, 3000), generator=gen) < 0.9
+    torch.manual_seed(0)
+    net = getattr(S, arch)(cfg).eval()
+    outs, pyramids = {}, {}
+    for dev in ("cpu", cuda_device):
+        net = net.to(dev)
+        args = [t.to(dev) for t in (coords, feats, mask)]
+        grids, p2v = S.build_pyramid(args[0], args[2], cfg)
+        pyramids[str(dev)] = [t.cpu() for g in grids for t in g] + [p2v.cpu()]
+        with torch.no_grad():
+            out = net(*args)
+            outs[str(dev)] = depth_sector_descriptor(
+                (out["coords"].float() * 0.05 if arch == "MinkowskiNet" else args[1][..., :3]),
+                out["logits"], out["mask"]).cpu()
+    cpu, gpu = outs["cpu"], outs[str(cuda_device)]
+    assert all(torch.equal(a, b) for a, b in zip(pyramids["cpu"], pyramids[str(cuda_device)]))
+    assert torch.isfinite(gpu).all() and gpu.abs().sum() > 0
+    assert float((gpu - cpu).norm() / cpu.norm()) <= 1e-4
