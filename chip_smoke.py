@@ -1400,9 +1400,8 @@ class Smoke:
         from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY as geom
 
         fails = []
-        cap = 30000
-        inputs = [torch.from_numpy(np.stack(a))
-                  for a in zip(*(R.voxel_inputs_host(c, cap) for c in clouds))]
+        batch = R.pad_clouds(clouds)
+        inputs = D.voxel_feature_inputs(*batch, R.MAX_POINTS, R.SEG_NET_CFG.voxel_size)
         pyr = {}
         for d in ("cuda", "cpu"):
             grids, p2v = build_pyramid(inputs[0].to(d), inputs[3].to(d), R.SEG_NET_CFG)
@@ -1420,7 +1419,7 @@ class Smoke:
             for d in ("cuda", "cpu"):
                 nets[modality, d] = fn = R.build_voxel_feature_net("64", modality, device=d)
                 t0 = time.perf_counter()
-                desc[d] = fn(*(t.to(d) for t in inputs)).cpu().numpy()
+                desc[d] = fn(*(t.to(d) for t in batch)).cpu().numpy()
                 secs[d] = time.perf_counter() - t0
             rel = float(np.linalg.norm(desc["cuda"] - desc["cpu"]) / np.linalg.norm(desc["cpu"]))
             fd = {d: M.frechet_distance(f[:4].astype(np.float64), f[4:].astype(np.float64))
@@ -1441,7 +1440,7 @@ class Smoke:
         pts = torch.from_numpy(np.stack(raw)).to("cuda")
         xyz, valid = L.range2pcd(L.process_scan(L.pcd2range(pts, geom)[0], geom)[0], geom)
         twin = D.make_voxel_descriptor_fn(nets["voxel", "cuda"], nets["point_voxel", "cuda"],
-                                          geom, cap=cap, group=len(raw))
+                                          group=len(raw))
         got = [t.cpu().numpy() for t in twin(xyz, valid)]
         host_clouds = [x[v] for x, v in zip(xyz.cpu().numpy(), valid.cpu().numpy())]
         for (modality, metric), g in zip((("voxel", "FSVD"), ("point_voxel", "FPVD")), got):
@@ -1579,7 +1578,7 @@ class Smoke:
         torch.cuda.empty_cache()
 
     @staticmethod
-    def _voxel_inputs_log(name, clouds, raw=None, max_points=30000):
+    def _voxel_inputs_log(name, clouds, raw=None):
         """What FSVD/FPVD's nets see of each cloud, as the JAX package defines
         them: points before and after the 30000 cap, the share of kept points
         whose voxel coords pass 1023 (their codes clip), distinct cells, and
@@ -1587,12 +1586,13 @@ class Smoke:
         into the level's last row); ``raw``, the points before a range round
         trip."""
         import torch
+        from lidar_layout_tpu_torch.eval import device_metrics as D
         from lidar_layout_tpu_torch.eval import registry as R
         from lidar_layout_tpu_torch.eval.sparse_seg_nets import build_pyramid
 
-        inputs = [torch.from_numpy(np.stack(a)).to("cuda")
-                  for a in zip(*(R.voxel_inputs_host(c, max_points) for c in clouds))]
-        vox, mask = inputs[0], inputs[3]
+        vox, _, _, mask = D.voxel_feature_inputs(
+            *(t.to("cuda") for t in R.pad_clouds(clouds)), R.MAX_POINTS,
+            R.SEG_NET_CFG.voxel_size)
         past = [float((v[m] > 1023).any(-1).float().mean()) for v, m in zip(vox, mask)]
         cells = [len(torch.unique(v[m], dim=0)) for v, m in zip(vox, mask)]
         grids, _ = build_pyramid(vox, mask, R.SEG_NET_CFG)
@@ -1607,7 +1607,7 @@ class Smoke:
         log(f"eval voxel inputs, {len(clouds)} {name} clouds (min/median/max): "
             + (f"raw points {spread(raw)}, roundtripped " if raw else "")
             + f"points {spread([len(c) for c in clouds])}, kept "
-            f"{spread(mask.sum(1).tolist())} (cap {max_points}); share of kept points past "
+            f"{spread(mask.sum(1).tolist())} (cap {R.MAX_POINTS}); share of kept points past "
             f"1023 cells {spread(past)}; distinct cells {spread(cells)}; voxels a level: "
             f"{levels}; card {card_line()}")
 

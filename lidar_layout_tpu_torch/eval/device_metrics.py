@@ -10,7 +10,7 @@ bounds, floor / voxel, min-corner shift.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -114,13 +114,13 @@ def compact_valid_points(xyz: torch.Tensor, valid: torch.Tensor, cap: int
     return pts * mask[..., None], mask
 
 
-def voxel_feature_inputs(xyz: torch.Tensor, valid: torch.Tensor, cap: int,
-                         voxel_size: float = 0.05
+def voxel_feature_inputs(xyz: torch.Tensor, valid: torch.Tensor, cap: int, voxel_size: float
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The host voxel preprocessing of FSVD/FPVD on the device: 0.05 m
-    rounding, min-corner shift over the valid rows, feats = [xyz, -1].
-    (..., N, 3) points and (..., N) validity -> (vox int32, pts f32, feats
-    f32, mask bool), each (..., cap, ...)."""
+    """The host voxel preprocessing of FSVD/FPVD on the device: the first
+    ``cap`` valid points, rounded to ``voxel_size`` voxels, min-corner shift
+    over the valid rows, feats = [xyz, -1]. (..., N, 3) points and (..., N)
+    validity -> (vox int32, pts f32, feats f32, mask bool), each
+    (..., cap, ...)."""
     pts, mask = compact_valid_points(xyz, valid, cap)
     vox = torch.round(_div(pts, voxel_size))
     vmin = torch.where(mask[..., None], vox, float("inf")).amin(dim=-2, keepdim=True)
@@ -129,28 +129,33 @@ def voxel_feature_inputs(xyz: torch.Tensor, valid: torch.Tensor, cap: int,
     return vox.to(torch.int32), pts, fts, mask
 
 
-def make_voxel_descriptor_fn(mink_apply, spv_apply, geom: L.LidarGeometry, cap: int = 30000,
-                             voxel_size: float = 0.05, group: int = 16):
+def in_groups(fn: Callable[..., Tuple[torch.Tensor, ...]], group: int, *batch: torch.Tensor
+              ) -> Tuple[torch.Tensor, ...]:
+    """``fn`` over the (B, ...) tensors ``batch`` in fixed groups of
+    ``group`` rows, the last group padded by repeating its last row and the
+    pad rows dropped: each row's result is apart from the group it rode in.
+    ``fn`` returns a tuple of (group, ...) tensors; their (B, ...)
+    concatenations are returned."""
+    outs = []
+    for i in range(0, batch[0].shape[0], group):
+        part = [t[i:i + group] for t in batch]
+        n = part[0].shape[0]
+        if n < group:
+            part = [torch.cat([t, t[-1:].expand(group - n, *t.shape[1:])]) for t in part]
+        outs.append([o[:n] for o in fn(*part)])
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def make_voxel_descriptor_fn(mink_apply, spv_apply, group: int = 16):
     """FSVD/FPVD featurisation on the device, from ``range2pcd``'s (B, N, 3)
     points and (B, N) validity: ``batch_fn(xyz, valid) -> (fsvd, fpvd)``, two
     (B, 768) descriptor rows. ``mink_apply`` and ``spv_apply`` are
-    ``registry.build_voxel_feature_net``'s (their depth range is ``geom``'s).
-    The clouds go through the nets ``group`` at a time, the last group
-    padded by repeating its last cloud, as the host path pads its batches."""
+    ``registry.build_voxel_feature_net``'s, which the host path
+    (``registry.build_feature_fn``) runs the same way; the clouds go through
+    them ``group`` at a time (``in_groups``)."""
 
-    def batch_fn(xyz_b: torch.Tensor, valid_b: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        fsvd, fpvd = [], []
-        for i in range(0, xyz_b.shape[0], group):
-            x, v = xyz_b[i:i + group], valid_b[i:i + group]
-            n = x.shape[0]
-            if n < group:
-                x = torch.cat([x, x[-1:].expand(group - n, *x.shape[1:])])
-                v = torch.cat([v, v[-1:].expand(group - n, *v.shape[1:])])
-            inputs = voxel_feature_inputs(x, v, cap, voxel_size)
-            fsvd.append(mink_apply(*inputs)[:n])
-            fpvd.append(spv_apply(*inputs)[:n])
-        return torch.cat(fsvd), torch.cat(fpvd)
+    def batch_fn(xyz: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return in_groups(lambda x, v: (mink_apply(x, v), spv_apply(x, v)), group, xyz, valid)
 
     return batch_fn
 

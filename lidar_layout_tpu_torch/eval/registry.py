@@ -8,7 +8,7 @@ without them the metric runs on the same architecture with seeded random
 weights, which serves relative comparisons only (and says so).
 
 The voxel modalities follow the JAX package's definition of FSVD/FPVD: each
-cloud keeps its first ``max_points`` (30000) points, rounded to 0.05 m voxels
+cloud keeps its first ``MAX_POINTS`` (30000) points, rounded to 0.05 m voxels
 shifted to their minimum corner, with features [xyz, -1]; the nets run at
 ``SEG_NET_CFG`` (cr 0.5, 32768 level-0 voxels, 10-bit codes), so coords past
 1023 cells share clipped codes and each level's overflow merges into its
@@ -27,6 +27,7 @@ import torch
 from ..ops.lidar import KITTI_GEOMETRY, NUSCENES_GEOMETRY
 from ..utils.convert import load_torchsparse_checkpoint
 from ..utils.device import resolve_device
+from .device_metrics import in_groups, voxel_feature_inputs
 from .rangenet import RangeNet, load_reference_weights, preprocess_range_batch
 from .sparse_seg_nets import SPVCNN, MinkowskiNet, SegNetConfig
 from .voxel_nets import depth_sector_descriptor
@@ -34,6 +35,7 @@ from .voxel_nets import depth_sector_descriptor
 MODALITY2MODEL = {"range": "rangenet", "voxel": "minkowskinet", "point_voxel": "spvcnn"}
 # cr 0.5 gives the published 768-wide descriptors (16 sectors x 48)
 SEG_NET_CFG = SegNetConfig(cr=0.5, capacity=32768, bits=10)
+MAX_POINTS = 30000   # the points of each cloud that FSVD/FPVD keep
 
 
 def params_hash(net: Union[torch.nn.Module, Dict[str, torch.Tensor]]) -> str:
@@ -74,21 +76,21 @@ def build_range_feature_net(data_type: str = "64", weights_root: str = "./pretra
 
 def build_voxel_feature_net(data_type: str = "64", modality: str = "voxel",
                             weights_root: str = "./pretrained_weights",
-                            device: Union[str, torch.device] = "cuda", seed: int = 0
-                            ) -> Callable:
+                            device: Union[str, torch.device] = "cuda") -> Callable:
     """The frozen MinkowskiNet (``voxel``) or SPVCNN (``point_voxel``) as
-    ``apply_fn(vox, pts, fts, msk) -> (B, 768)`` descriptors of (B, cap, ...)
-    batches (``device_metrics.voxel_feature_inputs``' outputs), with
-    ``apply_fn.param_hash`` and ``apply_fn.net``: the reference's
-    ``model.ckpt`` when it exists, else torch's initialisers under ``seed``.
-    ``build_feature_fn`` and ``device_metrics.make_voxel_descriptor_fn``
-    both run it."""
+    ``apply_fn(xyz, valid) -> (B, 768)`` descriptors of (B, N, 3) points and
+    (B, N) validity (each cloud's first ``MAX_POINTS`` valid points, through
+    ``device_metrics.voxel_feature_inputs``), with ``apply_fn.param_hash``
+    and ``apply_fn.net``: the reference's ``model.ckpt`` when it exists, else
+    torch's initialisers under seed 0. ``build_feature_fn`` and
+    ``device_metrics.make_voxel_descriptor_fn`` both run it."""
     dev = resolve_device(device)
     geom = KITTI_GEOMETRY if data_type == "64" else NUSCENES_GEOMETRY
     wdir = _weights_dir(weights_root, data_type, modality)
+    cfg = SEG_NET_CFG
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        net = (SPVCNN if modality == "point_voxel" else MinkowskiNet)(SEG_NET_CFG)
+        torch.manual_seed(0)
+        net = (SPVCNN if modality == "point_voxel" else MinkowskiNet)(cfg)
     if os.path.isdir(wdir):
         load_torchsparse_checkpoint(net, os.path.join(wdir, "model.ckpt"))
     else:
@@ -96,11 +98,11 @@ def build_voxel_feature_net(data_type: str = "64", modality: str = "voxel",
               f"are randomly initialised (relative comparisons only)")
     net = net.to(dev).eval()
 
-    def apply_fn(vox, pts, fts, msk):
+    def apply_fn(xyz: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
+            vox, pts, fts, msk = voxel_feature_inputs(xyz, valid, MAX_POINTS, cfg.voxel_size)
             out = net(vox, fts, msk, return_final_logits=True)
-            anchor = (out["coords"].float() * SEG_NET_CFG.voxel_size if modality == "voxel"
-                      else pts)
+            anchor = out["coords"].float() * cfg.voxel_size if modality == "voxel" else pts
             return depth_sector_descriptor(anchor, out["logits"], out["mask"],
                                            depth_range=geom.depth_range)
 
@@ -109,72 +111,56 @@ def build_voxel_feature_net(data_type: str = "64", modality: str = "voxel",
     return apply_fn
 
 
-def voxel_inputs_host(pcd: np.ndarray, cap: int
-                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """One cloud's voxel-net inputs on the host, as the JAX package builds
-    them: its first ``cap`` points zero-padded to ``cap`` rows, coords
-    ``round(pts / 0.05)`` less their minimum over the kept points (pad rows
-    keep the shift; the mask drops them), feats [xyz, -1]. Returns (vox
-    int32, pts, feats, mask)."""
-    n = min(len(pcd), cap)
-    pts = np.zeros((cap, 3), np.float32)
-    pts[:n] = pcd[:n, :3]
-    vox = np.round(pts / SEG_NET_CFG.voxel_size)
-    if n:
-        vox -= vox[:n].min(0, keepdims=True)
-    fts = np.concatenate([pts, -np.ones((cap, 1), np.float32)], -1)
-    return vox.astype(np.int32), pts, fts, np.arange(cap) < n
-
-
 def build_feature_fn(data_type: str = "64", modality: str = "range",
                      weights_root: str = "./pretrained_weights", feat_batch: int = 32,
-                     device: Union[str, torch.device] = "cuda",
-                     max_points: int = 30000) -> Callable:
+                     device: Union[str, torch.device] = "cuda") -> Callable:
     """``feature_fn(pcds) -> (B, D)`` descriptors for ``evaluate``, with
     ``feature_fn.param_hash``. Every modality runs in fixed batches of
-    ``feat_batch`` (the last one padded by repeating its last input, the pad
-    rows dropped), which bounds the activations and keeps each cloud's
-    descriptor apart from the batch it rode in. The voxel modalities keep
-    each cloud's first ``max_points`` points."""
+    ``feat_batch`` (``device_metrics.in_groups``: the last one padded by
+    repeating its last input, the pad rows dropped), which bounds the
+    activations and keeps each cloud's descriptor apart from the batch it
+    rode in."""
     if modality != "range":
-        return _voxel_feature_fn(data_type, modality, weights_root, feat_batch, device,
-                                 max_points)
+        return _voxel_feature_fn(data_type, modality, weights_root, feat_batch, device)
     geom = KITTI_GEOMETRY if data_type == "64" else NUSCENES_GEOMETRY
     net = build_range_feature_net(data_type, weights_root, device)
     dev = next(net.parameters()).device
 
     def feature_fn(pcds: Sequence[np.ndarray]) -> np.ndarray:
-        imgs = preprocess_range_batch(pcds, geom)
-        out = []
+        imgs = torch.from_numpy(preprocess_range_batch(pcds, geom)).to(dev)
         with torch.inference_mode():
-            for i in range(0, len(imgs), feat_batch):
-                chunk = imgs[i: i + feat_batch]
-                pad = feat_batch - len(chunk)
-                if pad:
-                    chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-                feats = net(torch.from_numpy(chunk).to(dev), return_final_logits=True,
-                            agg_type="depth")
-                out.append(feats.cpu().numpy()[: feat_batch - pad])
-        return np.concatenate(out)
+            (feats,) = in_groups(
+                lambda x: (net(x, return_final_logits=True, agg_type="depth"),), feat_batch, imgs)
+        return feats.cpu().numpy()
 
     feature_fn.param_hash = params_hash(net)
     feature_fn.net = net
     return feature_fn
 
 
-def _voxel_feature_fn(data_type, modality, weights_root, feat_batch, device, max_points):
+def pad_clouds(pcds: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ragged host clouds -> (B, N, 3) f32 points and (B, N) bool validity
+    on the CPU: each cloud's first ``MAX_POINTS`` points, zero rows after
+    them, as ``range2pcd`` gives the device twin its points."""
+    n = min(max(len(p) for p in pcds), MAX_POINTS)
+    xyz = np.zeros((len(pcds), n, 3), np.float32)
+    valid = np.zeros((len(pcds), n), bool)
+    for i, p in enumerate(pcds):
+        k = min(len(p), n)
+        xyz[i, :k], valid[i, :k] = p[:k, :3], True
+    return torch.from_numpy(xyz), torch.from_numpy(valid)
+
+
+def _voxel_feature_fn(data_type, modality, weights_root, feat_batch, device):
+    """The voxel modalities on ragged host clouds, padded (``pad_clouds``)
+    and run as the device twin runs them."""
     apply_fn = build_voxel_feature_net(data_type, modality, weights_root, device)
     dev = next(apply_fn.net.parameters()).device
 
     def feature_fn(pcds: Sequence[np.ndarray]) -> np.ndarray:
-        out = []
-        for i in range(0, len(pcds), feat_batch):
-            chunk = [voxel_inputs_host(p, max_points) for p in pcds[i: i + feat_batch]]
-            pad = feat_batch - len(chunk)
-            chunk += chunk[-1:] * pad
-            vox, pts, fts, msk = (torch.from_numpy(np.stack(a)).to(dev) for a in zip(*chunk))
-            out.append(apply_fn(vox, pts, fts, msk).cpu().numpy()[: feat_batch - pad])
-        return np.concatenate(out)
+        (desc,) = in_groups(lambda x, v: (apply_fn(x, v),), feat_batch,
+                            *(t.to(dev) for t in pad_clouds(pcds)))
+        return desc.cpu().numpy()
 
     feature_fn.param_hash = apply_fn.param_hash
     feature_fn.net = apply_fn.net

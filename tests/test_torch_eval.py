@@ -270,7 +270,7 @@ def test_compaction_and_voxel_inputs_match_jax(cap):
                          JD.compact_valid_points(jnp.asarray(xyz[0]), jnp.asarray(valid[0]),
                                                  cap)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    for got, want in zip(PD.voxel_feature_inputs(T(xyz[1]), T(valid[1]), cap),
+    for got, want in zip(PD.voxel_feature_inputs(T(xyz[1]), T(valid[1]), cap, 0.05),
                          JD.voxel_feature_inputs(jnp.asarray(xyz[1]), jnp.asarray(valid[1]),
                                                  cap)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -24,7 +24,6 @@ from lidar_layout_tpu_torch.eval import device_metrics as PD
 from lidar_layout_tpu_torch.eval import registry as PREG
 from lidar_layout_tpu_torch.eval import sparse_seg_nets as P
 from lidar_layout_tpu_torch.ops import voxel as PV
-from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
 from lidar_layout_tpu_torch.utils.convert import load_torchsparse_checkpoint, seg_net_state_dict
 from torch_port_helpers import one_intra_op_thread
 
@@ -169,22 +168,19 @@ def test_voxel_inputs_match_jax():
     xyz = rng.uniform(-40, 40, (2, 900, 3)).astype(np.float32)
     valid = rng.random((2, 900)) < 0.6
     cap = 400
-    got = PD.voxel_feature_inputs(T(xyz), T(valid), cap)
+    got = PD.voxel_feature_inputs(T(xyz), T(valid), cap, PREG.SEG_NET_CFG.voxel_size)
     for b in range(2):
         want = JD.voxel_feature_inputs(jnp.asarray(xyz[b]), jnp.asarray(valid[b]), cap)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
-        # the host twin: the same rows, pad rows aside
-        host = PREG.voxel_inputs_host(xyz[b][valid[b]], cap)
-        n = int(host[3].sum())
-        for h, w in zip(host, want):
-            np.testing.assert_array_equal(h[:n], np.asarray(w)[:n])
 
 
 @pytest.fixture
 def small_registry(monkeypatch):
-    """The registry's nets at 2048 level-0 voxels (the CPU's share)."""
+    """The registry's nets at 2048 level-0 voxels and 1200 points a cloud
+    (the CPU's share)."""
     monkeypatch.setattr(PREG, "SEG_NET_CFG", P.SegNetConfig(cr=0.5, capacity=2048, bits=10))
+    monkeypatch.setattr(PREG, "MAX_POINTS", 1200)
 
 
 def _scans(n, seed=4):
@@ -196,18 +192,16 @@ def _scans(n, seed=4):
 @pytest.mark.parametrize("modality", ["voxel", "point_voxel"])
 def test_feature_fn_equals_the_device_twin_per_cloud(small_registry, modality, capsys):
     clouds = _scans(3)
-    fn = PREG.build_feature_fn("64", modality, "/nonexistent", feat_batch=2, device="cpu",
-                               max_points=1200)
+    fn = PREG.build_feature_fn("64", modality, "/nonexistent", feat_batch=2, device="cpu")
     assert "randomly initialised" in capsys.readouterr().out
-    one = PREG.build_feature_fn("64", modality, "/nonexistent", feat_batch=1, device="cpu",
-                                max_points=1200)
+    one = PREG.build_feature_fn("64", modality, "/nonexistent", feat_batch=1, device="cpu")
     assert fn.param_hash == one.param_hash and len(fn.param_hash) == 16
     host = fn(clouds)
     assert host.shape == (3, 768) and np.isfinite(host).all() and np.abs(host).sum() > 0
     np.testing.assert_array_equal(host, one(clouds))       # the batch a cloud rode in
     mink = PREG.build_voxel_feature_net("64", "voxel", "/nonexistent", device="cpu")
     spv = PREG.build_voxel_feature_net("64", "point_voxel", "/nonexistent", device="cpu")
-    twin = PD.make_voxel_descriptor_fn(mink, spv, KITTI_GEOMETRY, cap=1200, group=2)
+    twin = PD.make_voxel_descriptor_fn(mink, spv, group=2)
     n = max(len(c) for c in clouds)
     xyz = np.zeros((3, n, 3), np.float32)
     valid = np.zeros((3, n), bool)
