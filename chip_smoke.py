@@ -10,6 +10,9 @@
     python3 chip_smoke.py --phases device,build,kernels,layout_boxes_slice,layout_boxes
     python3 chip_smoke.py --phases device,build,kernels,layout_boxes_train_slice,layout_boxes_train
     python3 chip_smoke.py --phases device,build,kernels,ae_train_slice,ae_train
+    python3 chip_smoke.py --phases device,build,coarse_slice,coarse
+    python3 chip_smoke.py --phases device,build,cube_slice,cube
+    python3 chip_smoke.py --phases device,build,ae_train,ae_eval
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -34,7 +37,10 @@ Phases (any failure exits non-zero before the final "ok" line):
                CrossAttention's strides, bit for bit over two launches, K2's dq
                and dk required to be exactly 0 (one key), as JAX's are; K3
                forward and backward in f32 at every group shape of the
-               autoencoder's training step (encoder, decoder, discriminator)
+               autoencoder's training step (encoder, decoder, discriminator);
+               K1 and K2 at the coarse LiDM's S = 128, 32 and 8 (f32 and
+               bf16, bit for bit over two launches) and K3 forward and
+               backward at every group shape of the coarse paths
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -80,7 +86,7 @@ Phases (any failure exits non-zero before the final "ok" line):
                16 scenes x 16 objects, card vs CPU: the scene-graph encoder's two
                outputs, one U-Net eval, a DDIM-4 request from the same x_T
   layout_boxes sample_layout's path at 16 scenes x 16 objects, DDIM-100, f32:
-               scenes/s and boxes/s over three requests, K1 launches (22 a U-Net
+               scenes/s and boxes/s over two requests, K1 launches (22 a U-Net
                eval) against the structure and module hooks, no plain attention,
                finite (256, 7) boxes, different boxes from different graphs
   layout_boxes_train_slice  one LayoutDiffusion training step at full width,
@@ -110,6 +116,28 @@ Phases (any failure exits non-zero before the final "ok" line):
                GroupNorm, a falling rec_loss on one batch; then train_lidm
                --synthetic --steps 2 on the kitti and nuScenes AE YAMLs, and the
                kitti run's checkpoint as the flagship LiDM's first stage
+  coarse_slice "Ours" stage 1 card against CPU at full width, f32, TF32 off:
+               the coarse AE's VQ-GAN step (range_256x8.yaml, batch 4) at
+               steps 0 and 2 under ae_train_slice's gates; the coarse LiDM's
+               apply_model, DDIM-3 + decode and one training step, batch 4
+  coarse       the coarse LiDM (range_uncond_diffusion_64x4.yaml) served by
+               from_config in bf16, generate(32) at batch 16, DPM-20 and
+               DDIM-50, the geometry from the YAML; its training step at
+               batch 16 (bf16 autocast); the coarse AE's at batch 4,
+               accumulate 2, f32; K1, K2, K3 launches against the structure
+               and hooks; train_lidm on range_256x8.yaml, range_flow.yaml and
+               the LiDM over the AE run's checkpoint
+  cube_slice   "Ours" stage 2 card against CPU at voxel_1024.yaml's full
+               config, 2 clouds of 32,768 points, f32: grids, targets and
+               point-to-voxel maps integer for integer, latents, logits,
+               struct_loss and gradients; CubeDiffusion's p_losses, U-Net
+               gradients and a DDIM-5 from fed draws
+  cube         train_lidm on voxel_1024.yaml (10 steps, batch 4), on
+               voxel_uncond_diffusion_256.yaml over that run (10 steps) and
+               on autoencoder_cube.yaml (2 steps); timed steps, the level
+               fill per cloud, a DDIM-50 over the 4 encoded grids; no kernel
+  ae_eval      eval_ae on the ae_train phase's kitti run: 4 batches of 4,
+               CD through K4 and JSD, launches against the structure
   timing       per-kernel device times at the main paths' shapes beside the
                plain version, one PyTorch library call and the card's bound,
                and for K1/K2 the special-function unit's floor for their
@@ -123,12 +151,14 @@ Phases (any failure exits non-zero before the final "ok" line):
                K1 (with its log-sum-exp) and K2 at (256, 8, 1, 64) f32 beside
                SDPA's forward and backward, summed over LayoutDiffusion's 10
                timed training steps; K3 forward and backward in f32 at the
-               autoencoder step's shapes, summed over ae_train's 10 timed steps
+               autoencoder step's shapes, summed over ae_train's 10 timed steps;
+               K1/K2/K3 at the coarse paths' shapes, summed over their runs
   profile      (only when named) device time of one DPM-20 request, of one
                guided layout request, of one training step, of one layout
                training step, of one LayoutDiffusion request, of one
-               LayoutDiffusion training step and of one autoencoder training
-               step by kernel family
+               LayoutDiffusion training step, of one autoencoder training
+               step, of one coarse request, coarse LiDM and AE training step
+               and one step of each cube trainer by kernel family
 
 The weights are random, drawn from a seed (no trained checkpoint is used). It
 imports nothing of JAX.
@@ -137,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import functools
 import gc
 import json
@@ -151,7 +182,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train", "eval_slice",
           "eval", "layout_slice", "layout", "layout_train_slice", "layout_train",
           "layout_boxes_slice", "layout_boxes", "layout_boxes_train_slice", "layout_boxes_train",
-          "ae_train_slice", "ae_train", "timing")
+          "ae_train_slice", "ae_train", "coarse_slice", "coarse", "cube_slice", "cube",
+          "ae_eval", "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -163,7 +195,7 @@ OVERFIT_STEPS, OVERFIT_LR = 30, 1e-4
 LAYOUT_CFG_SCALE = 2.0   # the guided layout run: DPM-20, generate(32) at batch 16
 # LayoutDiffusion serving: 16 scenes at the nuScenes layout dataset's capacity
 # of 16 objects and 32 triples a scene (N = 256 boxes), DDIM-100, f32
-BOX_SCENES, BOX_STEPS, BOX_CALLS = 16, 100, 3
+BOX_SCENES, BOX_STEPS, BOX_CALLS = 16, 100, 2
 BOX_LR = 1.6e-5   # layout_nusc.yaml's: base 1e-6 x 16 scenes
 # the range VQ autoencoder (VQ-GAN) in f32 at its YAML's batch of 4; the
 # flagship LiDM whose first stage it is loads the CLI run's checkpoint
@@ -171,6 +203,22 @@ AE_YAML = os.path.join(HERE, "configs", "autoencoder", "kitti", "autoencoder_c2_
 AE_NUSC_YAML = os.path.join(HERE, "configs", "autoencoder", "nuscenes", "autoencoder_c2_p4.yaml")
 LIDM_YAML = os.path.join(HERE, "configs", "lidar_diffusion", "kitti", "uncond_c2_p4.yaml")
 AE_BATCH, AE_LR = 4, 1.8e-5   # the YAML's batch, and its lr: base 4.5e-6 x batch 4
+# "Ours" stage 1, the coarse 8x256 range stage: its VQ autoencoder (f32, the
+# YAML's batch 4 with accumulate 2) and its LiDM (U-Net 128 wide over a
+# 4x32x8 latent; served and trained at batch 16 in bf16); range_flow.yaml,
+# the 32x1024 nuScenes AE, through the CLI
+OURS = os.path.join(HERE, "configs", "ours", "nuscenes")
+COARSE_AE_YAML = os.path.join(OURS, "coarse_range", "range_256x8.yaml")
+COARSE_LDM_YAML = os.path.join(OURS, "coarse_range", "range_uncond_diffusion_64x4.yaml")
+RANGE_FLOW_YAML = os.path.join(HERE, "configs", "autoencoder", "nuscenes", "range_flow.yaml")
+COARSE_LR = 1.6e-5   # the LiDM YAML's: base 1e-6 x batch 16
+# "Ours" stage 2, the cube stage: the sparse-voxel VAE at 0.1 m (levels of
+# 8192, 4096 and 2048 rows) and the latent diffusion over its grids, at the
+# YAMLs' batch of 4 clouds of 32,768 points (the factory's max_points)
+VOXEL_YAML = os.path.join(OURS, "refine_voxel", "voxel_1024.yaml")
+VOXEL_LDM_YAML = os.path.join(OURS, "refine_voxel", "voxel_uncond_diffusion_256.yaml")
+CUBE_AE_YAML = os.path.join(HERE, "configs", "autoencoder", "nuscenes", "autoencoder_cube.yaml")
+CUBE_BATCH, CUBE_POINTS, CUBE_DDIM = 4, 32768, 50
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -385,6 +433,26 @@ class Smoke:
         self.run_totals = {}   # kernel -> {run: summed times} of the layout and AE paths
         self.ae_shapes = None   # K3's (forward, backward) calls of one AE step by shape
         self.ae_train_launches = {}   # over the AE's timed training steps
+        self.ae_run = None   # the ae_train phase's kitti CLI run, which ae_eval scores
+        self.ae_eval_launches = {}
+        self.coarse_shapes = None   # the coarse LiDM's and AE's kernel calls by shape
+        self.coarse_launches = {}   # over the coarse DPM-20 run
+        self.coarse_train_launches = {}   # over the coarse LiDM's timed training steps
+        self.coarse_ae_train_launches = {}   # over the coarse AE's timed training steps
+        self.cube_launches = {}   # over the cube stage's timed steps and DDIM-50
+        self._tmp = []   # directories the phases write, removed at the end
+
+    def tmp_dir(self, prefix):
+        import tempfile
+
+        self._tmp.append(tempfile.mkdtemp(prefix=prefix))
+        return self._tmp[-1]
+
+    def cleanup(self):
+        import shutil
+
+        for d in self._tmp:
+            shutil.rmtree(d, ignore_errors=True)
 
     # ------------------------------------------------------------------ device
     def device(self):
@@ -497,6 +565,7 @@ class Smoke:
 
         self._kernels_gn_bwd()
         self._kernels_ae()
+        self._kernels_coarse()
         self._kernels_train()
         self._kernels_chamfer()
 
@@ -800,10 +869,25 @@ class Smoke:
             return self.shapes
         import torch
         from lidar_layout_tpu_torch.flagship import flagship
+
+        model, _ = flagship(dtype=torch.bfloat16)
+        self.shapes, self.gn_where = self._request_shapes(model)
+        del model
+        torch.cuda.empty_cache()
+        for name, cnt in self.shapes.items():
+            log(f"main-path {name} launches per DPM-20 request (batch 16): "
+                f"{sum(cnt.values())} over {len(cnt)} shapes")
+        return self.shapes
+
+    @staticmethod
+    def _request_shapes(model):
+        """Kernel calls of one DPM-20 request of ``model`` at batch 16 by
+        shape (K1 and K3), and K3's by (shape, "unet" or "decoder"): hooks
+        on one batch-16 U-Net eval (counted for every eval) and one decode."""
+        import torch
         from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
         from lidar_layout_tpu_torch.nn.blocks import Normalize
 
-        model, _ = flagship(dtype=torch.bfloat16)
         seen = {"group_norm": collections.Counter(), "flash_attention": collections.Counter()}
         where = collections.Counter()
         phase = {"n": unet_evals(model, 20), "where": "unet"}
@@ -828,20 +912,15 @@ class Smoke:
             if isinstance(m, Normalize):
                 hooks.append(m.register_forward_pre_hook(norm_hook))
         lh, lw, lc = model.cfg.latent_shape
+        dev = next(model.parameters()).device
         with torch.inference_mode():
-            z = torch.randn((16, lh, lw, lc), device="cuda")
-            model.apply_model(z, torch.full((16,), 500, device="cuda"))   # x21 evals
+            z = torch.randn((BATCH, lh, lw, lc), device=dev)
+            model.apply_model(z, torch.full((BATCH,), 500, device=dev))   # x21 evals
             phase.update(n=1, where="decoder")
             model.decode_first_stage(z)
         for hk in hooks:
             hk.remove()
-        del model
-        torch.cuda.empty_cache()
-        self.shapes, self.gn_where = seen, where
-        for name, cnt in seen.items():
-            log(f"main-path {name} launches per DPM-20 request (batch 16): "
-                f"{sum(cnt.values())} over {len(cnt)} shapes")
-        return seen
+        return seen, where
 
     # ------------------------------------------------------------------- slice
     def slice(self):
@@ -933,12 +1012,24 @@ class Smoke:
         from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
         name = "layout_train_slice" if layout else "train_slice"
-        lr = 1.6e-5       # both YAMLs': base 1e-6 x batch 16
         batch = self._train_batches(layout, 1, seed=4, batch=2 if layout else 1,
                                     device="cpu")[0]
+        parts = [("U-Net", lambda k: not k.startswith("cond_stage_model."))]
+        if layout:
+            parts.append(("layout encoder", lambda k: k.startswith("cond_stage_model.")))
+        self._slice_step(name, lambda dev: self._train_model(layout, dev), batch, parts)
+
+    def _slice_step(self, name, make_model, batch, parts, lr=1.6e-5):
+        """One make_train_step, f32, of ``make_model(device)`` on the card and
+        on the CPU from the same seeded weights, batch, t and noise (drawn
+        on the CPU), dropout off; compared by _compare_train_runs. ``lr``:
+        the LiDM YAMLs', base 1e-6 x batch 16."""
+        import torch
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
         runs, sd = {}, None
         for dev in ("cuda", "cpu"):
-            model = self._train_model(layout, dev)
+            model = make_model(dev)
             if sd is None:
                 seed_weights(model, 0)
                 sd = {k: v.cpu() for k, v in model.state_dict().items()}
@@ -969,10 +1060,7 @@ class Smoke:
             del model, state, params
             gc.collect()   # the train state holds reference cycles: free its card memory now
             torch.cuda.empty_cache()
-        parts = [("U-Net", lambda k: not k.startswith("cond_stage_model."))]
-        if layout:
-            parts.append(("layout encoder", lambda k: k.startswith("cond_stage_model.")))
-        self._compare_train_runs(name, runs, BOX_LR, parts)
+        self._compare_train_runs(name, runs, lr, parts)
 
     @staticmethod
     def _compare_train_runs(name, runs, lr, parts):
@@ -2205,34 +2293,34 @@ class Smoke:
 
     # ---------------------------------------------------------- ae_train_slice
     @staticmethod
-    def _ae_setup(device="cuda", lr=AE_LR, seed=0):
-        """The kitti autoencoder YAML's VQModel, its loss config and geometry,
-        and JAX's discriminator (v1, 64 filters, 3 layers, as the CLI builds
-        it), seeded weights (the same on every device), two Adams: (model,
-        disc, loss_cfg, geo, state)."""
+    def _ae_setup(device="cuda", lr=AE_LR, seed=0, yaml_path=AE_YAML, accumulate=1):
+        """An autoencoder YAML's VQModel (the kitti one unless ``yaml_path``),
+        its loss config and geometry, and JAX's discriminator (v1, 64
+        filters, 3 layers, as the CLI builds it), seeded weights (the same on
+        every device), two Adams: (model, disc, loss_cfg, geo, state)."""
         from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
         from lidar_layout_tpu_torch.losses.discriminator import LiDARNLayerDiscriminator
         from lidar_layout_tpu_torch.losses.geometric import GeoConverter
         from lidar_layout_tpu_torch.pipeline import geometry_from_config
         from lidar_layout_tpu_torch.train import ae_trainer as AT
 
-        cfg = load_yaml(AE_YAML)
+        cfg = load_yaml(yaml_path)
         loss_cfg = instantiate_from_config(cfg["model"]["params"]["lossconfig"])
         geo = GeoConverter(geometry_from_config(cfg), curve_length=loss_cfg.curve_length)
         model = seed_weights(instantiate_from_config(cfg["model"]), seed).to(device)
         disc = seed_weights(LiDARNLayerDiscriminator(
             AT.disc_in_channels(model.cfg.out_ch, loss_cfg, geo)), seed + 1).to(device)
-        return model, disc, loss_cfg, geo, AT.create_ae_state(model, disc, lr, lr)
+        return model, disc, loss_cfg, geo, AT.create_ae_state(model, disc, lr, lr, accumulate)
 
     @staticmethod
-    def _ae_batches(n, seed=6, device="cuda"):
-        """``n`` synthetic batches of AE_BATCH scenes in the AE YAML's
-        geometry, image (B, 64, 1024, 1)."""
+    def _ae_batches(n, seed=6, device="cuda", yaml_path=AE_YAML):
+        """``n`` synthetic batches of AE_BATCH scenes in an AE YAML's
+        geometry: image (B, 64, 1024, 1) for the kitti YAML."""
         from lidar_layout_tpu_torch.config import load_yaml
         from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
         from lidar_layout_tpu_torch.pipeline import geometry_from_config
 
-        rng, geom = np.random.default_rng(seed), geometry_from_config(load_yaml(AE_YAML))
+        rng, geom = np.random.default_rng(seed), geometry_from_config(load_yaml(yaml_path))
         return [synthetic_range_batch(rng, AE_BATCH, geom, device=device) for _ in range(n)]
 
     @staticmethod
@@ -2321,16 +2409,22 @@ class Smoke:
         Adam; on the card, K3's launches against the structure and hooks.
         At step 0 a control runs the card's step again with TF32 on for
         matmuls and cuDNN: the same gates must find it not correct."""
+        self._ae_slice("ae_train_slice", AE_YAML, tf32_control=True)
+
+    def _ae_slice(self, name, yaml_path, tf32_control):
+        """ae_train_slice's steps 0 and 2 for an AE YAML, card against CPU,
+        with the TF32 control at step 0 when ``tf32_control``."""
         import torch
         from lidar_layout_tpu_torch.train import ae_trainer as AT
         from torch_port_helpers import count_group_norms
 
-        batch = self._ae_batches(1, seed=4, device="cpu")[0]
+        batch = self._ae_batches(1, seed=4, device="cpu", yaml_path=yaml_path)[0]
         for step_no in (0, 2):
             runs = {}
-            for run in ("cuda", "cuda_tf32", "cpu") if step_no == 0 else ("cuda", "cpu"):
+            control = step_no == 0 and tf32_control
+            for run in ("cuda", "cuda_tf32", "cpu") if control else ("cuda", "cpu"):
                 dev = run.split("_")[0]
-                model, disc, loss_cfg, geo, state = self._ae_setup(dev)
+                model, disc, loss_cfg, geo, state = self._ae_setup(dev, yaml_path=yaml_path)
                 state.step = step_no
                 grads = {}
                 for part, opt, module in (("generator", state.opt_g, model),
@@ -2363,28 +2457,28 @@ class Smoke:
                                         for p_, m in (("generator", model),
                                                       ("discriminator", disc))
                                         for n, t_ in m.named_parameters()}}
-                log(f"ae_train_slice step {step_no} on {run}: {time.perf_counter() - t0:.1f} s; "
+                log(f"{name} step {step_no} on {run}: {time.perf_counter() - t0:.1f} s; "
                     + ", ".join(f"{k} {v:.6g}" for k, v in sorted(runs[run]["logs"].items())))
                 if dev == "cuda":
-                    log(f"ae_train_slice step {step_no} ({run}): K3 launches {launches}, hooks "
+                    log(f"{name} step {step_no} ({run}): K3 launches {launches}, hooks "
                         f"{hooked}, structure {structure} ({n_ae} autoencoder norms, {n_disc} "
                         f"in the discriminator)")
                     if not launches == hooked == structure:
-                        raise AssertionError("ae_train_slice: K3 launches differ from the "
-                                             "structure or the hooks")
+                        raise AssertionError(f"{name}: K3 launches differ from the "
+                                             f"structure or the hooks")
                 del model, disc, state
                 gc.collect()
                 torch.cuda.empty_cache()
-            if not self._compare_ae_runs(step_no, "f32", runs["cuda"], runs["cpu"]):
-                raise AssertionError(f"ae_train_slice step {step_no}: the card's AE step "
+            if not self._compare_ae_runs(step_no, "f32", runs["cuda"], runs["cpu"], name):
+                raise AssertionError(f"{name} step {step_no}: the card's AE step "
                                      f"disagrees with the CPU's")
-            if step_no == 0 and self._compare_ae_runs(step_no, "TF32 control",
-                                                      runs["cuda_tf32"], runs["cpu"]):
+            if control and self._compare_ae_runs(step_no, "TF32 control",
+                                                 runs["cuda_tf32"], runs["cpu"], name):
                 raise AssertionError("ae_train_slice: the gates pass the card's step with "
                                      "TF32 on; they cannot tell it from f32")
 
     @staticmethod
-    def _compare_ae_runs(step_no, label, g, c):
+    def _compare_ae_runs(step_no, label, g, c, name="ae_train_slice"):
         """The card's AE step ``g`` against the CPU's ``c`` (f32 on both;
         the two sum in other orders through ~60 layers forward and back):
         True when it agrees. Fixed gates, set from the f32 runs with room on
@@ -2430,7 +2524,7 @@ class Smoke:
         pmax = max(float(t_.abs().max()) for t_ in c["params"].values())
         far = float((upd > 0.01 * AE_LR).float().mean())
         ok = ok and float(upd.max()) <= 2 * AE_LR + 2 * EPS32 * pmax and far <= 1e-3
-        log(f"ae_train_slice step {step_no} {label} (GAN terms {'on' if gan_on else 'off'}): "
+        log(f"{name} step {step_no} {label} (GAN terms {'on' if gan_on else 'off'}): "
             f"{'correct' if ok else 'NOT correct'}; relative errors "
             + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rel.items()))
             + " (tol d_weight 1e-4, others 1e-5); " + "; ".join(parts)
@@ -2448,18 +2542,26 @@ class Smoke:
         rec_loss over 30 steps on one batch; then the CLI on the kitti and
         nuScenes YAMLs (--synthetic --steps 2), and the kitti run's
         checkpoint as the flagship LiDM's first stage, decoding."""
+        self.ae_train_launches, self.ae_shapes = self._ae_train_run("ae_train", AE_YAML)
+        self._ae_cli()
+
+    def _ae_train_run(self, name, yaml_path, accumulate=1, overfit=True):
+        """ae_train's timed steps (and, with ``overfit``, its overfit check)
+        for an AE YAML: (launches over the timed steps, K3's (forward,
+        backward) calls of one step by shape)."""
         import torch
         from lidar_layout_tpu_torch.ops import groupnorm as G
         from lidar_layout_tpu_torch.train import ae_trainer as AT
         from torch_port_helpers import count_group_norms
 
-        name, card = "ae_train", card_line()
+        card = card_line()
         t0 = time.perf_counter()
-        batches = self._ae_batches(3)
+        batches = self._ae_batches(3, yaml_path=yaml_path)
         torch.cuda.synchronize()
         log(f"{name}: {len(batches)} synthetic batches of {AE_BATCH} scenes in "
             f"{time.perf_counter() - t0:.1f} s")
-        model, disc, loss_cfg, geo, state = self._ae_setup()
+        model, disc, loss_cfg, geo, state = self._ae_setup(yaml_path=yaml_path,
+                                                           accumulate=accumulate)
         step = AT.make_ae_train_step(model, disc, loss_cfg, geo)
         gen = torch.Generator(device="cuda").manual_seed(0)
         structure, n_ae, n_disc = self._ae_structure(model, disc)
@@ -2470,7 +2572,6 @@ class Smoke:
         first = read_counts()
         hooked = {**{k: 0 for k in counters()}, "group_norm": sum(shapes[0].values()),
                   "group_norm_bwd": sum(shapes[1].values())}
-        self.ae_shapes = shapes
         step(state, batches[1], gen)                              # warm-up 2
         torch.cuda.synchronize()
         gc.collect()
@@ -2505,7 +2606,8 @@ class Smoke:
             for k in ("gen", "disc", "opt"):
                 phases[k] += tl[f"seconds_{k}"] / 3
         finite = all(bool(torch.isfinite(torch.stack(v)).all()) for v in losses)
-        log(f"{name} (kitti autoencoder_c2_p4.yaml, batch {AE_BATCH}, f32, TF32 off, "
+        log(f"{name} ({os.path.relpath(yaml_path, HERE)}, batch {AE_BATCH}, accumulate "
+            f"{accumulate}, f32, TF32 off, "
             f"{TRAIN_STEPS} steps): {TRAIN_STEPS / wall:.3f} steps/s, "
             f"{TRAIN_STEPS * AE_BATCH / wall:.2f} samples/s; phases per step (synchronised): "
             f"generator forward+backward with the adaptive weight {phases['gen']:.4f} s, "
@@ -2522,12 +2624,14 @@ class Smoke:
         if sum(plain.values()) or not finite:
             raise AssertionError(f"{name}: plain GroupNorm ran {dict(plain)}, or a loss is "
                                  f"not finite")
-        self.ae_train_launches = got
         del model, disc, state, step, timed
         gc.collect()
+        if not overfit:
+            torch.cuda.empty_cache()
+            return got, shapes
 
         # overfit check: one fixed batch, fresh weights, lr 1e-4
-        model, disc, loss_cfg, geo, state = self._ae_setup(lr=OVERFIT_LR)
+        model, disc, loss_cfg, geo, state = self._ae_setup(lr=OVERFIT_LR, yaml_path=yaml_path)
         step = AT.make_ae_train_step(model, disc, loss_cfg, geo)
         curve = []
         for i in range(OVERFIT_STEPS + 1):
@@ -2542,25 +2646,24 @@ class Smoke:
         del model, disc, state, step, batches
         gc.collect()
         torch.cuda.empty_cache()
-        self._ae_cli()
+        return got, shapes
 
-    @staticmethod
-    def _ae_cli():
+    def _ae_cli(self):
         """train_lidm --synthetic --steps 2 on the kitti and nuScenes AE
         YAMLs (full width, on the card), then the kitti run's checkpoint
         read by load_first_stage_params as the flagship LiDM's first stage
         (the LiDM YAML with the AE YAML's ddconfig, codebook and mask
         setting: the AE YAML trains a 1-channel decoder, the LiDM YAML names
-        a 2-channel one; ROADMAP section 3) and two decoded images."""
+        a 2-channel one; ROADMAP section 3) and two decoded images. The
+        kitti run stays for the ae_eval phase (``self.ae_run``)."""
         import shutil
-        import tempfile
 
         import torch
         from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
         from lidar_layout_tpu_torch.train import checkpoint as CK
         from lidar_layout_tpu_torch.train import train_lidm as TL
 
-        tmp = tempfile.mkdtemp(prefix="ae_train_")
+        tmp = self.tmp_dir("ae_train_")
         try:
             for data, yaml_path in (("kitti", AE_YAML), ("nuscenes", AE_NUSC_YAML)):
                 run = os.path.join(tmp, data)
@@ -2598,29 +2701,30 @@ class Smoke:
                 raise AssertionError("ae_train: the run's checkpoint did not load as a first "
                                      "stage or decoded bad images")
             del model, img
+            self.ae_run = os.path.join(tmp, "kitti")
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+            shutil.rmtree(os.path.join(tmp, "nuscenes"), ignore_errors=True)
             gc.collect()
             torch.cuda.empty_cache()
 
-    def _timing_ae(self, gen):
-        """K3 forward and backward at the AE step's shapes in f32, summed
-        over the ae_train phase's 10 timed steps: (forward totals, backward
-        totals)."""
+    def _timing_ae(self, gen, shapes=None, label="AE"):
+        """K3 forward and backward at an AE step's shapes in f32 (``shapes``,
+        the kitti AE's by default), summed over the 10 timed steps:
+        (forward totals, backward totals)."""
         import torch
 
-        fwd, bwd = self._ae_shapes()
+        fwd, bwd = self._ae_shapes() if shapes is None else shapes
         tots = []
         for counts, fn, what in ((fwd, self._time_k3, "forward"),
                                  (bwd, self._time_k3_bwd, "backward")):
-            log(f"  K3 {what} at the AE training step's shapes (f32):")
+            log(f"  K3 {what} at the {label} training step's shapes (f32):")
             tot = collections.Counter()
             for (b, c, hh, ww, groups, act, eps), count in sorted(counts.items()):
                 t = fn(gen, (b, c, hh, ww, groups, act), f"eps={eps:g} x{count}/step",
                        dtype=torch.float32, eps=eps)
                 for k, v in t.items():
                     tot[k] += count * v * TRAIN_STEPS
-            log(f"  K3 {what} over the AE's {TRAIN_STEPS} timed steps ({sum(counts.values())} "
+            log(f"  K3 {what} over the {label}'s {TRAIN_STEPS} timed steps ({sum(counts.values())} "
                 f"calls a step, f32): kernel {tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | "
                 f"plain {tot['plain_ms']:.3f} | library {tot['library_ms']:.3f} "
                 f"({tot['ms'] / tot['library_ms']:.3f}x) | bound {tot['bound_ms']:.3f} (kernel "
@@ -2628,6 +2732,693 @@ class Smoke:
             tots.append(tot)
             torch.cuda.empty_cache()
         return tots
+
+    # ------------------------------------------------------ the coarse stage
+    @staticmethod
+    def _coarse_ldm(device="cuda", dtype=None):
+        """The coarse LiDM of its YAML at full width (the U-Net 128 wide, the
+        first stage with its ray-drop head), seeded weights."""
+        import torch
+        from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
+
+        model = instantiate_from_config(load_yaml(COARSE_LDM_YAML)["model"],
+                                        dtype=dtype or torch.float32)
+        return seed_weights(model, 0).to(device)
+
+    @staticmethod
+    def _coarse_batches(n, batch, seed=6, device="cuda"):
+        """``n`` synthetic nusc_range batches at the coarse 8x256 geometry
+        (the YAML's dataset block)."""
+        from lidar_layout_tpu_torch.config import load_yaml
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_range_batch
+        from lidar_layout_tpu_torch.pipeline import geometry_from_config
+
+        rng = np.random.default_rng(seed)
+        geom = geometry_from_config(load_yaml(COARSE_LDM_YAML))
+        return [synthetic_range_batch(rng, batch, geom, device=device) for _ in range(n)]
+
+    def _coarse_shapes(self):
+        """The coarse paths' kernel calls by shape, from module hooks: one
+        DPM-20 request at batch 16 in bf16 (K1, K3), one LiDM training step
+        at batch 16 under bf16 autocast (K1, K2, K3 forward and backward),
+        one AE training step at batch 4 in f32 (K3 forward and backward)."""
+        if self.coarse_shapes is None:
+            import torch
+            from lidar_layout_tpu_torch.train import ae_trainer as AT
+            from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+            from torch_port_helpers import count_group_norms
+
+            model = self._coarse_ldm(dtype=torch.bfloat16).eval()
+            request, where = self._request_shapes(model)
+            del model
+            model = self._coarse_ldm()
+            params = DT.trainable_params(model)
+            state = DT.create_train_state(model, DT.make_optimizer(params, COARSE_LR), params)
+            train, hooks = self._train_hooks(model)
+            DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
+                state, self._coarse_batches(1, TRAIN_BATCH)[0],
+                torch.Generator(device="cuda").manual_seed(0))
+            for hk in hooks:
+                hk.remove()
+            del model, state, params
+            model, disc, loss_cfg, geo, state = self._ae_setup(yaml_path=COARSE_AE_YAML)
+            with count_group_norms(model, disc) as ae:
+                AT.make_ae_train_step(model, disc, loss_cfg, geo)(
+                    state, self._ae_batches(1, yaml_path=COARSE_AE_YAML)[0],
+                    torch.Generator(device="cuda").manual_seed(0))
+            self.coarse_shapes = {"request": request, "where": where, "train": train, "ae": ae}
+            del model, disc, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            for name, cnt in request.items():
+                log(f"coarse {name} launches per DPM-20 request (batch {BATCH}): "
+                    f"{sum(cnt.values())} over shapes {dict(sorted(cnt.items()))}")
+        return self.coarse_shapes
+
+    def _kernels_coarse(self):
+        """K1 and K2 at the coarse LiDM's attention shapes (S = 128 at 4x32,
+        S = 32 at 2x16, S = 8 in the middle block), f32 and bf16, each against
+        its plain version and bit for bit over two launches; K3 forward and
+        backward at every group shape of the coarse paths (the U-Net and the
+        decoder in bf16, the AE step in f32), against the plain versions,
+        the backward bit for bit over two launches, with the path each
+        takes."""
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+        from torch_port_helpers import attn_inputs
+
+        shapes = self._coarse_shapes()
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(12)
+        attn = sorted(set(shapes["request"]["flash_attention"])
+                      | set(shapes["train"]["flash_attention_bwd"]))
+        tol1 = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+        tol2 = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+        log(f"K1 and K2 at the coarse LiDM's attention shapes {attn}:")
+        for dtype in (torch.float32, torch.bfloat16):
+            for (b, h, s, d) in attn:
+                q, k, v, _ = attn_inputs(gen, b, h, s, d, dtype, False, False)
+                what = f"{(b, h, s, d)} {str(dtype)[6:]} (coarse)"
+                self._check_coarse("flash_attention", A.flash_attention(q, k, v),
+                                   A._attend_ref(q, k, v), *tol1[dtype], what)
+                o, lse = A._launch(q, k, v, None, with_lse=True)
+                o2, lse2 = A._launch(q, k, v, None, with_lse=True)
+                do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+                got = A.flash_attention_bwd(q, k, v, o, do, lse)
+                want = A._attend_bwd_ref(q, k, v, o, do, lse)
+                for part, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+                    self._check_coarse("flash_attention_bwd", g_, w_, *tol2[dtype],
+                                       f"{part} {what}")
+                again = A.flash_attention_bwd(q, k, v, o, do, lse)
+                torch.cuda.synchronize()
+                same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                        and all(torch.equal(a_, g_) for a_, g_ in zip(again, got)))
+                log(f"  {what}: two launches of K1 and of K2 bit for bit equal: {same}")
+                if not same:
+                    raise AssertionError(f"K1 or K2 is not deterministic at {what}")
+        gn = {(*key[:5], torch.bfloat16, 1e-6) for key in shapes["request"]["group_norm"]}
+        gn |= {(*key[:5], torch.bfloat16, 1e-6) for key in shapes["train"]["group_norm_bwd"]}
+        gn |= {(*key[:5], torch.float32, key[6]) for key in set(shapes["ae"][0])
+               | set(shapes["ae"][1])}
+        log(f"K3 forward and backward at every group shape of the coarse paths "
+            f"({len(gn)} shapes):")
+        for (b, c, hh, ww, groups, dtype, eps) in sorted(gn, key=str):
+            x = (torch.randn((b, c, hh, ww), generator=gen, device=dev) * 2 + 0.3).to(dtype)
+            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+            dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+            f32 = dtype == torch.float32
+            what = (f"{(b, c, hh, ww)} G={groups} {str(dtype)[6:]} eps={eps:g} (paths: forward "
+                    f"{path_name(G.kernel_path(dtype, c, hh * ww, groups))}, backward "
+                    f"{path_name(G.kernel_path(dtype, c, hh * ww, groups, True))})")
+            for act in (False, True):
+                self._check_coarse("group_norm", G.group_norm(x, gamma, beta, groups, eps, act),
+                                   G._ref(x, gamma, beta, groups, eps, act),
+                                   *((1e-4, 1e-5) if f32 else (2e-2, 1e-2)),
+                                   f"{what} act={act}")
+                got = G.group_norm_bwd(x, gamma, beta, dy, groups, eps, act)
+                want = G._group_norm_bwd_ref(x, gamma, beta, dy, groups, eps, act)
+                for part, g_, w_, t_ in zip(("dx", "dgamma", "dbeta"), got, want,
+                                            ((1e-4, 1e-4) if f32 else (2e-2, 1e-2),
+                                             (1e-3, 1e-4), (1e-3, 1e-4))):
+                    self._check_coarse("group_norm_bwd", g_, w_, *t_, f"{part} {what} act={act}")
+                again = G.group_norm_bwd(x, gamma, beta, dy, groups, eps, act)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a_, g_) for a_, g_ in zip(again, got)):
+                    raise AssertionError(f"K3's backward is not deterministic at {what}")
+            del x, dy, got, want, again
+        torch.cuda.empty_cache()
+
+    def _check_coarse(self, name, got, want, atol, rtol, what):
+        self._check(name, got, want, atol, rtol, what, record=False)
+        key = f"coarse_{name}"
+        self.kernel_err[key] = max(self.kernel_err.get(key, 0.0), max_err(got, want)[0])
+
+    def coarse_slice(self):
+        """Card against CPU at full width, f32, TF32 off: the coarse AE's
+        VQ-GAN step at batch 4 from the same weights (ae_train_slice's gates
+        at steps 0 and 2, K3's launches against the structure and hooks);
+        the coarse LiDM's apply_model and a DDIM-3 + decode at batch 4 (the
+        latent within 1e-3 of its largest value, the ray-drop mask in 99.9%
+        agreement, kept pixels within 1e-3), and one training step at batch 4
+        (train_slice's gates: loss, U-Net gradients, parameters and EMA)."""
+        import torch
+        from lidar_layout_tpu_torch.models.samplers import ddim_sample
+
+        self._ae_slice("coarse_slice AE", COARSE_AE_YAML, tf32_control=False)
+        models = {dev: self._coarse_ldm(dev).eval() for dev in ("cuda", "cpu")}
+        gen = torch.Generator().manual_seed(3)
+        lh, lw, lc = models["cpu"].cfg.latent_shape
+        x = torch.randn((4, lh, lw, lc), generator=gen)
+        t = torch.tensor([10, 250, 600, 990])
+        out = {}
+        for dev, model in models.items():
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                eps = model.apply_model(x.to(dev), t.to(dev))
+                z = ddim_sample(model, x.shape, steps=3, x_T=x, device=dev)
+                img = model.decode_first_stage(z)
+            out[dev] = (eps.cpu(), z.cpu(), img.cpu())
+            log(f"coarse_slice LiDM on {dev}: {time.perf_counter() - t0:.1f} s")
+        with torch.inference_mode():   # the card's latent decoded on the CPU too
+            img_same = models["cpu"].decode_first_stage(out["cuda"][1])
+        (eps_g, z_g, img_g), (eps_c, z_c, _) = out["cuda"], out["cpu"]
+        eps_rel = float((eps_g - eps_c).norm() / eps_c.norm())
+        zerr, zscale = max_err(z_g, z_c)
+        drop_g, drop_c = img_g == -1.0, img_same == -1.0
+        agree = float((drop_g == drop_c).float().mean())
+        both = ~drop_g & ~drop_c
+        kept = float((img_g - img_same).abs()[both].max())
+        log(f"coarse_slice LiDM (batch 4, f32): apply_model relative L2 error {eps_rel:.3e} "
+            f"(tol 1e-4); DDIM-3 latent max_abs_err {zerr:.3e} (|z|max {zscale:.3e}); decode "
+            f"{tuple(img_g.shape)}: ray-drop share {float(drop_g.float().mean()):.4f}, mask "
+            f"agreement {agree:.6f}, kept-pixel max_abs_err {kept:.3e}")
+        if not (eps_rel <= 1e-4 and zerr <= 1e-3 * max(zscale, 1.0) and agree >= 0.999
+                and kept <= 1e-3 and tuple(img_g.shape) == (4, 8, 256, 1)
+                and bool(torch.isfinite(img_g).all()) and 0 < float(drop_g.float().mean()) < 1):
+            raise AssertionError("coarse_slice: the card's LiDM disagrees with the CPU's")
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = self._coarse_batches(1, 4, seed=4, device="cpu")[0]
+        self._slice_step("coarse_slice LiDM step", lambda dev: self._coarse_ldm(dev), batch,
+                         [("U-Net", lambda k: True)], lr=COARSE_LR)
+
+    def coarse(self):
+        """The coarse stage at full width on the card: serving, LiDM
+        training, AE training, and the CLI (_coarse_serve, _coarse_train,
+        _ae_train_run, _coarse_cli)."""
+        self._coarse_serve()
+        self._coarse_train()
+        self.coarse_ae_train_launches, shapes = self._ae_train_run(
+            "coarse AE train", COARSE_AE_YAML, accumulate=2, overfit=False)
+        self.coarse_shapes = {**self._coarse_shapes(), "ae": shapes}
+        self._coarse_cli()
+
+    def _coarse_serve(self):
+        """GenerationPipeline.from_config of the coarse LiDM YAML in bf16,
+        seeded weights: generate(32) at batch 16 with DPM-20 and DDIM-50;
+        the geometry from the YAML's dataset block, samples/s and the split
+        into sample, decode and reproject, peak memory, finite (32, 8, 256, 1)
+        images with ray-drop pixels, K1 and K3 launches against the
+        structure and module hooks (no K2, no K4)."""
+        import torch
+        from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+        from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+
+        card = card_line()
+        pipe = GenerationPipeline.from_config(COARSE_LDM_YAML, bf16=True, device="cuda")
+        model = seed_weights(pipe.model, 0)
+        g = pipe.geom
+        log(f"coarse: from_config geometry size {g.size}, fov {g.fov}, depth_range "
+            f"{g.depth_range}; first stage use_mask={model.first_stage_model.use_mask}, out_ch "
+            f"{model.first_stage_model.cfg.out_ch}; latent {model.cfg.latent_shape}")
+        if (tuple(g.size), tuple(g.fov), tuple(g.depth_range)) != ((8, 256), (10, -30),
+                                                                   (1.0, 56.0)):
+            raise AssertionError("coarse: from_config did not take the YAML's geometry")
+        n_attn = sum(isinstance(m, SelfAttentionBlock) for m in model.unet.modules())
+        unet_norms = sum(isinstance(m, Normalize) for m in model.unet.modules())
+        dec_norms = sum(isinstance(m, Normalize)
+                        for m in model.first_stage_model.decoder.modules())
+        hooked = self._coarse_shapes()["request"]
+        for sampler, steps in (("dpm", 20), ("ddim", 50)):
+            pipe.sampler, pipe.steps = sampler, steps
+            pipe.generate(BATCH, seed=99)        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            res = pipe.generate(N_MAIN, seed=0, batch=BATCH)
+            got = read_counts()
+            batches, evals = N_MAIN // BATCH, unet_evals(model, steps)
+            want = {k: 0 for k in counters()}
+            want.update(flash_attention=batches * evals * n_attn,
+                        group_norm=batches * (evals * unet_norms + dec_norms))
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            imgs = res.images
+            drop = float((imgs == -1.0).mean())
+            log(f"coarse {sampler}-{steps} (generate({N_MAIN}), batch {BATCH}, bf16): images "
+                f"{imgs.shape} finite={bool(np.isfinite(imgs).all())} ray-drop share {drop:.4f}; "
+                f"clouds {len(res.clouds)} (median {int(np.median([len(c) for c in res.clouds]))}"
+                f" points); {res.samples_per_sec:.3f} samples/s; phases "
+                + ", ".join(f"{k} {v:.4f} s" for k, v in res.phase_seconds.items())
+                + f"; peak memory {mem:.2f} GiB; launches {got}, structure {want} ({n_attn} "
+                f"attention blocks and {unet_norms} norms a U-Net eval, {evals} evals, "
+                f"{dec_norms} decoder norms); card {card}")
+            if imgs.shape != (N_MAIN, 8, 256, 1) or not np.isfinite(imgs).all() \
+                    or len(res.clouds) != N_MAIN or not 0 < drop < 1:
+                raise AssertionError(f"coarse {sampler}: bad output")
+            if got != want:
+                raise AssertionError(f"coarse {sampler}: launches {got} != structure {want}")
+            if sampler == "dpm":
+                per_request = {"flash_attention": sum(hooked["flash_attention"].values()),
+                               "group_norm": sum(hooked["group_norm"].values())}
+                if {k: v * batches for k, v in per_request.items()} != \
+                        {k: got[k] for k in per_request}:
+                    raise AssertionError(f"coarse: launches {got} != module hooks "
+                                         f"{per_request} a request")
+                self.coarse_launches = got
+        del pipe, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def _coarse_train(self):
+        """The coarse LiDM's training step at batch 16, bf16 autocast, f32
+        weights, synthetic 8x256 scenes: steps/s, the phase split, peak
+        memory, launches per step against the structure (every U-Net
+        attention forward and backward, every U-Net norm forward and
+        backward, every frozen VQ encoder norm forward) and module hooks, no
+        plain GroupNorm backward, finite losses."""
+        import torch
+        from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        card = card_line()
+        batches = self._coarse_batches(3, TRAIN_BATCH)
+        model = self._coarse_ldm()
+        params = DT.trainable_params(model)
+        state = DT.create_train_state(model, DT.make_optimizer(params, COARSE_LR), params)
+        step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        n_attn = sum(isinstance(m, SelfAttentionBlock) for m in model.unet.modules())
+        unet_norms = sum(isinstance(m, Normalize) for m in model.unet.modules())
+        enc_norms = sum(isinstance(m, Normalize)
+                        for m in model.first_stage_model.encoder.modules())
+        structure = {k: 0 for k in counters()}
+        structure.update(flash_attention=n_attn, flash_attention_bwd=n_attn,
+                         group_norm=unet_norms + enc_norms, group_norm_bwd=unet_norms)
+        hooked = {k: sum(v.values()) for k, v in self._coarse_shapes()["train"].items()}
+        step(state, batches[0], gen)
+        step(state, batches[1], gen)                    # two warm-ups
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        plain, real = [0], G._group_norm_bwd_ref
+
+        def counting(*a, **k):
+            plain[0] += 1
+            return real(*a, **k)
+        G._group_norm_bwd_ref = counting
+        try:
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                state, logs = step(state, batches[i % len(batches)], gen)
+                losses.append(logs["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            G._group_norm_bwd_ref = real
+        got = read_counts()
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = {k: v / TRAIN_STEPS for k, v in got.items()}
+        timed = DT.make_train_step(model, autocast_dtype=torch.bfloat16, timed=True)
+        phases = collections.Counter()
+        for i in range(3):
+            state, tl = timed(state, batches[i], gen)
+            for k in ("encode", "fwd_bwd", "opt_ema"):
+                phases[k] += tl[f"seconds_{k}"] / 3
+        finite = bool(torch.isfinite(torch.stack(losses)).all())
+        log(f"coarse train (LiDM, batch {TRAIN_BATCH}, bf16 autocast, f32 weights, "
+            f"{TRAIN_STEPS} steps): {TRAIN_STEPS / wall:.3f} steps/s, "
+            f"{TRAIN_STEPS * TRAIN_BATCH / wall:.2f} samples/s; phases per step (synchronised): "
+            f"encode {phases['encode']:.4f} s, forward+backward {phases['fwd_bwd']:.4f} s, "
+            f"optimizer+EMA {phases['opt_ema']:.4f} s; peak memory {mem:.2f} GiB; launches per "
+            f"step {per_step} (structure {structure}, hooks {hooked}); plain GroupNorm backward "
+            f"calls {plain[0]}; last loss {float(losses[-1]):.5f} finite={finite}; card {card}")
+        if per_step != {k: float(v) for k, v in structure.items()} or hooked != structure:
+            raise AssertionError(f"coarse train: launches per step {per_step}, hooks {hooked}, "
+                                 f"structure {structure} differ")
+        if plain[0] or not finite:
+            raise AssertionError("coarse train: the plain GroupNorm backward ran, or a loss "
+                                 "is not finite")
+        self.coarse_train_launches = got
+        del model, state, step, timed, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def _coarse_cli(self):
+        """train_lidm --synthetic on the card: range_256x8.yaml and
+        range_flow.yaml for 2 steps each (f32, batch 4, accumulate 2; the
+        image logger on), then the coarse LiDM YAML for 2 steps over the
+        coarse AE run's checkpoint (its ddconfig without the mask head, as
+        the flagship's first stage over the kitti AE run), with the logger's
+        DDIM inpainting."""
+        import torch
+        from lidar_layout_tpu_torch.train import checkpoint as CK
+        from lidar_layout_tpu_torch.train import train_lidm as TL
+
+        tmp = self.tmp_dir("coarse_")
+        fs = "model.params.first_stage_config.params."
+        runs = (("range_256x8", COARSE_AE_YAML, []), ("range_flow", RANGE_FLOW_YAML, []),
+                ("coarse_ldm", COARSE_LDM_YAML,
+                 [f"{fs}ckpt_path=" + CK.checkpoint_path(os.path.join(tmp, "range_256x8",
+                                                                      "ckpt"), 2),
+                  f"{fs}use_mask=false", f"{fs}ddconfig.out_ch=1", "--bf16"]))
+        for name, yaml_path, extra in runs:
+            run = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            trainer = TL.main(["-b", yaml_path, "--synthetic", "--steps", "2", "--workdir", run,
+                               *extra])
+            dev = next(trainer.state.model.parameters()).device
+            images = sorted(os.listdir(os.path.join(run, "images")))
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                last = json.loads(f.read().splitlines()[-1])
+            log(f"coarse: train_lidm -b {os.path.relpath(yaml_path, HERE)} --synthetic --steps 2 "
+                f"{' '.join(extra)} in {time.perf_counter() - t0:.1f} s on {dev}; images "
+                f"{images[:8]}...; last metrics {last}")
+            val = [v for k, v in last.items() if k.startswith("val/")]
+            if trainer.global_step != 2 or dev.type != "cuda" or not images or not val \
+                    or not all(np.isfinite(val)):
+                raise AssertionError(f"coarse: the CLI did not train {name} on the card")
+            if name == "coarse_ldm" and "samples_inpainting_0000002.npy" not in images:
+                raise AssertionError("coarse: the LiDM's image logger wrote no inpainting")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- the cube stage
+    @staticmethod
+    def _cube_ldm(device="cuda"):
+        """The cube latent diffusion of its YAML with its first stage (the
+        voxel_1024 SparseVAE), torch's initial weights under seed 0, the
+        zero-initialised layers (each attention's ``proj``, the U-Net's
+        ``out``) lifted to N(0, 0.05) so that a comparison sees every layer."""
+        import torch
+        from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = instantiate_from_config(load_yaml(VOXEL_LDM_YAML)["model"])
+            with torch.no_grad():
+                for p in model.unet.parameters():
+                    if not p.any():
+                        torch.nn.init.normal_(p, std=0.05)
+            return model.to(device)
+
+    @staticmethod
+    def _clouds(n, seed, device="cuda"):
+        """``n`` synthetic nusc_cube clouds of CUBE_POINTS points (the
+        factory's fallback), as tensors."""
+        import torch
+        from lidar_layout_tpu_torch.data.factory import synthetic_cloud_batch
+
+        raw = synthetic_cloud_batch(np.random.default_rng(seed), n, CUBE_POINTS)
+        return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+
+    def cube_slice(self):
+        """The cube stage card against CPU at the full voxel_1024.yaml config
+        (the first stage of voxel_uncond_diffusion_256.yaml, which is the
+        same) on 2 synthetic clouds of 32,768 points, f32, TF32 off, from the
+        same weights and fed draws: the grids of every level, the point-to-
+        voxel map and the occupancy targets integer for integer; the
+        latent, the struct logits and the decoded features within 1e-4
+        relative L2; struct_loss per cloud within 1e-5 relative; the
+        SparseVAE's gradients within 1e-4 relative L2. Then, on the CPU's
+        latent grids: CubeDiffusion.p_losses with fed t and noise within
+        1e-5, the U-Net's gradients within 1e-4 relative L2, and a DDIM-5
+        from a fed x_T within 1e-4 relative L2, zero at padding rows."""
+        import torch
+        from lidar_layout_tpu_torch.config import cube_vae_cfg, load_yaml
+        from lidar_layout_tpu_torch.models.sparse_vae import struct_loss
+        from lidar_layout_tpu_torch.ops import voxel as V
+
+        clouds = self._clouds(2, 4, "cpu")
+        ref = self._cube_ldm("cpu")
+        # the diffusion YAML's first stage is voxel_1024.yaml's VAE, whose
+        # loss block (kl_weight 0.3) it leaves out
+        vcfg = cube_vae_cfg(load_yaml(VOXEL_YAML)["model"]["params"])
+        if dataclasses.replace(ref.first_stage_model.cfg, kl_weight=vcfg.kl_weight) != vcfg:
+            raise AssertionError("cube_slice: voxel_1024.yaml and the diffusion YAML's first "
+                                 "stage differ")
+        sd = ref.state_dict()
+        gen = torch.Generator().manual_seed(5)
+        top = vcfg.capacity(vcfg.num_levels - 1)
+        noise, eps, x_T = (torch.randn((2, top, vcfg.latent_dim), generator=gen)
+                           for _ in range(3))
+        t = torch.tensor([37, 612])
+        runs, grid_c, z_c = {}, None, None
+        for dev in ("cpu", "cuda"):
+            model = ref if dev == "cpu" else self._cube_ldm("cuda")
+            model.load_state_dict(sd)
+            vae = model.first_stage_model
+            b = {k: v.to(dev) for k, v in clouds.items()}
+            t0 = time.perf_counter()
+            out = vae(b["points"], b["feats"], b["mask"], noise=noise.to(dev))
+            losses, _ = struct_loss(out, vcfg.kl_weight)
+            losses.mean().backward()
+            _, p2v, cells = V.voxelize_points(b["points"], b["mask"], vcfg.voxel_size,
+                                              vcfg.capacity(0))
+            if grid_c is None:
+                grid_c = V.VoxelGrid(*(a.detach() for a in out["latent_grid"]))
+                z_c = out["latent"].detach()
+            grid = V.VoxelGrid(*(a.to(dev) for a in grid_c))
+            dloss, _ = model.p_losses(grid, z_c.to(dev), t=t.to(dev), noise=eps.to(dev))
+            dloss.mean().backward()
+            zs = model.ddim_sample(grid, steps=5, x_T=x_T.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = {
+                "ints": [a.cpu() for g in out["grids"] for a in g]
+                + [a.cpu() for a in out["struct_targets"]] + [p2v.cpu()],
+                "floats": {"latent": out["latent"], "decoded_feats": out["decoded_feats"],
+                           **{f"struct_logits_{i}": a for i, a in
+                              enumerate(out["struct_logits"])}, "ddim5": zs},
+                "losses": {"struct_loss": losses, "p_losses": dloss},
+                "grads": {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                          for n, p in model.named_parameters()},
+                "fill": [(int(g.mask[i].sum()), int(V.count_unique(cells >> lvl,
+                                                                     b["mask"])[i]))
+                         for i in range(2) for lvl, g in enumerate(out["grids"])]}
+            runs[dev]["floats"] = {k: v.detach().cpu() for k, v in runs[dev]["floats"].items()}
+            runs[dev]["losses"] = {k: v.detach().cpu() for k, v in runs[dev]["losses"].items()}
+            log(f"cube_slice on {dev}: {time.perf_counter() - t0:.1f} s; struct_loss "
+                f"{runs[dev]['losses']['struct_loss'].tolist()}, p_losses "
+                f"{runs[dev]['losses']['p_losses'].tolist()}; (rows used, distinct cells) by "
+                f"cloud and level {runs[dev]['fill']}")
+            del model, vae, out
+        g, c = runs["cuda"], runs["cpu"]
+        ints_ok = all(torch.equal(a, b_) for a, b_ in zip(g["ints"], c["ints"]))
+        rel = {k: float((g["floats"][k] - v).norm() / v.norm()) for k, v in c["floats"].items()}
+        lrel = {k: float(((g["losses"][k] - v).abs() / v.abs()).max())
+                for k, v in c["losses"].items()}
+        grads = {}
+        for part, pred in (("SparseVAE", lambda k: k.startswith("first_stage_model.")),
+                           ("U-Net", lambda k: k.startswith("unet."))):
+            keys = [k for k in c["grads"] if pred(k)]
+            num = sum(float((g["grads"][k] - c["grads"][k]).square().sum()) for k in keys)
+            den = sum(float(c["grads"][k].square().sum()) for k in keys)
+            grads[part] = (num / den) ** 0.5 if den > 0 else float("inf")
+        pad_zero = not bool(g["floats"]["ddim5"][~grid_c.mask].any())
+        ok = (ints_ok and all(v <= 1e-4 for v in rel.values())
+              and all(v <= 1e-5 for v in lrel.values()) and all(v <= 1e-4 for v in grads.values())
+              and pad_zero and all(bool(torch.isfinite(v).all()) for v in g["floats"].values()))
+        log(f"cube_slice (voxel_1024.yaml, 2 clouds of {CUBE_POINTS} points, f32): integers "
+            f"equal (grids of {vcfg.num_levels} levels, struct targets, point-to-voxel) "
+            f"{ints_ok}; relative L2 errors {rel} (tol 1e-4); losses' relative errors {lrel} "
+            f"(tol 1e-5); gradients' relative L2 {grads} (tol 1e-4); DDIM-5 zero at padding "
+            f"{pad_zero}: {'correct' if ok else 'NOT correct'}")
+        if not ok:
+            raise AssertionError("cube_slice: the card's cube stage disagrees with the CPU's")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def cube(self):
+        """The cube stage through train_lidm on the card: voxel_1024.yaml for
+        10 steps at batch 4 (32,768-point synthetic clouds), then
+        voxel_uncond_diffusion_256.yaml for 10 steps over that run (its
+        first stage from the run's checkpoint), autoencoder_cube.yaml for 2
+        steps. Then, on each trained state: 10 timed steps after 2 warm-ups
+        (steps/s, clouds/s, peak memory), the level fill per cloud (rows
+        used against capacity, and the distinct cells each level would
+        need), a DDIM-50 over the 4 encoded grids (finite, zero at padding),
+        and the kernel launches (none: JAX runs no Pallas kernel on this
+        path, and the port none)."""
+        import torch
+        from lidar_layout_tpu_torch.ops import voxel as V
+        from lidar_layout_tpu_torch.train import train_lidm as TL
+
+        card = card_line()
+        tmp = self.tmp_dir("cube_")
+        trainers = {}
+        for name, yaml_path, steps, extra in (
+                ("voxel_1024", VOXEL_YAML, TRAIN_STEPS, []),
+                ("voxel_uncond_diffusion_256", VOXEL_LDM_YAML, TRAIN_STEPS,
+                 ["model.params.first_stage_config.params.ckpt_path="
+                  + os.path.join(tmp, "voxel_1024")]),
+                ("autoencoder_cube", CUBE_AE_YAML, 2, [])):
+            run = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            trainer = TL.main(["-b", yaml_path, "--synthetic", "--steps", str(steps),
+                               "--workdir", run, *extra])
+            dev = next(trainer.state.model.parameters()).device
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                last = json.loads(f.read().splitlines()[-1])
+            log(f"cube: train_lidm -b {os.path.relpath(yaml_path, HERE)} --synthetic --steps "
+                f"{steps} in {time.perf_counter() - t0:.1f} s on {dev}; last metrics {last}")
+            val = [v for k, v in last.items() if k.startswith("val/")]
+            if trainer.global_step != steps or dev.type != "cuda" or not val \
+                    or not all(np.isfinite(val)):
+                raise AssertionError(f"cube: the CLI did not train {name} on the card")
+            trainers[name] = trainer
+        ldm = trainers["voxel_uncond_diffusion_256"].state.model
+        ae_sd = trainers["voxel_1024"].state.model.state_dict()
+        if not all(torch.equal(v, ae_sd[k]) for k, v in ldm.first_stage_model.state_dict()
+                   .items()):
+            raise AssertionError("cube: the diffusion's first stage is not the AE run's")
+        del trainers["autoencoder_cube"]
+        batches = [self._clouds(CUBE_BATCH, 20 + i) for i in range(3)]
+        reset_counts()
+        for name, trainer in trainers.items():
+            state, gen = trainer.state, trainer.generator
+            for i in range(2):
+                state, _ = trainer.step_fn(state, batches[i], gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                state, logs = trainer.step_fn(state, batches[i % len(batches)], gen)
+                losses.append(logs["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            finite = bool(torch.isfinite(torch.stack(losses)).all())
+            log(f"cube {name} step (batch {CUBE_BATCH} of {CUBE_POINTS} points, f32, "
+                f"{TRAIN_STEPS} steps): {TRAIN_STEPS / wall:.3f} steps/s, "
+                f"{TRAIN_STEPS * CUBE_BATCH / wall:.2f} clouds/s; peak memory {mem:.2f} GiB; "
+                f"last loss {float(losses[-1]):.5f} finite={finite}; card {card}")
+            if not finite:
+                raise AssertionError(f"cube {name}: a loss is not finite")
+        vae = ldm.first_stage_model
+        cfg = vae.cfg
+        with torch.no_grad():
+            b = batches[0]
+            out = vae(b["points"], b["feats"], b["mask"],
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+            _, _, cells = V.voxelize_points(b["points"], b["mask"], cfg.voxel_size,
+                                            cfg.capacity(0))
+            fill = [[(int(g.mask[i].sum()), cfg.capacity(lvl),
+                      int(V.count_unique(cells >> lvl, b["mask"])[i]))
+                     for lvl, g in enumerate(out["grids"])] for i in range(CUBE_BATCH)]
+            past = float((cells >= (1 << cfg.bits) - 1).any(-1)[b["mask"]].float().mean())
+            grid = out["latent_grid"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            zs = ldm.ddim_sample(grid, steps=CUBE_DDIM,
+                                 generator=torch.Generator(device="cuda").manual_seed(2))
+            torch.cuda.synchronize()
+            ddim_s = time.perf_counter() - t0
+        full = all(used == cap for cl in fill for used, cap, _ in cl)
+        finite = bool(torch.isfinite(zs).all())
+        pad_zero = not bool(zs[~grid.mask].any())
+        got = read_counts()
+        log(f"cube level fill by cloud, (rows used, capacity, distinct cells) at levels 0-2: "
+            f"{fill}; every level full: {full}; share of points at the 10-bit clip "
+            f"(coord 1023): {past:.4f}")
+        log(f"cube DDIM-{CUBE_DDIM} over the {CUBE_BATCH} encoded grids ({tuple(zs.shape)}): "
+            f"{ddim_s:.3f} s, {CUBE_BATCH / ddim_s:.3f} grids/s; finite={finite}, zero at "
+            f"padding {pad_zero}; kernel launches over the timed steps and DDIM {got} (the "
+            f"cube path runs none)")
+        if not finite or not pad_zero:
+            raise AssertionError("cube: DDIM-50 gave non-finite latents or wrote padding rows")
+        if any(got.values()):
+            raise AssertionError(f"cube: kernels launched on a path that has none: {got}")
+        self.cube_launches = got
+        del trainers, ldm, vae, out, zs, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- ae_eval
+    def ae_eval(self):
+        """eval_ae on the ae_train phase's kitti run (trained here through
+        the CLI for 2 steps when that phase did not run): -n 4 batches of
+        the YAML's 4 synthetic KITTI-geometry scans reconstructed on the
+        card, scored with CD (K4) and JSD; launches against the structure:
+        K3 once a batch for every norm of the autoencoder, K4 twice a pair."""
+        import torch
+        from lidar_layout_tpu_torch import eval_ae as EA
+        from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+        from lidar_layout_tpu_torch.train import train_lidm as TL
+
+        if self.ae_run is None:
+            self.ae_run = os.path.join(self.tmp_dir("ae_eval_"), "kitti")
+            TL.main(["-b", AE_YAML, "--synthetic", "--steps", "2", "--workdir", self.ae_run])
+            gc.collect()
+            torch.cuda.empty_cache()
+        cfg = load_yaml(AE_YAML)
+        n_norms = sum(isinstance(m, Normalize)
+                      for m in instantiate_from_config(cfg["model"]).modules())
+        n_batches, batch = 4, cfg["data"]["params"]["batch_size"]
+        want = {k: 0 for k in counters()}
+        want.update(group_norm=n_batches * n_norms, chamfer_nn=2 * n_batches * batch)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = EA.main(["-b", AE_YAML, "-r", self.ae_run, "-n", str(n_batches), "--metrics",
+                       "cd", "jsd"])
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        log(f"ae_eval: eval_ae -b {os.path.relpath(AE_YAML, HERE)} -r <the ae_train run> -n "
+            f"{n_batches} --metrics cd jsd in {wall:.1f} s: {res}; launches {got}, structure "
+            f"{want} ({n_norms} norms in the autoencoder, {n_batches * batch} pairs); card "
+            f"{card_line()}")
+        if got != want or sorted(res) != ["cd", "jsd"] or \
+                not all(np.isfinite(v) and v >= 0 for v in res.values()):
+            raise AssertionError(f"ae_eval: launches {got} != {want}, or bad scores {res}")
+        self.ae_eval_launches = got
+
+    def _timing_coarse(self, gen):
+        """K1, K2 and K3 at the coarse paths' shapes: K1 and K3 forward
+        summed over a coarse DPM-20 run (generate(32), batch 16), K2 and K3's
+        backward over the coarse LiDM's 10 timed training steps, K3 forward
+        and backward in f32 over the coarse AE's 10 timed steps."""
+        shapes = self._coarse_shapes()
+        log("  coarse LiDM, K1 at its request's shapes (bf16):")
+        k1 = self._time_k1(gen, shapes["request"]["flash_attention"], N_MAIN // BATCH,
+                           " (coarse)")
+        log("  coarse LiDM, K3 at its request's shapes (bf16):")
+        k3 = collections.Counter()
+        for key, count in sorted(shapes["request"]["group_norm"].items()):
+            for name, val in self._time_k3(gen, key, f"x{count}/request (coarse)").items():
+                k3[name] += count * val * (N_MAIN // BATCH)
+        k2 = self._timing_bwd(gen, shapes["train"]["flash_attention_bwd"],
+                              "coarse LiDM training step")
+        k3b = self._timing_gn_bwd(gen, shapes["train"], "coarse LiDM")
+        ae_f, ae_b = self._timing_ae(gen, shapes["ae"], "coarse AE")
+        for name, run, tot in (("flash_attention", "coarse", k1), ("group_norm", "coarse", k3),
+                               ("flash_attention_bwd", "coarse_train", k2),
+                               ("group_norm_bwd", "coarse_train", k3b),
+                               ("group_norm", "coarse_ae_train", ae_f),
+                               ("group_norm_bwd", "coarse_ae_train", ae_b)):
+            self.run_totals.setdefault(name, {})[run] = tot
+            log(f"  {name} over the {run} run (sum over shapes of launches x time): kernel "
+                f"{tot['ms']:.3f} ms | plain {tot['plain_ms']:.3f} | library "
+                f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | bound "
+                f"{tot['bound_ms']:.3f}")
 
     # ------------------------------------------------------------------ timing
     def timing(self):
@@ -2645,39 +3436,8 @@ class Smoke:
             f"back-to-back calls; K1/K2 and SDPA the median of 3 rounds in turns); 'events' "
             f"is the wall time per call from CUDA events, which includes the host's launch "
             f"rate; clocks at the start: {clock_line()}")
-        # K1
-        tot = collections.Counter()
-        for (b, h, s, d), count in sorted(shapes["flash_attention"].items()):
-            q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
-                       .to(torch.bfloat16) for _ in range(3))
-            cost = A.attention_cost(b, h, s, d, 2)
-            flops, nbytes = cost["flops"], cost["bytes"]
-            kms, lms, krounds, lrounds = paired_ms(
-                lambda: A.flash_attention(q, k, v),
-                lambda: F.scaled_dot_product_attention(q, k, v), 20)
-            t = {"ms": kms, "events_ms": cuda_time(lambda: A.flash_attention(q, k, v), 20),
-                 "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 5), "library_ms": lms,
-                 "first_ms": krounds[0], "first_library_ms": lrounds[0]}
-            bound_flops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            t["bound_ms"] = max(bound_flops, bound_bytes)
-            t["sfu_ms"] = cost["transcendentals"] / sfu_ex2_per_ms()
-            log(f"  K1 {(b, h, s, d)} bf16 x{count}/request: kernel {t['ms']:.4f} (events "
-                f"{t['events_ms']:.4f}) | plain "
-                f"{t['plain_ms']:.4f} | sdpa {t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x)"
-                f" | bound {t['bound_ms']:.4f} "
-                f"({'operations' if bound_flops >= bound_bytes else 'bytes'}; "
-                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; kernel at "
-                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) | SFU floor {t['sfu_ms']:.4f} "
-                f"({cost['transcendentals'] / 1e6:.0f} M exp2; kernel at "
-                f"{100 * t['sfu_ms'] / t['ms']:.1f}% of it) | {flops / t['ms'] / 1e9:.1f} TFLOP/s"
-                f" | rounds kernel {[round(x, 4) for x in krounds]} sdpa "
-                f"{[round(x, 4) for x in lrounds]} (first round alone "
-                f"{krounds[0] / lrounds[0]:.3f}x) | clocks {clock_line()}")
-            for key, val in t.items():
-                tot[key] += count * val * (N_MAIN // BATCH)
-            tot["bound_ops_ms"] += count * bound_flops * (N_MAIN // BATCH)
-            tot["bound_bytes_ms"] += count * bound_bytes * (N_MAIN // BATCH)
-        totals["flash_attention"] = tot
+        totals["flash_attention"] = self._time_k1(gen, shapes["flash_attention"],
+                                                  N_MAIN // BATCH)
         # K3, by shape and by class (where the launches come from, and the
         # size of a group's span)
         tot = collections.Counter()
@@ -2729,6 +3489,7 @@ class Smoke:
         ae_fwd, ae_bwd = self._timing_ae(gen)
         self.run_totals["group_norm"]["ae_train"] = ae_fwd
         self.run_totals["group_norm_bwd"]["ae_train"] = ae_bwd
+        self._timing_coarse(gen)
         totals["chamfer_nn"] = self._timing_chamfer()
         for name, fn in counters().items():
             fn.launches = saved[name]
@@ -2750,6 +3511,48 @@ class Smoke:
         log(f"  timings taken with CUDA events because torch.profiler saw no device "
             f"time: {len(EVENT_TIMINGS)} {EVENT_TIMINGS}")
         self.totals = totals
+
+    def _time_k1(self, gen, counts, runs, label=""):
+        """K1 in bf16 at each shape of ``counts`` (launches a request): the
+        kernel beside SDPA in turns, the plain version, the bound and the
+        SFU floor; summed over ``runs`` requests."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import attention as A
+
+        dev = torch.device("cuda")
+        tot = collections.Counter()
+        for (b, h, s, d), count in sorted(counts.items()):
+            q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            cost = A.attention_cost(b, h, s, d, 2)
+            flops, nbytes = cost["flops"], cost["bytes"]
+            kms, lms, krounds, lrounds = paired_ms(
+                lambda: A.flash_attention(q, k, v),
+                lambda: F.scaled_dot_product_attention(q, k, v), 20)
+            t = {"ms": kms, "events_ms": cuda_time(lambda: A.flash_attention(q, k, v), 20),
+                 "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 5), "library_ms": lms,
+                 "first_ms": krounds[0], "first_library_ms": lrounds[0]}
+            bound_flops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            t["bound_ms"] = max(bound_flops, bound_bytes)
+            t["sfu_ms"] = cost["transcendentals"] / sfu_ex2_per_ms()
+            log(f"  K1 {(b, h, s, d)} bf16 x{count}/request{label}: kernel {t['ms']:.4f} (events "
+                f"{t['events_ms']:.4f}) | plain "
+                f"{t['plain_ms']:.4f} | sdpa {t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x)"
+                f" | bound {t['bound_ms']:.4f} "
+                f"({'operations' if bound_flops >= bound_bytes else 'bytes'}; "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; kernel at "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) | SFU floor {t['sfu_ms']:.4f} "
+                f"({cost['transcendentals'] / 1e6:.0f} M exp2; kernel at "
+                f"{100 * t['sfu_ms'] / t['ms']:.1f}% of it) | {flops / t['ms'] / 1e9:.1f} TFLOP/s"
+                f" | rounds kernel {[round(x, 4) for x in krounds]} sdpa "
+                f"{[round(x, 4) for x in lrounds]} (first round alone "
+                f"{krounds[0] / lrounds[0]:.3f}x) | clocks {clock_line()}")
+            for key, val in t.items():
+                tot[key] += count * val * runs
+            tot["bound_ops_ms"] += count * bound_flops * runs
+            tot["bound_bytes_ms"] += count * bound_bytes * runs
+        return tot
 
     def _time_k3(self, gen, key, label, dtype=None, eps=1e-6):
         """K3 forward at one shape (bf16 unless ``dtype``): device ms of the
@@ -2795,16 +3598,19 @@ class Smoke:
             f"({100 * t['bound_ms'] / t['copy_ms']:.1f}% of the bound)")
         return t
 
-    def _timing_bwd(self, gen):
-        """K2 at the training step's shapes: kernel, plain version, the
-        backward of scaled_dot_product_attention, and the bound."""
+    def _timing_bwd(self, gen, counts=None, label="training step"):
+        """K2 at a training step's shapes (``counts``, the flagship's by
+        default): kernel, plain version, the backward of
+        scaled_dot_product_attention, and the bound; summed over
+        TRAIN_STEPS steps."""
         import torch
         import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import attention as A
 
         dev = torch.device("cuda")
         tot = collections.Counter()
-        for (b, h, s, d), count in sorted(self._train_shapes()["flash_attention_bwd"].items()):
+        counts = self._train_shapes()["flash_attention_bwd"] if counts is None else counts
+        for (b, h, s, d), count in sorted(counts.items()):
             q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
                            .to(torch.bfloat16) for _ in range(4))
             o, lse = A._launch(q, k, v, None, with_lse=True)
@@ -2839,7 +3645,7 @@ class Smoke:
             tot["bound_ops_ms"] += count * bound_flops * TRAIN_STEPS
             tot["bound_bytes_ms"] += count * bound_bytes * TRAIN_STEPS
             del q, k, v, do, o, lse, ql, kl, vl, out
-        log(f"  K2 per training step (sum over shapes): kernel {tot['step_ms']:.3f} ms | plain "
+        log(f"  K2 per {label} (sum over shapes): kernel {tot['step_ms']:.3f} ms | plain "
             f"{tot['step_plain_ms']:.3f} | sdpa backward {tot['step_library_ms']:.3f} "
             f"({tot['step_ms'] / tot['step_library_ms']:.3f}x) | bound "
             f"{tot['step_bound_ms']:.3f} | SFU floor {tot['step_sfu_ms']:.3f} | first round "
@@ -3189,6 +3995,64 @@ class Smoke:
         del model, disc, state
         gc.collect()
         torch.cuda.empty_cache()
+        self._profile_ours(gen)
+
+    def _profile_ours(self, gen):
+        """profile's rows of the "Ours" stages: one coarse DPM-20 request
+        (batch 16, bf16), one coarse LiDM training step (batch 16, bf16
+        autocast), one coarse AE step (batch 4, f32), one step of each cube
+        trainer (4 clouds of 32,768 points, f32): two warm-ups, then one
+        call under torch.profiler."""
+        import torch
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        from lidar_layout_tpu_torch.config import instantiate_from_config, load_yaml
+        from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+        from lidar_layout_tpu_torch.train import ae_trainer as AT
+        from lidar_layout_tpu_torch.train import cube_trainer as CT
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        def run(title, fn):
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            self._families(prof, wall_ms, title)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        pipe = GenerationPipeline.from_config(COARSE_LDM_YAML, bf16=True, device="cuda")
+        seed_weights(pipe.model, 0)
+        run(f"one coarse DPM-20 request, batch {BATCH}, bf16", lambda: pipe.generate(BATCH))
+        del pipe
+        model = self._coarse_ldm()
+        params = DT.trainable_params(model)
+        state = DT.create_train_state(model, DT.make_optimizer(params, COARSE_LR), params)
+        step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
+        batch = self._coarse_batches(1, TRAIN_BATCH)[0]
+        run(f"one coarse LiDM training step, batch {TRAIN_BATCH}, bf16 autocast",
+            lambda: step(state, batch, gen))
+        del model, state, step
+        model, disc, loss_cfg, geo, state = self._ae_setup(yaml_path=COARSE_AE_YAML,
+                                                           accumulate=2)
+        step = AT.make_ae_train_step(model, disc, loss_cfg, geo)
+        batch = self._ae_batches(1, yaml_path=COARSE_AE_YAML)[0]
+        run(f"one coarse AE training step, batch {AE_BATCH}, f32, TF32 off",
+            lambda: step(state, batch, gen))
+        del model, disc, state, step
+        clouds = self._clouds(CUBE_BATCH, 30)
+        for name, yaml_path in (("SparseVAE", VOXEL_YAML), ("CubeDiffusion", VOXEL_LDM_YAML)):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                model = instantiate_from_config(load_yaml(yaml_path)["model"]).to("cuda")
+            state, step, _, _ = CT.cube_training(model, load_yaml(yaml_path)["model"], 1e-5)
+            run(f"one {name} training step, {CUBE_BATCH} clouds of {CUBE_POINTS} points, f32",
+                lambda: step(state, clouds, gen))
+            del model, state, step
 
     @staticmethod
     def _families(prof, wall_ms, title):
@@ -3267,9 +4131,15 @@ class Smoke:
                     if name == "flash_attention_bwd" else None),
                 "ae_train_launches": self.ae_train_launches.get(name),
                 "ae_train_max_abs_err": self.kernel_err.get(f"ae_{name}"),
+                "coarse_launches": self.coarse_launches.get(name),
+                "coarse_train_launches": self.coarse_train_launches.get(name),
+                "coarse_ae_train_launches": self.coarse_ae_train_launches.get(name),
+                "coarse_max_abs_err": self.kernel_err.get(f"coarse_{name}"),
+                "ae_eval_launches": self.ae_eval_launches.get(name),
+                "cube_launches": self.cube_launches.get(name),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
                    for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train",
-                               "ae_train")
+                               "ae_train", "coarse", "coarse_train", "coarse_ae_train")
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         return {"kernels": entries}
 
@@ -3298,13 +4168,16 @@ def main() -> int:
 
     smoke = Smoke()
     t_all = time.perf_counter()
-    for phase in PHASES + EXTRA_PHASES:
-        if phase not in phases and phase not in ("device", "build"):
-            continue
-        t0 = time.perf_counter()
-        log(f"=== phase {phase}")
-        getattr(smoke, phase)()
-        log(f"=== phase {phase} done in {time.perf_counter() - t0:.1f} s")
+    try:
+        for phase in PHASES + EXTRA_PHASES:
+            if phase not in phases and phase not in ("device", "build"):
+                continue
+            t0 = time.perf_counter()
+            log(f"=== phase {phase}")
+            getattr(smoke, phase)()
+            log(f"=== phase {phase} done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        smoke.cleanup()
     log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(smoke.summary()))
     print(card_line())

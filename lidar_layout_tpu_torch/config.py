@@ -2,9 +2,10 @@
 
 Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model``,
 ``vq_model_interface``, ``vq_loss``, ``layout_unet``, ``layout_encoder``,
-``unet1d`` and ``layout_diffusion`` builders of ``lidar_layout_tpu/config.py``
-(with the reference's target-name aliases) and of its ``load_yaml`` and
-``apply_dotlist``. Targets not ported yet raise KeyError.
+``unet1d``, ``layout_diffusion``, ``cube_ae`` and ``cube_latent_diffusion``
+builders of ``lidar_layout_tpu/config.py`` (with the reference's target-name
+aliases) and of its ``load_yaml`` and ``apply_dotlist``. Targets not ported
+yet raise KeyError.
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ import torch
 from .encoders.layout_encoder import LayoutEncoderConfig, LayoutTransformerEncoder
 from .losses.vq_loss import VQLossConfig
 from .models.autoencoder import AEConfig, VQModel, VQModelInterface
+from .models.cube_diffusion import CubeDiffusion, CubeDiffusionConfig, SparseUNetConfig
 from .models.diffusion import DiffusionConfig, LatentDiffusion
 from .models.layout_diffusion import LayoutDiffusion, LayoutDiffusionConfig
 from .models.object_cross_unet import LayoutDiffusionUNetModel, LayoutUNetConfig
+from .models.sparse_vae import SparseVAE, SparseVAEConfig
 from .models.unet import UNetConfig, UNetModel
 from .models.unet1d import UNet1DConfig
 
@@ -26,6 +29,10 @@ LAYOUT_UNET_TARGETS = ("layout_unet",
                        "lidm.modules.unets.object_cross_unet.LayoutDiffusionUNetModel")
 LAYOUT_ENCODER_TARGETS = ("layout_encoder",
                           "lidm.modules.encoders.layout_encoder.LayoutTransformerEncoder")
+CUBE_AE_TARGETS = ("cube_ae", "lidm.models.ae.autoencoder_cube.CubeAEModel",
+                   "lidm.models.ae.autoencoder_cube.CubeModelInterface")
+CUBE_LDM_TARGETS = ("cube_latent_diffusion",
+                    "lidm.models.diffusion.ddpm_cube.CubeLatentDiffusion")
 
 
 def _ae_cfg(dd: Dict[str, Any]) -> AEConfig:
@@ -203,6 +210,49 @@ def _build_latent_diffusion(params: Dict[str, Any],
                            unet=unet, dtype=dtype)
 
 
+def cube_vae_cfg(params: Dict[str, Any]) -> SparseVAEConfig:
+    """``geoconfig``/``unetconfig``/``lossconfig`` -> the fixed-capacity
+    ``SparseVAEConfig``, as JAX's ``_cube_cfg``: channels ``f_maps * 2**l``
+    over ``tree_depth`` levels, latent ``max(channels[-1] // cut_ratio, 4)``;
+    the other keys (``edconfig``, ``neck_bound``, ``structure_weight``,
+    ``point_cloud_range``, ...) are not read."""
+    geo = params.get("geoconfig", {})
+    un = params.get("unetconfig", {}).get("params", {})
+    lo = (params.get("lossconfig", {}) or {}).get("params", {})
+    base = (lo or {}).get("baseconfig", {})
+    depth = geo.get("tree_depth", 3)
+    channels = tuple(un.get("f_maps", 32) * (2 ** i) for i in range(depth))
+    return SparseVAEConfig(
+        num_levels=depth, base_capacity=params.get("base_capacity", 4096),
+        channels=channels, latent_dim=max(channels[-1] // un.get("cut_ratio", 16), 4),
+        voxel_size=geo.get("voxel_size", 0.1), kl_weight=base.get("kl_weight", 1e-3))
+
+
+def _build_cube_diffusion(params: Dict[str, Any], in_features: int = 4,
+                          **_) -> CubeDiffusion:
+    """As JAX's ``build_cube_diffusion``: of the U-Net block only
+    ``model_channels``, ``num_res_blocks`` (the block count) and
+    ``num_heads`` are read, and the top-level ``scale_by_std`` is not
+    (ROADMAP section 3). The first stage, a ``cube_ae``, is built here
+    (``in_features`` wide, as the data's ``feats``)."""
+    up = params["unet_config"]["params"]
+    fsc = params.get("first_stage_config") or {}
+    if not isinstance(fsc, dict) or fsc.get("target") not in CUBE_AE_TARGETS:
+        raise NotImplementedError("cube_latent_diffusion needs a cube_ae first_stage_config "
+                                  "to encode clouds")
+    fs_cfg = cube_vae_cfg(fsc.get("params", {}))
+    return CubeDiffusion(
+        CubeDiffusionConfig(timesteps=params.get("timesteps", 1000),
+                            linear_start=params.get("linear_start", 1e-4),
+                            linear_end=params.get("linear_end", 2e-2),
+                            latent_dim=fs_cfg.latent_dim),
+        SparseUNetConfig(in_channels=fs_cfg.latent_dim,
+                         model_channels=up.get("model_channels", 64),
+                         num_blocks=up.get("num_res_blocks", 2),
+                         num_heads=up.get("num_heads", 8)),
+        first_stage=SparseVAE(fs_cfg, in_features))
+
+
 REGISTRY: Dict[str, Callable] = {}
 for _names, _fn in (
         (("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion"),
@@ -222,7 +272,10 @@ for _names, _fn in (
           "lidm.models.ae.autoencoder.VQModelInterface"),
          lambda params, **_: _build_vq(params, interface=True)),
         (("vq_loss", "lidm.modules.losses.vqperceptual.VQGeoLPIPSWithDiscriminator"),
-         _build_vq_loss)):
+         _build_vq_loss),
+        (CUBE_AE_TARGETS,
+         lambda params, in_features=4, **_: SparseVAE(cube_vae_cfg(params), in_features)),
+        (CUBE_LDM_TARGETS, _build_cube_diffusion)):
     for _n in _names:
         REGISTRY[_n] = _fn
 

@@ -24,6 +24,12 @@ otherwise falls back to the family's synthetic generator and says so (the
   KITTI-360 autoencoder): ``datasets.RangeImageDataset`` over the root's
   velodyne scans. Both fall back to ``synthetic_range_batch``; tensors on
   ``device``.
+- ``nusc_cube`` (the cube stage): ``CloudDataset`` over the root's nuScenes
+  sweeps (``readers.list_nuscenes_sweeps``: sweeps, else samples), each
+  scan's first four columns cropped to the dataset block's
+  ``point_cloud_range`` and padded to ``max_points`` (32768); the fallback
+  is ``synthetic_cloud_batch``, JAX's draws. Batches of ``points`` (B, N,
+  3), ``feats`` (B, N, 4) and ``mask`` (B, N) on ``device``.
 
 The other targets of the JAX factory raise NotImplementedError, naming the
 ROADMAP queue 1 item that ports them.
@@ -31,7 +37,7 @@ ROADMAP queue 1 item that ports them.
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Iterator, Optional, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -61,7 +67,6 @@ _FAMILIES = 'ROADMAP queue 1, "Remaining families and infrastructure"'
 NOT_PORTED = {
     "sem_kitti": _AE, "kitti_camera": _AE, "kitti_annotated": _AE,
     "nusc_object": _FAMILIES, "nusc_r2dm": _FAMILIES,
-    "nusc_cube": 'ROADMAP queue 1, "Cube stage"',
     "nusc_cube_decode": 'ROADMAP queue 1, "Dense decoder"',
 }
 
@@ -75,6 +80,61 @@ def _geom_from_cfg(dset_cfg: Dict[str, Any]) -> LidarGeometry:
         log_scale=dset_cfg.get("log_scale", True))
 
 
+class CloudDataset:
+    """Fixed-capacity padded point clouds (JAX ``data/factory.CloudDataset``):
+    ``coord`` = the scan's xyz and ``feat`` its first four columns (three
+    when it has only three), kept strictly inside ``point_range`` (x0, y0,
+    z0, x1, y1, z1) when given, the first ``max_points`` of them padded
+    with zeros and a False mask. JAX's ``transforms`` serve only
+    ``nusc_cube_decode``, which is not ported."""
+
+    def __init__(self, files: Sequence[str], point_range, max_points: int,
+                 reader: Callable[[str], np.ndarray]):
+        self.files = list(files)
+        self.point_range = point_range
+        self.max_points = max_points
+        self.reader = reader
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        scan = self.reader(self.files[idx])
+        data = {"coord": scan[:, :3], "feat": scan[:, :4] if scan.shape[1] >= 4 else scan[:, :3]}
+        r = self.point_range
+        if r is not None:
+            c = data["coord"]
+            m = ((c[:, 0] > r[0]) & (c[:, 0] < r[3]) & (c[:, 1] > r[1]) & (c[:, 1] < r[4])
+                 & (c[:, 2] > r[2]) & (c[:, 2] < r[5]))
+            data = {k: v[m] for k, v in data.items()}
+        n = min(len(data["coord"]), self.max_points)
+        out = {"points": np.zeros((self.max_points, 3), np.float32),
+               "feats": np.zeros((self.max_points, data["feat"].shape[1]), np.float32),
+               "mask": np.zeros((self.max_points,), bool)}
+        out["points"][:n] = data["coord"][:n]
+        out["feats"][:n] = data["feat"][:n]
+        out["mask"][:n] = True
+        return out
+
+
+def synthetic_cloud_batch(rng: np.random.Generator, batch: int, max_points: int = 8192
+                          ) -> Dict[str, np.ndarray]:
+    """JAX's ``_synthetic_cloud_batch``: ``batch`` synthetic scenes of
+    ``max_points`` points, feats = [xyz, U(0, 1)], every point valid."""
+    from .synthetic import synthetic_scene
+
+    out = {"points": np.zeros((batch, max_points, 3), np.float32),
+           "feats": np.zeros((batch, max_points, 4), np.float32),
+           "mask": np.zeros((batch, max_points), bool)}
+    for b in range(batch):
+        pts = synthetic_scene(rng, max_points)
+        out["points"][b] = pts
+        out["feats"][b, :, :3] = pts
+        out["feats"][b, :, 3] = rng.uniform(0, 1, max_points)
+        out["mask"][b] = True
+    return out
+
+
 def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
                   data_root: Optional[str], batch_size: int, seed: int = 0,
                   force_synthetic: bool = False,
@@ -85,7 +145,8 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
     if name in NOT_PORTED:
         raise NotImplementedError(f"the {name!r} dataset is not ported yet "
                                   f"({NOT_PORTED[name]})")
-    if name not in ("nusc_layout_graph", "nusc_layout_range", "nusc_range", "kitti_range"):
+    if name not in ("nusc_layout_graph", "nusc_layout_range", "nusc_range", "kitti_range",
+                    "nusc_cube"):
         raise KeyError(f"unknown dataset target '{target}' "
                        f"(known: {sorted(set(ALIASES.values()))})")
     rng = np.random.default_rng(seed)
@@ -115,6 +176,21 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
 
     from . import readers
     from .datasets import RangeImageDataset, dataset_batches, layout_range_batches
+
+    if name == "nusc_cube":
+        max_points = params.get("max_points", 32768)
+        if have_root:
+            files = (readers.list_nuscenes_sweeps(str(root), split, "sweeps")
+                     or readers.list_nuscenes_sweeps(str(root), split, "samples"))
+            if len(files) >= batch_size:
+                ds = CloudDataset(files, dset_cfg.get("point_cloud_range"), max_points,
+                                  lambda p: readers.read_nuscenes_bin(p)[:, :4])
+                yield from dataset_batches(ds, batch_size, seed, device)
+                return
+        for b in synth(f"no sweeps under {root!r}",
+                       lambda: synthetic_cloud_batch(rng, batch_size, max_points)):
+            yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        return
     from .synthetic import synthetic_layout_range_batch, synthetic_range_batch
 
     if name in ("nusc_range", "kitti_range"):

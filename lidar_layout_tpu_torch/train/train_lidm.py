@@ -9,10 +9,11 @@ on one CUDA card.
 Counterpart of ``scripts/train_lidm.py`` with the same flags:
 ``-b/--base -t/--train -r/--resume -d/--data-root -s/--seed --steps
 --workdir --synthetic --bf16`` and trailing ``a.b.c=value`` overrides;
-``--cpu`` runs on the CPU. Two branches are ported:
+``--cpu`` runs on the CPU. Four families are ported:
 
-- ``vq_model`` (``configs/autoencoder/*/autoencoder_c2_p4.yaml``): the
-  VQ-GAN step of ``train/ae_trainer`` in float32, with JAX's
+- ``vq_model`` (``configs/autoencoder/*/autoencoder_c2_p4.yaml``,
+  ``range_flow.yaml``, ``configs/ours/nuscenes/coarse_range/range_256x8.yaml``):
+  the VQ-GAN step of ``train/ae_trainer`` in float32, with JAX's
   ``LiDARNLayerDiscriminator()`` (v1, 64 filters, 3 layers) whatever the
   loss block's ``disc_version`` or ``disc_num_layers`` say, as the JAX CLI
   builds it; monitored on ``val/rec_loss``. Its checkpoints hold a
@@ -21,8 +22,16 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
 - LatentDiffusion, unconditional or layout-conditioned
   (``configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml``, whose
   encoder trains with the U-Net).
+- ``cube_ae`` and ``cube_latent_diffusion`` (``voxel_1024.yaml``,
+  ``autoencoder_cube.yaml``, ``voxel_uncond_diffusion_256.yaml``) through
+  ``train/cube_trainer``, in float32 whatever ``--bf16`` says (JAX's cube
+  builders take no dtype); the model is built once the first batch gives
+  the width of its point features.
 
-The KL, gaus, object, cube and R2DM families' trainers raise
+Every ``sample_every_steps`` (default a fifth of ``--steps``) the image
+logger (``train/sample_logger``) writes the AE's inputs and reconstructions,
+or the LiDM's ``lidm_log_images`` with the EMA weights, under
+``<workdir>/images``. The KL, gaus, object and R2DM families' trainers raise
 NotImplementedError, and LayoutDiffusion trains with ``train_layout``.
 Dataset targets come from ``data/factory`` (synthetic with
 ``--synthetic``). Weights start from torch's initialisers under ``--seed``
@@ -39,6 +48,11 @@ import torch
 LDM_TARGETS = ("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion")
 AE_TARGETS = ("vq_model", "lidm.models.autoencoder.VQModel", "lidm.models.ae.autoencoder.VQModel")
 LAYOUT_DIFFUSION_TARGETS = ("layout_diffusion", "lidm.models.diffusion.ddpm.LayoutDiffusion")
+# the families still to port, each with the ROADMAP queue 1 item that ports it
+MISSING_FAMILIES = (
+    "the KL autoencoder's (ROADMAP queue 1, \"First stage and AE training\"), the "
+    "Gaussian range AE's (ROADMAP queue 1, \"Dense decoder\"), the object AE's and "
+    "R2DM's (ROADMAP queue 1, \"Remaining families and infrastructure\")")
 LAYOUT_RANGE_TARGETS = ("nusc_layout_range", "lidm.data.nusc_dataset.nuScenesLayoutTrain",
                         "lidm.data.nusc_dataset.nuScenesLayoutValidation")
 
@@ -96,7 +110,8 @@ def _lr_lambda(model_cfg: Dict[str, Any], steps: int):
 def main(argv=None):
     args = parse_args(argv)
 
-    from ..config import apply_dotlist, instantiate_from_config, load_yaml
+    from ..config import (CUBE_AE_TARGETS, CUBE_LDM_TARGETS, apply_dotlist,
+                          instantiate_from_config, load_yaml)
     from ..data.datasets import RangeImageDataset
     from ..data.factory import build_batches
     from ..pipeline import geometry_from_config
@@ -124,11 +139,10 @@ def main(argv=None):
             "LayoutDiffusion trains with its own CLI, as scripts/train_layout.py in the "
             "JAX package: python -m lidar_layout_tpu_torch.train.train_layout -b <config>")
     is_ae = model_cfg["target"] in AE_TARGETS
-    if model_cfg["target"] not in LDM_TARGETS + AE_TARGETS:
-        raise NotImplementedError(
-            f"training {model_cfg['target']!r} is not ported yet: the KL, gaus, object, "
-            f"cube and R2DM families' trainers wait for their port "
-            f'(ROADMAP queue 1, "First stage and AE training")')
+    is_cube = model_cfg["target"] in CUBE_AE_TARGETS + CUBE_LDM_TARGETS
+    if model_cfg["target"] not in LDM_TARGETS + AE_TARGETS + CUBE_AE_TARGETS + CUBE_LDM_TARGETS:
+        raise NotImplementedError(f"training {model_cfg['target']!r} is not ported yet; the "
+                                  f"trainers still to port are {MISSING_FAMILIES}")
     if is_ae and args.bf16:
         raise NotImplementedError("the autoencoder trains in float32 (the JAX CLI's default); "
                                   "--bf16 is not ported for it")
@@ -171,15 +185,28 @@ def main(argv=None):
 
     lr = scale_lr(model_cfg.get("base_learning_rate", 4.5e-6), batch_size, 1, accumulate)
     lr_lambda = _lr_lambda(model_cfg, args.steps)
+    # a cube model is built once the first batch gives its feature width
+    kw = {"in_features": val_cache[0]["feats"].shape[-1]} if is_cube else {}
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = instantiate_from_config(model_cfg).to(device)
+        model = instantiate_from_config(model_cfg, **kw).to(device)
         if is_ae:   # the discriminator starts from the seed too
             state, step, val_step, monitor = _ae_training(model, model_cfg, geom, lr,
                                                           accumulate, lr_lambda)
-    if not is_ae:
+    render_fn = None
+    if is_cube:
+        from .cube_trainer import cube_training
+
+        if args.bf16:
+            print("the cube families train in float32; --bf16 is not read for them")
+        state, step, val_step, monitor = cube_training(model, model_cfg, lr, lr_lambda)
+    elif is_ae:
+        render_fn = _ae_render(model, val_cache)
+    else:
         state, step, val_step, monitor = _ldm_training(model, model_cfg, val_cache, lr,
                                                        accumulate, lr_lambda, args.bf16)
+        if model.first_stage_model is not None:
+            render_fn = _ldm_render(model, val_cache, args.bf16)
     if args.resume:
         restore_checkpoint(os.path.join(args.resume, "ckpt"), state)
         print(f"resumed from {args.resume} at step {state.step}")
@@ -190,6 +217,11 @@ def main(argv=None):
              InformationWriter(),
              CheckpointSaver(every_steps=max(args.steps // 5, 1)),
              BestCheckpointSaver(monitor=monitor, top_k=3)]
+    if render_fn is not None:
+        from .sample_logger import SampleLogger
+
+        hooks.append(SampleLogger(render_fn, every_steps=int(
+            data_cfg.get("sample_every_steps", max(args.steps // 5, 1)))))
     trainer = Trainer(step, state, train_batches, workdir=workdir, max_steps=args.steps,
                       hooks=hooks, seed=args.seed)
     try:
@@ -229,6 +261,33 @@ def _ae_training(model, model_cfg: Dict[str, Any], geom, lr: float, accumulate: 
     state = create_ae_state(model, disc, lr, lr, accumulate, lr_lambda)
     return (state, make_ae_train_step(model, disc, loss_cfg, geo),
             make_ae_val_step(model, loss_cfg, geo), "val/rec_loss")
+
+
+def _ae_render(model, val_cache):
+    """The AE's image set: the first validation batch and its reconstruction."""
+
+    def render(state, generator):
+        x = val_cache[0]["image"]
+        model.eval()
+        with torch.no_grad():
+            dec = model(x.permute(0, 3, 1, 2).float())[0]
+        return {"inputs": x, "reconstructions": dec[:, :1].permute(0, 2, 3, 1)}
+
+    return render
+
+
+def _ldm_render(model, val_cache, bf16: bool):
+    """The LiDM's ``lidm_log_images`` on the first validation batch, with the
+    EMA weights swapped in."""
+    from .diffusion_trainer import _autocast
+    from .sample_logger import lidm_log_images
+
+    def render(state, generator):
+        with state.ema.swapped_in(state.params), \
+                _autocast(model, torch.bfloat16 if bf16 else None):
+            return lidm_log_images(model, val_cache[0], generator)
+
+    return render
 
 
 def _ldm_training(model, model_cfg: Dict[str, Any], val_cache, lr: float, accumulate: int,

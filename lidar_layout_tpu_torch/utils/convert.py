@@ -40,8 +40,13 @@ The FSVD/FPVD nets: ``seg_net_state_dict`` carries JAX's MinkowskiNet /
 SPVCNN params into the reference torchsparse names the port keeps (the
 inverse of ``convert_torchsparse_state_dict``), ``dense_tree_state_dict``
 a tree of Dense and LayerNorm modules (``SparseVoxelNet``,
-``SparseConvBlock``), and ``load_torchsparse_checkpoint`` reads the
+``SparseConvBlock``, the cube stage's ``SparseVAE``), and ``load_torchsparse_checkpoint`` reads the
 reference's ``model.ckpt``.
+
+The cube stage keeps every flax name too: ``cube_diffusion_state_dict``
+carries a JAX ``CubeDiffusion`` tree (``{"unet": ...}``, under ``unet.``)
+with, when given, its first stage's ``SparseVAE`` tree (under
+``first_stage_model.``).
 """
 from __future__ import annotations
 
@@ -349,6 +354,18 @@ def dense_tree_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {".".join(name): torch.from_numpy(np.array(value))
             for name, value in (_leaf(p[:-1], p[-1], v)
                                 for p, v in _flatten(params.get("params", params)))}
+
+
+def cube_diffusion_state_dict(params: Dict[str, Any], first_stage: Any = None
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``CubeDiffusion`` params (``{"unet": ...}``) and, optionally, its
+    first stage's ``SparseVAE`` params -> the port's ``CubeDiffusion``
+    state_dict."""
+    out = {f"unet.{k}": v for k, v in dense_tree_state_dict(params["unet"]).items()}
+    if first_stage is not None:
+        out.update({f"first_stage_model.{k}": v
+                    for k, v in dense_tree_state_dict(first_stage).items()})
+    return out
 
 
 def load_torchsparse_checkpoint(net: torch.nn.Module, path: str) -> torch.nn.Module:

@@ -767,3 +767,187 @@ def test_gpu_voxel_nets_match_cpu(cuda_device, arch):
     assert all(torch.equal(a, b) for a, b in zip(pyramids["cpu"], pyramids[str(cuda_device)]))
     assert torch.isfinite(gpu).all() and gpu.abs().sum() > 0
     assert float((gpu - cpu).norm() / cpu.norm()) <= 1e-4
+
+
+def _cube_clouds(n_points=600, seed=0):
+    """Two clouds: one within 64 cells of 0.5 m, one spread past 128."""
+    gen = torch.Generator().manual_seed(seed)
+    pts = torch.stack([torch.rand((n_points, 3), generator=gen) * 2 - 1,
+                       torch.rand((n_points, 3), generator=gen) * 80 - 40])
+    feats = torch.cat([pts, torch.rand((2, n_points, 1), generator=gen)], -1)
+    mask = torch.ones((2, n_points), dtype=torch.bool)
+    mask[:, -50:] = False
+    return {"points": pts, "feats": feats, "mask": mask}
+
+
+_CUBE_AE = {"target": "cube_ae", "params": {
+    "base_capacity": 128, "geoconfig": {"voxel_size": 0.5, "tree_depth": 3},
+    "unetconfig": {"params": {"f_maps": 8, "cut_ratio": 16}}}}
+_CUBE_LDM = {"target": "cube_latent_diffusion", "params": {
+    "unet_config": {"params": {"model_channels": 16, "num_res_blocks": 2, "num_heads": 2}},
+    "first_stage_config": _CUBE_AE}}
+
+
+def _rel(a, b):
+    return float((a.detach().cpu() - b.detach().cpu()).norm() / b.detach().cpu().norm())
+
+
+@pytest.mark.gpu
+def test_gpu_sparse_vae_matches_cpu(cuda_device):
+    """The cube stage's SparseVAE on the card and on the CPU from the same
+    weights and latent draw: every grid, the occupancy targets and the
+    point-to-voxel map equal; the latent, the struct logits, struct_loss and
+    the gradients within 1e-5 relative (f32, TF32 off; the scatter-means'
+    atomics reorder sums)."""
+    from lidar_layout_tpu_torch.config import instantiate_from_config
+    from lidar_layout_tpu_torch.models.sparse_vae import struct_loss
+    from lidar_layout_tpu_torch.ops import voxel as V
+
+    clouds = _cube_clouds()
+    torch.manual_seed(0)
+    vae = instantiate_from_config(_CUBE_AE)
+    noise = torch.randn((2, 32, vae.cfg.latent_dim), generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        vae = vae.to(dev)
+        vae.zero_grad()
+        b = {k: v.to(dev) for k, v in clouds.items()}
+        out = vae(b["points"], b["feats"], b["mask"], noise=noise.to(dev))
+        loss, _ = struct_loss(out, vae.cfg.kl_weight)
+        loss.mean().backward()
+        _, p2v, _ = V.voxelize_points(b["points"], b["mask"], 0.5, 128)
+        outs[str(dev)] = (out, loss, p2v, [p.grad.detach().cpu().clone() if p.grad is not None
+                                           else torch.zeros(p.shape) for p in vae.parameters()])
+    (oc, lc, pc, gc), (og, lg, pg, gg) = outs["cpu"], outs[str(cuda_device)]
+    ints = [a for g in oc["grids"] for a in g] + oc["struct_targets"] + [pc]
+    ints_g = [a for g in og["grids"] for a in g] + og["struct_targets"] + [pg]
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(ints, ints_g))
+    assert _rel(og["latent"], oc["latent"]) <= 1e-5
+    assert all(_rel(a, b) <= 1e-5 for a, b in zip(og["struct_logits"], oc["struct_logits"]))
+    assert _rel(lg, lc) <= 1e-5
+    assert _rel(torch.cat([g.flatten() for g in gg]), torch.cat([g.flatten() for g in gc])) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_gpu_cube_diffusion_and_trainer_step_match_cpu(cuda_device):
+    """CubeDiffusion's p_losses (fed t and noise) and DDIM-3 (fed x_T) on
+    the card and the CPU within 1e-5 relative, and one step of each cube
+    family trainer: losses within 1e-5 relative, parameters after AdamW
+    within 2 lr."""
+    from lidar_layout_tpu_torch.config import instantiate_from_config
+    from lidar_layout_tpu_torch.ops.voxel import VoxelGrid
+    from lidar_layout_tpu_torch.train import cube_trainer as CT
+
+    clouds = _cube_clouds(seed=2)
+    gen = torch.Generator().manual_seed(3)
+    torch.manual_seed(0)
+    ref = instantiate_from_config(_CUBE_LDM)
+    with torch.no_grad():
+        for p in ref.unet.parameters():   # lift the zero-initialised proj and out
+            if not p.any():
+                torch.nn.init.normal_(p, std=0.05)
+    sd = ref.state_dict()
+    with torch.no_grad():
+        out = ref.first_stage_model(clouds["points"], clouds["feats"], clouds["mask"],
+                                    noise=torch.zeros(2, 32, 4))
+    grid, z = VoxelGrid(*out["latent_grid"]), out["latent"]
+    t, eps, x_t = torch.tensor([5, 800]), torch.randn(z.shape, generator=gen), torch.randn(
+        z.shape, generator=gen)
+    lat_noise = torch.randn(z.shape, generator=gen)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        model = instantiate_from_config(_CUBE_LDM)
+        model.load_state_dict(sd)
+        model = model.to(dev)
+        g = VoxelGrid(*(a.to(dev) for a in grid))
+        with torch.no_grad():
+            loss, _ = model.p_losses(g, z.to(dev), t=t.to(dev), noise=eps.to(dev))
+            zs = model.ddim_sample(g, steps=3, x_T=x_t.to(dev))
+        b = {k: v.to(dev) for k, v in clouds.items()}
+        state, step, _, _ = CT.cube_training(model, _CUBE_LDM, 1e-3)
+        state, logs = step(state, b, None, latent_noise=lat_noise.to(dev), t=t.to(dev),
+                           noise=eps.to(dev))
+        vae = model.first_stage_model
+        vstate, vstep, _, _ = CT.cube_training(vae.requires_grad_(True), _CUBE_AE, 1e-3)
+        vstate, vlogs = vstep(vstate, b, None, noise=lat_noise.to(dev))
+        res[str(dev)] = (loss, zs, float(logs["loss"]), float(vlogs["loss"]),
+                         torch.cat([p.detach().cpu().flatten() for p in model.parameters()]))
+    c, g = res["cpu"], res[str(cuda_device)]
+    assert _rel(g[0], c[0]) <= 1e-5 and _rel(g[1], c[1]) <= 1e-5
+    assert abs(g[2] - c[2]) <= 1e-5 * abs(c[2]) and abs(g[3] - c[3]) <= 1e-5 * abs(c[3])
+    assert float((g[4] - c[4]).abs().max()) <= 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_kernels_at_the_coarse_shapes(cuda_device, dtype):
+    """K1 and K2 at the coarse LiDM's attention shapes (S = 128, 32 and 8,
+    head 32) and K3 forward and backward at its U-Net's and AE's group
+    shapes (4x32 to 1x8, 8x256), against the plain versions."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    for (b, h, s, d) in [(2, 4, 128, 32), (2, 8, 32, 32), (2, 8, 8, 32)]:
+        q, k, v, _ = attn_inputs(gen, b, h, s, d, dt, False, False)
+        o, lse = A._launch(q, k, v, None, with_lse=True)
+        assert (o.float() - A._attend_ref(q, k, v).float()).abs().max().item() <= tol
+        do = torch.randn(q.shape, generator=gen, device=cuda_device).to(dt)
+        for g_, w_ in zip(A.flash_attention_bwd(q, k, v, o, do, lse),
+                          A._attend_bwd_ref(q, k, v, o, do, lse)):
+            assert (g_.float() - w_.float()).abs().max().item() <= tol * max(
+                1.0, w_.float().abs().max().item())
+    for (b, c, hh, ww) in [(2, 128, 4, 32), (2, 256, 2, 16), (2, 256, 1, 8), (2, 64, 8, 256)]:
+        x = (torch.randn((b, c, hh, ww), generator=gen, device=cuda_device) * 2 + 0.3).to(dt)
+        gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        beta = 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+        dy = torch.randn(x.shape, generator=gen, device=cuda_device).to(dt)
+        for act in (False, True):
+            got = G.group_norm(x, gamma, beta, 32, 1e-6, act)
+            assert (got.float() - G._ref(x, gamma, beta, 32, 1e-6, act).float()).abs().max() \
+                .item() <= (1e-4 if dt == torch.float32 else 3e-2)
+            for g_, w_ in zip(G.group_norm_bwd(x, gamma, beta, dy, 32, 1e-6, act),
+                              G._group_norm_bwd_ref(x, gamma, beta, dy, 32, 1e-6, act)):
+                assert (g_.float() - w_.float()).abs().max().item() <= 1e-3 * max(
+                    1.0, w_.float().abs().max().item()) + (0 if dt == torch.float32 else 2e-2)
+
+
+@pytest.mark.gpu
+def test_gpu_eval_ae_and_log_images_match_cpu(cuda_device):
+    """eval_ae's reconstruction of a tiny mask-head AE and the image
+    logger's suite on the tiny flagship, card against CPU from the same
+    weights and draws (the ray-drop decision in 99.9% agreement, kept
+    pixels within 1e-3)."""
+    from lidar_layout_tpu_torch import eval_ae as EA
+    from lidar_layout_tpu_torch.flagship import flagship
+    from lidar_layout_tpu_torch.models import samplers as S
+    from lidar_layout_tpu_torch.models.autoencoder import AEConfig, VQModel
+    from lidar_layout_tpu_torch.train.sample_logger import lidm_log_images
+    from torch_port_helpers import seed_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand((2, 16, 64, 1), generator=torch.Generator().manual_seed(5)) * 2 - 1
+    ae = seed_weights(VQModel(AEConfig(ch=16, ch_mult=(1, 2), strides=((1, 2),), z_channels=4,
+                                       out_ch=2, num_res_blocks=1), n_embed=64, embed_dim=4,
+                              use_mask=True), 7).eval()
+    rec = {str(dev): EA.reconstruct(ae.to(dev), x.to(dev)).cpu() for dev in ("cpu", cuda_device)}
+    port, image_shape = flagship(tiny=True, device="cpu")
+    seed_weights(port, 8)
+    draws = [torch.randn((2, *port.cfg.latent_shape), generator=torch.Generator().manual_seed(i))
+             for i in range(40)]
+    imgs, real = {}, S._randn
+    img = torch.rand((2, *image_shape), generator=torch.Generator().manual_seed(9)) * 2 - 1
+    for dev in ("cpu", cuda_device):
+        pool = list(draws)
+        S._randn = lambda shape, gen, d, pool=pool: pool.pop(0).to(d)
+        try:
+            imgs[str(dev)] = {k: v.cpu() for k, v in lidm_log_images(
+                port.to(dev), {"image": img.to(dev)}, None, n_row=2, sample_steps=3).items()}
+        finally:
+            S._randn = real
+    pairs = [(rec[str(cuda_device)], rec["cpu"])] + [
+        (imgs[str(cuda_device)][k], imgs["cpu"][k]) for k in imgs["cpu"]]
+    for g_, c_ in pairs:
+        drop_g, drop_c = g_ == -1.0, c_ == -1.0
+        assert (drop_g == drop_c).float().mean() >= 0.999
+        both = ~drop_g & ~drop_c
+        assert (g_ - c_).abs()[both].max().item() <= 1e-3
