@@ -4,9 +4,11 @@ NVIDIA H100 (Hopper, sm_90a).
 The JAX package ``lidar_layout_tpu`` stays the reference; this package mirrors
 its layout so each module's counterpart is found at once:
 
-    ops/       LiDAR geometry and the hand-written kernels (``csrc/*.cu``)
+    ops/       LiDAR geometry, the Gaussian rasterizers and the hand-written
+               kernels (``csrc/*.cu``)
     nn/        circular convs, blocks, embeddings, vector quantizer
-    models/    U-Net, VQ autoencoder, latent diffusion, schedules, samplers
+    models/    U-Net, VQ autoencoders, latent diffusion, schedules, samplers,
+               PT-v3 and the Gaussian-surfel dense decoder
     losses/    the autoencoder's VQ-GAN objective: geometry, discriminators
     utils/     device resolution, weight conversion from the JAX tree
     config.py  YAML -> model builders

@@ -2,24 +2,34 @@
 
 Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model``,
 ``vq_model_interface``, ``vq_loss``, ``layout_unet``, ``layout_encoder``,
-``unet1d``, ``layout_diffusion``, ``cube_ae`` and ``cube_latent_diffusion``
-builders of ``lidar_layout_tpu/config.py`` (with the reference's target-name
-aliases) and of its ``load_yaml`` and ``apply_dotlist``. Targets not ported
-yet raise KeyError.
+``unet1d``, ``layout_diffusion``, ``cube_ae``, ``cube_latent_diffusion``,
+``vq_model_gaus``, ``ptv3``, ``dense_decoder``, ``gs_decoder_head`` and
+``ptv3_segmentor`` builders of ``lidar_layout_tpu/config.py`` (with the
+reference's target-name aliases) and of its ``load_yaml`` and
+``apply_dotlist``. Targets not ported yet raise KeyError.
+
+The point models (``ptv3``, ``dense_decoder``, ``ptv3_segmentor``) take
+the width of their input features as ``in_features`` when the caller
+gives it (the width of the data's ``feats``), as JAX's flax modules infer it
+at ``init`` from the first batch: ``gaus_10cm.yaml`` says ``in_channels:
+3`` and its clouds carry 4.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from .encoders.layout_encoder import LayoutEncoderConfig, LayoutTransformerEncoder
 from .losses.vq_loss import VQLossConfig
 from .models.autoencoder import AEConfig, VQModel, VQModelInterface
+from .models.autoencoder_gaus import VQModelGaus
 from .models.cube_diffusion import CubeDiffusion, CubeDiffusionConfig, SparseUNetConfig
 from .models.diffusion import DiffusionConfig, LatentDiffusion
+from .models.gs_decoder import DenseDecoder, GSDecoderConfig
 from .models.layout_diffusion import LayoutDiffusion, LayoutDiffusionConfig
 from .models.object_cross_unet import LayoutDiffusionUNetModel, LayoutUNetConfig
+from .models.ptv3 import PTv3, PTv3Config, PTv3Segmentor
 from .models.sparse_vae import SparseVAE, SparseVAEConfig
 from .models.unet import UNetConfig, UNetModel
 from .models.unet1d import UNet1DConfig
@@ -33,6 +43,7 @@ CUBE_AE_TARGETS = ("cube_ae", "lidm.models.ae.autoencoder_cube.CubeAEModel",
                    "lidm.models.ae.autoencoder_cube.CubeModelInterface")
 CUBE_LDM_TARGETS = ("cube_latent_diffusion",
                     "lidm.models.diffusion.ddpm_cube.CubeLatentDiffusion")
+GAUS_AE_TARGETS = ("vq_model_gaus", "lidm.models.ae.autoencoder_gaus.VQModel_Gaus")
 
 
 def _ae_cfg(dd: Dict[str, Any]) -> AEConfig:
@@ -136,8 +147,8 @@ def _build_layout_diffusion(params: Dict[str, Any], **_) -> LayoutDiffusion:
         sg_embedding_dim=csp.get("embedding_dim", 64), use_clip=csp.get("use_clip", True))
 
 
-def _build_vq(params: Dict[str, Any], interface: bool = False) -> VQModel:
-    cls = VQModelInterface if interface else VQModel
+def _build_vq(params: Dict[str, Any], interface: bool = False, gaus: bool = False) -> VQModel:
+    cls = VQModelGaus if gaus else VQModelInterface if interface else VQModel
     return cls(_ae_cfg(params["ddconfig"]), n_embed=params.get("n_embed", 16384),
                embed_dim=params.get("embed_dim", 8), use_mask=params.get("use_mask", False))
 
@@ -253,6 +264,44 @@ def _build_cube_diffusion(params: Dict[str, Any], in_features: int = 4,
         first_stage=SparseVAE(fs_cfg, in_features))
 
 
+def build_ptv3_cfg(dd: Dict[str, Any], in_features: Optional[int] = None) -> PTv3Config:
+    """pointcept's PT-v3m1 dict -> ``PTv3Config``, as JAX's
+    ``build_ptv3_cfg``: the first ``enc_patch_size`` serves every level and
+    ``grid_size`` keeps its default (0.05). ``in_features``, when given,
+    replaces ``in_channels``."""
+    patch = dd.get("enc_patch_size", 1024)
+    return PTv3Config(
+        in_channels=in_features or dd.get("in_channels", 4),
+        orders=tuple(dd.get("order", ("z", "z-trans", "hilbert", "hilbert-trans"))),
+        patch_size=patch[0] if isinstance(patch, (list, tuple)) else patch,
+        enc_depths=tuple(dd.get("enc_depths", (2, 2, 2, 6, 2))),
+        enc_channels=tuple(dd.get("enc_channels", (32, 64, 128, 256, 512))),
+        enc_heads=tuple(dd.get("enc_num_head", (2, 4, 8, 16, 32))),
+        dec_depths=tuple(dd.get("dec_depths", (2, 2, 2, 2))),
+        dec_channels=tuple(dd.get("dec_channels", (64, 64, 128, 256))),
+        dec_heads=tuple(dd.get("dec_num_head", (4, 4, 8, 16))),
+        mlp_ratio=dd.get("mlp_ratio", 4.0),
+        drop_path=dd.get("drop_path", 0.0),
+        shuffle_orders=dd.get("shuffle_orders", True),
+        enable_rpe=dd.get("enable_rpe", False))
+
+
+def _unwrap(d) -> Dict[str, Any]:
+    """Both ``{target, params: {...}}`` blocks and bare dicts."""
+    d = d or {}
+    return d.get("params", d) if isinstance(d, dict) else {}
+
+
+def _build_dense_decoder(params: Dict[str, Any], in_features: Optional[int] = None,
+                         **_) -> DenseDecoder:
+    """DenseDecoderV0: ``feat_dim`` from the head block, else
+    ``backbone_out_channels``; the YAML's ``num_classes`` is not read."""
+    head = _unwrap(params.get("head"))
+    return DenseDecoder(build_ptv3_cfg(_unwrap(params.get("backbone")), in_features),
+                        GSDecoderConfig(feat_dim=head.get(
+                            "feat_dim", params.get("backbone_out_channels", 64))))
+
+
 REGISTRY: Dict[str, Callable] = {}
 for _names, _fn in (
         (("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion"),
@@ -275,7 +324,18 @@ for _names, _fn in (
          _build_vq_loss),
         (CUBE_AE_TARGETS,
          lambda params, in_features=4, **_: SparseVAE(cube_vae_cfg(params), in_features)),
-        (CUBE_LDM_TARGETS, _build_cube_diffusion)):
+        (CUBE_LDM_TARGETS, _build_cube_diffusion),
+        (GAUS_AE_TARGETS, lambda params, **_: _build_vq(params, gaus=True)),
+        (("ptv3", "PT-v3m1"),
+         lambda params, in_features=None, **_: PTv3(build_ptv3_cfg(params, in_features))),
+        (("dense_decoder", "DenseDecoderV0"), _build_dense_decoder),
+        (("gs_decoder_head", "GSDecoder"),
+         lambda params, **_: GSDecoderConfig(feat_dim=params.get("feat_dim", 64))),
+        (("ptv3_segmentor", "DefaultSegmentorV2"),
+         lambda params, in_features=None, **_: PTv3Segmentor(
+             build_ptv3_cfg(_unwrap(params.get("backbone")), in_features),
+             num_classes=params.get("num_classes", 16),
+             backbone_out_channels=params.get("backbone_out_channels", 64)))):
     for _n in _names:
         REGISTRY[_n] = _fn
 

@@ -20,14 +20,19 @@
 // revisited output block. On the H100 blocks run in parallel in no order,
 // and K/V for S = 2048 in f32 do not fit a block's shared memory. So
 // (FlashAttention-2):
-//   * The forward (flash_attn_fwd.cu) saves each row's log-sum-exp, and
-//     P = exp(S - lse) is recomputed tile by tile.
+//   * The forward (flash_attn_fwd.cu) saves each row's log-sum-exp less the
+//     largest key bias of its batch row (bmax, 0 without a bias), and P =
+//     exp((S - bmax) - lse) is recomputed tile by tile: with every key of a
+//     row at the padding bias (-1e9) the products round away, S - bmax is
+//     0 and P the uniform 1 / S of the forward (an lse near -1e9 would
+//     have lost log S to rounding).
 //   * A small pass writes delta = rowsum(dO * O) in f32.
 //   * bf16, the main pass: one block of 8 warps owns 128 keys of one (batch,
 //     head), a warp 16 of them, and loops over the query tiles (64 queries,
 //     32 at D = 128). Per tile, with K and V as A fragments: S^T = K Q^T and
 //     dP^T = V dO^T, then P^T = exp2(S^T * scale_log2 - lse_log2) (one FFMA
-//     and one MUFU.EX2 without a bias) and dS^T = P^T (dP^T - delta), each
+//     and one MUFU.EX2 without a bias; with one, the biased logit less bmax
+//     less lse_log2, two FADDs more) and dS^T = P^T (dP^T - delta), each
 //     exponential taken once; dV += P^T dO and dK += dS^T Q in registers.
 //     dS^T goes to shared memory (bf16), and the block forms its partial
 //     dQ = dS K of the tile over its 128 keys.
@@ -216,11 +221,12 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
   const bf16* dog = row_base<bf16>(p.dO, p.dos, b, h);
   const float* lg = p.lse + (long long)bh * S;
   const float* dg = p.delta + (long long)bh * S;
-  float kb0 = 0.f, kb1 = 0.f;
+  float kb0 = 0.f, kb1 = 0.f, bmax = 0.f;
   if (BIAS) {
     const float* kbr = p.kb + (long long)b * S;
     if (kr0 < S) kb0 = kbr[kr0] * kLog2e;
     if (kr1 < S) kb1 = kbr[kr1] * kLog2e;
+    bmax = block_max(kbr, S) * kLog2e;
   }
   const int nq = (S + BQ - 1) / BQ;
   const int rg = warp % RG, dgp = warp / RG;  // this warp's dQ rows and columns
@@ -340,10 +346,14 @@ __global__ void __launch_bounds__(kNWB * 32, DP <= 32 ? 2 : 1) bwd_bf16(Params p
         nl.x *= -kLog2e;  // -lse in log2 units
         nl.y *= -kLog2e;
         const float2 dd = *reinterpret_cast<const float2*>(Dd + nt * 8 + 2 * t);
-        const float p0 = ex2(fmaf(st[nt][0], sl2, BIAS ? nl.x + kb0 : nl.x));
-        const float p1 = ex2(fmaf(st[nt][1], sl2, BIAS ? nl.y + kb0 : nl.y));
-        const float p2 = ex2(fmaf(st[nt][2], sl2, BIAS ? nl.x + kb1 : nl.x));
-        const float p3 = ex2(fmaf(st[nt][3], sl2, BIAS ? nl.y + kb1 : nl.y));
+        const float p0 = ex2(BIAS ? fmaf(st[nt][0], sl2, kb0) - bmax + nl.x
+                                  : fmaf(st[nt][0], sl2, nl.x));
+        const float p1 = ex2(BIAS ? fmaf(st[nt][1], sl2, kb0) - bmax + nl.y
+                                  : fmaf(st[nt][1], sl2, nl.y));
+        const float p2 = ex2(BIAS ? fmaf(st[nt][2], sl2, kb1) - bmax + nl.x
+                                  : fmaf(st[nt][2], sl2, nl.x));
+        const float p3 = ex2(BIAS ? fmaf(st[nt][3], sl2, kb1) - bmax + nl.y
+                                  : fmaf(st[nt][3], sl2, nl.y));
         pa[2 * e] = pack_bf16(p0, p1);
         pa[2 * e + 1] = pack_bf16(p2, p3);
         sa[2 * e] = pack_bf16(p0 * (dpt[nt][0] - dd.x), p1 * (dpt[nt][1] - dd.y));
@@ -500,6 +510,7 @@ __global__ void __launch_bounds__(128) bwd_dkdv_f32(Params p) {
 #pragma unroll
   for (int d = 0; d < DP; ++d) dk[d] = dv[d] = 0.f;
   const float bias = (p.kb && key < S) ? p.kb[(long long)b * S + key] * kLog2e : 0.f;
+  const float bmax = p.kb ? block_max(p.kb + (long long)b * S, S) * kLog2e : 0.f;
 
   for (int q0 = 0; q0 < S; q0 += kTileF) {
     __syncthreads();
@@ -518,7 +529,7 @@ __global__ void __launch_bounds__(128) bwd_dkdv_f32(Params p) {
         s = fmaf(kr[d], Qs[j][d], s);
         dp = fmaf(vr[d], dOs[j][d], dp);
       }
-      const float pj = exp2f(s * p.scale_log2 + bias - Ls[j]);
+      const float pj = exp2f(s * p.scale_log2 + bias - bmax - Ls[j]);
       const float ds = pj * (dp - Ds[j]);
 #pragma unroll
       for (int d = 0; d < DP; ++d) {
@@ -546,6 +557,7 @@ __global__ void __launch_bounds__(128) bwd_dq_f32(Params p) {
   const float* kg = row_base<float>(p.k, p.ks, b, h);
   const float* vg = row_base<float>(p.v, p.vs, b, h);
   const float* kbr = p.kb ? p.kb + (long long)b * S : nullptr;
+  const float bmax = kbr ? block_max(kbr, S) * kLog2e : 0.f;
 
   float qr[DP], dor[DP], dq[DP];
   load_row<DP>(qr, row_base<float>(p.q, p.qs, b, h), p.qs[2], qi, S, D);
@@ -571,7 +583,7 @@ __global__ void __launch_bounds__(128) bwd_dq_f32(Params p) {
         s = fmaf(qr[d], Ks[j][d], s);
         dp = fmaf(dor[d], Vs[j][d], dp);
       }
-      const float ds = exp2f(s * p.scale_log2 + Bs[j] - L) * (dp - Dl);
+      const float ds = exp2f(s * p.scale_log2 + Bs[j] - bmax - L) * (dp - Dl);
 #pragma unroll
       for (int d = 0; d < DP; ++d) dq[d] = fmaf(ds, Ks[j][d], dq[d]);
     }

@@ -52,6 +52,10 @@
 //     tile (log2 units, -inf past S) is staged in shared memory with the
 //     tile, and x = s * scale_log2 + bias is one FFMA. Only the last tile
 //     can be ragged, so only it tests key < S (bias-free path).
+//   * The log-sum-exp (written for K2) is taken less the batch row's
+//     largest key bias (block_max): a row whose every key carries the
+//     padding bias (-1e9) attends uniformly, as the plain version does, and
+//     keeps log S in its lse, which -1e9 + log S in f32 would lose.
 //   * The scale D^-1/2 is folded with log2(e). Query rows past S are not
 //     stored, so S needs no alignment (the TPU kernel needed S % 128 == 0).
 //   * Any strides for the b, h and s axes (d contiguous), so q, k and v can
@@ -74,12 +78,14 @@
 
 #include "mma_tiles.cuh"
 
-namespace {
-
-using namespace mma_tiles;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+// Built in parts (ops/_build.py PARTS), side by side, then linked into one
+// library: -DLLT_PART=0 holds the entry point and instantiates no kernel;
+// -DLLT_PART=<DP> (16, 32, 64) the three kernels of head dim DP (f32, bf16,
+// bf16 with a bias); -DLLT_PART=<DP * 10 + v> one of them, v = 0 f32, 1
+// bf16, 2 bf16 with a bias (1280-1282: head dim 128, whose kernels took
+// 64.8 s of nvcc together on the H100 host, against 91.0 s for the whole
+// file). Without LLT_PART the file builds whole.
+namespace llt_attn_fwd {
 
 struct Params {
   const void* q;
@@ -92,6 +98,16 @@ struct Params {
   int H, S, D;
   float scale_log2;  // D^-1/2 * log2(e)
 };
+
+}  // namespace llt_attn_fwd
+
+namespace {
+
+using namespace mma_tiles;
+using llt_attn_fwd::Params;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------- bf16 path
 
@@ -136,6 +152,7 @@ __global__ void __launch_bounds__(FwdTile<DP>::NW * 32, DP <= 64 ? 2 : 1)
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ks[0] + h * p.ks[1];
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vs[0] + h * p.vs[1];
   const float* kb = BIAS ? p.kb + (long long)b * S : nullptr;
+  const float bmax = BIAS ? block_max(kb, S) * kLog2e : 0.f;  // log2 units
   const int ntiles = (S + BK - 1) / BK;
 
   auto issue = [&](int j) {  // copies of key tile j into slot j % NS
@@ -296,10 +313,10 @@ __global__ void __launch_bounds__(FwdTile<DP>::NW * 32, DP <= 64 ? 2 : 1)
     }
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int row0 = q0 + wrow + mt * 16 + g, row1 = row0 + 8;
-    if (p.lse && t == 0) {  // natural-log units: (m + log2 l) * ln 2
+    if (p.lse && t == 0) {  // natural-log units: (m - bias max + log2 l) * ln 2
       float* lg = p.lse + (long long)bh * S;
-      if (row0 < S) lg[row0] = (m[mt][0] + log2f(l0)) * kLn2;
-      if (row1 < S) lg[row1] = (m[mt][1] + log2f(l1)) * kLn2;
+      if (row0 < S) lg[row0] = ((m[mt][0] - bmax) + log2f(l0)) * kLn2;
+      if (row1 < S) lg[row1] = ((m[mt][1] - bmax) + log2f(l1)) * kLn2;
     }
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
@@ -334,6 +351,7 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
   const float* kg = static_cast<const float*>(p.k) + b * p.ks[0] + h * p.ks[1];
   const float* vg = static_cast<const float*>(p.v) + b * p.vs[0] + h * p.vs[1];
   const float* kb = p.kb ? p.kb + (long long)b * S : nullptr;
+  const float bmax = kb ? block_max(kb, S) * kLog2e : 0.f;  // log2 units
 
   float qr[DP], o[DP];
 #pragma unroll
@@ -391,7 +409,7 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
   if (qi < S) {
     float* og = static_cast<float*>(p.o) + b * p.os[0] + h * p.os[1] + qi * p.os[2];
     const float inv = 1.f / l;
-    if (p.lse) p.lse[(long long)bh * S + qi] = (m + log2f(l)) * kLn2;
+    if (p.lse) p.lse[(long long)bh * S + qi] = ((m - bmax) + log2f(l)) * kLn2;
 #pragma unroll
     for (int d = 0; d < DP; d += 4)
       if (d < D)
@@ -399,6 +417,10 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
             make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
   }
 }
+
+}  // namespace
+
+namespace llt_attn_fwd {
 
 template <int DP, bool BIAS>
 void launch_bf16(const Params& p, int B, cudaStream_t stream) {
@@ -417,18 +439,43 @@ void launch_bf16(const Params& p, int B, cudaStream_t stream) {
 }
 
 template <int DP>
-void launch(const Params& p, int B, int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    const dim3 grid((p.S + kQF - 1) / kQF * B * p.H);
-    attn_fwd_f32<DP><<<grid, kQF, 0, stream>>>(p);
-  } else if (p.kb) {
-    launch_bf16<DP, true>(p, B, stream);
-  } else {
-    launch_bf16<DP, false>(p, B, stream);
-  }
+void launch_f32(const Params& p, int B, cudaStream_t stream) {
+  const dim3 grid((p.S + kQF - 1) / kQF * B * p.H);
+  attn_fwd_f32<DP><<<grid, kQF, 0, stream>>>(p);
 }
 
-}  // namespace
+template <int DP>
+void launch(const Params& p, int B, int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    launch_f32<DP>(p, B, stream);
+  else if (p.kb)
+    launch_bf16<DP, true>(p, B, stream);
+  else
+    launch_bf16<DP, false>(p, B, stream);
+}
+
+#define LLT_LEAVES(KW, DP)                                           \
+  KW void launch_f32<DP>(const Params&, int, cudaStream_t);         \
+  KW void launch_bf16<DP, false>(const Params&, int, cudaStream_t); \
+  KW void launch_bf16<DP, true>(const Params&, int, cudaStream_t);
+#if defined(LLT_PART) && LLT_PART >= 1000 && LLT_PART % 10 == 0
+template void launch_f32<LLT_PART / 10>(const Params&, int, cudaStream_t);
+#elif defined(LLT_PART) && LLT_PART >= 1000
+template void launch_bf16<LLT_PART / 10, LLT_PART % 10 == 2>(const Params&, int, cudaStream_t);
+#elif defined(LLT_PART) && LLT_PART > 0
+LLT_LEAVES(template, LLT_PART)
+#elif defined(LLT_PART)
+LLT_LEAVES(extern template, 16)
+LLT_LEAVES(extern template, 32)
+LLT_LEAVES(extern template, 64)
+LLT_LEAVES(extern template, 128)
+#endif
+#undef LLT_LEAVES
+
+}  // namespace llt_attn_fwd
+
+#if !defined(LLT_PART) || LLT_PART == 0
+using llt_attn_fwd::launch;
 
 // q, k, v: (B, H, S, D) with any b/h/s element strides and contiguous d;
 // strides holds 12 values, (b, h, s) for q, k, v, then o. kbias: (B, S)
@@ -471,3 +518,4 @@ extern "C" int llt_flash_attn_fwd(const void* q, const void* k, const void* v,
     launch<128>(p, B, dtype, st);
   return (int)cudaGetLastError();
 }
+#endif

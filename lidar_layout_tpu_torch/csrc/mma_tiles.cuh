@@ -1,18 +1,38 @@
 // Building blocks of the bf16 attention kernels (flash_attn_fwd.cu and
 // flash_attn_bwd.cu) for sm_90a: asynchronous 16-byte global -> shared
 // copies, ldmatrix fragment loads, the m16n8k16 bf16 tensor-core product and
-// the hardware exp2. Fragment layouts are PTX's for mma.m16n8k16: in lane
+// the hardware exp2, and a block-wide max. Fragment layouts are PTX's for mma.m16n8k16: in lane
 // (g = lane / 4, t = lane % 4), an A fragment holds rows g and g + 8, columns
 // 2t, 2t + 1 and 2t + 8, 2t + 9; a B fragment holds columns (n) g, rows (k)
 // 2t, 2t + 1 and 2t + 8, 2t + 9; a C fragment holds rows g and g + 8,
 // columns 2t and 2t + 1.
 #pragma once
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace mma_tiles {
 
 typedef __nv_bfloat16 bf16;
+
+// The largest of x[0 .. n), by the whole block (every thread calls it and
+// gets the value). The attention kernels take it of a batch row's key bias:
+// K1 writes its log-sum-exp less it and K2 subtracts it back, so a row whose
+// every key carries the padding bias (-1e9, next to which the products
+// round away) keeps log l, which -1e9 + log l in f32 would lose.
+__device__ __forceinline__ float block_max(const float* x, int n) {
+  __shared__ float red[32];
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) mx = fmaxf(mx, x[i]);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  mx = -INFINITY;
+  for (int w = 0; w < (int)(blockDim.x + 31) / 32; ++w) mx = fmaxf(mx, red[w]);
+  __syncthreads();
+  return mx;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -30,6 +30,12 @@ otherwise falls back to the family's synthetic generator and says so (the
   ``point_cloud_range`` and padded to ``max_points`` (32768); the fallback
   is ``synthetic_cloud_batch``, JAX's draws. Batches of ``points`` (B, N,
   3), ``feats`` (B, N, 4) and ``mask`` (B, N) on ``device``.
+- ``nusc_cube_decode`` (the dense decoder): as ``nusc_cube``, with the
+  params' ``transform`` block (``data/transforms.build_pipeline``) run on
+  each scan after the crop, built only when sweeps are read, as JAX
+  builds it: ``gaus_10cm.yaml``'s block raises TypeError there, as in
+  the JAX package. A transform's ``range_img`` joins the batch. The
+  fallback is ``synthetic_cloud_batch``.
 
 The other targets of the JAX factory raise NotImplementedError, naming the
 ROADMAP queue 1 item that ports them.
@@ -67,7 +73,6 @@ _FAMILIES = 'ROADMAP queue 1, "Remaining families and infrastructure"'
 NOT_PORTED = {
     "sem_kitti": _AE, "kitti_camera": _AE, "kitti_annotated": _AE,
     "nusc_object": _FAMILIES, "nusc_r2dm": _FAMILIES,
-    "nusc_cube_decode": 'ROADMAP queue 1, "Dense decoder"',
 }
 
 
@@ -85,15 +90,18 @@ class CloudDataset:
     ``coord`` = the scan's xyz and ``feat`` its first four columns (three
     when it has only three), kept strictly inside ``point_range`` (x0, y0,
     z0, x1, y1, z1) when given, the first ``max_points`` of them padded
-    with zeros and a False mask. JAX's ``transforms`` serve only
-    ``nusc_cube_decode``, which is not ported."""
+    with zeros and a False mask. ``transforms`` (a callable on the sample
+    dict) runs after the crop; the ``range_img`` or ``ray_drop`` it adds
+    come along as f32."""
 
     def __init__(self, files: Sequence[str], point_range, max_points: int,
-                 reader: Callable[[str], np.ndarray]):
+                 reader: Callable[[str], np.ndarray],
+                 transforms: Optional[Callable[[Dict], Dict]] = None):
         self.files = list(files)
         self.point_range = point_range
         self.max_points = max_points
         self.reader = reader
+        self.transforms = transforms
 
     def __len__(self):
         return len(self.files)
@@ -107,6 +115,8 @@ class CloudDataset:
             m = ((c[:, 0] > r[0]) & (c[:, 0] < r[3]) & (c[:, 1] > r[1]) & (c[:, 1] < r[4])
                  & (c[:, 2] > r[2]) & (c[:, 2] < r[5]))
             data = {k: v[m] for k, v in data.items()}
+        if self.transforms is not None:
+            data = self.transforms(data)
         n = min(len(data["coord"]), self.max_points)
         out = {"points": np.zeros((self.max_points, 3), np.float32),
                "feats": np.zeros((self.max_points, data["feat"].shape[1]), np.float32),
@@ -114,6 +124,9 @@ class CloudDataset:
         out["points"][:n] = data["coord"][:n]
         out["feats"][:n] = data["feat"][:n]
         out["mask"][:n] = True
+        for k in ("range_img", "ray_drop"):
+            if k in data:
+                out[k] = np.asarray(data[k], np.float32)
         return out
 
 
@@ -146,7 +159,7 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
         raise NotImplementedError(f"the {name!r} dataset is not ported yet "
                                   f"({NOT_PORTED[name]})")
     if name not in ("nusc_layout_graph", "nusc_layout_range", "nusc_range", "kitti_range",
-                    "nusc_cube"):
+                    "nusc_cube", "nusc_cube_decode"):
         raise KeyError(f"unknown dataset target '{target}' "
                        f"(known: {sorted(set(ALIASES.values()))})")
     rng = np.random.default_rng(seed)
@@ -177,14 +190,18 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
     from . import readers
     from .datasets import RangeImageDataset, dataset_batches, layout_range_batches
 
-    if name == "nusc_cube":
+    if name in ("nusc_cube", "nusc_cube_decode"):
         max_points = params.get("max_points", 32768)
         if have_root:
             files = (readers.list_nuscenes_sweeps(str(root), split, "sweeps")
                      or readers.list_nuscenes_sweeps(str(root), split, "samples"))
             if len(files) >= batch_size:
+                transforms = None
+                if name == "nusc_cube_decode" and params.get("transform"):
+                    from .transforms import build_pipeline
+                    transforms = build_pipeline(params["transform"])
                 ds = CloudDataset(files, dset_cfg.get("point_cloud_range"), max_points,
-                                  lambda p: readers.read_nuscenes_bin(p)[:, :4])
+                                  lambda p: readers.read_nuscenes_bin(p)[:, :4], transforms)
                 yield from dataset_batches(ds, batch_size, seed, device)
                 return
         for b in synth(f"no sweeps under {root!r}",

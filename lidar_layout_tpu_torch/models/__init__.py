@@ -1,2 +1,3 @@
-"""U-Net, VQ autoencoder, latent diffusion wrapper, schedules, samplers and the
-sparse-voxel convolution block."""
+"""U-Net, VQ autoencoders (with the Gaussian tower), latent diffusion wrapper,
+schedules, samplers, the sparse-voxel convolution block, PT-v3 and the
+Gaussian-surfel dense decoder."""

@@ -134,9 +134,10 @@ class Decoder(nn.Module):
                                           wrap=wrap)
             levels[i] = level
         self.up = nn.ModuleList([levels[i] for i in range(len(cfg.ch_mult))])
-        self.norm_out = Normalize(block_in, act=True)
-        self.conv_out = CircularConv(block_in, cfg.out_ch, (1, 4), (1, 1), (1, 2, 0, 0),
-                                     wrap=wrap)
+        if not cfg.give_pre_end:   # a tower that ends before its norm has no head
+            self.norm_out = Normalize(block_in, act=True)
+            self.conv_out = CircularConv(block_in, cfg.out_ch, (1, 4), (1, 1), (1, 2, 0, 0),
+                                         wrap=wrap)
 
     def forward(self, z: torch.Tensor, return_prefinal: bool = False):
         """The decoded image; with ``return_prefinal`` also conv_out's input

@@ -92,8 +92,8 @@ class LatentDiffusion(nn.Module):
                 f"conditioning_key {cfg.conditioning_key!r} is not ported yet "
                 f'(ROADMAP queue 1, "Conditioning")')
         if cfg.split_ks is not None:
-            raise NotImplementedError("the split_ks patched path waits for the "
-                                      "foldunfold port (ROADMAP queue 1)")
+            raise NotImplementedError("the split_ks patched path waits for the foldunfold "
+                                      'port (ROADMAP queue 1, "Main-path remainder")')
         self.cfg = cfg
         self.schedule = DiffusionSchedule.create(
             timesteps=cfg.timesteps, beta_schedule=cfg.beta_schedule,

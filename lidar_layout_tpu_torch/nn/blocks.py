@@ -166,4 +166,5 @@ def make_attn(channels: int, attn_type: str = "vanilla") -> nn.Module:
     if attn_type == "none":
         return nn.Identity()
     raise NotImplementedError(
-        f"attn_type {attn_type!r} is not ported yet (ROADMAP queue 1)")
+        f"attn_type {attn_type!r} is not ported yet "
+        f'(ROADMAP queue 1, "First stage and AE training")')

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from ``csrc/*.cu`` and load them with ctypes.
 
 Each source compiles with ``nvcc`` into its own shared library with a plain C
-interface, on first use, into ``lidar_layout_tpu_torch/_build/`` (listed in
+interface (a source in ``PARTS`` in parts, side by side, then linked), on
+first use, into ``lidar_layout_tpu_torch/_build/`` (listed in
 ``.gitignore``). A library's file name carries a hash of its source, the
 shared headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt
 and a stale one is never loaded. Nothing is
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Tuple
@@ -45,7 +47,11 @@ def source(name: str) -> str:
 SOURCES = tuple(dict.fromkeys(source(n) for n in SIGNATURES))
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# sources built in parts: one nvcc -c -DLLT_PART=<part> each, side by side,
+# then linked into the one library (the source says what a part holds);
+# flash_attn_fwd's kernels took 91.0 s in one process on the H100 host
+PARTS = {"flash_attn_fwd": (0, 16, 32, 64, 1280, 1281, 1282)}
 
 _LAUNCHERS: Dict[str, Callable[..., int]] = {}
 
@@ -62,40 +68,70 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """The built library of ``csrc/<name>.cu``; its name hashes the source,
-    the shared headers ``csrc/*.cuh`` and the flags."""
-    parts = [SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))]
-    digest = hashlib.sha256(b"".join(f.read_bytes() for f in parts)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    the shared headers ``csrc/*.cuh``, the flags and the parts."""
+    files = [SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))]
+    flags = " ".join(NVCC_FLAGS) + repr(PARTS.get(name))
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in files)
+                            + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
     """Compile every named source that is not built yet, all at once (one
-    ``nvcc`` process each). Returns {name: (seconds, compiler log)} for the
-    sources it compiled; raises RuntimeError if any compile fails."""
+    ``nvcc`` process each, or one a part for the sources in PARTS, whose
+    objects are then linked). Returns {job: (seconds, compiler log)} for the
+    jobs it ran, a job being a source, ``<source>[<part>]`` or
+    ``<source>[link]``; raises RuntimeError if any of them fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    tmp = {n: library_path(n).with_suffix(f".{os.getpid()}.tmp") for n in todo}
+    jobs, objects = {}, {}
     for name in todo:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
-        procs[name] = (tmp, time.perf_counter(),
-                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for name, (tmp, t0, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = (time.perf_counter() - t0, out)
-        if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
+        src = str(SOURCE_DIR / f"{name}.cu")
+        if name in PARTS:
+            objects[name] = [tmp[name].with_suffix(f".{part}.o") for part in PARTS[name]]
+            for part, obj in zip(PARTS[name], objects[name]):
+                jobs[f"{name}[{part}]"] = [nvcc, *NVCC_FLAGS, "-c", f"-DLLT_PART={part}",
+                                           "-o", str(obj), src]
         else:
-            os.replace(tmp, library_path(name))  # atomic for concurrent builders
+            jobs[name] = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp[name]), src]
+    logs = _run(jobs)
+    links = {f"{n}[link]": [nvcc, "-shared", "-o", str(tmp[n]), *map(str, objects[n])]
+             for n in objects if all(logs[f"{n}[{p}]"][2] == 0 for p in PARTS[n])}
+    logs.update(_run(links))
+    for obj in (o for objs in objects.values() for o in objs):
+        if obj.exists():
+            obj.unlink()
+    for name in todo:
+        if logs.get(f"{name}[link]" if name in objects else name, (0, "", 1))[2] == 0:
+            os.replace(tmp[name], library_path(name))  # atomic for concurrent builders
+    failed = [f"{job} (exit {rc}):\n{out}" for job, (_, out, rc) in logs.items() if rc != 0]
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return logs
+    return {job: (sec, out) for job, (sec, out, _) in logs.items()}
+
+
+def _run(jobs: Dict[str, list]) -> Dict[str, Tuple[float, str, int]]:
+    """Run every command at once: {job: (its own seconds, its output, its
+    exit code)}."""
+    procs = {}
+    for job, cmd in jobs.items():
+        out = tempfile.TemporaryFile("w+", dir=BUILD_DIR)   # a full pipe would stall nvcc
+        procs[job] = (out, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True))
+    done = {}
+    while len(done) < len(procs):
+        for job, (out, t0, proc) in procs.items():
+            if job not in done and proc.poll() is not None:
+                seconds = time.perf_counter() - t0
+                out.seek(0)
+                done[job] = (seconds, out.read(), proc.returncode)
+                out.close()
+        time.sleep(0.05)
+    return done
 
 
 def launcher(name: str) -> Callable[..., int]:

@@ -9,8 +9,12 @@ sm_90a; each header says what bounds it and how it is built around that).
 CUDA tensors it launches the kernels or raises. When a gradient is needed it
 runs through ``_FlashAttention``: the forward (K1) also writes the per-row
 f32 log-sum-exp, and the backward (K2) recomputes the probabilities from it,
-FlashAttention-2 style. The key bias is a padding mask and gets no gradient
-(the JAX package returns zeros for it). ``attend`` routes the same cases as
+FlashAttention-2 style. The log-sum-exp is taken less the largest key bias
+of the batch row (``_row_bias_max``): a row whose every key carries the
+padding bias (-1e9) attends uniformly, since its products round away next
+to -1e9, and an lse near -1e9 would lose log S to f32 rounding, so the
+recomputed probabilities would not be the forward's. The key bias is a
+padding mask and gets no gradient (the JAX package returns zeros for it). ``attend`` routes the same cases as
 the JAX package: self-attention with no mask or with a key-padding mask goes
 to ``flash_attention``; anything else goes to plain attention.
 """
@@ -44,10 +48,17 @@ def _logits_ref(q: torch.Tensor, k: torch.Tensor,
     return s
 
 
+def _row_bias_max(kbias: Optional[torch.Tensor]):
+    """(B, 1, 1, 1) largest key bias of each batch row, or 0 without a bias."""
+    return 0.0 if kbias is None else kbias.float().amax(dim=-1)[:, None, None, None]
+
+
 def _lse_ref(q: torch.Tensor, k: torch.Tensor,
              kbias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-row f32 log-sum-exp of the logits, (B, H, S): K1's second output."""
-    return torch.logsumexp(_logits_ref(q, k, kbias), dim=-1)
+    """Per-row f32 log-sum-exp of the logits less the batch row's largest key
+    bias, (B, H, S): K1's second output (the plain log-sum-exp where a row
+    has a key with bias 0, as every padding mask does but a padding patch's)."""
+    return torch.logsumexp(_logits_ref(q, k, kbias) - _row_bias_max(kbias), dim=-1)
 
 
 def _attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,7 +67,8 @@ def _attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain attention backward, the math of kernel K2.
 
-    P is recomputed from the saved log-sum-exp, ``dS = P*(dP - delta)``; P
+    P is recomputed from the saved log-sum-exp (less the row's largest key
+    bias, as ``_lse_ref``), ``dS = P*(dP - delta)``; P
     and dS are rounded to the input dtype before their products (as the TPU
     kernel rounds them), everything is summed in f32 and dq/dk/dv come back
     in the input dtypes. ``delta`` is ``rowsum(P*dP)``, the softmax vjp's own
@@ -68,7 +80,7 @@ def _attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     scale = q.shape[-1] ** -0.5
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    p = torch.exp(_logits_ref(q, k, kbias) - lse.float()[..., None])
+    p = torch.exp(_logits_ref(q, k, kbias) - _row_bias_max(kbias) - lse.float()[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     delta = (p * dp).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)

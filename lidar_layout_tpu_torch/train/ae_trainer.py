@@ -18,6 +18,12 @@ gradient is taken with ``torch.autograd.grad`` for the parameters it
 updates, so the generator pass leaves the discriminator's untouched, as
 JAX's ``value_and_grad`` of ``params_g`` does.
 
+With ``s2_render`` (the Gaussian range autoencoder, ``VQModelGaus``) the
+generator also decodes per-pixel Gaussians, renders the panorama again
+(``models/autoencoder_gaus.render_range_from_gaussians``) and adds the s2
+loss to the NLL; the adaptive weight still reads the reconstruction NLL
+alone, as JAX's does.
+
 The scan-chunked step (``make_chunked_ae_train_step``) is not ported: its
 successor is a CUDA graph over the step (ROADMAP).
 """
@@ -35,6 +41,7 @@ from ..losses.geometric import GeoConverter
 from ..losses.vq_loss import (VQLossConfig, adaptive_weight_from_grads,
                               assemble_disc_input, disc_factor_at, reconstruction_nll)
 from ..models.autoencoder import VQModel
+from ..ops.lidar import LidarGeometry, depth_to_model
 from .diffusion_trainer import Optimizer
 
 DISC_PREFIX = "loss.discriminator."   # where a Lightning AE checkpoint keeps it
@@ -117,7 +124,8 @@ def _dropout_draws(generator: torch.Generator, on: bool):
 
 
 def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossConfig,
-                       geo: GeoConverter, timed: bool = False) -> Callable:
+                       geo: GeoConverter, timed: bool = False, s2_render: bool = False,
+                       s2_geom: Optional[LidarGeometry] = None) -> Callable:
     """step(state, batch, generator) -> (state, logs).
 
     ``batch["image"]`` is (B, H, W, 1), as the data factory gives it.
@@ -127,7 +135,12 @@ def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossCo
     and ``logits_fake``. With ``timed`` the step synchronises the device at
     its phase boundaries and adds ``seconds_gen`` (the generator's forward
     and backward with the adaptive weight), ``seconds_disc`` and
-    ``seconds_opt`` (both Adam updates)."""
+    ``seconds_opt`` (both Adam updates). ``s2_render`` adds the s2 loss of
+    the Gaussian tower rendered in ``s2_geom`` (its parts ``s2_l1``,
+    ``s2_smooth``, ``s2_normal`` and ``s2_loss`` are logged)."""
+    if s2_render:
+        from ..models.autoencoder_gaus import render_range_from_gaussians, s2_loss
+        assert s2_geom is not None, "s2_render needs the LidarGeometry"
     d_loss_fn = hinge_d_loss if loss_cfg.disc_loss == "hinge" else vanilla_d_loss
     params_g, params_d = list(model.parameters()), list(disc.parameters())
     w_last = model.decoder.conv_out.weight
@@ -149,7 +162,10 @@ def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossCo
         disc_factor = disc_factor_at(loss_cfg, state.step)
         mark()
         with _dropout_draws(generator, model.cfg.dropout > 0):
-            dec, qloss, _ = model(x)
+            if s2_render:
+                dec, qloss, _, _, gaus = model.forward_with_prefinal_gaus(x)
+            else:
+                dec, qloss, _ = model(x)
         nll, parts = reconstruction_nll(loss_cfg, geo, x, dec, masks)
         g_loss = -torch.mean(disc(assemble_disc_input(loss_cfg, geo, dec, masks, True)))
         (nll_g,) = torch.autograd.grad(nll, w_last, retain_graph=True)
@@ -157,8 +173,15 @@ def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossCo
         d_weight = adaptive_weight_from_grads(torch.linalg.vector_norm(nll_g),
                                               torch.linalg.vector_norm(gan_g),
                                               loss_cfg.disc_weight).detach()
+        if s2_render:
+            rend = render_range_from_gaussians(dec[:, 0], gaus, s2_geom)
+            s2, s2_parts = s2_loss(geo, x, depth_to_model(rend["rendered_range"], s2_geom)[:, None])
+            nll = nll + s2
+            parts.update(s2_parts)
         loss = nll + d_weight * disc_factor * g_loss + loss_cfg.codebook_weight * qloss
-        grads_g = list(torch.autograd.grad(loss, params_g))
+        # the s2 loss reads the rendered range alone: the SH head gets zeros
+        grads_g = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params_g, torch.autograd.grad(loss, params_g, allow_unused=s2_render))]
         mark()
         # the discriminator, on the reconstruction before the generator's update
         logits_real = disc(assemble_disc_input(loss_cfg, geo, x, masks, False))
@@ -192,7 +215,7 @@ def make_ae_val_step(model: VQModel, loss_cfg: VQLossConfig, geo: GeoConverter) 
         model.eval()
         x, masks = _nchw(batch, loss_cfg)
         with torch.no_grad():
-            dec, qloss, _ = model(x)
+            dec, qloss = model(x)[:2]   # VQModelGaus also returns its Gaussians
             nll, parts = reconstruction_nll(loss_cfg, geo, x, dec, masks)
         return {"rec_loss": parts["rec_loss"], "nll_loss": nll, "quant_loss": qloss}
 

@@ -9,7 +9,7 @@ on one CUDA card.
 Counterpart of ``scripts/train_lidm.py`` with the same flags:
 ``-b/--base -t/--train -r/--resume -d/--data-root -s/--seed --steps
 --workdir --synthetic --bf16`` and trailing ``a.b.c=value`` overrides;
-``--cpu`` runs on the CPU. Four families are ported:
+``--cpu`` runs on the CPU. Five families are ported:
 
 - ``vq_model`` (``configs/autoencoder/*/autoencoder_c2_p4.yaml``,
   ``range_flow.yaml``, ``configs/ours/nuscenes/coarse_range/range_256x8.yaml``):
@@ -19,6 +19,10 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
   builds it; monitored on ``val/rec_loss``. Its checkpoints hold a
   Lightning-style ``state_dict`` that a LiDM's
   ``first_stage_config.params.ckpt_path`` reads as it is.
+- ``vq_model_gaus`` (``configs/autoencoder/nuscenes/autoencoder_c2_p4_gaus.yaml``):
+  the same step with the s2 branch (the Gaussian tower rendered in the
+  YAML's geometry, ``make_ae_train_step(s2_render=True)``), as JAX's
+  ``build_family_trainer`` trains it; no image logger, as there.
 - LatentDiffusion, unconditional or layout-conditioned
   (``configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml``, whose
   encoder trains with the U-Net).
@@ -31,8 +35,9 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
 Every ``sample_every_steps`` (default a fifth of ``--steps``) the image
 logger (``train/sample_logger``) writes the AE's inputs and reconstructions,
 or the LiDM's ``lidm_log_images`` with the EMA weights, under
-``<workdir>/images``. The KL, gaus, object and R2DM families' trainers raise
-NotImplementedError, and LayoutDiffusion trains with ``train_layout``.
+``<workdir>/images``. The KL, object and R2DM families' trainers raise
+NotImplementedError; LayoutDiffusion trains with ``train_layout`` and the
+dense decoder with ``train_dense_decoder``.
 Dataset targets come from ``data/factory`` (synthetic with
 ``--synthetic``). Weights start from torch's initialisers under ``--seed``
 unless a first stage names a ``ckpt_path``.
@@ -46,13 +51,13 @@ from typing import Any, Dict
 import torch
 
 LDM_TARGETS = ("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion")
-AE_TARGETS = ("vq_model", "lidm.models.autoencoder.VQModel", "lidm.models.ae.autoencoder.VQModel")
+AE_TARGETS = ("vq_model", "lidm.models.autoencoder.VQModel", "lidm.models.ae.autoencoder.VQModel",
+              "vq_model_gaus", "lidm.models.ae.autoencoder_gaus.VQModel_Gaus")
 LAYOUT_DIFFUSION_TARGETS = ("layout_diffusion", "lidm.models.diffusion.ddpm.LayoutDiffusion")
 # the families still to port, each with the ROADMAP queue 1 item that ports it
 MISSING_FAMILIES = (
     "the KL autoencoder's (ROADMAP queue 1, \"First stage and AE training\"), the "
-    "Gaussian range AE's (ROADMAP queue 1, \"Dense decoder\"), the object AE's and "
-    "R2DM's (ROADMAP queue 1, \"Remaining families and infrastructure\")")
+    "object AE's and R2DM's (ROADMAP queue 1, \"Remaining families and infrastructure\")")
 LAYOUT_RANGE_TARGETS = ("nusc_layout_range", "lidm.data.nusc_dataset.nuScenesLayoutTrain",
                         "lidm.data.nusc_dataset.nuScenesLayoutValidation")
 
@@ -110,7 +115,7 @@ def _lr_lambda(model_cfg: Dict[str, Any], steps: int):
 def main(argv=None):
     args = parse_args(argv)
 
-    from ..config import (CUBE_AE_TARGETS, CUBE_LDM_TARGETS, apply_dotlist,
+    from ..config import (CUBE_AE_TARGETS, CUBE_LDM_TARGETS, GAUS_AE_TARGETS, apply_dotlist,
                           instantiate_from_config, load_yaml)
     from ..data.datasets import RangeImageDataset
     from ..data.factory import build_batches
@@ -201,7 +206,8 @@ def main(argv=None):
             print("the cube families train in float32; --bf16 is not read for them")
         state, step, val_step, monitor = cube_training(model, model_cfg, lr, lr_lambda)
     elif is_ae:
-        render_fn = _ae_render(model, val_cache)
+        if model_cfg["target"] not in GAUS_AE_TARGETS:   # JAX logs no gaus images
+            render_fn = _ae_render(model, val_cache)
     else:
         state, step, val_step, monitor = _ldm_training(model, model_cfg, val_cache, lr,
                                                        accumulate, lr_lambda, args.bf16)
@@ -240,11 +246,13 @@ def _ae_training(model, model_cfg: Dict[str, Any], geom, lr: float, accumulate: 
                  lr_lambda):
     """(state, step, val_step, monitored metric) of the VQ-GAN: the loss
     block's config (the default ``VQLossConfig`` without one), JAX's
-    discriminator on the model's device, two Adams."""
+    discriminator on the model's device, two Adams; the s2 branch for a
+    ``VQModelGaus``."""
     from ..config import instantiate_from_config
     from ..losses.discriminator import LiDARNLayerDiscriminator
     from ..losses.geometric import GeoConverter
     from ..losses.vq_loss import VQLossConfig
+    from ..models.autoencoder_gaus import VQModelGaus
     from .ae_trainer import (create_ae_state, disc_in_channels, make_ae_train_step,
                              make_ae_val_step)
 
@@ -259,7 +267,8 @@ def _ae_training(model, model_cfg: Dict[str, Any], geom, lr: float, accumulate: 
     dev = next(model.parameters()).device
     disc = LiDARNLayerDiscriminator(disc_in_channels(model.cfg.out_ch, loss_cfg, geo)).to(dev)
     state = create_ae_state(model, disc, lr, lr, accumulate, lr_lambda)
-    return (state, make_ae_train_step(model, disc, loss_cfg, geo),
+    s2 = isinstance(model, VQModelGaus)
+    return (state, make_ae_train_step(model, disc, loss_cfg, geo, s2_render=s2, s2_geom=geom),
             make_ae_val_step(model, loss_cfg, geo), "val/rec_loss")
 
 

@@ -43,6 +43,15 @@ a tree of Dense and LayerNorm modules (``SparseVoxelNet``,
 ``SparseConvBlock``, the cube stage's ``SparseVAE``), and ``load_torchsparse_checkpoint`` reads the
 reference's ``model.ckpt``.
 
+The point models keep the flax names as well: ``dense_tree_state_dict``
+carries a JAX ``PTv3``, ``DenseDecoder`` or ``PTv3Segmentor`` tree (Dense
+kernels reversed, LayerNorm ``scale`` -> ``weight``; the CPE's depthwise
+window-3 ``nn.Conv`` kernel (3, 1, C) reversed to ``Conv1d``'s (C, 1, 3);
+``rpe_table`` as it is). ``vq_state_dict`` carries a ``VQModelGaus`` tree:
+its ``gaus_decoder.tower`` (a Decoder that ends before its norm), the
+``norm_out`` GroupNorm and the ``CircularConv`` heads (``rot_out.conv1``,
+...) follow the autoencoder's rules.
+
 The cube stage keeps every flax name too: ``cube_diffusion_state_dict``
 carries a JAX ``CubeDiffusion`` tree (``{"unet": ...}``, under ``unet.``)
 with, when given, its first stage's ``SparseVAE`` tree (under
@@ -348,9 +357,10 @@ def seg_net_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def dense_tree_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX tree of Dense and LayerNorm modules (``SparseVoxelNet``,
-    ``SparseConvBlock``) -> the port's state_dict under the flax names:
-    kernels (in, out) -> ``weight`` (out, in), LayerNorm ``scale`` ->
-    ``weight``."""
+    ``SparseConvBlock``, ``PTv3``, ``DenseDecoder``, ``PTv3Segmentor``) ->
+    the port's state_dict under the flax names: kernels reversed ((in, out)
+    -> ``weight`` (out, in); a depthwise conv's (3, 1, C) -> (C, 1, 3)),
+    LayerNorm ``scale`` -> ``weight``, other leaves as they are."""
     return {".".join(name): torch.from_numpy(np.array(value))
             for name, value in (_leaf(p[:-1], p[-1], v)
                                 for p, v in _flatten(params.get("params", params)))}

@@ -282,8 +282,8 @@ def test_factory_other_targets():
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert PF.ALIASES == jax_factory.ALIASES
-    with pytest.raises(NotImplementedError, match='"Dense decoder"'):
-        next(PF.build_batches("nusc_cube_decode", {}, {}, None, 1))
+    with pytest.raises(NotImplementedError, match='"Remaining families and infrastructure"'):
+        next(PF.build_batches("nusc_object", {}, {}, None, 1))
     with pytest.raises(NotImplementedError, match='"First stage and AE training"'):
         next(PF.build_batches("lidm.data.kitti.SemanticKITTITrain", {}, {}, None, 1))
     with pytest.raises(KeyError, match="unknown"):
