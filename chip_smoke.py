@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases device,build,cube_slice,cube
     python3 chip_smoke.py --phases device,build,ae_train,ae_eval
     python3 chip_smoke.py --phases device,build,kernels,dense_slice,dense
+    python3 chip_smoke.py --phases device,build,kernels,cond_slice,cond
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -45,7 +46,11 @@ Phases (any failure exits non-zero before the final "ok" line):
                backward at every group shape of the coarse paths; K1 and K2
                in f32 with key-padding biases (a ragged tail, a patch of
                padding alone) at every attention shape of the dense
-               decoder's PT-v3, and K3 at the Gaussian AE's step shapes
+               decoder's PT-v3, and K3 at the Gaussian AE's step shapes; K1
+               in f32 at the conditional U-Net's shapes (batch 2 and 4, bit
+               for bit over two launches), K3 in f32 at its and the VQ
+               decode's group shapes, and forward and backward at the
+               noisy-latent classifier's
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -157,6 +162,19 @@ Phases (any failure exits non-zero before the final "ok" line):
                PT-v3 level; the Gaussian AE at batch 4,
                accumulate 2 (K3 launches against the structure and hooks)
                and train_lidm on its YAML
+  cond_slice   conditional generation card against CPU, f32, TF32 off, at small
+               widths: a SpatialTransformer with a context mask, the three
+               conditioning stages (SpatialRescaler, the multi-view CLIP image
+               and text wrappers over 2-layer towers), one U-Net eval under
+               each of concat, crossattn, hybrid and adm, the classifier's
+               loss and guidance_grad (relative L2 within 1e-5)
+  cond         the three CLIs' main() at full width, f32, DDIM-50: sample_cond
+               map2lidar and cam2lidar (4 samples) and text2lidar (2 samples,
+               cfg_scale 2.0): the .npy of the JAX scripts' names and shapes,
+               K1 and K3 launches against the structure (and hooks), peak
+               memory; then timed requests with a seeded U-Net (seconds a
+               request, samples/s) and checks that the conditioning moves
+               the images (rolled conditions; cfg_scale 1.0 against 2.0)
   ae_eval      eval_ae on the ae_train phase's kitti run: 4 batches of 4,
                CD through K4 and JSD, launches against the structure
   timing       per-kernel device times at the main paths' shapes beside the
@@ -176,14 +194,17 @@ Phases (any failure exits non-zero before the final "ok" line):
                K1/K2/K3 at the coarse paths' shapes, summed over their runs;
                K1 and K2 in f32 with a key bias at the dense decoder's
                shapes, over its decodes and timed steps; K3 at the Gaussian
-               AE's step shapes; K4 at eval_ae's 16 pairs (ae_eval's clouds)
+               AE's step shapes; K1 and K3 in f32 at the conditional path's
+               shapes over a map2lidar and a cam2lidar request ("cond"); K4 at
+               eval_ae's 16 pairs (ae_eval's clouds)
   profile      (only when named) device time of one DPM-20 request, of one
                guided layout request, of one training step, of one layout
                training step, of one LayoutDiffusion request, of one
                LayoutDiffusion training step, of one autoencoder training
                step, of one coarse request, coarse LiDM and AE training step,
                one step of each cube trainer, one dense decode, one dense-
-               decoder step and one Gaussian AE step by kernel family
+               decoder step, one Gaussian AE step and one request of each
+               conditional CLI's model by kernel family
 
 The weights are random, drawn from a seed (no trained checkpoint is used). It
 imports nothing of JAX.
@@ -208,7 +229,7 @@ PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train",
           "eval", "layout_slice", "layout", "layout_train_slice", "layout_train",
           "layout_boxes_slice", "layout_boxes", "layout_boxes_train_slice", "layout_boxes_train",
           "ae_train_slice", "ae_train", "coarse_slice", "coarse", "cube_slice", "cube",
-          "dense_slice", "dense", "ae_eval", "timing")
+          "dense_slice", "dense", "cond_slice", "cond", "ae_eval", "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -261,6 +282,10 @@ GAUS_STEPS = 3   # the Gaussian AE's timed steps (3.1 s each)
 # step and after each gated one (the card read 1, 0.994 and 0.708, then 0
 # from step 3: both packages' decoders collapse at this lr)
 DENSE_LIVE_STEPS, DENSE_LIVE_GATED, DENSE_LIVE_SHARE = 4, 2, 0.5
+# conditional generation: the CLIs (sample_cond map2lidar / cam2lidar, 4
+# samples; text2lidar, 2 samples under guidance) at full width, f32, DDIM-50;
+# card against CPU at small widths within COND_SLICE_TOL relative L2
+COND_STEPS, COND_CFG_SCALE, COND_SLICE_TOL = 50, 2.0, 1e-5
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -499,6 +524,8 @@ class Smoke:
         self.gaus_ae_train_launches = {}   # over the Gaussian AE's timed training steps
         self.gaus_ae_shapes = None   # K3's (forward, backward) calls of one Gaussian-AE step
         self.ae_eval_clouds = None   # eval_ae's (input, reconstruction) clouds: K4's shapes
+        self.cond_shapes = None   # the conditional path's kernel calls by shape (hooks)
+        self.cond_launches = {}   # over the three conditional CLIs' requests
         self._tmp = []   # directories the phases write, removed at the end
 
     def tmp_dir(self, prefix):
@@ -626,6 +653,7 @@ class Smoke:
         self._kernels_ae()
         self._kernels_coarse()
         self._kernels_dense()
+        self._kernels_cond()
         self._kernels_train()
         self._kernels_chamfer()
 
@@ -3957,6 +3985,397 @@ class Smoke:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- ae_eval
+    # ------------------------------------------------------------ conditioning
+    def _cond_shapes(self):
+        """Kernel calls by shape, from module hooks on the full-width
+        map2lidar model (f32): one U-Net eval at batch 2 and 4 (K1 in the 16
+        SelfAttentionBlocks, whose norms are K3 besides the ResBlocks' and
+        norm_out's; a SpatialTransformer U-Net runs K1 at the same shapes in
+        its attn1 and has the same ResBlocks, and its GroupNorm is plain),
+        one VQ decode at batch 2 and 4 (K3), and the classifier's loss and
+        guidance_grad at its default config over 4 latents (K3 forward and
+        backward); the U-Net evals of a DDIM-50 request."""
+        if self.cond_shapes is None:
+            import torch
+            from lidar_layout_tpu_torch import sample_cond
+            from lidar_layout_tpu_torch.models import classifier as CL
+            from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+            from lidar_layout_tpu_torch.nn.blocks import Normalize
+            from torch_port_helpers import count_group_norms
+
+            model = sample_cond.build_task_model("map2lidar", device="cuda")
+            shapes = {"evals": unet_evals(model, COND_STEPS)}
+            lh, lw, lc = model.cfg.latent_shape
+            attn_norms = {id(m.norm) for m in model.unet.modules()
+                          if isinstance(m, SelfAttentionBlock)}
+            for b in (2, 4):
+                seen = {k: collections.Counter() for k in ("k1", "unet", "attn_norm", "dec")}
+                where = {"now": "unet"}
+
+                def norm_hook(mod, args, seen=seen, where=where):
+                    bb, c, h, w = args[0].shape
+                    key = (bb, c, h, w, mod.num_groups, mod.act)
+                    seen[where["now"]][key] += 1
+                    if id(mod) in attn_norms:
+                        seen["attn_norm"][key] += 1
+
+                def attn_hook(mod, args, seen=seen):
+                    bb, c, h, w = args[0].shape
+                    seen["k1"][(bb, mod.num_heads, h * w, c // mod.num_heads)] += 1
+
+                hooks = [m.register_forward_pre_hook(attn_hook) for m in model.unet.modules()
+                         if isinstance(m, SelfAttentionBlock)]
+                hooks += [m.register_forward_pre_hook(norm_hook)
+                          for m in list(model.unet.modules())
+                          + list(model.first_stage_model.decoder.modules())
+                          if isinstance(m, Normalize)]
+                with torch.inference_mode():
+                    z = torch.randn((b, lh, lw, lc), device="cuda")
+                    cond = {"c_concat": torch.zeros((b, lh, lw, sample_cond.NUM_SEM),
+                                                    device="cuda")}
+                    model.apply_model(z, torch.full((b,), 500, device="cuda"), cond)
+                    where["now"] = "dec"
+                    model.decode_first_stage(z)
+                for hk in hooks:
+                    hk.remove()
+                shapes[b] = seen
+            del model
+            clf = CL.NoisyLatentClassifier(CL.ClassifierConfig()).cuda()
+            z0 = torch.randn((4, 16, 128, 8), device="cuda")
+            labels = torch.arange(4, device="cuda") % clf.cfg.num_classes
+            with count_group_norms(clf) as clf_calls:
+                clf.loss(z0, labels, torch.Generator(device="cuda").manual_seed(0))[0].backward()
+                clf.guidance_grad(z0, torch.full((4,), 300, device="cuda"), labels)
+            shapes["clf"] = clf_calls
+            del clf
+            gc.collect()
+            torch.cuda.empty_cache()
+            self.cond_shapes = shapes
+            for b in (2, 4):
+                log(f"cond: batch {b}, per U-Net eval K1 {dict(shapes[b]['k1'])}, K3 "
+                    f"{sum(shapes[b]['unet'].values())} ({sum(shapes[b]['attn_norm'].values())} "
+                    f"in the SelfAttentionBlocks); per decode K3 {sum(shapes[b]['dec'].values())}")
+            log(f"cond: classifier K3 forward {sum(clf_calls[0].values())}, backward "
+                f"{sum(clf_calls[1].values())} over a loss step and a guidance_grad; U-Net evals "
+                f"of DDIM-{COND_STEPS}: {shapes['evals']}")
+        return self.cond_shapes
+
+    def _kernels_cond(self):
+        """K1 in f32 at the conditional U-Net's attention shapes (batch 2
+        and 4: text2lidar's request and, under guidance, map2lidar's and
+        cam2lidar's) against its plain version and bit for bit over two
+        launches; K3 forward in f32 at every group shape of those U-Net
+        evals and decodes, and forward and backward at the classifier's."""
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        shapes = self._cond_shapes()
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(14)
+        attn = sorted(set(shapes[2]["k1"]) | set(shapes[4]["k1"]))
+        log(f"K1 in f32 at the conditional U-Net's shapes {attn}:")
+        for (b, h, s, d) in attn:
+            q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev) for _ in range(3))
+            got = A.flash_attention(q, k, v)
+            self._check_cond("flash_attention", got, A._attend_ref(q, k, v), 2e-5, 1e-4,
+                             f"{(b, h, s, d)} f32 (cond)")
+            again = A.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            log(f"  {(b, h, s, d)} f32: two launches bit for bit equal: {torch.equal(got, again)}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1 is not deterministic at {(b, h, s, d)} f32")
+        fwd = set()
+        for b in (2, 4):
+            fwd |= set(shapes[b]["unet"]) | set(shapes[b]["dec"])
+        clf_fwd, clf_bwd = shapes["clf"]
+        fwd = {k[:6] for k in fwd} | {k[:6] for k in clf_fwd}
+        log(f"K3 in f32 at the conditional path's {len(fwd)} group shapes (forward) and the "
+            f"classifier's {len(clf_bwd)} (backward):")
+        for (b, c, hh, ww, groups, act) in sorted(fwd):
+            x = torch.randn((b, c, hh, ww), generator=gen, device=dev) * 2 + 0.3
+            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+            what = (f"{(b, c, hh, ww)} G={groups} act={act} f32 (cond; path "
+                    f"{path_name(G.kernel_path(torch.float32, c, hh * ww, groups))})")
+            self._check_cond("group_norm", G.group_norm(x, gamma, beta, groups, 1e-6, act),
+                             G._ref(x, gamma, beta, groups, 1e-6, act), 1e-4, 1e-5, what)
+        for (b, c, hh, ww, groups, act, eps) in sorted(clf_bwd):
+            x = torch.randn((b, c, hh, ww), generator=gen, device=dev) * 2 + 0.3
+            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+            dy = torch.randn(x.shape, generator=gen, device=dev)
+            got = G.group_norm_bwd(x, gamma, beta, dy, groups, eps, act)
+            want = G._group_norm_bwd_ref(x, gamma, beta, dy, groups, eps, act)
+            for part, g_, w_, t_ in zip(("dx", "dgamma", "dbeta"), got, want,
+                                        ((1e-4, 1e-4), (1e-3, 1e-4), (1e-3, 1e-4))):
+                self._check_cond("group_norm_bwd", g_, w_, *t_,
+                                 f"{part} {(b, c, hh, ww)} G={groups} act={act} f32 (classifier)")
+        torch.cuda.empty_cache()
+
+    def _check_cond(self, name, got, want, atol, rtol, what):
+        self._check(name, got, want, atol, rtol, what, record=False)
+        key = f"cond_{name}"
+        self.kernel_err[key] = max(self.kernel_err.get(key, 0.0), max_err(got, want)[0])
+
+    @staticmethod
+    def _cond_small(key):
+        """A small LatentDiffusion under ``key`` (U-Net 64 wide, two levels,
+        head dim 32, SpatialTransformers for the cross-attention keys, labels
+        for adm; no first stage), seeded weights, and its example
+        conditioning at batch 2 (numpy)."""
+        from lidar_layout_tpu_torch.models.diffusion import DiffusionConfig, LatentDiffusion
+        from lidar_layout_tpu_torch.models.unet import UNetConfig
+
+        rng = np.random.default_rng(21)
+        concat = rng.standard_normal((2, 8, 32, 3)).astype(np.float32)
+        ctx = rng.standard_normal((2, 3, 24)).astype(np.float32)
+        kw = dict(in_channels=8 + 3 * (key in ("concat", "hybrid")), model_channels=64,
+                  out_channels=8, num_res_blocks=1, attention_resolutions=(1, 2),
+                  channel_mult=(1, 2), num_head_channels=32)
+        if key in ("crossattn", "hybrid"):
+            kw.update(use_spatial_transformer=True, context_dim=24)
+        if key == "adm":
+            kw.update(num_classes=5)
+        cond = {"concat": concat, "crossattn": ctx, "adm": np.array([1, 4]),
+                "hybrid": {"c_concat": concat, "c_crossattn": ctx}}[key]
+        model = LatentDiffusion(DiffusionConfig(conditioning_key=key, latent_shape=(8, 32, 8)),
+                                UNetConfig(**kw))
+        return seed_weights(model, 22).eval(), cond
+
+    def cond_slice(self):
+        """Card against CPU on the same numpy inputs, f32, TF32 off, at small
+        widths: a SpatialTransformer with a context mask, the three
+        conditioning stages (SpatialRescaler at map2lidar's full size, the
+        multi-view CLIP image and text wrappers over 2-layer towers 64 wide),
+        one U-Net eval (apply_model) under each of concat, crossattn, hybrid
+        and adm, and the classifier's loss and guidance_grad at its default
+        config over 4 latents; each within COND_SLICE_TOL relative L2."""
+        import copy
+
+        import torch
+        from lidar_layout_tpu_torch.encoders import modules as E
+        from lidar_layout_tpu_torch.models import classifier as CL
+        from lidar_layout_tpu_torch.nn.attention import SpatialTransformer
+
+        rng = np.random.default_rng(20)
+
+        def to(x, dev):
+            if isinstance(x, dict):
+                return {k: to(v, dev) for k, v in x.items()}
+            t = torch.from_numpy(np.asarray(x)).to(dev)
+            return t.long() if t.dtype in (torch.int32, torch.int64) else t
+
+        def both(name, module, fn, *inputs):
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                m = copy.deepcopy(module).to(dev).eval()
+                with torch.no_grad():
+                    outs[dev] = fn(m, *(to(x, dev) for x in inputs))
+            got, want = outs["cuda"].float().cpu(), outs["cpu"].float()
+            rel = float((got - want).norm() / want.norm())
+            ok = rel <= COND_SLICE_TOL and bool(torch.isfinite(got).all())
+            log(f"cond_slice {name}: {tuple(got.shape)} relative L2 {rel:.3e} (tol "
+                f"{COND_SLICE_TOL:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"cond_slice: {name} on the card disagrees with the CPU")
+
+        st = seed_weights(SpatialTransformer(128, 4, 32, depth=1, context_dim=24), 23)
+        x = rng.standard_normal((2, 128, 8, 32)).astype(np.float32)
+        ctx = rng.standard_normal((2, 3, 24)).astype(np.float32)
+        both("SpatialTransformer (128 wide, 4 heads of 32, masked context)", st,
+             lambda m, a, c, k: m(a, c, k), x, ctx, np.array([[True, False, True]] * 2))
+        sem = np.eye(19, dtype=np.float32)[rng.integers(0, 19, (2, 64, 1024))]
+        both("SpatialRescaler (map2lidar's: 64x1024x19 -> 16x128x19)",
+             seed_weights(E.SpatialRescaler(1, out_channels=19, wh_factors=(0.25, 0.125)), 24),
+             lambda m, a: m(a), sem)
+        img = seed_weights(E.FrozenClipMultiImageEmbedder(512, tower=E.ImageTransformerEncoder(
+            28, 14, 64, 2, 4, 48)), 25)
+        both("FrozenClipMultiImageEmbedder (2-layer tower, 64 wide)", img, lambda m, a: m(a),
+             rng.standard_normal((2, 2, 28, 28, 3)).astype(np.float32))
+        txt = seed_weights(E.FrozenClipMultiTextEmbedder(2, tower=E.TextTransformerEncoder(
+            width=64, layers=2, heads=4)), 26)
+        both("FrozenClipMultiTextEmbedder (2-layer tower, 64 wide)", txt, lambda m, a: m(a),
+             E.simple_tokenize(["a busy intersection with cars", ""]))
+        z = rng.standard_normal((2, 8, 32, 8)).astype(np.float32)
+        for key in ("concat", "crossattn", "hybrid", "adm"):
+            model, cond = self._cond_small(key)
+            both(f"apply_model, conditioning_key {key}", model,
+                 lambda m, a, t, c: m.apply_model(a, t, c), z, np.array([10, 700]), cond)
+        clf = seed_weights(CL.NoisyLatentClassifier(CL.ClassifierConfig()), 27)
+        z0 = rng.standard_normal((4, 16, 128, 8)).astype(np.float32)
+        t = np.array([3, 250, 600, 1000])
+        noise = rng.standard_normal(z0.shape).astype(np.float32)
+        labels = np.array([0, 3, 7, 9])
+        both("classifier loss (default config, 4 latents)", clf,
+             lambda m, a, tt, n, y: m.loss(a, y, t=tt, noise=n)[0][None], z0, t, noise, labels)
+        both("classifier guidance_grad", clf, lambda m, a, tt, y: m.guidance_grad(a, tt, y),
+             z0, t, labels)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def cond(self):
+        """The three CLIs at full width on the card, f32: sample_cond
+        --task map2lidar and --task cam2lidar (4 samples, DDIM-50) and
+        text2lidar at --cfg-scale 2.0 (2 samples, the doubled batch), each
+        through its main(): the .npy of the JAX script's name and shape,
+        finite, with ray-drop pixels; K1 and K3 launches against the
+        model's structure (and map2lidar's against module hooks), no other
+        kernel; peak memory; the conditioning stage's milliseconds a
+        request. Then, with the U-Net and the first stage seeded
+        (_seed_cond), one more request each, timed (seconds a
+        request, samples/s): map2lidar and cam2lidar again with the
+        conditions rolled over the batch, which must move the images;
+        text2lidar at cfg_scale 1.0 too, which must differ from 2.0."""
+        import torch
+        from lidar_layout_tpu_torch import sample_cond, text2lidar
+        from lidar_layout_tpu_torch.encoders.modules import simple_tokenize
+        from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+        from lidar_layout_tpu_torch.nn.attention import SpatialTransformer
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+        card = card_line()
+        hooked = self._cond_shapes()
+        total = collections.Counter()
+        for task, n in (("map2lidar", 4), ("cam2lidar", 4), ("text2lidar", 2)):
+            outdir = self.tmp_dir(f"cond_{task}_")
+            argv = ["--outdir", outdir, "--steps", str(COND_STEPS)]
+            if task == "text2lidar":
+                main, key = text2lidar.main, "c_crossattn"
+                argv += ["--cfg-scale", str(COND_CFG_SCALE)]
+            else:
+                main = sample_cond.main
+                key = "c_concat" if task == "map2lidar" else "c_crossattn"
+                argv += ["--task", task]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            model = out["model"]
+            imgs = np.load(os.path.join(outdir, f"{task}_samples.npy"))
+            n_attn = sum(isinstance(m, (SelfAttentionBlock, SpatialTransformer))
+                         for m in model.unet.modules())
+            unet_norms = sum(isinstance(m, Normalize) for m in model.unet.modules())
+            dec_norms = sum(isinstance(m, Normalize)
+                            for m in model.first_stage_model.decoder.modules())
+            evals = unet_evals(model, COND_STEPS)
+            want = {k: 0 for k in counters()}
+            want.update(flash_attention=evals * n_attn,
+                        group_norm=evals * unet_norms + dec_norms)
+            drop = float((imgs == -1.0).mean())
+            n_params = sum(p.numel() for p in model.parameters()) / 1e6
+            log(f"cond {task} (main(), {n} samples, DDIM-{COND_STEPS}, f32"
+                f"{f', cfg_scale {COND_CFG_SCALE:g}' if task == 'text2lidar' else ''}; "
+                f"{n_params:.1f} M parameters): {os.path.basename(outdir)}/{task}_samples.npy "
+                f"{imgs.shape} finite={bool(np.isfinite(imgs).all())} ray-drop share "
+                f"{drop:.4f}; request {out['seconds']:.3f} s (main() {wall:.1f} s with the "
+                f"build); peak memory {mem:.2f} GiB; launches {got}, structure {want} "
+                f"({n_attn} attention blocks and {unet_norms} K3 norms a U-Net eval, {evals} "
+                f"evals, {dec_norms} decoder norms): K1 {got['flash_attention'] / evals:g} and "
+                f"K3 {(got['group_norm'] - dec_norms) / evals:g} a U-Net eval; card {card}")
+            if imgs.shape != (n, 64, 1024, 1) or not np.isfinite(imgs).all() \
+                    or not np.array_equal(imgs, out["samples"]) or not 0 < drop < 1:
+                raise AssertionError(f"cond {task}: bad output")
+            if got != want:
+                raise AssertionError(f"cond {task}: launches {got} != structure {want}")
+            if task == "map2lidar":
+                per_request = {"flash_attention": evals * sum(hooked[n]["k1"].values()),
+                               "group_norm": evals * sum(hooked[n]["unet"].values())
+                               + sum(hooked[n]["dec"].values())}
+                if per_request != {k: got[k] for k in per_request}:
+                    raise AssertionError(f"cond: launches {got} != module hooks {per_request}")
+            total.update(got)
+            # the timed requests, and the conditioning moves the images
+            self._seed_cond(model)
+            if task == "text2lidar":
+                tokens = np.tile(simple_tokenize(["a busy intersection with cars"]), (n, 1))
+                runs = {f"cfg {s:g}": (tokens, s) for s in (COND_CFG_SCALE, 1.0)}
+                uncond = simple_tokenize([""] * n)
+            else:
+                cond_in = sample_cond.synthetic_conditions(task, n)
+                runs = {"conditions": (cond_in, 1.0),
+                        "rolled": (np.roll(cond_in, 1, axis=0), 1.0)}
+                uncond = None
+            c_in = next(iter(runs.values()))[0]
+            with torch.inference_mode():
+                model.get_learned_conditioning(c_in)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.get_learned_conditioning(c_in)
+                torch.cuda.synchronize()
+            log(f"cond {task}: the conditioning stage ({type(model.cond_stage_model).__name__}) "
+                f"takes {1e3 * (time.perf_counter() - t0):.2f} ms a request ({n} samples)")
+            res = {}
+            for name, (c_in, scale) in runs.items():
+                torch.cuda.reset_peak_memory_stats()
+                imgs2, sec = sample_cond.sample(model, key, c_in, n, COND_STEPS,
+                                                uncond_in=uncond, cfg_scale=scale)
+                res[name] = imgs2
+                log(f"cond {task} seeded, {name}: {sec:.3f} s a request, {n / sec:.3f} "
+                    f"samples/s, peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, finite="
+                    f"{bool(np.isfinite(imgs2).all())}, ray-drop share "
+                    f"{float((imgs2 == -1.0).mean()):.4f}")
+                if not np.isfinite(imgs2).all():
+                    raise AssertionError(f"cond {task}: non-finite images on seeded weights")
+            a, b2 = res.values()
+            moved = float(np.abs(a - b2).mean())
+            log(f"cond {task} seeded: mean |difference| between the two requests {moved:.4e}")
+            if moved == 0.0:
+                raise AssertionError(f"cond {task}: the conditioning does not reach the images")
+            del out, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.cond_launches = dict(total)
+
+    @staticmethod
+    def _seed_cond(model):
+        """Seeded weights for a CLI model's U-Net, whose output torch's
+        initialisation zeroes, and its first stage, whose ray-drop mask
+        barely moves with the latent at torch's initialisation; the CLIP
+        tower keeps its random initial weights."""
+        seed_weights(model.unet, 0)
+        seed_weights(model.first_stage_model, 1)
+
+    def _timing_cond(self, gen):
+        """K1 and K3 in f32 at the conditional path's shapes, summed over
+        one map2lidar and one cam2lidar request (4 samples, DDIM-50): K1 at
+        the 16 attention shapes of each U-Net eval (the SelfAttentionBlocks,
+        the SpatialTransformers' attn1) beside SDPA; K3 at the U-Net's group
+        shapes (map2lidar's attention norms included, cam2lidar's
+        SpatialTransformer norms plain) and the decode's, beside F.group_norm
+        + F.silu."""
+        import torch
+
+        shapes = self._cond_shapes()
+        s4, evals = shapes[4], shapes["evals"]
+        log(f"  conditional path, K1 in f32 (per map2lidar + cam2lidar request pair, "
+            f"{evals} U-Net evals each):")
+        k1 = self._time_k1(gen, {k: 2 * evals * c for k, c in s4["k1"].items()}, 1, " (cond)",
+                           dtype=torch.float32)
+        counts = collections.Counter()
+        for key, c in s4["unet"].items():
+            counts[key] += evals * (2 * c - s4["attn_norm"][key])
+        for key, c in s4["dec"].items():
+            counts[key] += 2 * c
+        log("  conditional path, K3 in f32:")
+        k3 = collections.Counter()
+        for key, count in sorted(counts.items()):
+            for name, val in self._time_k3(gen, key, f"x{count}/request pair (cond)",
+                                           dtype=torch.float32).items():
+                k3[name] += count * val
+        for name, tot in (("flash_attention", k1), ("group_norm", k3)):
+            self.run_totals.setdefault(name, {})["cond"] = tot
+            log(f"  {name} over a map2lidar and a cam2lidar request (sum over shapes of "
+                f"launches x time): kernel {tot['ms']:.3f} ms | plain {tot['plain_ms']:.3f} | "
+                f"library {tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | "
+                f"bound {tot['bound_ms']:.3f}")
+
     def ae_eval(self):
         """eval_ae on the ae_train phase's kitti run (trained here through
         the CLI for 2 steps when that phase did not run): -n 4 batches of
@@ -4178,6 +4597,7 @@ class Smoke:
         self.run_totals["group_norm_bwd"]["ae_train"] = ae_bwd
         self._timing_coarse(gen)
         self._timing_dense(gen)
+        self._timing_cond(gen)
         totals["chamfer_nn"] = self._timing_chamfer()
         if self.ae_eval_clouds is not None:
             self.run_totals.setdefault("chamfer_nn", {})["ae_eval"] = self._timing_chamfer(
@@ -4203,20 +4623,23 @@ class Smoke:
             f"time: {len(EVENT_TIMINGS)} {EVENT_TIMINGS}")
         self.totals = totals
 
-    def _time_k1(self, gen, counts, runs, label=""):
-        """K1 in bf16 at each shape of ``counts`` (launches a request): the
-        kernel beside SDPA in turns, the plain version, the bound and the
-        SFU floor; summed over ``runs`` requests."""
+    def _time_k1(self, gen, counts, runs, label="", dtype=None):
+        """K1 in bf16 (or ``dtype``) at each shape of ``counts`` (launches a
+        request): the kernel beside SDPA in turns, the plain version, the
+        bound (operations at the dtype's peak) and the SFU floor; summed
+        over ``runs`` requests."""
         import torch
         import torch.nn.functional as F
         from lidar_layout_tpu_torch.ops import attention as A
 
+        dtype = dtype or torch.bfloat16
+        peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
         dev = torch.device("cuda")
         tot = collections.Counter()
         for (b, h, s, d), count in sorted(counts.items()):
             q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
-                       .to(torch.bfloat16) for _ in range(3))
-            cost = A.attention_cost(b, h, s, d, 2)
+                       .to(dtype) for _ in range(3))
+            cost = A.attention_cost(b, h, s, d, q.element_size())
             flops, nbytes = cost["flops"], cost["bytes"]
             kms, lms, krounds, lrounds = paired_ms(
                 lambda: A.flash_attention(q, k, v),
@@ -4224,10 +4647,10 @@ class Smoke:
             t = {"ms": kms, "events_ms": cuda_time(lambda: A.flash_attention(q, k, v), 20),
                  "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 5), "library_ms": lms,
                  "first_ms": krounds[0], "first_library_ms": lrounds[0]}
-            bound_flops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound_flops, bound_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             t["bound_ms"] = max(bound_flops, bound_bytes)
             t["sfu_ms"] = cost["transcendentals"] / sfu_ex2_per_ms()
-            log(f"  K1 {(b, h, s, d)} bf16 x{count}/request{label}: kernel {t['ms']:.4f} (events "
+            log(f"  K1 {(b, h, s, d)} {str(dtype)[6:]} x{count}/request{label}: kernel {t['ms']:.4f} (events "
                 f"{t['events_ms']:.4f}) | plain "
                 f"{t['plain_ms']:.4f} | sdpa {t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x)"
                 f" | bound {t['bound_ms']:.4f} "
@@ -4688,6 +5111,7 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
         self._profile_ours(gen)
+        self._profile_cond()
 
     def _profile_ours(self, gen):
         """profile's rows of the "Ours" stages: one coarse DPM-20 request
@@ -4771,6 +5195,40 @@ class Smoke:
         run(f"one Gaussian AE training step, batch {AE_BATCH}, f32, TF32 off",
             lambda: step(state, batch, gen))
         del model, disc, state, step
+
+    def _profile_cond(self):
+        """profile's rows of conditional generation: one request of each CLI
+        model (map2lidar and cam2lidar, 4 samples; text2lidar, 2 samples at
+        cfg_scale 2.0; DDIM-50, f32, seeded as _seed_cond), after one warm-up,
+        under torch.profiler."""
+        import torch
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        from lidar_layout_tpu_torch import sample_cond, text2lidar
+        from lidar_layout_tpu_torch.encoders.modules import simple_tokenize
+
+        for task, n in (("map2lidar", 4), ("cam2lidar", 4), ("text2lidar", 2)):
+            if task == "text2lidar":
+                model = text2lidar.build_text_model()
+                args = ("c_crossattn", np.tile(simple_tokenize(["a busy intersection"]), (n, 1)),
+                        n, COND_STEPS, simple_tokenize([""] * n), COND_CFG_SCALE)
+            else:
+                model = sample_cond.build_task_model(task)
+                args = ("c_concat" if task == "map2lidar" else "c_crossattn",
+                        sample_cond.synthetic_conditions(task, n), n, COND_STEPS)
+            self._seed_cond(model)
+            sample_cond.sample(model, *args)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                sample_cond.sample(model, *args)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            self._families(prof, wall_ms, f"one {task} request, {n} samples, DDIM-{COND_STEPS}, "
+                           f"f32{', cfg_scale 2' if task == 'text2lidar' else ''}")
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
 
     @staticmethod
     def _families(prof, wall_ms, title):
@@ -4860,10 +5318,12 @@ class Smoke:
                 "gaus_ae_train_launches": self.gaus_ae_train_launches.get(name),
                 "dense_max_abs_err": self.kernel_err.get(f"dense_{name}"),
                 "gaus_ae_train_max_abs_err": self.kernel_err.get(f"gaus_ae_{name}"),
+                "cond_launches": self.cond_launches.get(name),
+                "cond_max_abs_err": self.kernel_err.get(f"cond_{name}"),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
                    for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train",
                                "ae_train", "coarse", "coarse_train", "coarse_ae_train",
-                               "dense", "dense_train", "gaus_ae_train", "ae_eval")
+                               "dense", "dense_train", "gaus_ae_train", "ae_eval", "cond")
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         return {"kernels": entries}
 

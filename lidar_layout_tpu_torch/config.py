@@ -5,8 +5,12 @@ Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model``,
 ``unet1d``, ``layout_diffusion``, ``cube_ae``, ``cube_latent_diffusion``,
 ``vq_model_gaus``, ``ptv3``, ``dense_decoder``, ``gs_decoder_head`` and
 ``ptv3_segmentor`` builders of ``lidar_layout_tpu/config.py`` (with the
-reference's target-name aliases) and of its ``load_yaml`` and
-``apply_dotlist``. Targets not ported yet raise KeyError.
+reference's target-name aliases), of its conditioning stages
+(``class_embedder``, ``spatial_rescaler``, ``bert_embedder``,
+``transformer_embedder``, ``clip_text``, ``clip_multi_text``,
+``clip_multi_image``) and of its ``load_yaml`` and ``apply_dotlist``.
+Targets not ported yet raise KeyError; ``bert_embedder``'s
+``x_transformer`` backend raises NotImplementedError.
 
 The point models (``ptv3``, ``dense_decoder``, ``ptv3_segmentor``) take
 the width of their input features as ``in_features`` when the caller
@@ -20,6 +24,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from .encoders import modules as E
 from .encoders.layout_encoder import LayoutEncoderConfig, LayoutTransformerEncoder
 from .losses.vq_loss import VQLossConfig
 from .models.autoencoder import AEConfig, VQModel, VQModelInterface
@@ -203,9 +208,6 @@ def _build_latent_diffusion(params: Dict[str, Any],
     cond_stage = None
     csc = params.get("cond_stage_config")
     if isinstance(csc, dict):
-        if csc.get("target") not in LAYOUT_ENCODER_TARGETS:
-            raise NotImplementedError(f"conditioning stage {csc.get('target')!r} is not "
-                                      f'ported yet (ROADMAP queue 1, "Conditioning")')
         cond_stage = instantiate_from_config(csc)
     fs_cfg = None
     n_embed, embed_dim, use_mask = 16384, 8, True
@@ -302,6 +304,18 @@ def _build_dense_decoder(params: Dict[str, Any], in_features: Optional[int] = No
                             "feat_dim", params.get("backbone_out_channels", 64))))
 
 
+def _build_bert_embedder(params: Dict[str, Any], **_) -> torch.nn.Module:
+    """``backend``: "compact" (the default) or "x_transformer" (not ported
+    yet: it raises)."""
+    common = dict(n_embed=params.get("n_embed", 640), n_layer=params.get("n_layer", 32),
+                  vocab_size=params.get("vocab_size", 30522),
+                  max_seq_len=params.get("max_seq_len", 77),
+                  embedding_dropout=params.get("embedding_dropout", 0.0))
+    if params.get("backend", "compact") in ("x_transformer", "xt"):
+        return E.XTransformerBERTEmbedder(**common)
+    return E.BERTEmbedder(**common)
+
+
 REGISTRY: Dict[str, Callable] = {}
 for _names, _fn in (
         (("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion"),
@@ -335,7 +349,28 @@ for _names, _fn in (
          lambda params, in_features=None, **_: PTv3Segmentor(
              build_ptv3_cfg(_unwrap(params.get("backbone")), in_features),
              num_classes=params.get("num_classes", 16),
-             backbone_out_channels=params.get("backbone_out_channels", 64)))):
+             backbone_out_channels=params.get("backbone_out_channels", 64))),
+        (("class_embedder", "lidm.modules.encoders.modules.ClassEmbedder"),
+         lambda params, **_: E.ClassEmbedder(**params)),
+        (("spatial_rescaler", "lidm.modules.encoders.modules.SpatialRescaler"),
+         lambda params, **_: E.SpatialRescaler(
+             n_stages=params.get("n_stages", 1), method=params.get("method", "bilinear"),
+             out_channels=params.get("out_channels"),
+             wh_factors=tuple(params.get("wh_factors", (0.5, 0.5))),
+             in_channels=params.get("in_channels"))),
+        (("bert_embedder", "lidm.modules.encoders.modules.BERTEmbedder"), _build_bert_embedder),
+        (("transformer_embedder", "lidm.modules.encoders.modules.TransformerEmbedder"),
+         lambda params, **_: E.TransformerEmbedder(
+             n_embed=params.get("n_embed", 640), n_layer=params.get("n_layer", 32),
+             vocab_size=params.get("vocab_size", 30522),
+             max_seq_len=params.get("max_seq_len", 77))),
+        (("clip_text", "lidm.modules.encoders.modules.FrozenCLIPTextEmbedder"),
+         lambda params, **_: E.FrozenCLIPTextEmbedder()),
+        (("clip_multi_text", "lidm.modules.encoders.modules.FrozenClipMultiTextEmbedder"),
+         lambda params, **_: E.FrozenClipMultiTextEmbedder(n_views=params.get("n_views", 4))),
+        (("clip_multi_image", "lidm.modules.encoders.modules.FrozenClipMultiImageEmbedder"),
+         lambda params, **_: E.FrozenClipMultiImageEmbedder(
+             out_dim=params.get("out_dim", 512)))):
     for _n in _names:
         REGISTRY[_n] = _fn
 

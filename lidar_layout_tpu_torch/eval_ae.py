@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,14 +44,9 @@ def parse_args(argv=None):
 def load_ae_run(model: torch.nn.Module, run_dir: str) -> int:
     """The latest checkpoint of a ``train_lidm`` AE run into ``model``;
     returns its step."""
-    from .train.checkpoint import checkpoint_path, latest_step
+    from .train.checkpoint import latest_run_weights
 
-    ckpt_dir = os.path.join(run_dir, "ckpt")
-    step = latest_step(ckpt_dir)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-    sd = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu",
-                    weights_only=True)["state_dict"]
+    step, sd = latest_run_weights(run_dir, key="state_dict")
     model.load_state_dict({k: v for k, v in sd.items() if not k.startswith("loss.")})
     return step
 

@@ -14,7 +14,12 @@ the conditioning stage the layout encoder: ``get_learned_conditioning``
 encodes layouts and ``apply_model`` hands the encoder's dict to the U-Net.
 Training encodes the batch's raw layout inside the graph
 (``batch_conditioning``), so the gradient reaches a trainable encoder.
-Other conditioning keys are not ported yet.
+
+The openaimodel keys follow JAX's ``_split_cond`` / ``_cond_views`` rule
+(the reference DiffusionWrapper): a dict gives ``c_crossattn`` (context),
+``c_concat`` (channels concatenated to the latent) and ``c_adm`` (class
+labels); a bare tensor is the concat for ``concat``, the context for the
+``*crossattn`` keys and the label for ``adm``.
 
 The state_dict uses the reference LatentDiffusion checkpoint prefixes,
 ``model.diffusion_model.`` for the U-Net, ``first_stage_model.`` for the
@@ -37,7 +42,8 @@ from .autoencoder import AEConfig, VQModelInterface
 from .schedules import DiffusionSchedule, extract, q_sample
 from .unet import UNetConfig, UNetModel
 
-CONDITIONING_KEYS = (None, "layout_crossattn")   # the ported ones
+CONDITIONING_KEYS = (None, "concat", "crossattn", "hybrid", "adm", "layout_crossattn",
+                     "graph_crossattn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,37 +159,70 @@ class LatentDiffusion(nn.Module):
 
     # ---------------------------------------------------------- conditioning
     def get_learned_conditioning(self, cond: Any) -> Any:
-        """Encode raw conditioning (for the layout model a (B, L, 13) layout,
-        tensor or numpy) with the conditioning stage, on the model's device,
-        in float32; detached unless ``cond_stage_trainable``, so that in
-        training the gradient reaches the encoder when it is trainable.
-        Without a stage: ``cond``."""
+        """Encode raw conditioning (a (B, L, 13) layout, a one-hot map, text
+        tokens, images, labels; tensor or numpy) with the conditioning stage,
+        on the model's device, in float32. Without a gradient unless
+        ``cond_stage_trainable``, so that in training the gradient reaches
+        the encoder when it is trainable. Without a stage: ``cond``."""
         if self.cond_stage_model is None:
             return cond
         dev = next(self.parameters()).device
         # float32 under autocast too: the JAX package builds the encoder
         # without a dtype
-        with torch.autocast(dev.type, enabled=False):
-            out = self.cond_stage_model(torch.as_tensor(cond, device=dev))
-        if not self.cfg.cond_stage_trainable:
-            out = {k: v.detach() for k, v in out.items()}
-        return out
+        with torch.autocast(dev.type, enabled=False), \
+                torch.set_grad_enabled(torch.is_grad_enabled()
+                                       and self.cfg.cond_stage_trainable):
+            return self.cond_stage_model(torch.as_tensor(cond, device=dev))
 
     # ------------------------------------------------------------- the model
+    @staticmethod
+    def _split_cond(cond: Any) -> Tuple[Any, Any, Any]:
+        """Conditioning as (context, concat, label)."""
+        if cond is None:
+            return None, None, None
+        if isinstance(cond, dict):
+            return cond.get("c_crossattn"), cond.get("c_concat"), cond.get("c_adm")
+        return cond, None, None
+
+    def _cond_views(self, cond: Any) -> Tuple[Any, Any, Any]:
+        """(context, concat, label) by ``conditioning_key``: a bare tensor is
+        the concat for 'concat', the context for '*crossattn' and the label
+        for 'adm' (JAX's rule, the reference DiffusionWrapper's)."""
+        key = self.cfg.conditioning_key
+        context = concat = y = None
+        if key == "concat":
+            concat = self._split_cond(cond)[1]
+            concat = cond if concat is None else concat
+        elif key in ("crossattn", "layout_crossattn", "graph_crossattn"):
+            context = self._split_cond(cond)[0]
+        elif key == "hybrid":
+            context, concat, _ = self._split_cond(cond)
+        elif key == "adm":
+            y = self._split_cond(cond)[2]
+            y = cond if y is None else y
+        return context, concat, y
+
     def apply_model(self, x_noisy: torch.Tensor, t: torch.Tensor,
                     cond: Any = None) -> torch.Tensor:
         """One U-Net eval: NHWC float32 latent in, NHWC float32 out. The
-        layout model takes the encoder's dict as ``cond``."""
+        layout model takes the encoder's dict as ``cond``; the other keys
+        take ``cond`` by ``_cond_views``, a concat as NHWC channels."""
+        key = self.cfg.conditioning_key
         x = x_noisy.permute(0, 3, 1, 2)
-        if self.cfg.conditioning_key == "layout_crossattn":
+        if key == "layout_crossattn":
             if not (isinstance(cond, dict) and "xf_proj" in cond):
                 raise ValueError("the layout model needs the encoded layout "
                                  "(get_learned_conditioning) as cond")
             out = self.unet(x, t, cond)
-        elif cond is not None:
-            raise ValueError("an unconditional model takes no cond")
-        else:
+        elif key is None:
+            if cond is not None:
+                raise ValueError("an unconditional model takes no cond")
             out = self.unet(x, t)
+        else:
+            context, concat, y = self._cond_views(cond)
+            if concat is not None:
+                x = torch.cat([x, concat.permute(0, 3, 1, 2).to(x.dtype)], dim=1)
+            out = self.unet(x, t, context=context, y=y)
         return out.permute(0, 2, 3, 1)
 
     # ----------------------------------------------------------------- loss
@@ -218,8 +257,8 @@ class LatentDiffusion(nn.Module):
         return self.p_losses(z, *self.draw_t_noise(z, generator), self.batch_conditioning(batch))
 
     def batch_conditioning(self, batch: Dict[str, Any]) -> Any:
-        """A training batch's conditioning: its raw ``cond`` (the layout)
-        through ``get_learned_conditioning``, inside the graph; None for an
+        """A training batch's conditioning: its raw ``cond`` through
+        ``get_learned_conditioning``, inside the graph; None for an
         unconditional model."""
         if self.cfg.conditioning_key is None:
             return None

@@ -5,7 +5,16 @@ reference openaimodel state_dict names (``time_embed.0``,
 ``input_blocks.k.0.in_layers.0``, ``middle_block.1.qkv``,
 ``output_blocks.k.1.proj_out``, ``out.2``, ...), so the JAX package's
 ``utils/torch_convert.convert_unet`` reads a port state_dict as it stands.
-Every GroupNorm goes through kernel K3 and every self-attention through K1.
+Every ResBlock GroupNorm goes through kernel K3 and every self-attention
+through K1.
+
+With ``use_spatial_transformer`` the attention slots hold
+``nn/attention.SpatialTransformer`` (``input_blocks.k.1.norm``,
+``.proj_in``, ``.transformer_blocks.i.attn1.to_q``, ...), whose
+self-attention goes to K1 and whose cross-attention to the ``context``
+tokens goes to plain attention, as JAX's ``attend`` sends a cross length to
+XLA. With ``num_classes`` the label embedding ``label_emb`` is added to the
+timestep embedding.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..nn.attention import SpatialTransformer
 from ..nn.blocks import Normalize
 from ..nn.conv import CircularConv, Conv1x1
 from ..nn.embeddings import timestep_embedding
@@ -185,36 +195,45 @@ class UNetUp(nn.Module):
 
 
 class _Block(nn.ModuleList):
-    """TimestepEmbedSequential: a ResBlock takes (x, emb), the rest take x."""
+    """TimestepEmbedSequential: a ResBlock takes (x, emb), a
+    SpatialTransformer (x, context, context_mask), the rest x."""
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                context: Optional[torch.Tensor] = None,
+                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, ResBlock) else layer(x)
+            if isinstance(layer, ResBlock):
+                x = layer(x, emb)
+            elif isinstance(layer, SpatialTransformer):
+                x = layer(x, context, context_mask)
+            else:
+                x = layer(x)
         return x
 
 
 class UNetModel(nn.Module):
-    """The uncond U-Net; ``forward`` takes and returns NCHW, output float32."""
+    """The openaimodel U-Net; ``forward`` takes and returns NCHW, output
+    float32."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.use_spatial_transformer:
-            raise NotImplementedError("SpatialTransformer U-Net waits for the "
-                                      'conditioning port (ROADMAP queue 1, "Conditioning")')
-        if cfg.num_classes is not None:
-            raise NotImplementedError("class-conditional U-Net waits for the "
-                                      'conditioning port (ROADMAP queue 1, "Conditioning")')
         self.cfg = cfg
         mc = cfg.model_channels
         ted = mc * 4
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, ted)
 
         def res(cin: int, cout: int, **kw) -> ResBlock:
             return ResBlock(cin, ted, cout, cfg.use_scale_shift_norm, cfg.cconv,
                             dropout=cfg.dropout, **kw)
 
-        def attn(ch: int) -> SelfAttentionBlock:
-            return SelfAttentionBlock(ch, cfg.heads_for(ch)[0])
+        def attn(ch: int) -> nn.Module:
+            heads, dim_head = cfg.heads_for(ch)
+            if cfg.use_spatial_transformer:
+                return SpatialTransformer(ch, heads, dim_head, cfg.transformer_depth,
+                                          cfg.context_dim)
+            return SelfAttentionBlock(ch, heads)
 
         self.input_blocks = nn.ModuleList([_Block([_conv3(cfg.in_channels, mc, cfg.cconv)])])
         chans: List[int] = [mc]
@@ -252,17 +271,29 @@ class UNetModel(nn.Module):
         self.out = nn.ModuleList([Normalize(ch, act=True), nn.Identity(),
                                   _zero_conv3(ch, cfg.out_channels, cfg.cconv)])
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                context: Optional[torch.Tensor] = None,
+                context_mask: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, C, H, W); context (B, S, context_dim) tokens for the
+        SpatialTransformers, context_mask (B, S) True = attend; y (B,)
+        class labels when ``num_classes`` is set."""
         dtype = self.out[2].weight.dtype
         emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels)
                               .to(dtype))
+        if self.cfg.num_classes is not None:
+            if y is None:
+                raise ValueError("a class-conditional U-Net needs the labels y")
+            emb = emb + self.label_emb(y)
+        if context is not None:
+            context = context.to(dtype)
         h = x.to(dtype)
         hs = []
         for block in self.input_blocks:
-            h = block(h, emb)
+            h = block(h, emb, context, context_mask)
             hs.append(h)
-        h = self.middle_block(h, emb)
+        h = self.middle_block(h, emb, context, context_mask)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb)
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, context, context_mask)
         return self.out[2](self.out[0](h)).float()
 

@@ -1,15 +1,22 @@
 """Transformer blocks for cross-attention conditioning.
 
 Counterpart of ``GEGLU``, ``FeedForward``, ``CrossAttention`` and
-``BasicTransformerBlock`` in ``lidar_layout_tpu/nn/attention.py``, on
-(B, N, C) tokens. ``CrossAttention`` goes through ``ops.attention.attend``
+``BasicTransformerBlock`` and ``SpatialTransformer`` in
+``lidar_layout_tpu/nn/attention.py``, on (B, N, C) tokens. ``CrossAttention`` goes through ``ops.attention.attend``
 as the JAX one does: self-attention-shaped q, k and v go to kernel K1, other
 shapes to plain attention. It follows flax's defaults where torch's differ:
 LayerNorm eps 1e-6 and the tanh GELU (``jax.nn.gelu``). Modules keep the
 flax names (``to_q``, ``attn1``, ``ff.geglu.proj``, ``norm1``, ...). The
-settings are those of the blocks LayoutDiffusion builds: no dropout, no
-mask, the gated feed-forward.
-``SpatialTransformer`` is not ported yet (ROADMAP queue 1, "Conditioning").
+settings are those of the blocks the JAX models build: no dropout, the
+gated feed-forward. ``CrossAttention`` takes JAX's (B, S) key ``mask``
+(True = attend), which reaches ``attend`` as a (B, 1, 1, S) key-padding mask.
+
+``SpatialTransformer`` wraps the blocks for an NCHW feature map: GroupNorm
+(32 groups, eps 1e-6, f32 statistics and affine), a 1x1 ``proj_in``, the
+blocks over the (B, H*W, inner) tokens, a zero-initialised 1x1 ``proj_out``
+and the residual. Its GroupNorm is plain PyTorch, as JAX's is flax's
+``nn.GroupNorm`` and not the Pallas kernel; its blocks are
+``transformer_blocks.i``, the reference openaimodel's name.
 """
 from __future__ import annotations
 
@@ -61,14 +68,17 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, N, C); context (B, S, C_ctx)."""
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, N, C); context (B, S, C_ctx); mask (B, S) boolean, True =
+        attend."""
         b, n, _ = x.shape
         ctx = x if context is None else context
         q = self.to_q(x).reshape(b, n, self.heads, self.dim_head)
         k = self.to_k(ctx).reshape(b, ctx.shape[1], self.heads, self.dim_head)
         v = self.to_v(ctx).reshape(b, ctx.shape[1], self.heads, self.dim_head)
-        return self.to_out(attend(q, k, v).reshape(b, n, self.heads * self.dim_head))
+        out = attend(q, k, v, None if mask is None else mask[:, None, None, :])
+        return self.to_out(out.reshape(b, n, self.heads * self.dim_head))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -82,7 +92,43 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
         self.norm1, self.norm2, self.norm3 = (nn.LayerNorm(dim, eps=LN_EPS) for _ in range(3))
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context=context)
+        x = x + self.attn2(self.norm2(x), context=context, mask=context_mask)
         return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """norm -> 1x1 in -> ``depth`` blocks -> zero-initialised 1x1 out, plus
+    the residual, over an NCHW map of ``channels``; ``context_dim`` is the
+    width of the cross-attention's context tokens."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
+        self.proj_in = nn.Conv2d(channels, inner, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth)])
+        self.proj_out = nn.Conv2d(inner, channels, 1)
+        nn.init.zeros_(self.proj_out.weight)
+        nn.init.zeros_(self.proj_out.bias)
+
+    def f32_parameters(self):
+        """The norm's affine, which stays float32 under ``cast_``."""
+        return self.norm.parameters()
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, c, h, w = x.shape
+        n = self.norm
+        y = F.group_norm(x.float(), n.num_groups, n.weight.float(), n.bias.float(),
+                         n.eps).to(x.dtype)
+        y = self.proj_in(y)
+        y = y.reshape(b, y.shape[1], h * w).transpose(1, 2)
+        for block in self.transformer_blocks:
+            y = block(y, context, context_mask)
+        y = y.transpose(1, 2).reshape(b, y.shape[2], h, w)
+        return self.proj_out(y) + x

@@ -108,18 +108,10 @@ class GenerationPipeline:
         """Load a training run: its saved ``config.yaml`` (or ``base_config``)
         and the latest checkpoint under ``<run_dir>/ckpt``, with the EMA
         weights by default."""
-        from .train.checkpoint import checkpoint_path, latest_step
+        from .train.checkpoint import latest_run_weights
 
         cfg = load_yaml(base_config or os.path.join(run_dir, "config.yaml"))
-        ckpt_dir = os.path.join(run_dir, "ckpt")
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-        ckpt = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu",
-                          weights_only=True)
-        sd = dict(ckpt["model"])
-        if use_ema:
-            sd.update(ckpt["ema"]["params"])
+        _, sd = latest_run_weights(run_dir, use_ema=use_ema)
         return cls.from_config(cfg, state_dict=sd, dataset=dataset, bf16=bf16,
                                device=device, **kw)
 

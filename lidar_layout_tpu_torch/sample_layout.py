@@ -80,15 +80,9 @@ def sample_layouts(model, graph: Dict[str, np.ndarray], steps: int = 100, seed: 
 def load_run_ema(model, run_dir: str) -> int:
     """The EMA weights of the latest checkpoint of a ``train_layout`` run
     into ``model``; returns the checkpoint's step."""
-    from .train.checkpoint import checkpoint_path, latest_step
+    from .train.checkpoint import latest_run_weights
 
-    ckpt_dir = os.path.join(run_dir, "ckpt")
-    step = latest_step(ckpt_dir)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-    ckpt = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu", weights_only=True)
-    sd = ckpt["model"]
-    sd.update(ckpt["ema"]["params"])
+    step, sd = latest_run_weights(run_dir, use_ema=True)
     model.load_state_dict(sd)
     return step
 

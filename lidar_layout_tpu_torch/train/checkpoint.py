@@ -2,7 +2,9 @@
 
 Counterpart of ``lidar_layout_tpu/train/checkpoint.py``: ``save_checkpoint``
 keeps the newest ``max_to_keep`` files ``step_<n>.pt`` of a directory,
-``latest_step`` and ``restore_checkpoint`` read them back, and
+``latest_step`` and ``restore_checkpoint`` read them back,
+``latest_run_weights`` reads the model weights of a run directory's latest
+file for the CLIs that sample or evaluate a run, and
 ``load_first_stage_params`` loads trained autoencoder weights from a torch
 ``state_dict`` file (a reference ``.ckpt``/``.pt``/``.pth``). A file holds
 the step and the train state's ``state_dict()``: model, optimizer and EMA
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,6 +63,22 @@ def restore_checkpoint(ckpt_dir: str, state: Any, step: Optional[int] = None) ->
     state.load_state_dict(ckpt)
     state.step = int(ckpt["step"])
     return state
+
+
+def latest_run_weights(run_dir: str, key: str = "model", use_ema: bool = False
+                       ) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """The step and the model ``state_dict`` (``ckpt[key]``) of the latest
+    checkpoint under ``<run_dir>/ckpt``, loaded on the CPU; with ``use_ema``
+    a diffusion run's EMA weights replace the trained ones they shadow."""
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    ckpt = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu", weights_only=True)
+    sd = dict(ckpt[key])
+    if use_ema:
+        sd.update(ckpt["ema"]["params"])
+    return step, sd
 
 
 def load_first_stage_params(path: str, model: torch.nn.Module) -> None:

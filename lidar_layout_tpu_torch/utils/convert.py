@@ -56,6 +56,20 @@ The cube stage keeps every flax name too: ``cube_diffusion_state_dict``
 carries a JAX ``CubeDiffusion`` tree (``{"unet": ...}``, under ``unet.``)
 with, when given, its first stage's ``SparseVAE`` tree (under
 ``first_stage_model.``).
+
+Conditioning: ``unet_state_dict`` also carries a SpatialTransformer U-Net
+(flax ``norm``, ``proj_in``, ``block_i``, ``proj_out`` under an attention
+slot -> ``norm``, ``proj_in``, ``transformer_blocks.i``, ``proj_out``; 1x1
+conv kernels HWIO -> OIHW) and ``label_emb``. ``cond_stage_state_dict``
+carries the encoders of ``encoders/modules`` (``ClassEmbedder``,
+``SpatialRescaler``, the CLIP towers and wrappers, ``TransformerEmbedder``,
+``BERTEmbedder``): a flax tower's ``ln1_i`` ... ``mlp_out_i`` become
+``layers.i.ln1`` ... ``layers.i.mlp_out``, the attention's DenseGeneral
+kernels, (in, heads, dh) and (heads, dh, out), become linear weights over
+the heads' concatenated width, Embed tables ``weight``.
+``latent_diffusion_state_dict`` puts such a stage under
+``cond_stage_model.``. ``classifier_state_dict`` carries a JAX
+``EncoderUNetModel`` (flax names kept; ResBlock layers as the U-Net's).
 """
 from __future__ import annotations
 
@@ -135,6 +149,49 @@ def _unet_names(cfg: UNetConfig) -> Dict[str, str]:
     return names
 
 
+_TOWER_LAYER = re.compile(r"^(ln1|ln2|attn|mlp_in|mlp_out)_(\d+)$")
+_ST_BLOCK = re.compile(r"^block_(\d+)$")
+
+
+def _module_leaf(mods: Tuple[str, ...], leaf: str, value: np.ndarray
+                 ) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """A flax leaf of a conditioning encoder or a SpatialTransformer -> the
+    port's name and value: tower layers and transformer blocks renamed,
+    conv kernels HWIO -> OIHW, DenseGeneral kernels and biases flattened
+    over the heads, Dense kernels reversed, ``scale`` and ``embedding`` ->
+    ``weight``, parameters (positions, class token) as they are."""
+    names: Tuple[str, ...] = ()
+    for m in mods:
+        tower, block = _TOWER_LAYER.match(m), _ST_BLOCK.match(m)
+        names += (("layers", tower[2], tower[1]) if tower
+                  else ("transformer_blocks", block[1]) if block else (m,))
+    if leaf == "kernel":
+        if value.ndim == 4:
+            value = np.transpose(value, (3, 2, 0, 1))
+        elif value.ndim == 3:
+            value = (value.reshape(-1, value.shape[-1]).T if mods[-1] == "out"
+                     else value.reshape(value.shape[0], -1).T)
+        else:
+            value = value.T
+        return names + ("weight",), value
+    if leaf in ("scale", "embedding"):
+        return names + ("weight",), value
+    if leaf == "bias":
+        return names + (leaf,), value.reshape(-1)
+    return names + (leaf,), value
+
+
+def cond_stage_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX conditioning stage's params (``ClassEmbedder``,
+    ``SpatialRescaler``, a CLIP tower or wrapper, ``TransformerEmbedder``,
+    ``BERTEmbedder``) -> the port module's state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params.get("params", params)):
+        name, value = _module_leaf(path[:-1], path[-1], value)
+        out[".".join(name)] = torch.from_numpy(np.array(value))
+    return out
+
+
 def unet_state_dict(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     """JAX ``UNetModel`` params (with or without the "params" level) -> the
     port's ``UNetModel`` state_dict."""
@@ -142,8 +199,13 @@ def unet_state_dict(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, torch.
     names = _unet_names(cfg)
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):
+        if path[0] == "label_emb":
+            out["label_emb.weight"] = torch.from_numpy(np.ascontiguousarray(value))
+            continue
         top, mods, leaf = names[path[0]], path[1:-1], path[-1]
-        if path[0].endswith("_attn") and mods and mods[0] in ("qkv", "proj_out"):
+        if path[0].endswith("_attn") and cfg.use_spatial_transformer:
+            name, value = _module_leaf(mods, leaf, value)
+        elif path[0].endswith("_attn") and mods and mods[0] in ("qkv", "proj_out"):
             c = value.shape[0] // 3 if (mods[0], leaf) == ("qkv", "bias") else value.shape[0]
             if mods[0] == "qkv":
                 heads, dh = cfg.heads_for(c)
@@ -234,9 +296,24 @@ def latent_diffusion_state_dict(params: Dict[str, Any], unet_cfg: Union[UNetConf
         sd.update({f"first_stage_model.{k}": v
                    for k, v in vq_state_dict(params["first_stage"]).items()})
     if params.get("cond_stage"):
+        encoder = (layout_encoder_state_dict if isinstance(unet_cfg, LayoutUNetConfig)
+                   else cond_stage_state_dict)
         sd.update({f"cond_stage_model.{k}": v
-                   for k, v in layout_encoder_state_dict(params["cond_stage"]).items()})
+                   for k, v in encoder(params["cond_stage"]).items()})
     return sd
+
+
+def classifier_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``EncoderUNetModel`` params -> the port's ``EncoderUNetModel``
+    state_dict (``models/classifier``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params.get("params", params)):
+        top, mods = path[0], path[1:-1]
+        if top.startswith("enc_"):
+            mods = (_RES[mods[0]],) + mods[1:]
+        name, value = _leaf(mods, path[-1], value)
+        out[".".join((top,) + name)] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
 
 
 def layout_diffusion_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -951,3 +951,47 @@ def test_gpu_eval_ae_and_log_images_match_cpu(cuda_device):
         assert (drop_g == drop_c).float().mean() >= 0.999
         both = ~drop_g & ~drop_c
         assert (g_ - c_).abs()[both].max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_gpu_attention_at_the_conditional_unet_f32_shapes(cuda_device):
+    # the conditional U-Net's self-attention in f32 (map2lidar's
+    # SelfAttentionBlocks, cam2lidar's and text2lidar's SpatialTransformer
+    # attn1) at batch 4, and 8 under classifier-free guidance: K1 against its
+    # plain version, bit for bit over two launches
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    for (b, h, s, d) in [(4, 8, 2048, 32), (4, 16, 512, 32), (4, 32, 128, 32),
+                         (8, 8, 2048, 32), (8, 32, 128, 32)]:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda_device)
+                   for _ in range(3))
+        got = A.flash_attention(q, k, v)
+        again = A.flash_attention(q, k, v)
+        want = A._attend_ref(q, k, v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert (got - want).abs().max().item() <= 2e-5 + 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_map2lidar_request_is_finite_and_of_the_cli_shape(cuda_device, tmp_path):
+    import numpy as np
+
+    from lidar_layout_tpu_torch import sample_cond
+    from lidar_layout_tpu_torch.models.schedules import DDIMSchedule
+
+    launches = A.flash_attention.launches, G.group_norm.launches
+    out = sample_cond.main(["--task", "map2lidar", "-n", "2", "--steps", "3",
+                            "--outdir", str(tmp_path)])
+    saved = np.load(tmp_path / "map2lidar_samples.npy")
+    assert saved.shape == (2, 64, 1024, 1) and np.isfinite(saved).all()
+    # 16 self-attentions a U-Net eval (ds 4, 2, 1 over 2 + 1 + 3 blocks a
+    # level); K3 in 17 ResBlocks (two norms each), the 16 attention norms and
+    # norm_out: 51 an eval, and the decoder's besides
+    from lidar_layout_tpu_torch.nn.blocks import Normalize
+
+    model = out["model"]
+    evals = len(DDIMSchedule.create(model.schedule, 3).timesteps)
+    assert sum(isinstance(m, Normalize) for m in model.unet.modules()) == 51
+    dec_norms = sum(isinstance(m, Normalize) for m in model.first_stage_model.decoder.modules())
+    assert A.flash_attention.launches - launches[0] == 16 * evals
+    assert G.group_norm.launches - launches[1] == 51 * evals + dec_norms

@@ -88,7 +88,18 @@ def test_weight_carrier_round_trip_is_exact():
 
 
 def test_unported_branches_raise():
+    # the SpatialTransformer and class-label branches are ported (their
+    # parity tests are in test_torch_cond.py); what is left of the U-Net's
+    # neighbourhood raises with a ROADMAP pointer
+    from lidar_layout_tpu_torch.encoders.modules import XTransformerBERTEmbedder
+    from lidar_layout_tpu_torch.models.diffusion import DiffusionConfig, LatentDiffusion
+    from lidar_layout_tpu_torch.nn.attention import SpatialTransformer
+
+    st = UNetModel(dataclasses.replace(UNetConfig(**TINY), use_spatial_transformer=True,
+                                       context_dim=16))
+    assert isinstance(st.middle_block[1], SpatialTransformer)
+    assert UNetModel(dataclasses.replace(UNetConfig(**TINY), num_classes=10)).label_emb.num_embeddings == 10
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetModel(dataclasses.replace(UNetConfig(**TINY), use_spatial_transformer=True))
+        LatentDiffusion(DiffusionConfig(split_ks=(4, 4)), UNetConfig(**TINY))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetModel(dataclasses.replace(UNetConfig(**TINY), num_classes=10))
+        XTransformerBERTEmbedder()

@@ -258,3 +258,64 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 def nhwc(t: torch.Tensor) -> np.ndarray:
     """NCHW torch -> NHWC numpy."""
     return t.detach().float().permute(0, 2, 3, 1).numpy()
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 error of ``got`` against ``want`` (numpy or JAX), in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def jax_cond_ldm(key, cond_stage, in_ch, context_dim, cond_example, seed=17):
+    """The JAX scripts' conditional LiDM at ``--tiny`` (``scripts/sample_cond.py``,
+    ``scripts/text2lidar.py``) over ``cond_stage``, and a random tree for it."""
+    import jax
+    from lidar_layout_tpu.models.autoencoder import AEConfig
+    from lidar_layout_tpu.models.diffusion import DiffusionConfig, LatentDiffusion
+    from lidar_layout_tpu.models.unet import UNetConfig
+    from lidar_layout_tpu_torch.sample_cond import sizes
+
+    latent, image, (mc, mult, nrb) = sizes(True)
+    jmodel = LatentDiffusion(
+        DiffusionConfig(timesteps=1024, linear_start=0.0015, linear_end=0.0195,
+                        conditioning_key=key, latent_shape=latent),
+        UNetConfig(in_channels=in_ch, model_channels=mc, out_channels=latent[2],
+                   num_res_blocks=nrb, attention_resolutions=(4, 2, 1), channel_mult=mult,
+                   num_head_channels=32, use_spatial_transformer=context_dim is not None,
+                   context_dim=context_dim),
+        first_stage_cfg=AEConfig(ch=16, ch_mult=(1, 2, 2, 4), strides=((1, 2), (2, 2), (2, 2)),
+                                 z_channels=8, out_ch=2, num_res_blocks=nrb),
+        use_mask=True, cond_stage=cond_stage)
+    params = random_flax_params(lambda k: jmodel.init(k, image, cond_example=cond_example),
+                                seed, jax.random.key(0))
+    return jmodel, params
+
+
+def cond_end_to_end(jmodel, params, port, cond_key, cond_in, n, steps=3, uncond_in=None,
+                    cfg_scale=1.0, tol=1e-4):
+    """JAX's conditioning, DDIM and decode against the port's
+    ``sample_cond.sample`` from JAX's x_T, the JAX tree carried into
+    ``port``: the decoded images within ``tol`` relative L2."""
+    import jax
+    import jax.numpy as jnp
+    from lidar_layout_tpu.models import samplers as JS
+    from lidar_layout_tpu_torch.sample_cond import sample
+    from lidar_layout_tpu_torch.utils.convert import latent_diffusion_state_dict
+
+    port.load_state_dict(latent_diffusion_state_dict(params, port.unet.cfg))
+    latent = port.cfg.latent_shape
+    key = jax.random.key(1)
+    x_T = np.asarray(jax.random.normal(jax.random.split(key)[1], (n, *latent), jnp.float32))
+    encode = jax.jit(jmodel.get_learned_conditioning)
+    c = encode(params, jnp.asarray(cond_in))
+    uc = None if uncond_in is None else {cond_key: encode(params, jnp.asarray(uncond_in))}
+    want_z = JS.ddim_sample(jmodel, params, key, (n, *latent), steps=steps,
+                            cond={cond_key: c}, uncond=uc, cfg_scale=cfg_scale)
+    want = np.asarray(jax.jit(jmodel.decode_first_stage)(params, want_z))
+    got, _ = sample(port, cond_key, cond_in, n, steps, uncond_in=uncond_in,
+                    cfg_scale=cfg_scale, x_T=torch.from_numpy(x_T))
+    assert np.abs(np.asarray(want_z) - x_T).max() > 1e-2     # the U-Net moved the latent
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert 0 < (want == -1).mean() < 1                      # ray drop on part of the image
+    assert rel_l2(got, want) < tol
+    return got
