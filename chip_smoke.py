@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases device,build,ae_train,ae_eval
     python3 chip_smoke.py --phases device,build,kernels,dense_slice,dense
     python3 chip_smoke.py --phases device,build,kernels,cond_slice,cond
+    python3 chip_smoke.py --phases device,build,kernels,families_slice,families
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -50,7 +51,11 @@ Phases (any failure exits non-zero before the final "ok" line):
                in f32 at the conditional U-Net's shapes (batch 2 and 4, bit
                for bit over two launches), K3 in f32 at its and the VQ
                decode's group shapes, and forward and backward at the
-               noisy-latent classifier's
+               noisy-latent classifier's; K3 forward and backward in f32 at
+               every group shape of an R2DM training step at batch 4 (widths
+               64-1024, spans up to 768 KB; a request's U-Net eval has the
+               forward's), both bit for bit over two launches (the KL AE has
+               the kitti AE's group shapes)
   slice        full-width flagship, f32, batch 1, seeded weights: DDIM-4 + decode
                on the card (kernels) vs on the CPU (plain versions)
   train_slice  one full-width training step, f32, batch 1, on the card vs on the
@@ -62,11 +67,13 @@ Phases (any failure exits non-zero before the final "ok" line):
                launches per step against module hooks (the plain GroupNorm
                backward called no time), a fixed-batch overfit check
   eval_slice   the eval modules on the card vs on the CPU, same numpy clouds:
-               CD (K4 vs plain), EMD at N = 4096, BEV histograms and bitmaps,
-               RangeNet features at 64x1024, FRID; MinkowskiNet and SPVCNN at
-               the registry's full config on 8 clouds (the grid pyramid integer
-               for integer, the descriptors, FSVD and FPVD), and their device
-               twin (make_voxel_descriptor_fn) against the host feature path
+               CD (K4 vs plain, 2 pairs), EMD at N = 2048, BEV histograms and
+               bitmaps, RangeNet features at 64x1024, FRID; MinkowskiNet and
+               SPVCNN at the registry's full config on 8 clouds (the grid
+               pyramid integer for integer, the descriptors of the first 2
+               against the CPU's),
+               and their device twin (make_voxel_descriptor_fn) against the
+               host feature path (FSVD and FPVD)
   eval         the sample-and-evaluate path at full width: generate(32) with
                DPM-20 at batch 16, bf16; 32 synthetic references range-
                roundtripped on the card; CD, JSD, MMD, FRID, FSVD, FPVD, each
@@ -114,7 +121,8 @@ Phases (any failure exits non-zero before the final "ok" line):
   ae_train_slice  one VQ-GAN step of the full-width kitti autoencoder
                (configs/autoencoder/kitti/autoencoder_c2_p4.yaml), batch 4, f32,
                TF32 off, card vs CPU from the same weights at step 0 (GAN terms
-               on) and 2 (off): every loss part, d_weight, disc_loss, both
+               on; coarse_slice holds step 2, GAN terms off, under the same
+               gates): every loss part, d_weight, disc_loss, both
                models' gradients (relative L2) and parameters after Adam; K3
                launches against the structure and module hooks; at step 0 a
                TF32-on control that the same gates must reject
@@ -175,6 +183,22 @@ Phases (any failure exits non-zero before the final "ok" line):
                memory; then timed requests with a seeded U-Net (seconds a
                request, samples/s) and checks that the conditioning moves
                the images (rolled conditions; cfg_scale 1.0 against 2.0)
+  families_slice  the last families card against CPU, f32, TF32 off, at small
+               widths: an R2DM U-Net eval for each coordinate encoding,
+               p_losses with fed t and noise, one R2DM step (loss, gradients,
+               parameters and EMA after AdamW), the object AE's
+               reconstruction and one step, knn_query's indices on a lattice
+               cloud full of ties (equal), one KL-AE step (relative L2 within
+               1e-5, gradients within 1e-4, parameters and EMA after the
+               update within 2 lr)
+  families     r2dm_diffusion.yaml, g2sd_32.yaml and the KL override of the
+               kitti AE's YAML through train_lidm on the card; 10 timed steps
+               of each (steps/s, peak memory, K3 launches against the
+               structure and hooks: 61 + 61 a step for R2DM, none for the
+               object AE), an overfit check on one batch; two R2DM DDIM-50
+               requests of 4 samples on seeded weights, then range2pcd
+               (samples/s, peak memory, 52 x 61 K3 launches a request); and
+               run_tester with ReconTester on the kitti AE
   ae_eval      eval_ae on the ae_train phase's kitti run: 4 batches of 4,
                CD through K4 and JSD, launches against the structure
   timing       per-kernel device times at the main paths' shapes beside the
@@ -195,8 +219,10 @@ Phases (any failure exits non-zero before the final "ok" line):
                K1 and K2 in f32 with a key bias at the dense decoder's
                shapes, over its decodes and timed steps; K3 at the Gaussian
                AE's step shapes; K1 and K3 in f32 at the conditional path's
-               shapes over a map2lidar and a cam2lidar request ("cond"); K4 at
-               eval_ae's 16 pairs (ae_eval's clouds)
+               shapes over a map2lidar and a cam2lidar request ("cond"); K3
+               forward and backward in f32 at R2DM's shapes over a DDIM-50
+               request and over its 10 timed training steps; K4 at eval_ae's
+               16 pairs (ae_eval's clouds)
   profile      (only when named) device time of one DPM-20 request, of one
                guided layout request, of one training step, of one layout
                training step, of one LayoutDiffusion request, of one
@@ -229,7 +255,8 @@ PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "train",
           "eval", "layout_slice", "layout", "layout_train_slice", "layout_train",
           "layout_boxes_slice", "layout_boxes", "layout_boxes_train_slice", "layout_boxes_train",
           "ae_train_slice", "ae_train", "coarse_slice", "coarse", "cube_slice", "cube",
-          "dense_slice", "dense", "cond_slice", "cond", "ae_eval", "timing")
+          "dense_slice", "dense", "cond_slice", "cond", "families_slice", "families", "ae_eval",
+          "timing")
 EXTRA_PHASES = ("profile",)   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -238,6 +265,10 @@ PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 TRAIN_BATCH, TRAIN_STEPS = 16, 10   # the training path: timed steps at batch 16
 OVERFIT_STEPS, OVERFIT_LR = 30, 1e-4
+# the dense decoder's overfit takes a second a step; its curve, the same to
+# four digits from call to call through step 15, puts the mean of steps 11-15
+# at 0.38 of step 0 (the mean of steps 26-30: 0.36-0.84)
+DENSE_OVERFIT_STEPS = 15
 LAYOUT_CFG_SCALE = 2.0   # the guided layout run: DPM-20, generate(32) at batch 16
 # LayoutDiffusion serving: 16 scenes at the nuScenes layout dataset's capacity
 # of 16 objects and 32 triples a scene (N = 256 boxes), DDIM-100, f32
@@ -286,6 +317,20 @@ DENSE_LIVE_STEPS, DENSE_LIVE_GATED, DENSE_LIVE_SHARE = 4, 2, 0.5
 # samples; text2lidar, 2 samples under guidance) at full width, f32, DDIM-50;
 # card against CPU at small widths within COND_SLICE_TOL relative L2
 COND_STEPS, COND_CFG_SCALE, COND_SLICE_TOL = 50, 2.0, 1e-5
+# the last families of train_lidm: R2DM (r2dm_diffusion.yaml, 2-channel
+# 32x1024 pixel-space diffusion) trained at its YAML's batch of 4 and served
+# by DDIM-50 requests of 4 samples; the G2SD object AE (g2sd_32.yaml, 1024-
+# point synthetic objects, batch 4); the KL autoencoder, which no YAML names,
+# on the kitti AE's YAML with the override JAX's CLI takes; all f32. Card
+# against CPU at small widths within FAMILIES_SLICE_TOL relative L2 (the
+# gradients within FAMILIES_GRAD_TOL, the tests' tolerance for gradients;
+# the parameters after a step as the other training slices hold them)
+R2DM_YAML = os.path.join(HERE, "configs", "r2dm", "r2dm_diffusion.yaml")
+G2SD_YAML = os.path.join(HERE, "configs", "autoencoder", "nuscenes_objects", "g2sd_32.yaml")
+KL_OVERRIDES = ("model.target=autoencoder_kl", "model.params.ddconfig.double_z=true")
+R2DM_BATCH, R2DM_STEPS, R2DM_DDIM, R2DM_REQUESTS, R2DM_SAMPLES = 4, 10, 50, 2, 4
+FAMILY_STEPS = 10   # the object and KL AEs' timed steps
+FAMILIES_SLICE_TOL, FAMILIES_GRAD_TOL = 1e-5, 1e-4
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -306,7 +351,9 @@ SFU_EX2_PER_CLOCK = 16   # exp2 per clock per SM on Hopper (special-function uni
 # 32-bit floating-point compare, minimum, maximum per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput)
 FMNMX_PER_CLOCK = 64
-# emd holds an (N, N) matrix: checked at N = 4096
+# emd holds an (N, N) matrix: checked at N = 2048, a multiple of 1024 (the
+# CPU's auction took 3.4-16.3 s at 4096 on the H100 host)
+EMD_N = 2048
 EVAL_METRICS = ("cd", "jsd", "mmd", "frid", "fsvd", "fpvd")
 # MinkowskiNet / SPVCNN descriptors, card against CPU at the registry's full
 # config (f32, TF32 off; convolutions summed in other orders, scatter-means
@@ -392,7 +439,10 @@ def max_err(a, b):
 
 def device_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean device milliseconds per call: the CUDA kernel (and copy) times
-    that torch.profiler records over ``reps`` calls, summed. Gaps between
+    that torch.profiler records over ``reps`` calls, summed. It traces the
+    device only: a session that also traces the host took 52 ms against 26
+    (NVIDIA H100 80GB HBM3, 700 W), and the timing phase opens about a
+    thousand, for the same device times. Gaps between
     launches, where the card waits for the host, are not counted. Now and
     then a profiler session records no device activity at all: it is run
     again, up to PROFILER_TRIES sessions in all. If none saw the device, the
@@ -406,7 +456,7 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
         fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILER_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -493,6 +543,13 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def yaml_config(path, overrides=()):
+    """A YAML config with dotlist ``overrides`` merged, as train_lidm reads it."""
+    from lidar_layout_tpu_torch.config import apply_dotlist, load_yaml
+
+    return apply_dotlist(load_yaml(path), list(overrides))
+
+
 class Smoke:
     def __init__(self):
         self.kernel_err = {name: 0.0 for name, _, _ in KERNELS}
@@ -526,6 +583,8 @@ class Smoke:
         self.ae_eval_clouds = None   # eval_ae's (input, reconstruction) clouds: K4's shapes
         self.cond_shapes = None   # the conditional path's kernel calls by shape (hooks)
         self.cond_launches = {}   # over the three conditional CLIs' requests
+        self.r2dm_shapes = None   # K3's (forward, backward) calls of one R2DM step by shape
+        self.families_launches = {}   # run -> launches: a request, the timed steps
         self._tmp = []   # directories the phases write, removed at the end
 
     def tmp_dir(self, prefix):
@@ -654,6 +713,7 @@ class Smoke:
         self._kernels_coarse()
         self._kernels_dense()
         self._kernels_cond()
+        self._kernels_families()
         self._kernels_train()
         self._kernels_chamfer()
 
@@ -1468,18 +1528,19 @@ class Smoke:
 
         # CD: K4 on the card, the plain expansion on the CPU; the expansion
         # is off by up to eps32 (|x|^2 + |y|^2) a point (1e-3 m^2 at 60 m),
-        # which averages out over ~20K points
-        cd = {d: M.compute_cd(ref, smp, d) for d in ("cuda", "cpu")}
+        # which averages out over ~20K points. Two pairs: the CPU's side
+        # grows with the pairs
+        cd = {d: M.compute_cd(ref[:2], smp[:2], d) for d in ("cuda", "cpu")}
         rel = abs(cd["cuda"] - cd["cpu"]) / abs(cd["cpu"])
-        log(f"eval_slice CD (4 pairs, {[len(c) for c in clouds]} points): card {cd['cuda']:.9g} "
-            f"cpu {cd['cpu']:.9g} relative {rel:.3e} (tol 1e-4)")
+        log(f"eval_slice CD (2 pairs, {[len(c) for c in ref[:2] + smp[:2]]} points): card "
+            f"{cd['cuda']:.9g} cpu {cd['cpu']:.9g} relative {rel:.3e} (tol 1e-4)")
         if not rel <= 1e-4:
             fails.append("CD")
 
-        # EMD at N = 4096 (the (N, N) auction matrix is 64 MB there); 4096 is
-        # a multiple of 1024, so emd_distance would match all of it: its
+        # EMD at N = EMD_N (the (N, N) auction matrix is 16 MB there), a
+        # multiple of 1024, so emd_distance would match all of it: its
         # value is computed here from the one auction
-        x, y = ref[0][:4096], smp[0][:4096]
+        x, y = ref[0][:EMD_N], smp[0][:EMD_N]
         res = {}
         for d in ("cuda", "cpu"):
             xt, yt = torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)
@@ -1496,9 +1557,9 @@ class Smoke:
         # squared distances are within a few roundings of the largest one
         tie = 4 * EPS32 * float(dd.max())
         rel = abs(v_g - v_c) / v_c
-        log(f"eval_slice EMD at N = 4096: card {v_g:.7g} ({t_g:.2f} s) cpu {v_c:.7g} "
+        log(f"eval_slice EMD at N = {EMD_N}: card {v_g:.7g} ({t_g:.2f} s) cpu {v_c:.7g} "
             f"({t_c:.2f} s) relative {rel:.3e} (tol 1e-3); assignments differ at "
-            f"{len(differ)} of 4096 points, largest cost gap there {gap:.3e} m^2 "
+            f"{len(differ)} of {EMD_N} points, largest cost gap there {gap:.3e} m^2 "
             f"(near-tie tol {tie:.3e})")
         if not (rel <= 1e-3 and gap <= tie):
             fails.append("EMD")
@@ -1563,10 +1624,12 @@ class Smoke:
     def _eval_slice_voxel(self, raw, clouds):
         """MinkowskiNet and SPVCNN (FSVD, FPVD) at the registry's full config
         on 8 range-roundtripped clouds, card against CPU: the grid pyramid
-        integer for integer, the descriptors (VOXEL_DESC_TOL) and the Fréchet
-        distances (1e-3, FRID's gate); then the device twin from range2pcd's
-        points on the card against the host path on the same clouds
-        (VOXEL_TWIN_TOL, and 1e-3 on the distances). Returns what failed."""
+        integer for integer, the descriptors of the first 2 clouds
+        (VOXEL_DESC_TOL; the CPU's nets took 6.3-8.7 s over 8 clouds, cut to
+        2 for the smoke's time); then the device twin from range2pcd's points
+        on the card against the host path on the same 8 clouds
+        (VOXEL_TWIN_TOL, and 1e-3 on the Fréchet distances). Returns what
+        failed."""
         import torch
         from lidar_layout_tpu_torch.eval import device_metrics as D
         from lidar_layout_tpu_torch.eval import metrics as M
@@ -1592,25 +1655,23 @@ class Smoke:
         nets = {}
         for modality, metric in (("voxel", "FSVD"), ("point_voxel", "FPVD")):
             desc, secs = {}, {}
-            for d in ("cuda", "cpu"):
+            for d, n in (("cuda", len(clouds)), ("cpu", 2)):
                 nets[modality, d] = fn = R.build_voxel_feature_net("64", modality, device=d)
                 t0 = time.perf_counter()
-                desc[d] = fn(*(t.to(d) for t in batch)).cpu().numpy()
+                desc[d] = fn(*(t[:n].to(d) for t in batch)).cpu().numpy()
                 secs[d] = time.perf_counter() - t0
-            rel = float(np.linalg.norm(desc["cuda"] - desc["cpu"]) / np.linalg.norm(desc["cpu"]))
-            fd = {d: M.frechet_distance(f[:4].astype(np.float64), f[4:].astype(np.float64))
-                  for d, f in desc.items()}
-            fd_rel = abs(fd["cuda"] - fd["cpu"]) / abs(fd["cpu"])
+            rel = float(np.linalg.norm(desc["cuda"][:2] - desc["cpu"])
+                        / np.linalg.norm(desc["cpu"]))
+            fd = M.frechet_distance(desc["cuda"][:4].astype(np.float64),
+                                    desc["cuda"][4:].astype(np.float64))
             hashes = {nets[modality, d].param_hash for d in ("cuda", "cpu")}
-            log(f"eval_slice {R.MODALITY2MODEL[modality]} descriptors (8 x 768): card "
-                f"{secs['cuda']:.3f} s, cpu {secs['cpu']:.3f} s; relative L2 {rel:.3e} (tol "
-                f"{VOXEL_DESC_TOL:g}); {metric} card {fd['cuda']:.9g} cpu {fd['cpu']:.9g} "
-                f"relative {fd_rel:.3e} (tol 1e-3); param_hash {sorted(hashes)}")
+            log(f"eval_slice {R.MODALITY2MODEL[modality]} descriptors (card 8 x 768 in "
+                f"{secs['cuda']:.3f} s, cpu the first 2 in {secs['cpu']:.3f} s): relative L2 "
+                f"{rel:.3e} (tol {VOXEL_DESC_TOL:g}); {metric} on the card {fd:.9g}; param_hash "
+                f"{sorted(hashes)}")
             if not (rel <= VOXEL_DESC_TOL and np.isfinite(desc["cuda"]).all()
-                    and len(hashes) == 1):
+                    and np.isfinite(fd) and len(hashes) == 1):
                 fails.append(f"{metric} descriptors")
-            if not fd_rel <= 1e-3:
-                fails.append(metric)
 
         # the device twin: range2pcd's (B, H*W) points and validity on the card
         pts = torch.from_numpy(np.stack(raw)).to("cuda")
@@ -2449,12 +2510,14 @@ class Smoke:
             torch.cuda.empty_cache()
         return self.ae_shapes
 
-    def _kernels_ae(self, shapes=None, key="ae", label="the AE's training step"):
+    def _kernels_ae(self, shapes=None, key="ae", label="the AE's training step",
+                    forward_twice=False):
         """K3 forward and backward in f32 at every group shape of one AE
         training step (encoder, decoder, discriminator; eps 1e-6, and 1e-5
         in the discriminator), against the plain versions; the backward bit
-        for bit over two launches. ``shapes`` (forward, backward) Counters
-        of another AE's step; the errors go to ``<key>_group_norm``."""
+        for bit over two launches, and with ``forward_twice`` the forward
+        too. ``shapes`` (forward, backward) Counters of another model's
+        step; the errors go to ``<key>_group_norm``."""
         import torch
         from lidar_layout_tpu_torch.ops import groupnorm as G
 
@@ -2478,6 +2541,9 @@ class Smoke:
             self._check("group_norm", got, want, 1e-4, 1e-5, what, record=False)
             self.kernel_err[f"{key}_group_norm"] = max(
                 self.kernel_err.get(f"{key}_group_norm", 0.0), max_err(got, want)[0])
+            if forward_twice and not torch.equal(got, G.group_norm(x, gamma, beta, groups,
+                                                                   eps, act)):
+                raise AssertionError(f"K3's forward is not deterministic at {what}")
             got = G.group_norm_bwd(x, gamma, beta, dy, groups, eps, act)
             want = G._group_norm_bwd_ref(x, gamma, beta, dy, groups, eps, act)
             for part, g_, w_, t_ in zip(("dx", "dgamma", "dbeta"), got, want,
@@ -2495,13 +2561,17 @@ class Smoke:
     def ae_train_slice(self):
         """One VQ-GAN step of the full-width kitti autoencoder at batch 4,
         f32 (TF32 off), on the card and on the CPU from the same weights and
-        batch, at step 0 (GAN terms on) and step 2 (past disc_start 1: off):
+        batch, at step 0 (GAN terms on). Step 2, past disc_start 1 with the
+        GAN terms off (20.9 s of CPU), is left out for the smoke's time:
+        coarse_slice's AE holds it under the same gates. The batch stays 4
+        scenes of 64x1024: on one scene, or on 32x256 images, d_weight reads
+        1.8e-4 and 2.0e-4 apart on the two devices, past its gate:
         every loss part, d_weight and disc_loss, the generator's and the
         discriminator's gradients by relative L2, and both models after
         Adam; on the card, K3's launches against the structure and hooks.
         At step 0 a control runs the card's step again with TF32 on for
         matmuls and cuDNN: the same gates must find it not correct."""
-        self._ae_slice("ae_train_slice", AE_YAML, tf32_control=True)
+        self._ae_slice("ae_train_slice", AE_YAML, tf32_control=True, steps=(0,))
 
     def _ae_slice(self, name, yaml_path, tf32_control, overrides=(), steps=(0, 2)):
         """ae_train_slice's steps 0 and 2 (or ``steps``) for an AE YAML
@@ -3808,7 +3878,7 @@ class Smoke:
         steps (steps/s, K1 + K2 22 + 22 a step against the structure and
         the hooks, peak memory), the split PT-v3 / raster / loss+backward /
         optimizer over 3 synchronised steps, a falling loss over
-        OVERFIT_STEPS steps on one cloud at lr 1e-4, and the dead-decoder
+        DENSE_OVERFIT_STEPS steps on one cloud at lr 1e-4, and the dead-decoder
         check at the YAML's lr (_dense_yaml_lr). Then the Gaussian
         AE (autoencoder_c2_p4_gaus.yaml) at batch 4, accumulate 2: GAUS_STEPS
         of ae_train's timed steps, K3 launches against the structure and
@@ -3954,11 +4024,11 @@ class Smoke:
                                       ["weight_decay"])
         step = TD.make_dense_train_step(model, geom, rc)
         curve = []
-        for i in range(OVERFIT_STEPS + 1):
+        for i in range(DENSE_OVERFIT_STEPS + 1):
             state, logs = step(state, samples[0], None)
             curve.append(float(logs["loss"]))
         tail = float(np.mean(curve[-5:]))
-        log(f"dense overfit ({OVERFIT_STEPS} steps at lr {OVERFIT_LR:g} on one cloud): loss "
+        log(f"dense overfit ({DENSE_OVERFIT_STEPS} steps at lr {OVERFIT_LR:g} on one cloud): loss "
             f"step 0 {curve[0]:.5f} -> mean of the last five {tail:.5f}, ratio "
             f"{tail / curve[0]:.4f}; curve {[round(c_, 5) for c_ in curve]}")
         if not tail < curve[0]:
@@ -4376,6 +4446,489 @@ class Smoke:
                 f"library {tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | "
                 f"bound {tot['bound_ms']:.3f}")
 
+    # ---------------------------------------------- R2DM, object AE, KL AE
+    @staticmethod
+    def _family_model(yaml_path, overrides=(), device="cuda", seed=0):
+        """A YAML's model (with dotlist ``overrides``) at full width, built
+        under ``seed`` as train_lidm builds it, and the config."""
+        import torch
+        from lidar_layout_tpu_torch.config import instantiate_from_config
+
+        cfg = yaml_config(yaml_path, overrides)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = instantiate_from_config(cfg["model"]).to(device)
+        return model, cfg
+
+    @staticmethod
+    def _family_batches(target, n, batch, device="cuda", seed=6, **params):
+        """``n`` synthetic batches of a factory target (its YAML's dataset block)."""
+        from lidar_layout_tpu_torch.config import load_yaml
+        from lidar_layout_tpu_torch.data import factory as PF
+
+        yaml_path = {"nusc_r2dm": R2DM_YAML, "nusc_object": G2SD_YAML}[target]
+        dset = load_yaml(yaml_path)["data"]["params"]["dataset"]
+        it = PF.build_batches(target, {"split": "train", **params}, dset, None, batch, seed,
+                              force_synthetic=True, device=device)
+        return [next(it) for _ in range(n)]
+
+    def _r2dm_shapes(self):
+        """K3's (forward, backward) calls of one full-width R2DM training step
+        at batch 4 by shape, from module hooks: the forward's are one U-Net
+        eval's, so a request's too."""
+        if self.r2dm_shapes is None:
+            import torch
+            from torch_port_helpers import count_group_norms
+
+            model, _ = self._family_model(R2DM_YAML)
+            x = self._family_batches("nusc_r2dm", 1, R2DM_BATCH)[0]["image"]
+            with count_group_norms(model) as shapes:
+                model.p_losses(x, torch.Generator(device="cuda").manual_seed(0))[0].backward()
+            torch.cuda.synchronize()
+            self.r2dm_shapes = shapes
+            log(f"r2dm: K3 per training step at batch {R2DM_BATCH}: forward "
+                f"{sum(shapes[0].values())} over {len(shapes[0])} shapes, backward "
+                f"{sum(shapes[1].values())}")
+            del model, x
+            gc.collect()
+            torch.cuda.empty_cache()
+        return self.r2dm_shapes
+
+    def _kernels_families(self):
+        """K3 forward and backward in f32 at every group shape of one R2DM
+        training step at batch 4 (a request's U-Net eval has the forward's),
+        both bit for bit over two launches. The KL AE's encoder, decoder and
+        discriminator, and ReconTester's kitti AE, have the kitti VQ AE's
+        group shapes, which _kernels_ae holds."""
+        self._kernels_ae(self._r2dm_shapes(), "r2dm", f"R2DM's training step (batch "
+                         f"{R2DM_BATCH}; widths 64-1024, up to 768 KB spans)", forward_twice=True)
+
+    def families_slice(self):
+        """The last families card against CPU on the same inputs and
+        weights, f32, TF32 off, at small widths (R2DM 16 wide at 32x256, its
+        U-Net four levels of one block): an R2DM U-Net eval for each
+        coordinate encoding; p_losses with fed t and noise; one R2DM step
+        (loss, gradients, parameters and EMA after AdamW); the object AE's
+        loss and gradients and one step (4 objects of 512 points, 64
+        folded); knn_query's indices on a lattice cloud full of ties, equal;
+        one KL-AE step (16 wide, 32x256, fed posterior noise). Outputs and
+        losses within FAMILIES_SLICE_TOL relative L2, gradients within
+        FAMILIES_GRAD_TOL; after the update the parameters and EMA within
+        2 lr and at most 1e-3 of the live parameters (gradient above 1e-6
+        of its largest) off by more than 0.01 lr, as the other training
+        slices."""
+        import copy
+
+        import torch
+        from lidar_layout_tpu_torch.config import instantiate_from_config
+        from lidar_layout_tpu_torch.models import r2dm as PR
+        from lidar_layout_tpu_torch.models.object_ae import ObjectAEConfig, VQModelObject
+        from lidar_layout_tpu_torch.ops.pointops import knn_query
+        from lidar_layout_tpu_torch.train import family_trainer as FT
+
+        rng = np.random.default_rng(30)
+
+        def rel(got, want):
+            got, want = got.detach().double().cpu(), want.detach().double().cpu()
+            return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+        def gate(name, got, want, tol=FAMILIES_SLICE_TOL):
+            r = rel(got, want)
+            ok = r <= tol and bool(torch.isfinite(got.detach().cpu()).all())
+            log(f"families_slice {name}: {tuple(got.shape)} relative L2 {r:.3e} (tol {tol:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"families_slice: {name} on the card disagrees with the CPU")
+
+        def r2dm(encoding):
+            return seed_weights(PR.R2DMDiffusion(PR.R2DMConfig(
+                image_size=(32, 256), base_channels=16, num_res_blocks=1,
+                coords_encoding=encoding)), 31)
+
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 256, 2)).astype(np.float32))
+        t = torch.tensor([3, 700])
+        for enc in (None, "fourier_features", "spherical_harmonics", "polar_coordinates"):
+            model = r2dm(enc)
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                with torch.no_grad():
+                    outs[dev] = copy.deepcopy(model).to(dev).eval().apply_model(x.to(dev),
+                                                                                t.to(dev))
+            gate(f"R2DM U-Net eval, coords_encoding {enc}", outs["cuda"], outs["cpu"])
+        noise = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+
+        def stepped(name, model, cfg, batch, lr=1e-3, **kw):
+            """One family step on each device from the same weights: the
+            loss, the gradients the optimizer(s) took, and the trained
+            parameters and (where there is one) the EMA after it."""
+            res = {}
+            for dev in ("cpu", "cuda"):
+                m = copy.deepcopy(model).to(dev)
+                with torch.random.fork_rng(devices=[]):
+                    torch.manual_seed(0)
+                    state, step, _, _ = FT.family_training(m, cfg, lr)
+                if hasattr(state, "disc"):
+                    state.disc.load_state_dict(self._slice_disc.state_dict())
+                opts = ([state.opt_g, state.opt_d] if hasattr(state, "opt_g")
+                        else [state.optimizer])
+                grads = [[] for _ in opts]
+                for opt, taken in zip(opts, grads):
+                    real = opt.step
+
+                    def spy(gs=None, real=real, opt=opt, taken=taken):
+                        g = gs if gs is not None else [
+                            p.grad if p.grad is not None else torch.zeros_like(p)
+                            for p in opt.params]
+                        taken.extend(t_.detach().flatten() for t_ in g)
+                        return real(gs) if gs is not None else real()
+                    opt.step = spy
+                b = {k: v.to(dev) for k, v in batch.items()}
+                state, logs = step(state, b, None, **{k: v.to(dev) for k, v in kw.items()})
+                # gradients and parameters in one order: the optimizers', each's
+                after = torch.cat([p.detach().flatten() for opt in opts for p in opt.params])
+                ema = (torch.cat([v.flatten() for v in state.ema.params.values()])
+                       if hasattr(state, "ema") else None)
+                res[dev] = (logs, torch.cat([g for taken in grads for g in taken]), after, ema)
+            (lg, gg, ag, eg), (lw, gw, aw, ew) = res["cuda"], res["cpu"]
+            for k in sorted(lw):
+                if k != "grad_norm":
+                    gate(f"{name} {k}", lg[k].reshape(1), lw[k].reshape(1))
+            gate(f"{name} gradients", gg, gw, FAMILIES_GRAD_TOL)
+            # Adam's first update is about lr * sign(g): where g is zero but
+            # for rounding (a bias or time embedding before a GroupNorm takes
+            # out its group's mean) the devices step apart by up to 2 lr. So
+            # the share off is counted over the live elements, as dense_slice
+            # counts it, and the EMA is held to its maximum
+            diff = (ag.cpu() - aw).abs()
+            live = gw.abs() > 1e-6 * gw.abs().max()
+            off_all = float((diff > 0.01 * lr).float().mean())
+            off = float((diff[live] > 0.01 * lr).float().mean())
+            eerr = float((eg.cpu() - ew).abs().max()) if ew is not None else 0.0
+            ok = float(diff.max()) <= 2 * lr and off <= 1e-3 and eerr <= 2 * lr
+            log(f"families_slice {name} after the update: parameters' largest difference "
+                f"{float(diff.max()):.3e} (tol 2 lr = {2 * lr:g}), share of live elements "
+                f"off by more than 0.01 lr {off:.2e} (tol 1e-3; of all elements {off_all:.2e}, "
+                f"{1 - float(live.float().mean()):.2e} not live), relative L2 "
+                f"{rel(ag, aw):.3e}; EMA's largest difference "
+                + (f"{eerr:.3e} (tol 2 lr)" if ew is not None else "- (no EMA)")
+                + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"families_slice: {name}'s update on the card disagrees")
+
+        model = r2dm("fourier_features")
+        with torch.no_grad():
+            losses = {dev: copy.deepcopy(model).to(dev).p_losses(
+                x.to(dev), t=t.to(dev), noise=noise.to(dev))[0].reshape(1)
+                for dev in ("cpu", "cuda")}
+        gate("R2DM p_losses (fed t and noise)", losses["cuda"], losses["cpu"])
+        stepped("R2DM step", model, {}, {"image": x}, t=t, noise=noise)
+
+        obj = seed_weights(VQModelObject(ObjectAEConfig(num_points=512, num_grids=64)), 32)
+        pts = torch.from_numpy(rng.uniform(-1, 1, (4, 512, 3)).astype(np.float32))
+        with torch.no_grad():
+            outs = {dev: copy.deepcopy(obj).to(dev)(pts.to(dev))[0] for dev in ("cpu", "cuda")}
+        gate("object AE reconstruction", outs["cuda"], outs["cpu"])
+        stepped("object AE step", obj, {}, {"fg_points": pts})
+
+        lattice = torch.from_numpy(rng.integers(-4, 5, (2, 512, 3)).astype(np.float32))
+        idx = {dev: knn_query(lattice.to(dev), lattice.to(dev), 17)[0].cpu()
+               for dev in ("cpu", "cuda")}
+        d = knn_query(lattice, lattice, 17)[1]
+        ties = float((d[..., 1:] == d[..., :-1]).float().mean())
+        log(f"families_slice knn_query on a lattice cloud (2 x 512 points, k 17; {ties:.2%} of "
+            f"neighbour pairs tied): indices equal {torch.equal(idx['cuda'], idx['cpu'])}")
+        if not torch.equal(idx["cuda"], idx["cpu"]):
+            raise AssertionError("families_slice: knn_query's indices differ on the card")
+
+        from lidar_layout_tpu_torch.losses.discriminator import LiDARNLayerDiscriminator
+
+        kl_cfg = {"target": "autoencoder_kl", "params": {"embed_dim": 8, "ddconfig": {
+            "ch": 16, "ch_mult": [1, 2, 2, 4], "strides": [[1, 2], [2, 2], [2, 2]],
+            "num_res_blocks": 1, "z_channels": 8, "double_z": True}}}
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(33)
+            kl = instantiate_from_config(kl_cfg)
+            self._slice_disc = LiDARNLayerDiscriminator(1)
+        img = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 256, 1)).astype(np.float32))
+        z_noise = torch.from_numpy(rng.standard_normal((2, 8, 8, 32)).astype(np.float32))
+        stepped("KL AE step", kl, kl_cfg, {"image": img}, noise=z_noise)
+        del self._slice_disc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def _family_run(self, name, step, state, batches, structure, hooked_modules, steps,
+                    batch_size, loss_key):
+        """A family's timed steps: a warm-up under module hooks, another,
+        then ``steps`` steps; steps/s, samples/s, peak memory, launches a
+        step against ``structure`` (and the hooks), no plain GroupNorm.
+        Returns the launches over the timed steps."""
+        import torch
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+        from torch_port_helpers import count_group_norms
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        reset_counts()
+        with count_group_norms(*hooked_modules) as shapes:
+            state, _ = step(state, batches[0], gen)
+            torch.cuda.synchronize()
+        first = read_counts()
+        hooked = {**{k: 0 for k in counters()}, "group_norm": sum(shapes[0].values()),
+                  "group_norm_bwd": sum(shapes[1].values())}
+        step(state, batches[1 % len(batches)], gen)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        plain, real = collections.Counter(), (G._ref, G._group_norm_bwd_ref)
+
+        def counting(n_, fn):
+            def wrapped(*a, **k):
+                plain[n_] += 1
+                return fn(*a, **k)
+            return wrapped
+        G._ref, G._group_norm_bwd_ref = (counting("_ref", real[0]),
+                                         counting("_group_norm_bwd_ref", real[1]))
+        try:
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(steps):
+                state, logs = step(state, batches[i % len(batches)], gen)
+                losses.append(logs[loss_key])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            G._ref, G._group_norm_bwd_ref = real
+        got = read_counts()
+        per_step = {k: v / steps for k, v in got.items()}
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = bool(torch.isfinite(torch.stack(losses)).all())
+        log(f"{name} (batch {batch_size}, f32, TF32 off, {steps} steps): {steps / wall:.3f} "
+            f"steps/s, {steps * batch_size / wall:.2f} samples/s, {1e3 * wall / steps:.2f} ms a "
+            f"step; peak memory {mem:.2f} GiB; launches per step {per_step} (structure "
+            f"{structure}; hooks {hooked}; first step {first}); plain GroupNorm calls "
+            f"{dict(plain)}; last {loss_key} {float(losses[-1]):.5f} finite={finite}; card "
+            f"{card_line()}")
+        if (per_step != {k: float(v) for k, v in structure.items()} or first != structure
+                or hooked != structure):
+            raise AssertionError(f"{name}: launches per step {per_step} (first {first}, hooks "
+                                 f"{hooked}) != structure {structure}")
+        if sum(plain.values()) or not finite:
+            raise AssertionError(f"{name}: plain GroupNorm ran {dict(plain)}, or a loss is "
+                                 f"not finite")
+        return got
+
+    @staticmethod
+    def _overfit(name, step, state, batch, loss_key, **kw):
+        """OVERFIT_STEPS steps on one fixed batch at OVERFIT_LR (``state``
+        built at that rate): ``loss_key`` must fall."""
+        gen = None
+        curve = []
+        for _ in range(OVERFIT_STEPS + 1):
+            state, logs = step(state, batch, gen, **kw)
+            curve.append(float(logs[loss_key]))
+        log(f"{name} overfit ({OVERFIT_STEPS} steps at lr {OVERFIT_LR:g} on one batch): "
+            f"{loss_key} step 0 {curve[0]:.5f} -> step {OVERFIT_STEPS} {curve[-1]:.5f}, ratio "
+            f"{curve[-1] / curve[0]:.4f}; curve {[round(c_, 5) for c_ in curve[::5]]}")
+        if not curve[-1] < curve[0]:
+            raise AssertionError(f"{name}: {loss_key} on a fixed batch did not fall")
+
+    def _family_cli(self, name, yaml_path, overrides=()):
+        """train_lidm -b <yaml> --synthetic --steps 2 on the card: the trainer."""
+        import shutil
+
+        import torch
+        from lidar_layout_tpu_torch.train import train_lidm as TL
+
+        run = os.path.join(self.tmp_dir(f"{name}_"), "run")
+        t0 = time.perf_counter()
+        trainer = TL.main(["-b", yaml_path, "--synthetic", "--steps", "2", "--workdir", run,
+                           *overrides])
+        dev = next(trainer.state.model.parameters()).device
+        lines = [json.loads(x) for x in open(os.path.join(run, "metrics.jsonl"))]
+        val = {k: v for k, v in lines[-1].items() if k.startswith("val/")}
+        log(f"{name}: train_lidm -b {os.path.relpath(yaml_path, HERE)} {' '.join(overrides)} "
+            f"--synthetic --steps 2 in {time.perf_counter() - t0:.1f} s on {dev}; validation "
+            f"{val}; run files {sorted(os.listdir(run))}")
+        if trainer.global_step != 2 or dev.type != "cuda" or not val or not all(
+                np.isfinite(v) for v in val.values()):
+            raise AssertionError(f"{name}: the CLI did not train 2 steps on the card")
+        shutil.rmtree(run)   # R2DM's checkpoints are 1.1 GB each
+        torch.cuda.empty_cache()
+        return trainer
+
+    def families(self):
+        """The last families at full width on the card, f32, TF32 off:
+        r2dm_diffusion.yaml through train_lidm, 10 timed steps at batch 4
+        (61 + 61 K3 launches a step against the structure and hooks), an
+        overfit check on one batch with fixed t and noise, then, on seeded
+        weights, two DDIM-50 requests of 4 samples and range2pcd on channel
+        0 (samples/s, peak memory, 52 x 61 K3 launches a request);
+        g2sd_32.yaml through train_lidm, 10 timed steps at batch 4 on
+        1024-point synthetic objects (no kernel), an overfit check; the KL
+        override of the kitti AE's YAML through train_lidm, 10 timed steps
+        (K3 against the structure and hooks), an overfit check; run_tester
+        with ReconTester on the kitti AE (ae_train's run when it ran)."""
+        import torch
+        from lidar_layout_tpu_torch import run_tester
+        from lidar_layout_tpu_torch.models.samplers import ddim_sample
+        from lidar_layout_tpu_torch.nn.blocks import Normalize
+        from lidar_layout_tpu_torch.ops.lidar import range2pcd
+        from lidar_layout_tpu_torch.pipeline import geometry_from_config
+        from lidar_layout_tpu_torch.train import family_trainer as FT
+
+        zero = {k: 0 for k in counters()}
+        # ---- R2DM: training
+        trainer = self._family_cli("r2dm", R2DM_YAML, ("data.params.num_val_batches=1",))
+        model, state, step = trainer.state.model, trainer.state, trainer.step_fn
+        n_norms = sum(isinstance(m, Normalize) for m in model.modules())
+        batches = self._family_batches("nusc_r2dm", 3, R2DM_BATCH)
+        structure = {**zero, "group_norm": n_norms, "group_norm_bwd": n_norms}
+        self.families_launches["r2dm_train"] = self._family_run(
+            "r2dm train", step, state, batches, structure, (model,), R2DM_STEPS, R2DM_BATCH,
+            "loss")
+        cfg = trainer.state.model.cfg
+        del trainer, state
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        t = torch.randint(0, cfg.timesteps, (R2DM_BATCH,), generator=gen, device="cuda")
+        noise = torch.randn(batches[0]["image"].shape, generator=gen, device="cuda")
+        state, step, _, _ = FT.family_training(model, {}, OVERFIT_LR)
+        self._overfit("r2dm", step, state, batches[0], "loss", t=t, noise=noise)
+        del state, step
+        # ---- R2DM: serving on seeded weights, the output layer scaled so that
+        # the noise estimate of a Gaussian image has unit std, as a trained one
+        seed_weights(model, 8)
+        model.eval()
+        geom = geometry_from_config(yaml_config(R2DM_YAML))
+        with torch.inference_mode():
+            probe = model.apply_model(torch.randn((2, *geom.size, cfg.channels), generator=gen,
+                                                  device="cuda"),
+                                      torch.full((2,), cfg.timesteps // 2, device="cuda"))
+        scale = float(probe.std())
+        with torch.no_grad():
+            model.unet.conv_out.weight.div_(scale)
+            model.unet.conv_out.bias.div_(scale)
+        log(f"r2dm: seeded weights; conv_out divided by {scale:.4g}, the std of the noise "
+            f"estimate at t = {cfg.timesteps // 2}")
+        evals = unet_evals(model, R2DM_DDIM)
+        want = {**zero, "group_norm": evals * n_norms}
+        total = collections.Counter()
+        for r in range(R2DM_REQUESTS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                x = ddim_sample(model, (R2DM_SAMPLES, *geom.size, cfg.channels),
+                                steps=R2DM_DDIM, generator=gen, device="cuda")
+                xyz, valid = range2pcd(x[..., 0], geom)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got = read_counts()
+            total.update(got)
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            finite = bool(torch.isfinite(x).all()) and bool(torch.isfinite(xyz).all())
+            log(f"r2dm request {r} (DDIM-{R2DM_DDIM}, {R2DM_SAMPLES} samples "
+                f"{tuple(x.shape)}, f32, seeded weights): {sec:.3f} s, "
+                f"{R2DM_SAMPLES / sec:.3f} samples/s; peak memory {mem:.2f} GiB; range2pcd "
+                f"{tuple(xyz.shape)}, {int(valid.sum())} valid points, finite={finite}; "
+                f"depth channel mean {float(x[..., 0].mean()):.4f} std "
+                f"{float(x[..., 0].std()):.4f}; launches {got} (structure {want}: {evals} "
+                f"U-Net evals x {n_norms} norms); card {card_line()}")
+            if got != want or not finite or tuple(xyz.shape) != (
+                    R2DM_SAMPLES, geom.size[0] * geom.size[1], 3):
+                raise AssertionError(f"r2dm request: launches {got} != {want}, or bad output")
+        self.families_launches["r2dm_request"] = {k: v / R2DM_REQUESTS for k, v in total.items()}
+        del model, x, xyz, valid, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- the object AE
+        trainer = self._family_cli("g2sd", G2SD_YAML)
+        model, state, step = trainer.state.model, trainer.state, trainer.step_fn
+        batches = self._family_batches("nusc_object", 3, 4)
+        log(f"g2sd: objects {tuple(batches[0]['fg_points'].shape)}, reconstruction "
+            f"{model.cfg.num_grids} points, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+            f" M parameters")
+        self.families_launches["g2sd_train"] = self._family_run(
+            "g2sd train", step, state, batches, zero, (model,), FAMILY_STEPS, 4, "rec_loss")
+        del trainer, state
+        state, step, _, _ = FT.family_training(model, {}, OVERFIT_LR)
+        self._overfit("g2sd", step, state, batches[0], "rec_loss")
+        del model, state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- the KL autoencoder
+        trainer = self._family_cli("kl", AE_YAML, KL_OVERRIDES)
+        model, state, step = trainer.state.model, trainer.state, trainer.step_fn
+        structure, n_ae, n_disc = self._ae_structure(model, state.disc)
+        structure["group_norm_bwd"] = n_ae + 3 * n_disc   # no adaptive weight: 3 views, 3 passes
+        batches = self._ae_batches(3)
+        self.families_launches["kl_train"] = self._family_run(
+            "kl train", step, state, batches, structure, (model, state.disc), FAMILY_STEPS,
+            AE_BATCH, "rec_loss")
+        cfg_model = yaml_config(AE_YAML, KL_OVERRIDES)["model"]
+        del trainer, state
+        state, step, _, _ = FT.family_training(model, cfg_model, OVERFIT_LR)
+        self._overfit("kl", step, state, batches[0], "rec_loss")
+        del model, state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- run_tester with ReconTester on the kitti AE
+        model, _ = self._family_model(AE_YAML)
+        n_norms = sum(isinstance(m, Normalize) for m in model.modules())
+        del model
+        argv = ["-b", AE_YAML, "--synthetic", "--n-batches", "4"]
+        if self.ae_run is not None:
+            argv += ["-r", self.ae_run]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_tester.main(argv)
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = {**zero, "group_norm": 4 * n_norms}
+        log(f"run_tester {' '.join(os.path.relpath(a, HERE) if os.sep in a else a for a in argv)}"
+            f": {out} in {time.perf_counter() - t0:.1f} s; launches {got} (structure {want})")
+        if got != want or not all(np.isfinite(v) for v in out.values()):
+            raise AssertionError(f"run_tester: launches {got} != {want}, or a meter is not finite")
+        self.families_launches["recon_tester"] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def _timing_families(self, gen):
+        """K3 in f32 at R2DM's shapes: the forward at each shape of a U-Net
+        eval at batch 4, summed over a DDIM-50 request (52 evals) and over
+        the 10 timed training steps, and the backward over those steps,
+        each beside F.group_norm + F.silu (and its autograd backward) and
+        the bound."""
+        import torch
+
+        fwd, bwd = self._r2dm_shapes()
+        evals = R2DM_DDIM + 2
+        req, train, train_bwd = (collections.Counter() for _ in range(3))
+        log(f"  R2DM, K3 forward in f32 (per U-Net eval at batch {R2DM_BATCH}):")
+        for (b, c, hh, ww, groups, act, eps), count in sorted(fwd.items()):
+            t = self._time_k3(gen, (b, c, hh, ww, groups, act),
+                              f"x{count}/eval (r2dm)", dtype=torch.float32, eps=eps)
+            for k, v in t.items():
+                req[k] += count * v * evals
+                train[k] += count * v * R2DM_STEPS
+        log("  R2DM, K3 backward in f32 (per training step):")
+        for (b, c, hh, ww, groups, act, eps), count in sorted(bwd.items()):
+            t = self._time_k3_bwd(gen, (b, c, hh, ww, groups, act),
+                                  f"x{count}/step (r2dm)", dtype=torch.float32, eps=eps)
+            for k, v in t.items():
+                train_bwd[k] += count * v * R2DM_STEPS
+        for name, run, tot in (("group_norm", f"a DDIM-{R2DM_DDIM} request", req),
+                               ("group_norm", f"{R2DM_STEPS} training steps", train),
+                               ("group_norm_bwd", f"{R2DM_STEPS} training steps", train_bwd)):
+            log(f"  {name} over R2DM's {run} (sum over shapes of launches x time): kernel "
+                f"{tot['ms']:.3f} ms (events {tot['events_ms']:.3f}) | plain {tot['plain_ms']:.3f}"
+                f" | library {tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | "
+                f"bound {tot['bound_ms']:.3f} (kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}%"
+                f" of it)")
+        self.run_totals.setdefault("group_norm", {}).update(r2dm_request=req, r2dm_train=train)
+        self.run_totals.setdefault("group_norm_bwd", {})["r2dm_train"] = train_bwd
+        torch.cuda.empty_cache()
+
     def ae_eval(self):
         """eval_ae on the ae_train phase's kitti run (trained here through
         the CLI for 2 steps when that phase did not run): -n 4 batches of
@@ -4598,6 +5151,7 @@ class Smoke:
         self._timing_coarse(gen)
         self._timing_dense(gen)
         self._timing_cond(gen)
+        self._timing_families(gen)
         totals["chamfer_nn"] = self._timing_chamfer()
         if self.ae_eval_clouds is not None:
             self.run_totals.setdefault("chamfer_nn", {})["ae_eval"] = self._timing_chamfer(
@@ -5320,10 +5874,15 @@ class Smoke:
                 "gaus_ae_train_max_abs_err": self.kernel_err.get(f"gaus_ae_{name}"),
                 "cond_launches": self.cond_launches.get(name),
                 "cond_max_abs_err": self.kernel_err.get(f"cond_{name}"),
+                **{f"{run}_launches": self.families_launches.get(run, {}).get(name)
+                   for run in ("r2dm_request", "r2dm_train", "g2sd_train", "kl_train",
+                               "recon_tester")},
+                "r2dm_max_abs_err": self.kernel_err.get(f"r2dm_{name}"),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
                    for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train",
                                "ae_train", "coarse", "coarse_train", "coarse_ae_train",
-                               "dense", "dense_train", "gaus_ae_train", "ae_eval", "cond")
+                               "dense", "dense_train", "gaus_ae_train", "ae_eval", "cond",
+                               "r2dm_request", "r2dm_train")
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
         return {"kernels": entries}
 

@@ -4,8 +4,10 @@ Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model``,
 ``vq_model_interface``, ``vq_loss``, ``layout_unet``, ``layout_encoder``,
 ``unet1d``, ``layout_diffusion``, ``cube_ae``, ``cube_latent_diffusion``,
 ``vq_model_gaus``, ``ptv3``, ``dense_decoder``, ``gs_decoder_head`` and
-``ptv3_segmentor`` builders of ``lidar_layout_tpu/config.py`` (with the
-reference's target-name aliases), of its conditioning stages
+``ptv3_segmentor``, ``r2dm_diffusion``, ``efficient_unet``,
+``vq_model_object``, ``vq_loss_1d``, ``autoencoder_kl`` and ``identity``
+builders of ``lidar_layout_tpu/config.py`` (with the reference's
+target-name aliases), of its conditioning stages
 (``class_embedder``, ``spatial_rescaler``, ``bert_embedder``,
 ``transformer_embedder``, ``clip_text``, ``clip_multi_text``,
 ``clip_multi_image``) and of its ``load_yaml`` and ``apply_dotlist``.
@@ -17,6 +19,15 @@ the width of their input features as ``in_features`` when the caller
 gives it (the width of the data's ``feats``), as JAX's flax modules infer it
 at ``init`` from the first batch: ``gaus_10cm.yaml`` says ``in_channels:
 3`` and its clouds carry 4.
+
+``r2dm_diffusion`` reads what JAX's ``build_r2dm`` reads: ``image_size``,
+``channels``, ``timesteps`` and, of the U-Net block, ``base_channels``,
+``channel_multiplier`` and the first of ``num_residual_blocks``; the cosine
+schedule and the Fourier encoding are the config's defaults whatever the
+YAML's ``linear_start``, ``linear_end``, ``attn_num_heads``,
+``coords_encoding``, ``ring`` or ``lidar_utils_config`` say.
+``vq_model_object`` reads ``num_points``, ``modelconfig.params.num_grids``,
+``embed_dim`` and ``n_embed`` (the quantizer stays off).
 """
 from __future__ import annotations
 
@@ -27,14 +38,16 @@ import torch
 from .encoders import modules as E
 from .encoders.layout_encoder import LayoutEncoderConfig, LayoutTransformerEncoder
 from .losses.vq_loss import VQLossConfig
-from .models.autoencoder import AEConfig, VQModel, VQModelInterface
+from .models.autoencoder import AEConfig, AutoencoderKL, VQModel, VQModelInterface
 from .models.autoencoder_gaus import VQModelGaus
 from .models.cube_diffusion import CubeDiffusion, CubeDiffusionConfig, SparseUNetConfig
 from .models.diffusion import DiffusionConfig, LatentDiffusion
 from .models.gs_decoder import DenseDecoder, GSDecoderConfig
 from .models.layout_diffusion import LayoutDiffusion, LayoutDiffusionConfig
+from .models.object_ae import ObjectAEConfig, VQModelObject
 from .models.object_cross_unet import LayoutDiffusionUNetModel, LayoutUNetConfig
 from .models.ptv3 import PTv3, PTv3Config, PTv3Segmentor
+from .models.r2dm import R2DMConfig, R2DMDiffusion
 from .models.sparse_vae import SparseVAE, SparseVAEConfig
 from .models.unet import UNetConfig, UNetModel
 from .models.unet1d import UNet1DConfig
@@ -49,6 +62,10 @@ CUBE_AE_TARGETS = ("cube_ae", "lidm.models.ae.autoencoder_cube.CubeAEModel",
 CUBE_LDM_TARGETS = ("cube_latent_diffusion",
                     "lidm.models.diffusion.ddpm_cube.CubeLatentDiffusion")
 GAUS_AE_TARGETS = ("vq_model_gaus", "lidm.models.ae.autoencoder_gaus.VQModel_Gaus")
+R2DM_TARGETS = ("r2dm_diffusion", "lidm.models.diffusion.ddpm_r2dm.R2DMDiffusion")
+OBJECT_AE_TARGETS = ("vq_model_object", "lidm.models.ae.autoencoder_object.VQModel_Object")
+KL_AE_TARGETS = ("autoencoder_kl", "lidm.models.autoencoder.AutoencoderKL",
+                 "lidm.models.ae.autoencoder.AutoencoderKL")
 
 
 def _ae_cfg(dd: Dict[str, Any]) -> AEConfig:
@@ -288,6 +305,25 @@ def build_ptv3_cfg(dd: Dict[str, Any], in_features: Optional[int] = None) -> PTv
         enable_rpe=dd.get("enable_rpe", False))
 
 
+def _build_r2dm(params: Dict[str, Any], **_) -> R2DMDiffusion:
+    up = params["unet_config"]["params"]
+    blocks = up.get("num_residual_blocks", 2)
+    return R2DMDiffusion(R2DMConfig(
+        image_size=tuple(params.get("image_size", (32, 1024))),
+        channels=params.get("channels", 2),
+        base_channels=up.get("base_channels", 64),
+        channel_mult=tuple(up.get("channel_multiplier", (1, 2, 4, 8))),
+        num_res_blocks=blocks[0] if isinstance(blocks, list) else blocks,
+        timesteps=params.get("timesteps", 1024)))
+
+
+def _build_object_ae(params: Dict[str, Any], **_) -> VQModelObject:
+    return VQModelObject(ObjectAEConfig(
+        num_points=params.get("num_points", 512),
+        num_grids=params.get("modelconfig", {}).get("params", {}).get("num_grids", 1024),
+        embed_dim=params.get("embed_dim", 1024), n_embed=params.get("n_embed", 4096)))
+
+
 def _unwrap(d) -> Dict[str, Any]:
     """Both ``{target, params: {...}}`` blocks and bare dicts."""
     d = d or {}
@@ -340,6 +376,15 @@ for _names, _fn in (
          lambda params, in_features=4, **_: SparseVAE(cube_vae_cfg(params), in_features)),
         (CUBE_LDM_TARGETS, _build_cube_diffusion),
         (GAUS_AE_TARGETS, lambda params, **_: _build_vq(params, gaus=True)),
+        (KL_AE_TARGETS, lambda params, **_: AutoencoderKL(_ae_cfg(params["ddconfig"]),
+                                                          embed_dim=params.get("embed_dim", 8))),
+        (R2DM_TARGETS, _build_r2dm),
+        (("efficient_unet", "lidm.modules.unets.efficient_unet.EfficientUNet"),
+         lambda params, **_: params),   # read inline by r2dm_diffusion
+        (OBJECT_AE_TARGETS, _build_object_ae),
+        (("vq_loss_1d", "lidm.modules.losses.vqperceptual.VQGeoLPIPSWithDiscriminator1D"),
+         lambda params, **_: params),   # the object trainer reads no key of it
+        (("identity", "torch.nn.Identity"), lambda params, **_: None),
         (("ptv3", "PT-v3m1"),
          lambda params, in_features=None, **_: PTv3(build_ptv3_cfg(params, in_features))),
         (("dense_decoder", "DenseDecoderV0"), _build_dense_decoder),

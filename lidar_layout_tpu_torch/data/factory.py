@@ -37,6 +37,17 @@ otherwise falls back to the family's synthetic generator and says so (the
   the JAX package. A transform's ``range_img`` joins the batch. The
   fallback is ``synthetic_cloud_batch``.
 
+- ``nusc_object`` (the G2SD object AE): ``readers.NuScenesObjectDataset``
+  over the params' ``pkl_path`` (dbinfos) under the root, crops resampled to
+  ``num_samples`` points (default 1024; the YAML's ``num_points`` sizes only
+  the model); the fallback draws ``fg_points`` U(-1, 1) and ``fg_class`` in
+  0-7, JAX's draws. Batches of ``fg_points`` (B, P, 3) and ``fg_class``
+  (B, 1) on ``device``.
+- ``nusc_r2dm`` (R2DM): ``readers.NuScenesR2DMDataset`` over the root's
+  samples (else sweeps): ``image`` (B, H, W, 2) and ``proj_points``; the
+  fallback is ``synthetic_range_batch`` with an intensity channel U(-1, 1)
+  drawn after it, as JAX's.
+
 The other targets of the JAX factory raise NotImplementedError, naming the
 ROADMAP queue 1 item that ports them.
 """
@@ -69,11 +80,7 @@ ALIASES = {
 }
 # the targets still to port, and the ROADMAP item that ports each
 _AE = 'ROADMAP queue 1, "First stage and AE training"'
-_FAMILIES = 'ROADMAP queue 1, "Remaining families and infrastructure"'
-NOT_PORTED = {
-    "sem_kitti": _AE, "kitti_camera": _AE, "kitti_annotated": _AE,
-    "nusc_object": _FAMILIES, "nusc_r2dm": _FAMILIES,
-}
+NOT_PORTED = {"sem_kitti": _AE, "kitti_camera": _AE, "kitti_annotated": _AE}
 
 
 def _geom_from_cfg(dset_cfg: Dict[str, Any]) -> LidarGeometry:
@@ -159,7 +166,7 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
         raise NotImplementedError(f"the {name!r} dataset is not ported yet "
                                   f"({NOT_PORTED[name]})")
     if name not in ("nusc_layout_graph", "nusc_layout_range", "nusc_range", "kitti_range",
-                    "nusc_cube", "nusc_cube_decode"):
+                    "nusc_cube", "nusc_cube_decode", "nusc_object", "nusc_r2dm"):
         raise KeyError(f"unknown dataset target '{target}' "
                        f"(known: {sorted(set(ALIASES.values()))})")
     rng = np.random.default_rng(seed)
@@ -209,6 +216,35 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
             yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
         return
     from .synthetic import synthetic_layout_range_batch, synthetic_range_batch
+
+    if name == "nusc_object":
+        pkl = params.get("pkl_path")
+        num = params.get("num_samples", 1024)
+        if have_root and pkl and os.path.isfile(pkl):
+            ds = readers.NuScenesObjectDataset(str(root), pkl, split, num_samples=num,
+                                               seed=seed)
+            if len(ds) >= batch_size:
+                yield from dataset_batches(ds, batch_size, seed, device)
+                return
+        for b in synth(f"no dbinfos at {pkl!r}", lambda: {
+                "fg_points": rng.uniform(-1, 1, (batch_size, num, 3)).astype(np.float32),
+                "fg_class": rng.integers(0, 8, (batch_size, 1)).astype(np.int32)}):
+            yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        return
+
+    if name == "nusc_r2dm":
+        if have_root:
+            ds = readers.NuScenesR2DMDataset(str(root), split, geom)
+            if len(ds) >= batch_size:
+                yield from dataset_batches(ds, batch_size, seed, device)
+                return
+
+        def r2dm_synth():
+            img = synthetic_range_batch(rng, batch_size, geom, device=device)["image"]
+            inten = rng.uniform(-1, 1, tuple(img.shape)).astype(np.float32)
+            return {"image": torch.cat([img, torch.from_numpy(inten).to(device)], dim=-1)}
+        yield from synth(f"no data under {root!r}", r2dm_synth)
+        return
 
     if name in ("nusc_range", "kitti_range"):
         if have_root and name == "nusc_range":

@@ -5,7 +5,8 @@ Counterpart of ``list_nuscenes_sweeps``, ``read_nuscenes_bin``,
 ``NUSC_CLASS_NAMES``, ``project_coords_np``, ``pcd2range_np``,
 ``process_scan_np``, ``box_corners_3d``, ``boxes_to_range_bbox2d``,
 ``scale_boxes8``, ``build_layout13``, ``balanced_infos_resampling``,
-``NuScenesRangeDataset`` and ``NuScenesLayoutRangeDataset`` in
+``NuScenesRangeDataset``, ``NuScenesLayoutRangeDataset``,
+``NuScenesObjectDataset`` and ``NuScenesR2DMDataset`` in
 ``lidar_layout_tpu/data/readers.py`` (the KITTI listers and reader are in
 ``data/datasets.py``). All numpy, as there.
 """
@@ -240,3 +241,101 @@ class NuScenesLayoutRangeDataset:
     def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         """Stack the samples' fixed-shape arrays."""
         return {k: np.stack([s[k] for s in samples], 0) for k in samples[0]}
+
+
+class NuScenesObjectDataset:
+    """Per-object point crops from a dbinfos pickle (the reference's
+    NuscenesObject): each crop rotated into its box frame, divided by the
+    box size and resampled to ``num_samples`` points (with repeats when it
+    has fewer); a crop of fewer than ``min_points`` points is re-drawn, up
+    to 16 times. ``fg_points`` (num_samples, 3) f32, ``fg_class`` (1,) int32.
+    The draws come from one generator seeded with ``seed``, in JAX's order."""
+
+    def __init__(self, root: str, pkl_path: str, split: str = "train",
+                 num_samples: int = 1024, min_points: int = 50,
+                 class_names: Sequence[str] = NUSC_CLASS_NAMES, seed: int = 0):
+        self.root = root
+        self.num_samples = num_samples
+        self.min_points = min_points
+        self.rng = np.random.default_rng(seed)
+        with open(pkl_path, "rb") as f:
+            db = pickle.load(f)
+        data, labels = [], []
+        for ci, name in enumerate(class_names):
+            for info in db.get(name, ()):
+                data.append(info)
+                labels.append(ci)
+        order = self.rng.permutation(len(data))
+        self.data = [data[i] for i in order]
+        self.labels = [labels[i] for i in order]
+        if split == "val":
+            self.data, self.labels = self.data[:10000], self.labels[:10000]
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    @staticmethod
+    def _normalize(pts: np.ndarray, box7: np.ndarray) -> np.ndarray:
+        c, s = np.cos(-box7[6]), np.sin(-box7[6])
+        rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
+        return (pts @ rot.T) / np.maximum(box7[3:6], 1e-6)
+
+    def _sample(self, pts: np.ndarray) -> np.ndarray:
+        n = len(pts)
+        if n <= self.num_samples:
+            return pts[self.rng.integers(0, n, self.num_samples)]
+        return pts[self.rng.choice(n, self.num_samples, replace=False)]
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        for _ in range(16):
+            info = self.data[idx]
+            if info.get("num_points_in_gt", self.min_points) >= self.min_points:
+                break
+            idx = int(self.rng.integers(0, len(self.data)))
+        pts = np.fromfile(os.path.join(self.root, info["path"]),
+                          dtype=np.float32).reshape(-1, 5)[:, :3]
+        box7 = np.asarray(info["box3d_lidar"][:7], np.float32)
+        pts = self._sample(self._normalize(pts, box7))
+        return {"fg_points": pts.astype(np.float32),
+                "fg_class": np.asarray([self.labels[idx]], np.int32)}
+
+
+class NuScenesR2DMDataset:
+    """R2DM's projected scans (the reference's NuScenesGen, spherical
+    projection): ``proj_points`` (H, W, 6) = [x y z intensity depth mask] of
+    the nearest point in each pixel, and ``image`` (H, W, 2), the model's
+    input: log-scaled depth and intensity / 255, each in [-1, 1], -1 where
+    no point fell. The samples' scans, else the sweeps'."""
+
+    def __init__(self, root: str, split: str = "train", geom: Optional[LidarGeometry] = None):
+        self.geom = geom or LidarGeometry(size=(32, 1024), fov=(10.0, -30.0))
+        self.files = (list_nuscenes_sweeps(root, split, kind="samples")
+                      or list_nuscenes_sweeps(root, split, kind="sweeps"))
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        geom = self.geom
+        h, w = geom.size
+        scan = read_nuscenes_bin(self.files[idx])[:, :4]
+        xyz, intensity = scan[:, :3], scan[:, 3]
+        px, py, depth = project_coords_np(xyz, geom)
+        valid = (depth >= geom.depth_range[0]) & (depth <= geom.depth_range[1])
+        xi = np.clip(np.floor(px * w), 0, w - 1).astype(np.int64)
+        yi = np.clip(np.floor(py * h), 0, h - 1).astype(np.int64)
+        order = np.argsort(depth)[::-1]
+        img = np.zeros((h, w, 6), np.float32)
+        feats = np.concatenate([xyz, intensity[:, None], depth[:, None],
+                                valid[:, None].astype(np.float32)], 1)
+        sel = order[valid[order]]
+        img[yi[sel], xi[sel]] = feats[sel]
+        return {"proj_points": img, "image": self.model_input(img)}
+
+    def model_input(self, proj: np.ndarray) -> np.ndarray:
+        """(H, W, 6) -> the (H, W, 2) training image."""
+        depth, intensity, mask = proj[..., 4], proj[..., 3], proj[..., 5] > 0
+        model, _ = process_scan_np(np.where(mask, depth, -1.0).astype(np.float32), self.geom)
+        inten = np.clip(intensity / 255.0, 0.0, 1.0) * 2.0 - 1.0
+        inten[~mask] = -1.0
+        return np.stack([model, inten], -1).astype(np.float32)

@@ -2,7 +2,8 @@
 
 Counterpart of ``lidar_layout_tpu/models/autoencoder.py`` (``AEConfig``,
 ``Encoder``, ``Decoder``, ``apply_raydrop``, ``VQModel``,
-``VQModelInterface``). Modules carry the reference model_lidm state_dict
+``VQModelInterface``, ``DiagonalGaussian``, ``AutoencoderKL``,
+``IdentityFirstStage``). Modules carry the reference model_lidm state_dict
 names (``encoder.down.i.block.j.norm1``, ``decoder.up.i.upsample.conv``,
 ``quantize.embedding``, ``post_quant_conv``, ...), so the JAX package's
 ``utils/torch_convert.convert_vq_autoencoder`` reads a port state_dict.
@@ -12,7 +13,7 @@ input, for the adaptive GAN weight of ``train/ae_trainer``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -212,3 +213,71 @@ class VQModelInterface(VQModel):
         quant = h if force_not_quantize else self.quantize(h)[0]
         dec = self.decode(quant)
         return apply_raydrop(dec) if self.use_mask else dec
+
+
+class DiagonalGaussian:
+    """Reparameterised diagonal Gaussian over NCHW moments [mean | logvar]
+    (logvar clipped to [-30, 20])."""
+
+    def __init__(self, moments: torch.Tensor):
+        self.mean, logvar = moments.chunk(2, dim=1)
+        self.logvar = logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+        self.var = torch.exp(self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise; the noise is drawn from ``generator`` unless given."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
+                                dtype=self.mean.dtype)
+        return self.mean + self.std * noise.to(self.mean.dtype)
+
+    def kl(self) -> torch.Tensor:
+        """KL to N(0, I) per sample, (B,)."""
+        return 0.5 * torch.sum(self.mean ** 2 + self.var - 1.0 - self.logvar,
+                               dim=tuple(range(1, self.mean.ndim)))
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+
+class AutoencoderKL(nn.Module):
+    """KL-regularised autoencoder: the VQ model's Encoder (``double_z``) and
+    Decoder around a diagonal Gaussian. ``forward`` returns (reconstruction,
+    posterior)."""
+
+    def __init__(self, cfg: AEConfig, embed_dim: int = 8):
+        super().__init__()
+        if not cfg.double_z:
+            raise ValueError("AutoencoderKL needs ddconfig.double_z: true")
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        self.quant_conv = Conv1x1(2 * cfg.z_channels, 2 * embed_dim)
+        self.post_quant_conv = Conv1x1(embed_dim, cfg.z_channels)
+
+    def encode(self, x: torch.Tensor) -> DiagonalGaussian:
+        return DiagonalGaussian(self.quant_conv(self.encoder(x)))
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                sample_posterior: bool = True, noise: Optional[torch.Tensor] = None):
+        posterior = self.encode(x)
+        z = posterior.sample(generator, noise) if sample_posterior else posterior.mode()
+        return self.decode(z), posterior
+
+
+class IdentityFirstStage(nn.Module):
+    """Pass-through first stage."""
+
+    def forward(self, x: torch.Tensor, *a, **k) -> torch.Tensor:
+        return x
+
+    def encode_latent(self, x: torch.Tensor, *a, **k) -> torch.Tensor:
+        return x
+
+    def decode_latent(self, x: torch.Tensor, *a, **k) -> torch.Tensor:
+        return x

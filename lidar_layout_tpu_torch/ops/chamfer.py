@@ -12,6 +12,9 @@ path: distances are never negative, and a masked-out y is ``BIG`` away (the
 Pallas kernel neither clamps nor uses ``BIG``: its sentinel coordinate puts
 a masked y about 3e8 away). K4 is forward-only, as on the TPU: with grad
 mode on and an input that requires grad, ``nn_dist_one_way`` raises.
+``chamfer_loss``, the training loss with its gradient (the object
+autoencoder's), is plain PyTorch, as JAX's is plain XLA, and launches no
+kernel.
 
 K4 finds candidates with TF32 tensor-core products of the expanded distance
 and re-checks them in the direct form ``(x - y)^2``; ``_nn_dist_emulated``
@@ -192,8 +195,7 @@ def nn_dist_one_way(x: torch.Tensor, y: torch.Tensor, y_mask: Optional[torch.Ten
     y and needs none. Forward-only: it raises where a gradient is asked for."""
     if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
         raise RuntimeError("nn_dist_one_way is forward-only (kernel K4 has no backward); "
-                           "chamfer_loss with its gradient is not ported yet "
-                           '(ROADMAP queue 1, "Remaining families and infrastructure")')
+                           "chamfer_loss is the differentiable chamfer")
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != 3 or y.shape[1] != 3:
         raise ValueError(f"expected (N, 3) and (M, 3) points, got {tuple(x.shape)} and "
                          f"{tuple(y.shape)}")
@@ -257,3 +259,17 @@ def batch_chamfer(xs: torch.Tensor, ys: torch.Tensor, x_masks: Optional[torch.Te
         pairwise_cd(xs[b], ys[b], None if x_masks is None else x_masks[b],
                     None if y_masks is None else y_masks[b])
         for b in range(xs.shape[0])])
+
+
+def chamfer_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The differentiable symmetric chamfer loss of JAX's ``chamfer_loss``:
+    mean_i min_j |x_i - y_j|^2 + mean_j min_i |x_i - y_j|^2 over (..., N, 3)
+    and (..., M, 3), one value per leading index. Its gradient is JAX's: the
+    expansion clamped by ``torch.maximum`` (half the gradient where a
+    distance is exactly 0) and the minimum by ``amin`` (the gradient split
+    evenly over tied minima). Plain PyTorch on every device."""
+    x2 = (x * x).sum(dim=-1)[..., :, None]
+    y2 = (y * y).sum(dim=-1)[..., None, :]
+    xy = (x[..., :, None, :] * y[..., None, :, :]).sum(dim=-1)
+    d = torch.maximum(x2 + y2 - 2.0 * xy, torch.zeros((), dtype=x.dtype, device=x.device))
+    return d.amin(dim=-1).mean(dim=-1) + d.amin(dim=-2).mean(dim=-1)

@@ -9,7 +9,7 @@ on one CUDA card.
 Counterpart of ``scripts/train_lidm.py`` with the same flags:
 ``-b/--base -t/--train -r/--resume -d/--data-root -s/--seed --steps
 --workdir --synthetic --bf16`` and trailing ``a.b.c=value`` overrides;
-``--cpu`` runs on the CPU. Five families are ported:
+``--cpu`` runs on the CPU. Every family of JAX's ``train_lidm`` trains:
 
 - ``vq_model`` (``configs/autoencoder/*/autoencoder_c2_p4.yaml``,
   ``range_flow.yaml``, ``configs/ours/nuscenes/coarse_range/range_256x8.yaml``):
@@ -31,13 +31,19 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
   ``train/cube_trainer``, in float32 whatever ``--bf16`` says (JAX's cube
   builders take no dtype); the model is built once the first batch gives
   the width of its point features.
+- ``r2dm_diffusion`` (``configs/r2dm/r2dm_diffusion.yaml``),
+  ``vq_model_object`` (``configs/autoencoder/nuscenes_objects/g2sd_32.yaml``)
+  and ``autoencoder_kl`` (no YAML names it: e.g. the kitti AE's YAML with
+  ``model.target=autoencoder_kl model.params.ddconfig.double_z=true``)
+  through ``train/family_trainer``; R2DM and the object AE in float32
+  whatever ``--bf16`` says (JAX's builders drop the dtype).
 
 Every ``sample_every_steps`` (default a fifth of ``--steps``) the image
 logger (``train/sample_logger``) writes the AE's inputs and reconstructions,
 or the LiDM's ``lidm_log_images`` with the EMA weights, under
-``<workdir>/images``. The KL, object and R2DM families' trainers raise
-NotImplementedError; LayoutDiffusion trains with ``train_layout`` and the
-dense decoder with ``train_dense_decoder``.
+``<workdir>/images``; the R2DM, object and KL families log no images, as in
+JAX. LayoutDiffusion trains with ``train_layout`` and the dense decoder
+with ``train_dense_decoder``.
 Dataset targets come from ``data/factory`` (synthetic with
 ``--synthetic``). Weights start from torch's initialisers under ``--seed``
 unless a first stage names a ``ckpt_path``.
@@ -54,10 +60,6 @@ LDM_TARGETS = ("latent_diffusion", "lidm.models.diffusion.ddpm.LatentDiffusion")
 AE_TARGETS = ("vq_model", "lidm.models.autoencoder.VQModel", "lidm.models.ae.autoencoder.VQModel",
               "vq_model_gaus", "lidm.models.ae.autoencoder_gaus.VQModel_Gaus")
 LAYOUT_DIFFUSION_TARGETS = ("layout_diffusion", "lidm.models.diffusion.ddpm.LayoutDiffusion")
-# the families still to port, each with the ROADMAP queue 1 item that ports it
-MISSING_FAMILIES = (
-    "the KL autoencoder's (ROADMAP queue 1, \"First stage and AE training\"), the "
-    "object AE's and R2DM's (ROADMAP queue 1, \"Remaining families and infrastructure\")")
 LAYOUT_RANGE_TARGETS = ("nusc_layout_range", "lidm.data.nusc_dataset.nuScenesLayoutTrain",
                         "lidm.data.nusc_dataset.nuScenesLayoutValidation")
 
@@ -115,7 +117,8 @@ def _lr_lambda(model_cfg: Dict[str, Any], steps: int):
 def main(argv=None):
     args = parse_args(argv)
 
-    from ..config import (CUBE_AE_TARGETS, CUBE_LDM_TARGETS, GAUS_AE_TARGETS, apply_dotlist,
+    from ..config import (CUBE_AE_TARGETS, CUBE_LDM_TARGETS, GAUS_AE_TARGETS, KL_AE_TARGETS,
+                          OBJECT_AE_TARGETS, R2DM_TARGETS, apply_dotlist,
                           instantiate_from_config, load_yaml)
     from ..data.datasets import RangeImageDataset
     from ..data.factory import build_batches
@@ -145,10 +148,14 @@ def main(argv=None):
             "JAX package: python -m lidar_layout_tpu_torch.train.train_layout -b <config>")
     is_ae = model_cfg["target"] in AE_TARGETS
     is_cube = model_cfg["target"] in CUBE_AE_TARGETS + CUBE_LDM_TARGETS
-    if model_cfg["target"] not in LDM_TARGETS + AE_TARGETS + CUBE_AE_TARGETS + CUBE_LDM_TARGETS:
-        raise NotImplementedError(f"training {model_cfg['target']!r} is not ported yet; the "
-                                  f"trainers still to port are {MISSING_FAMILIES}")
-    if is_ae and args.bf16:
+    family = model_cfg["target"] in R2DM_TARGETS + OBJECT_AE_TARGETS + KL_AE_TARGETS
+    if model_cfg["target"] in ("dense_decoder", "DenseDecoderV0"):
+        raise NotImplementedError(
+            "the dense decoder trains with its own CLI, as scripts/train_dense_decoder.py in "
+            "the JAX package: python -m lidar_layout_tpu_torch.train.train_dense_decoder")
+    if not (is_ae or is_cube or family or model_cfg["target"] in LDM_TARGETS):
+        raise NotImplementedError(f"no trainer for model family {model_cfg['target']!r}")
+    if (is_ae or model_cfg["target"] in KL_AE_TARGETS) and args.bf16:
         raise NotImplementedError("the autoencoder trains in float32 (the JAX CLI's default); "
                                   "--bf16 is not ported for it")
     data_cfg = cfg.get("data", {}).get("params", {})
@@ -198,6 +205,13 @@ def main(argv=None):
         if is_ae:   # the discriminator starts from the seed too
             state, step, val_step, monitor = _ae_training(model, model_cfg, geom, lr,
                                                           accumulate, lr_lambda)
+        elif family:
+            from .family_trainer import family_training
+
+            if args.bf16 and model_cfg["target"] not in KL_AE_TARGETS:
+                print("R2DM and the object AE train in float32; --bf16 is not read for them")
+            state, step, val_step, monitor = family_training(model, model_cfg, lr, accumulate,
+                                                             lr_lambda)
     render_fn = None
     if is_cube:
         from .cube_trainer import cube_training
@@ -208,7 +222,7 @@ def main(argv=None):
     elif is_ae:
         if model_cfg["target"] not in GAUS_AE_TARGETS:   # JAX logs no gaus images
             render_fn = _ae_render(model, val_cache)
-    else:
+    elif not family:
         state, step, val_step, monitor = _ldm_training(model, model_cfg, val_cache, lr,
                                                        accumulate, lr_lambda, args.bf16)
         if model.first_stage_model is not None:

@@ -70,6 +70,17 @@ the heads' concatenated width, Embed tables ``weight``.
 ``latent_diffusion_state_dict`` puts such a stage under
 ``cond_stage_model.``. ``classifier_state_dict`` carries a JAX
 ``EncoderUNetModel`` (flax names kept; ResBlock layers as the U-Net's).
+
+The last families keep the flax names too. ``r2dm_state_dict`` carries a
+JAX ``R2DMDiffusion`` tree (``{"unet": ...}``, under ``unet.``): conv
+kernels HWIO -> OIHW (a ``CircularConv``'s ``conv`` level and a
+``Normalize``'s ``GroupNorm_0`` dropped), the attention's DenseGeneral
+kernels flattened over the heads as the conditioning towers'.
+``dense_tree_state_dict`` carries a ``VQModelObject`` tree (Dense kernels
+reversed, LayerNorm ``scale`` -> ``weight``, the codebook to
+``quantize.embedding.weight``). The KL autoencoder's tree has the VQ
+model's names, so ``vq_state_dict`` (and ``ae_train_state_dicts`` for its
+train state) carry it.
 """
 from __future__ import annotations
 
@@ -467,3 +478,15 @@ def load_torchsparse_checkpoint(net: torch.nn.Module, path: str) -> torch.nn.Mod
         raise KeyError(f"{path} does not match {type(net).__name__}: missing {missing[:8]}, "
                        f"unexpected {result.unexpected_keys[:8]}")
     return net
+
+
+def r2dm_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``R2DMDiffusion.init`` tree (``{"unet": {"params": ...}}``, or
+    the U-Net's own) -> the port's ``R2DMDiffusion`` state_dict."""
+    tree = params.get("unet", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree.get("params", tree)):
+        mods = tuple(m for m in path[:-1] if m not in ("conv", "GroupNorm_0"))
+        name, value = _module_leaf(mods, path[-1], value)
+        out["unet." + ".".join(name)] = torch.from_numpy(np.ascontiguousarray(value))
+    return out

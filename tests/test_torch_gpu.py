@@ -365,8 +365,35 @@ def test_gpu_chamfer_grad_guard_raises(cuda_device):
     y = torch.rand((80, 3), device=cuda_device)
     with pytest.raises(RuntimeError, match="forward-only"):
         C.nn_dist_one_way(x, y)
-    with pytest.raises(RuntimeError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="chamfer_loss"):
         C.pairwise_cd(y, x)
+
+
+@pytest.mark.gpu
+def test_gpu_chamfer_loss_and_knn_match_cpu(cuda_device):
+    """The object AE's plain-PyTorch point ops on the card: chamfer_loss and
+    its gradient against the CPU's (TF32 off; the devices sum in other
+    orders), and knn_query's indices on a lattice cloud full of exact ties,
+    equal."""
+    from lidar_layout_tpu_torch.ops import chamfer as C
+    from lidar_layout_tpu_torch.ops import pointops as P
+
+    gen = torch.Generator().manual_seed(3)
+    x, y = torch.rand((4, 256, 3), generator=gen), torch.rand((4, 1024, 3), generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        xd, yd = (t.detach().to(dev).requires_grad_() for t in (x, y))
+        loss = C.chamfer_loss(xd, yd)
+        loss.sum().backward()
+        grads[str(dev)] = (loss.detach().cpu(), xd.grad.cpu(), yd.grad.cpu())
+    (lc, gxc, gyc), (lg, gxg, gyg) = grads["cpu"], grads[str(cuda_device)]
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=0)
+    for g, c in ((gxg, gxc), (gyg, gyc)):
+        assert float((g - c).norm() / c.norm()) <= 1e-4
+    lattice = torch.randint(-4, 5, (2, 512, 3), generator=gen).float()
+    want = P.knn_query(lattice, lattice, 17)[0]
+    got = P.knn_query(lattice.to(cuda_device), lattice.to(cuda_device), 17)[0]
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu

@@ -282,8 +282,9 @@ def test_factory_other_targets():
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert PF.ALIASES == jax_factory.ALIASES
-    with pytest.raises(NotImplementedError, match='"Remaining families and infrastructure"'):
-        next(PF.build_batches("nusc_object", {}, {}, None, 1))
+    got = next(PF.build_batches("nusc_object", {"num_samples": 8}, {}, None, 1, seed=2))
+    want = next(jax_factory.build_batches("nusc_object", {"num_samples": 8}, {}, None, 1, seed=2))
+    assert all(np.array_equal(got[k].numpy(), want[k]) for k in want)
     with pytest.raises(NotImplementedError, match='"First stage and AE training"'):
         next(PF.build_batches("lidm.data.kitti.SemanticKITTITrain", {}, {}, None, 1))
     with pytest.raises(KeyError, match="unknown"):

@@ -446,8 +446,8 @@ def test_cli_trains_the_tiny_config_on_the_cpu(tmp_path):
                           "--workdir", str(tmp_path / "run2"), "-r", str(work),
                           "data.params.batch_size=2", "data.params.num_val_batches=1"])
     assert resumed.global_step == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bad = dict(cfg, model=dict(cfg["model"], target="autoencoder_kl"))
+    with pytest.raises(NotImplementedError, match="train_dense_decoder"):
+        bad = dict(cfg, model=dict(cfg["model"], target="dense_decoder"))
         (tmp_path / "ae.yaml").write_text(yaml.safe_dump(bad))
         train_main(["-b", str(tmp_path / "ae.yaml"), "--cpu", "--synthetic", "--steps", "1",
                     "--workdir", str(tmp_path / "ae")])
