@@ -78,7 +78,10 @@ def _ae_cfg(dd: Dict[str, Any]) -> AEConfig:
         dropout=dd.get("dropout", 0.0),
         in_channels=dd.get("in_channels", 1),
         z_channels=dd.get("z_channels", 8),
-        double_z=dd.get("double_z", False))
+        double_z=dd.get("double_z", False),
+        # the reference's Encoder and Decoder take ddconfig's attn_type; the
+        # JAX package's builder drops it (ROADMAP section 3)
+        attn_type=dd.get("attn_type", "vanilla"))
 
 
 def build_unet_cfg(params: Dict[str, Any]) -> UNetConfig:

@@ -1,10 +1,15 @@
 """Range-image batches from KITTI-360 / SemanticKITTI scans, or synthetic ones.
 
 Counterpart of ``RangeImageDataset`` in ``lidar_layout_tpu/data/datasets.py``
-with its python ``.bin`` reader: velodyne scans are read with numpy and
-projected with the port's ``pcd2range`` / ``process_scan``. When no dataset
-root exists the synthetic generator stands in (and says so). The native
-loader and the degradation transform are not ported yet (ROADMAP queue 1).
+with its readers: velodyne scans are read by the native loader
+(``data/native_loader``, a C++ thread pool over ``native/lidar_io.cpp``),
+or by numpy when it cannot be built (said on stdout, as JAX does; the
+dataset's ``reader`` says which ran), and projected with the port's
+``pcd2range`` / ``process_scan`` on the dataset's device. When no dataset
+root exists the synthetic generator stands in (and says so). With
+``degradation`` and ``scale_factors`` each batch also carries
+``degraded_image``, the image downsampled by ``data/degradation``'s PIL
+transform (the reference's SR conditioning).
 ``dataset_batches`` loops over a map-style dataset (``readers``'
 ``NuScenesRangeDataset``, ``NuScenesLayoutRangeDataset``) as the JAX
 package's ``data/factory`` does; ``layout_range_batches`` adds the layout
@@ -59,12 +64,17 @@ class RangeImageDataset:
                  split: str = "train", batch_size: int = 4,
                  geom: Optional[LidarGeometry] = None, seed: int = 0,
                  max_points: int = 130000, degradation: Optional[str] = None,
+                 scale_factors: Optional[tuple] = None,
                  device: Union[str, torch.device] = "cpu"):
-        if degradation is not None:
-            raise NotImplementedError("the degradation transform is not ported yet "
-                                      '(ROADMAP queue 1, "First stage and AE training")')
         self.geom = geom or (NUSCENES_GEOMETRY if dataset.startswith("nusc")
                              else KITTI_GEOMETRY)
+        self.degradation_transform = None
+        if degradation is not None and scale_factors is not None:
+            from .degradation import make_degradation_transform
+
+            self.degradation_transform = make_degradation_transform(
+                self.geom.size, scale_factors, degradation)
+        self.reader = None   # "native" or "python" once batches() has started
         self.batch_size = batch_size
         self.max_points = max_points
         self.device = device
@@ -82,11 +92,33 @@ class RangeImageDataset:
     def __len__(self) -> int:
         return max(len(self.files) // self.batch_size, 1)
 
-    def batches(self, shuffle: bool = True) -> Iterator[Dict[str, torch.Tensor]]:
+    def _attach_degraded(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.degradation_transform is not None:
+            imgs = batch["image"].cpu().numpy()
+            batch["degraded_image"] = torch.from_numpy(np.stack(
+                [self.degradation_transform(img) for img in imgs]).astype(np.float32)
+            ).to(batch["image"].device)
+        return batch
+
+    def batches(self, shuffle: bool = True, use_native: bool = True
+                ) -> Iterator[Dict[str, torch.Tensor]]:
+        """Endless batches: each pass shuffles the scans with the dataset's
+        generator and drops the ragged tail. The native loader returns
+        scans as its threads finish them; each lands in its own slot, so a
+        batch is the Python reader's."""
         if self.synthetic:
             while True:
-                yield synthetic_range_batch(self.rng, self.batch_size, self.geom,
-                                            device=self.device)
+                yield self._attach_degraded(synthetic_range_batch(
+                    self.rng, self.batch_size, self.geom, device=self.device))
+        loader = None
+        if use_native:
+            try:
+                from .native_loader import NativeScanLoader
+
+                loader = NativeScanLoader(self.files, self.max_points)
+            except Exception as e:
+                print(f"[data] native loader unavailable ({e}); python reader")
+        self.reader = "python" if loader is None else "native"
         order = np.arange(len(self.files))
         while True:
             if shuffle:
@@ -94,13 +126,24 @@ class RangeImageDataset:
             for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
                 clouds = np.zeros((self.batch_size, self.max_points, 3), np.float32)
                 masks = np.zeros((self.batch_size, self.max_points), bool)
-                for j, k in enumerate(order[i:i + self.batch_size]):
-                    pts = read_velodyne_bin(self.files[k])[:, :3]
-                    n = min(len(pts), self.max_points)
-                    clouds[j, :n] = pts[:n]
-                    masks[j, :n] = True
-                yield project_batch(torch.from_numpy(clouds).to(self.device), self.geom,
-                                    mask=torch.from_numpy(masks).to(self.device))
+                idxs = [int(k) for k in order[i:i + self.batch_size]]
+                if loader is not None:
+                    for k in idxs:
+                        loader.enqueue(k)
+                    for _ in idxs:
+                        k, xyz, _, n = loader.next()
+                        j = idxs.index(k)
+                        clouds[j] = xyz
+                        masks[j, :n] = True
+                else:
+                    for j, k in enumerate(idxs):
+                        pts = read_velodyne_bin(self.files[k])[:, :3]
+                        n = min(len(pts), self.max_points)
+                        clouds[j, :n] = pts[:n]
+                        masks[j, :n] = True
+                yield self._attach_degraded(project_batch(
+                    torch.from_numpy(clouds).to(self.device), self.geom,
+                    mask=torch.from_numpy(masks).to(self.device)))
 
 
 def dataset_batches(ds, batch_size: int, seed: int = 0,

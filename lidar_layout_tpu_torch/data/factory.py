@@ -48,8 +48,14 @@ otherwise falls back to the family's synthetic generator and says so (the
   fallback is ``synthetic_range_batch`` with an intensity channel U(-1, 1)
   drawn after it, as JAX's.
 
-The other targets of the JAX factory raise NotImplementedError, naming the
-ROADMAP queue 1 item that ports them.
+- ``sem_kitti`` (``readers.SemanticKITTIRangeDataset``: image, mask and the
+  one-hot ``segmentation``, ``num_sem_cats`` and ``filtered_map_cats`` from
+  the dataset block), ``kitti_camera`` (``readers.KITTI360CameraDataset``:
+  image, mask and the ``camera`` views, ``split_per_view`` from the params)
+  and ``kitti_annotated`` (``readers.AnnotatedKITTI360Dataset``: image,
+  mask, the ``condition_key`` boxes and ``bbox_labels``), each through
+  ``datasets.dataset_batches`` when the root holds a batch of scans, else
+  ``synthetic_range_batch``, as JAX's.
 """
 from __future__ import annotations
 
@@ -78,9 +84,6 @@ ALIASES = {
     "lidm.data.kitti.SemanticKITTITrain": "sem_kitti",
     "lidm.data.kitti.SemanticKITTIValidation": "sem_kitti",
 }
-# the targets still to port, and the ROADMAP item that ports each
-_AE = 'ROADMAP queue 1, "First stage and AE training"'
-NOT_PORTED = {"sem_kitti": _AE, "kitti_camera": _AE, "kitti_annotated": _AE}
 
 
 def _geom_from_cfg(dset_cfg: Dict[str, Any]) -> LidarGeometry:
@@ -162,11 +165,9 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
     """An endless iterator of batches of ``target`` (see the module's doc);
     the root is ``data_root``, else the params' ``data_root`` or ``root``."""
     name = ALIASES.get(target, target)
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"the {name!r} dataset is not ported yet "
-                                  f"({NOT_PORTED[name]})")
     if name not in ("nusc_layout_graph", "nusc_layout_range", "nusc_range", "kitti_range",
-                    "nusc_cube", "nusc_cube_decode", "nusc_object", "nusc_r2dm"):
+                    "sem_kitti", "kitti_camera", "kitti_annotated", "nusc_cube",
+                    "nusc_cube_decode", "nusc_object", "nusc_r2dm"):
         raise KeyError(f"unknown dataset target '{target}' "
                        f"(known: {sorted(set(ALIASES.values()))})")
     rng = np.random.default_rng(seed)
@@ -246,14 +247,28 @@ def build_batches(target: str, params: Dict[str, Any], dset_cfg: Dict[str, Any],
         yield from synth(f"no data under {root!r}", r2dm_synth)
         return
 
-    if name in ("nusc_range", "kitti_range"):
+    if name in ("sem_kitti", "kitti_camera", "kitti_annotated") and have_root:
+        if name == "sem_kitti":
+            ds = readers.SemanticKITTIRangeDataset(
+                str(root), split, geom, num_sem_cats=dset_cfg.get("num_sem_cats", 19),
+                filtered_map_cats=dset_cfg.get("filtered_map_cats", ()))
+        elif name == "kitti_camera":
+            ds = readers.KITTI360CameraDataset(str(root), split, geom,
+                                               split_per_view=params.get("split_per_view", 4))
+        else:
+            ds = readers.AnnotatedKITTI360Dataset(
+                str(root), split, condition_key=params.get("condition_key", "bbox"), geom=geom)
+        if len(ds) >= batch_size:
+            yield from dataset_batches(ds, batch_size, seed, device)
+            return
+    if name in ("nusc_range", "kitti_range", "sem_kitti", "kitti_camera", "kitti_annotated"):
         if have_root and name == "nusc_range":
             ds = readers.NuScenesRangeDataset(str(root), split, geom,
                                               num_channels=dset_cfg.get("num_channels", 1))
             if len(ds) >= batch_size:
                 yield from dataset_batches(ds, batch_size, seed, device)
                 return
-        elif have_root:
+        elif have_root and name == "kitti_range":
             rid = RangeImageDataset(str(root), "kitti360", split, batch_size, geom, seed,
                                     device=device)
             if not rid.synthetic:

@@ -6,12 +6,16 @@ Counterpart of ``list_nuscenes_sweeps``, ``read_nuscenes_bin``,
 ``process_scan_np``, ``box_corners_3d``, ``boxes_to_range_bbox2d``,
 ``scale_boxes8``, ``build_layout13``, ``balanced_infos_resampling``,
 ``NuScenesRangeDataset``, ``NuScenesLayoutRangeDataset``,
-``NuScenesObjectDataset`` and ``NuScenesR2DMDataset`` in
-``lidar_layout_tpu/data/readers.py`` (the KITTI listers and reader are in
-``data/datasets.py``). All numpy, as there.
+``NuScenesObjectDataset``, ``NuScenesR2DMDataset`` and the KITTI readers
+(``load_semantic_labels``, ``SemanticKITTIRangeDataset``,
+``KITTI360CameraDataset``, ``parse_kitti360_bbox_xml``,
+``AnnotatedKITTI360Dataset``) in ``lidar_layout_tpu/data/readers.py`` (the
+KITTI scan listers and reader are in ``data/datasets.py``). All numpy, as
+there; the camera sets read PNGs with PIL, imported where it is used.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import pickle
@@ -23,6 +27,18 @@ from ..ops.lidar import LidarGeometry
 
 NUSC_CLASS_NAMES = ("car", "truck", "construction_vehicle", "bus", "trailer",
                     "motorcycle", "bicycle", "pedestrian")
+
+# SemanticKITTI label -> train-id mapping (public dataset constant from
+# semantic-kitti.yaml 'learning_map'; 0 stays unlabeled/noise).
+SEM_KITTI_LEARNING_MAP = {
+    0: 0, 1: 0, 10: 1, 11: 2, 13: 5, 15: 3, 16: 5, 18: 4, 20: 5, 30: 6,
+    31: 7, 32: 8, 40: 9, 44: 10, 48: 11, 49: 12, 50: 13, 51: 14, 52: 0,
+    60: 9, 70: 15, 71: 16, 72: 17, 80: 18, 81: 19, 99: 0, 252: 1, 253: 7,
+    254: 6, 255: 8, 256: 5, 257: 5, 258: 4, 259: 5,
+}
+
+KITTI360_BBOX_CAT2LABEL = {"car": 0, "truck": 1, "train": 2, "bus": 3,
+                           "motorcycle": 4, "bicycle": 5, "person": 6}
 
 
 def list_nuscenes_sweeps(root: str, split: str = "train", kind: str = "sweeps") -> List[str]:
@@ -339,3 +355,172 @@ class NuScenesR2DMDataset:
         inten = np.clip(intensity / 255.0, 0.0, 1.0) * 2.0 - 1.0
         inten[~mask] = -1.0
         return np.stack([model, inten], -1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# KITTI: semantic maps, cameras, 3D bboxes
+# ---------------------------------------------------------------------------
+
+def load_semantic_labels(path: str) -> np.ndarray:
+    """SemanticKITTI .label: uint32, semantic id in the lower 16 bits."""
+    labels = np.fromfile(path, dtype=np.uint32) & 0xFFFF
+    lut = np.zeros(max(SEM_KITTI_LEARNING_MAP) + 100, np.int32)
+    for k, v in SEM_KITTI_LEARNING_MAP.items():
+        lut[k] = v
+    return lut[labels]
+
+
+class SemanticKITTIRangeDataset:
+    """Range image + one-hot semantic map (kitti.py:111-124). Channel-last:
+    sem map is (H, W, num_sem_cats+1)."""
+
+    def __init__(self, root: str, split: str = "train",
+                 geom: Optional[LidarGeometry] = None, num_sem_cats: int = 19,
+                 filtered_map_cats: Sequence[int] = ()):
+        self.geom = geom or LidarGeometry(size=(64, 1024), fov=(3.0, -25.0))
+        self.num_classes = num_sem_cats + 1
+        self.filtered = set(filtered_map_cats)
+        seqs = ([f"{i:02d}" for i in range(11) if i != 8]
+                if split == "train" else ["08"])
+        self.files: List[str] = []
+        for s in seqs:
+            # per-sequence fallback: a root without the dataset/ prefix must
+            # fall back for EVERY sequence, not only while self.files is
+            # still empty (which silently kept only the first sequence)
+            hits = sorted(glob.glob(os.path.join(
+                root, "dataset", "sequences", s, "velodyne", "*.bin")))
+            if not hits:
+                hits = sorted(glob.glob(os.path.join(
+                    root, "sequences", s, "velodyne", "*.bin")))
+            self.files.extend(hits)
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        path = self.files[idx]
+        pts = np.fromfile(path, np.float32).reshape(-1, 4)[:, :3]
+        labels = load_semantic_labels(
+            path.replace("velodyne", "labels").replace(".bin", ".label"))
+        img, lab_img = pcd2range_np(pts, self.geom,
+                                    features=labels.astype(np.float32))
+        sem = np.maximum(lab_img, 0).astype(np.int64)
+        if self.filtered:
+            sem[np.isin(sem, list(self.filtered))] = 0
+        onehot = np.eye(self.num_classes, dtype=np.float32)[
+            np.clip(sem, 0, self.num_classes - 1)]
+        model, mask = process_scan_np(img, self.geom)
+        return {"image": model[..., None], "mask": mask[..., None],
+                "segmentation": onehot}
+
+
+class KITTI360CameraDataset:
+    """Range image + multi-view camera crops with random camera drop
+    (kitti.py:141-168)."""
+
+    def __init__(self, root: str, split: str = "train",
+                 geom: Optional[LidarGeometry] = None, split_per_view: int = 4,
+                 camera_drop: float = 0.5, seed: int = 0):
+        self.root = root
+        self.split = split
+        self.geom = geom or LidarGeometry(size=(64, 1024), fov=(3.0, -25.0))
+        self.split_per_view = split_per_view
+        self.camera_drop = camera_drop
+        self.rng = np.random.default_rng(seed)
+        seqs = (["00", "02", "04", "05", "06", "07", "09", "10"]
+                if split == "train" else ["03"])
+        self.files: List[str] = []
+        for s in seqs:
+            self.files.extend(sorted(glob.glob(os.path.join(
+                root, "data_3d_raw", f"2013_05_28_drive_00{s}_sync",
+                "velodyne_points", "data", "*.bin"))))
+
+    def __len__(self):
+        return len(self.files)
+
+    def load_camera(self, path: str) -> np.ndarray:
+        from PIL import Image
+
+        cam_path = (path.replace("data_3d_raw", "data_2d_camera")
+                    .replace(os.path.join("velodyne_points", "data"),
+                             os.path.join("image_00", "data_rect"))
+                    .replace(".bin", ".png"))
+        cam = np.asarray(Image.open(cam_path), np.float32) / 255.0  # (H,W,3)
+        views = np.split(cam, self.split_per_view, axis=1)
+        if self.split == "train" and self.rng.random() < self.camera_drop:
+            mid = len(views) // 2
+            views = [v if i == mid else np.zeros_like(v)
+                     for i, v in enumerate(views)]
+        return np.stack(views, 0)  # (V, H, W/V, 3)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        path = self.files[idx]
+        pts = np.fromfile(path, np.float32).reshape(-1, 4)[:, :3]
+        img, _ = pcd2range_np(pts, self.geom)
+        model, mask = process_scan_np(img, self.geom)
+        return {"image": model[..., None], "mask": mask[..., None],
+                "camera": self.load_camera(path)}
+
+
+def parse_kitti360_bbox_xml(path: str) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    """KITTI-360 data_3d_bboxes XML -> {timestamp: (verts (K,8,3), labels (K,))}
+    (kitti.py:190-240: opencv-matrix vertices, first 8 rows, BBOX_CAT2LABEL)."""
+    import xml.etree.ElementTree as ET
+
+    def parse_mat(node):
+        rows = int(node.find("rows").text)
+        cols = int(node.find("cols").text)
+        vals = [float(d) for d in node.find("data").text.split() if d]
+        return np.asarray(vals, np.float32).reshape(rows, cols)
+
+    out: Dict[int, Tuple[list, list]] = {}
+    for child in ET.parse(path).getroot():
+        if child.find("transform") is None:
+            continue
+        label_name = child.find("label").text
+        if label_name not in KITTI360_BBOX_CAT2LABEL:
+            continue
+        ts = int(child.find("timestamp").text)
+        verts = parse_mat(child.find("vertices"))[:8]
+        out.setdefault(ts, ([], []))
+        out[ts][0].append(verts)
+        out[ts][1].append(KITTI360_BBOX_CAT2LABEL[label_name])
+    return {ts: (np.stack(v), np.asarray(l, np.int32))
+            for ts, (v, l) in out.items()}
+
+
+class AnnotatedKITTI360Dataset(KITTI360CameraDataset):
+    """Adds per-scan 3D bbox annotations (condition_key 'bbox'/'center')."""
+
+    def __init__(self, root: str, split: str = "train",
+                 condition_key: str = "bbox", max_boxes: int = 16, **kw):
+        super().__init__(root, split, **kw)
+        self.condition_key = condition_key
+        self.max_boxes = max_boxes
+        self.files = [p for p in self.files
+                      if "2013_05_28_drive_0008_sync" not in p]
+        self.anno: Dict[str, Dict[int, Tuple[np.ndarray, np.ndarray]]] = {}
+        for xml in glob.glob(os.path.join(root, "data_3d_bboxes", "train",
+                                          "*.xml")):
+            seq = os.path.basename(xml).split("_")[-2][-2:]
+            self.anno[seq] = parse_kitti360_bbox_xml(xml)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        path = self.files[idx]
+        seq = path.split(os.sep)[-4].split("_")[-2][-2:]
+        ts = int(os.path.basename(path).replace(".bin", ""))
+        pts = np.fromfile(path, np.float32).reshape(-1, 4)[:, :3]
+        img, _ = pcd2range_np(pts, self.geom)
+        model, mask = process_scan_np(img, self.geom)
+        verts = np.zeros((self.max_boxes, 8, 3), np.float32)
+        labels = np.full((self.max_boxes,), -1, np.int32)
+        if seq in self.anno and ts in self.anno[seq]:
+            v, l = self.anno[seq][ts]
+            k = min(len(v), self.max_boxes)
+            verts[:k], labels[:k] = v[:k], l[:k]
+        if self.condition_key == "center":
+            cond = (verts[:, 0] + verts[:, 6]) / 2.0
+        else:
+            cond = verts
+        return {"image": model[..., None], "mask": mask[..., None],
+                self.condition_key: cond, "bbox_labels": labels}

@@ -4,8 +4,9 @@ Counterpart of ``lidar_layout_tpu/data/synthetic.py``: street-like scans
 (ground plane, random boxes, poles) drawn with numpy, with the same random
 number consumption as the JAX package, then projected through the port's
 ``pcd2range`` and ``process_scan``; the 13-slot layouts of the
-layout-conditioned LiDM; and its training batches, scenes and layouts, as
-the JAX package's ``data/factory._synthetic_layout_range_batch`` draws them.
+layout-conditioned LiDM; its training batches, scenes and layouts, as
+the JAX package's ``data/factory._synthetic_layout_range_batch`` draws them;
+and ``synthetic_latent_batch``, standard-normal latents with JAX's draws.
 """
 from __future__ import annotations
 
@@ -106,3 +107,13 @@ def synthetic_layout_range_batch(rng: np.random.Generator, batch: int, geom: Lid
     out = synthetic_range_batch(rng, batch, geom, device=device)
     out["layout"] = out["cond"] = torch.from_numpy(synthetic_layouts(rng, batch, geom)).to(device)
     return out
+
+
+def synthetic_latent_batch(rng: np.random.Generator, batch: int,
+                           shape: Tuple[int, int, int] = (16, 128, 8),
+                           device: Union[str, torch.device] = "cpu") -> Dict[str, torch.Tensor]:
+    """{"image": (B, *shape) float32 standard normals} on ``device``, the JAX
+    package's draws."""
+    return {"image": torch.from_numpy(
+        rng.standard_normal((batch, *shape)).astype(np.float32)).to(device)}
+

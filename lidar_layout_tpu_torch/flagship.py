@@ -11,6 +11,7 @@ variant for CPU tests.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Tuple, Union
 
@@ -24,7 +25,7 @@ from .utils.device import resolve_device
 
 
 def flagship(tiny: bool = False, dtype: torch.dtype = torch.float32,
-             device: Union[str, torch.device] = "cuda"
+             device: Union[str, torch.device] = "cuda", split: bool = False
              ) -> Tuple[LatentDiffusion, Tuple[int, int, int]]:
     """(model in eval mode on ``device``, image shape (H, W, C))."""
     dev = resolve_device(device)
@@ -47,6 +48,11 @@ def flagship(tiny: bool = False, dtype: torch.dtype = torch.float32,
         diff_cfg = DiffusionConfig(timesteps=1024, linear_start=0.0015,
                                    linear_end=0.0195, latent_shape=(16, 128, 8))
         image_shape = (64, 1024, 1)
+    if split:
+        lh, lw, lc = diff_cfg.latent_shape
+        diff_cfg = dataclasses.replace(diff_cfg, latent_shape=(lh, 2 * lw, lc),
+                                       split_ks=(lh, lw), split_stride=(lh, lw // 2))
+        image_shape = (image_shape[0], 2 * image_shape[1], 1)
     model = LatentDiffusion(diff_cfg, unet_cfg, first_stage_cfg=ae_cfg,
                             use_mask=True, dtype=dtype)
     return model.to(dev).eval(), image_shape

@@ -9,13 +9,13 @@ gradients is ``train/ae_trainer.py``.
 
 The gate keeps the reference's behaviour: the GAN terms are on only while
 ``step <= disc_start``, the opposite of the usual VQ-GAN warm-up. The
-perceptual term waits for its port (every shipped YAML sets
-``perceptual_factor: 0``).
+perceptual term is ``perceptual_fn`` (``losses/perceptual``) times
+``perceptual_factor``; every shipped YAML sets the factor to 0.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -54,7 +54,9 @@ def disc_factor_at(cfg: VQLossConfig, global_step: int) -> float:
 
 
 def reconstruction_nll(cfg: VQLossConfig, geo: GeoConverter, inputs: torch.Tensor,
-                       reconstructions: torch.Tensor, masks: Optional[torch.Tensor] = None
+                       reconstructions: torch.Tensor, masks: Optional[torch.Tensor] = None,
+                       perceptual_fn: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                                        torch.Tensor]] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The generator loss's reconstruction side: (nll, parts).
 
@@ -74,6 +76,8 @@ def reconstruction_nll(cfg: VQLossConfig, geo: GeoConverter, inputs: torch.Tenso
     geo_rec = (square_dist_loss(input_coord[:, :2], rec_coord[:, :2]) * cfg.geo_factor
                if cfg.geo_factor > 0 else zero)
     perceptual = zero
+    if cfg.perceptual_factor > 0 and perceptual_fn is not None:
+        perceptual = perceptual_fn(inputs, rec_range) * cfg.perceptual_factor
     smooth = (smoothness_loss(pred_depth, gt_depth) * cfg.smooth_factor
               if cfg.smooth_factor > 0 else zero)
     normal = (normal_consistency_loss(geo, input_coord, rec_coord) * cfg.norm_factor

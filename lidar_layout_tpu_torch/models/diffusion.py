@@ -4,7 +4,14 @@ Counterpart of ``lidar_layout_tpu/models/diffusion.py``: ``DiffusionConfig``
 and ``LatentDiffusion`` with ``apply_model``, ``encode_first_stage``,
 ``decode_first_stage``, ``eps_from_model_out``, ``predict_eps_from_x``, the
 training loss (``p_losses``, ``training_loss``) and the ``scale_by_std``
-calibration.
+calibration. With ``split_ks`` set (on ``DiffusionConfig``, as the JAX
+package takes it; no YAML sets it) a latent wider or taller than
+``split_ks`` runs patched (``ops/foldunfold``, the reference's
+``split_input_params``): the U-Net once per crop of ``split_ks`` at
+``split_stride``, in patch order, a concat conditioning cropped with the
+latent and the context and labels shared; encode and decode on crops
+scaled by the first stage's factor, stitched back circularly along the
+azimuth.
 Latents at this API are NHWC (B, 16, 128, 8) and images (B, H, W, 1), as in
 the JAX package; the modules inside are NCHW.
 
@@ -38,6 +45,7 @@ import torch.nn as nn
 
 from ..nn.blocks import Normalize
 from ..nn.quantize import VectorQuantizer
+from ..ops.foldunfold import fold_patches, patched_apply_scaled, unfold_patches
 from .autoencoder import AEConfig, VQModelInterface
 from .schedules import DiffusionSchedule, extract, q_sample
 from .unet import UNetConfig, UNetModel
@@ -97,9 +105,6 @@ class LatentDiffusion(nn.Module):
             raise NotImplementedError(
                 f"conditioning_key {cfg.conditioning_key!r} is not ported yet "
                 f'(ROADMAP queue 1, "Conditioning")')
-        if cfg.split_ks is not None:
-            raise NotImplementedError("the split_ks patched path waits for the foldunfold "
-                                      'port (ROADMAP queue 1, "Main-path remainder")')
         self.cfg = cfg
         self.schedule = DiffusionSchedule.create(
             timesteps=cfg.timesteps, beta_schedule=cfg.beta_schedule,
@@ -139,13 +144,34 @@ class LatentDiffusion(nn.Module):
         return self
 
     # -------------------------------------------------------- first stage io
+    def _first_stage_factor(self) -> Tuple[int, int]:
+        """The first stage's total (H, W) downsampling (the reference's vqf)."""
+        fh = fw = 1
+        for sh, sw in self.first_stage_model.cfg.strides:
+            fh, fw = fh * sh, fw * sw
+        return fh, fw
+
+    def _split_active(self, h: int, w: int) -> bool:
+        """The patched path runs iff ``split_ks`` is set and a latent of (h, w)
+        is larger than it."""
+        ks = self.cfg.split_ks
+        return ks is not None and (h > ks[0] or w > ks[1])
+
     def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 1) image -> scaled NHWC latent. The first stage is
         frozen: no gradient flows through it (JAX's stop_gradient)."""
         if self.first_stage_model is None:
             return x
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        fh, fw = self._first_stage_factor()
         with torch.no_grad():
-            z = self.first_stage_model.encode_latent(x.permute(0, 3, 1, 2).to(self.dtype))
+            if self._split_active(x.shape[2] // fh, x.shape[3] // fw):
+                (kh, kw), (sh, sw) = self.cfg.split_ks, self._split_stride()
+                z = patched_apply_scaled(self.first_stage_model.encode_latent, x,
+                                         (kh * fh, kw * fw), (sh * fh, sw * fw),
+                                         scale=(1.0 / fh, 1.0 / fw))
+            else:
+                z = self.first_stage_model.encode_latent(x)
         return (self.cfg.scale_factor * z.float()).permute(0, 2, 3, 1)
 
     def decode_first_stage(self, z: torch.Tensor,
@@ -154,8 +180,20 @@ class LatentDiffusion(nn.Module):
         if self.first_stage_model is None:
             return z
         z = (z / self.cfg.scale_factor).permute(0, 3, 1, 2).to(self.dtype)
-        img = self.first_stage_model.decode_latent(z, force_not_quantize)
+
+        def dec(zi):
+            return self.first_stage_model.decode_latent(zi, force_not_quantize)
+
+        if self._split_active(*z.shape[2:]):
+            fh, fw = self._first_stage_factor()
+            img = patched_apply_scaled(dec, z, self.cfg.split_ks, self._split_stride(),
+                                       scale=(float(fh), float(fw)))
+        else:
+            img = dec(z)
         return img.float().permute(0, 2, 3, 1)
+
+    def _split_stride(self) -> Tuple[int, int]:
+        return self.cfg.split_stride or self.cfg.split_ks
 
     # ---------------------------------------------------------- conditioning
     def get_learned_conditioning(self, cond: Any) -> Any:
@@ -214,15 +252,31 @@ class LatentDiffusion(nn.Module):
                 raise ValueError("the layout model needs the encoded layout "
                                  "(get_learned_conditioning) as cond")
             out = self.unet(x, t, cond)
-        elif key is None:
-            if cond is not None:
-                raise ValueError("an unconditional model takes no cond")
-            out = self.unet(x, t)
         else:
+            if key is None and cond is not None:
+                raise ValueError("an unconditional model takes no cond")
             context, concat, y = self._cond_views(cond)
             if concat is not None:
-                x = torch.cat([x, concat.permute(0, 3, 1, 2).to(x.dtype)], dim=1)
-            out = self.unet(x, t, context=context, y=y)
+                concat = concat.permute(0, 3, 1, 2).to(x.dtype)
+
+            def core(xi, ci):
+                if ci is not None:
+                    xi = torch.cat([xi, ci], dim=1)
+                if key is None:
+                    return self.unet(xi, t)
+                return self.unet(xi, t, context=context, y=y)
+
+            if self._split_active(*x.shape[2:]):
+                # one U-Net eval a crop, in patch order: the concat is cropped
+                # with the latent, the context and labels are shared
+                ks, stride = self.cfg.split_ks, self._split_stride()
+                tiles, coords = unfold_patches(x, ks, stride)
+                ctiles = None if concat is None else unfold_patches(concat, ks, stride)[0]
+                outs = torch.stack([core(tiles[:, i], None if ctiles is None else ctiles[:, i])
+                                    for i in range(tiles.shape[1])], dim=1)
+                out = fold_patches(outs, coords, (x.shape[0], outs.shape[2], *x.shape[2:]))
+            else:
+                out = core(x, concat)
         return out.permute(0, 2, 3, 1)
 
     # ----------------------------------------------------------------- loss

@@ -2,8 +2,8 @@
 
 Counterpart of ``lidar_layout_tpu/nn/blocks.py`` (reference model_lidm.py):
 GroupNorm (kernel K3), asymmetric-stride ResNet blocks with circular convs,
-bilinear(align_corners)+conv upsampling, strided-conv downsampling and the
-single-head spatial self-attention. Parameter names follow the reference
+bilinear(align_corners)+conv upsampling, strided-conv downsampling, the
+single-head spatial self-attention and its linear variant. Parameter names follow the reference
 state_dict (``norm1``, ``conv1``, ``nin_shortcut``, ``q``/``k``/``v``, ...).
 """
 from __future__ import annotations
@@ -160,11 +160,32 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(out)
 
 
+class LinearAttnBlock(nn.Module):
+    """Linear attention with one head over H*W positions (the reference's
+    LinAttnBlock, JAX's ``LinearAttnBlock``): softmax of q over its
+    channels, of k over the positions, context = k v^T, out = context^T q,
+    no norm; plain torch in both packages."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.to_qkv = Conv1x1(channels, 3 * channels, bias=False)
+        self.to_out = Conv1x1(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        q, k, v = self.to_qkv(x).reshape(b, 3 * c, h * w).split(c, dim=1)
+        q = torch.softmax(q, dim=1)
+        k = torch.softmax(k, dim=2)
+        context = torch.bmm(k, v.transpose(1, 2))                 # (B, C_k, C_v)
+        out = torch.bmm(context.transpose(1, 2), q).reshape(b, c, h, w)
+        return x + self.to_out(out)
+
+
 def make_attn(channels: int, attn_type: str = "vanilla") -> nn.Module:
     if attn_type == "vanilla":
         return AttnBlock(channels)
+    if attn_type == "linear":
+        return LinearAttnBlock(channels)
     if attn_type == "none":
         return nn.Identity()
-    raise NotImplementedError(
-        f"attn_type {attn_type!r} is not ported yet "
-        f'(ROADMAP queue 1, "First stage and AE training")')
+    raise ValueError(f"unknown attn_type {attn_type!r}")

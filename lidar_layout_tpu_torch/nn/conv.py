@@ -56,3 +56,51 @@ class Conv1x1(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int, bias: bool = True):
         super().__init__(in_channels, out_channels, 1, bias=bias)
+
+
+
+class ZeroPaddedConv(nn.Module):
+    """A plain 1-, 2- or 3-D conv after zero padding of each side; its
+    state_dict holds ``weight`` and ``bias`` as the torch conv's."""
+
+    def __init__(self, dims: int, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, ...], stride: Tuple[int, ...],
+                 pairs: Tuple[Tuple[int, int], ...]):
+        super().__init__()
+        conv = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}[dims](
+            in_channels, out_channels, kernel_size, stride)
+        self.weight, self.bias = conv.weight, conv.bias
+        self.stride = stride
+        self.conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[dims]
+        # F.pad takes the last dimension first
+        self.pad = tuple(v for lo_hi in reversed(pairs) for v in lo_hi)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, self.pad), self.weight, self.bias, self.stride)
+
+
+def conv_nd(dims: int, in_channels: int, out_channels: int, kernel_size, *,
+            cconv: bool = False, strides=None, padding: PadSpec = 0) -> nn.Module:
+    """The reference's ``conv_nd(..., cconv=)`` dispatch (JAX ``nn/conv.conv_nd``):
+    a circular conv for a 2-D ``cconv``, else a plain conv of ``dims``
+    dimensions with zero padding. A 2-D padding is ``(left, right, top,
+    bottom)`` (an int pads every side); 1-D and 3-D take an int or one
+    (low, high) pair for each spatial dimension in order."""
+    if isinstance(kernel_size, int):
+        kernel_size = (kernel_size,) * dims
+    if strides is None:
+        strides = (1,) * dims
+    elif isinstance(strides, int):
+        strides = (strides,) * dims
+    if dims == 2 and cconv:
+        return CircularConv(in_channels, out_channels, tuple(kernel_size), tuple(strides),
+                            padding)
+    if dims == 2:
+        left, right, top, bottom = _norm_pad(padding)
+        pairs = ((top, bottom), (left, right))
+    elif isinstance(padding, int):
+        pairs = ((padding, padding),) * dims
+    else:
+        pairs = tuple(tuple(p) for p in padding)
+    return ZeroPaddedConv(dims, in_channels, out_channels, tuple(kernel_size),
+                          tuple(strides), pairs)

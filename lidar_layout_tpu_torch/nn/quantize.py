@@ -34,9 +34,10 @@ class VectorQuantizer(nn.Module):
         zl = z.permute(0, 2, 3, 1)                      # channels last, as JAX
         flat = zl.reshape(-1, self.embed_dim).float()
         cb = self.embedding.weight.float()
-        # ||z - e||^2 = ||z||^2 + ||e||^2 - 2 z.e
-        d = (flat.square().sum(dim=1, keepdim=True) + cb.square().sum(dim=1)[None, :]
-             - 2.0 * torch.matmul(flat, cb.t()))
+        # ||z - e||^2 = ||z||^2 + ||e||^2 - 2 z.e, in f32 under autocast too
+        with torch.autocast(z.device.type, enabled=False):
+            d = (flat.square().sum(dim=1, keepdim=True) + cb.square().sum(dim=1)[None, :]
+                 - 2.0 * torch.matmul(flat, cb.t()))
         idx = torch.argmin(d, dim=1)
         z_q = self.embed_code(idx).reshape(zl.shape).to(z.dtype)
         commit = torch.mean((z_q.detach() - zl) ** 2)

@@ -24,6 +24,19 @@ generator also decodes per-pixel Gaussians, renders the panorama again
 loss to the NLL; the adaptive weight still reads the reconstruction NLL
 alone, as JAX's does.
 
+``perceptual_fn`` (``losses/perceptual``) adds the RangeNet perceptual term
+to the NLL, as JAX's ``perceptual_fn`` does. With ``autocast_dtype``
+(``train_lidm --bf16``) the autoencoder's forward runs under autocast in
+that dtype, which is JAX's policy for a model built in bf16: convolutions
+and matmuls in bf16 on float32 weights, GroupNorm statistics and affine in
+float32 (K3 in bf16), the codebook search in float32; the losses, the
+perceptual net and the discriminator (JAX builds it without a dtype) run
+in float32 on the bf16 reconstruction. The adaptive weight's gradients are
+taken over the step's own graph in both dtypes: under autocast the last
+conv runs in bf16 and its weight's gradient comes back in float32, where
+JAX runs that conv again in float32 (its rounding moves ``d_weight`` by
+tens of percent at random weights; ``tests/test_torch_ae_bf16.py``).
+
 The scan-chunked step (``make_chunked_ae_train_step``) is not ported: its
 successor is a CUDA graph over the step (ROADMAP).
 """
@@ -42,7 +55,7 @@ from ..losses.vq_loss import (VQLossConfig, adaptive_weight_from_grads,
                               assemble_disc_input, disc_factor_at, reconstruction_nll)
 from ..models.autoencoder import VQModel
 from ..ops.lidar import LidarGeometry, depth_to_model
-from .diffusion_trainer import Optimizer
+from .diffusion_trainer import Optimizer, _autocast
 
 DISC_PREFIX = "loss.discriminator."   # where a Lightning AE checkpoint keeps it
 
@@ -125,7 +138,9 @@ def _dropout_draws(generator: torch.Generator, on: bool):
 
 def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossConfig,
                        geo: GeoConverter, timed: bool = False, s2_render: bool = False,
-                       s2_geom: Optional[LidarGeometry] = None) -> Callable:
+                       s2_geom: Optional[LidarGeometry] = None,
+                       perceptual_fn: Optional[Callable] = None,
+                       autocast_dtype: Optional[torch.dtype] = None) -> Callable:
     """step(state, batch, generator) -> (state, logs).
 
     ``batch["image"]`` is (B, H, W, 1), as the data factory gives it.
@@ -161,12 +176,13 @@ def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossCo
         x, masks = _nchw(batch, loss_cfg)
         disc_factor = disc_factor_at(loss_cfg, state.step)
         mark()
-        with _dropout_draws(generator, model.cfg.dropout > 0):
+        with _dropout_draws(generator, model.cfg.dropout > 0), _autocast(model, autocast_dtype):
             if s2_render:
                 dec, qloss, _, _, gaus = model.forward_with_prefinal_gaus(x)
             else:
                 dec, qloss, _ = model(x)
-        nll, parts = reconstruction_nll(loss_cfg, geo, x, dec, masks)
+        dec, qloss = dec.float(), qloss.float()
+        nll, parts = reconstruction_nll(loss_cfg, geo, x, dec, masks, perceptual_fn)
         g_loss = -torch.mean(disc(assemble_disc_input(loss_cfg, geo, dec, masks, True)))
         (nll_g,) = torch.autograd.grad(nll, w_last, retain_graph=True)
         (gan_g,) = torch.autograd.grad(g_loss, w_last, retain_graph=True)
@@ -206,7 +222,9 @@ def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossCo
     return step
 
 
-def make_ae_val_step(model: VQModel, loss_cfg: VQLossConfig, geo: GeoConverter) -> Callable:
+def make_ae_val_step(model: VQModel, loss_cfg: VQLossConfig, geo: GeoConverter,
+                     perceptual_fn: Optional[Callable] = None,
+                     autocast_dtype: Optional[torch.dtype] = None) -> Callable:
     """val_step(state, batch, generator) -> {rec_loss, nll_loss, quant_loss}:
     the reconstruction NLL and codebook loss, dropout off, no GAN terms."""
 
@@ -215,8 +233,10 @@ def make_ae_val_step(model: VQModel, loss_cfg: VQLossConfig, geo: GeoConverter) 
         model.eval()
         x, masks = _nchw(batch, loss_cfg)
         with torch.no_grad():
-            dec, qloss = model(x)[:2]   # VQModelGaus also returns its Gaussians
-            nll, parts = reconstruction_nll(loss_cfg, geo, x, dec, masks)
-        return {"rec_loss": parts["rec_loss"], "nll_loss": nll, "quant_loss": qloss}
+            with _autocast(model, autocast_dtype):
+                dec, qloss = model(x)[:2]   # VQModelGaus also returns its Gaussians
+            nll, parts = reconstruction_nll(loss_cfg, geo, x, dec.float(), masks,
+                                            perceptual_fn)
+        return {"rec_loss": parts["rec_loss"], "nll_loss": nll, "quant_loss": qloss.float()}
 
     return val_step

@@ -39,7 +39,7 @@ from ..models.object_ae import VQModelObject, object_ae_loss
 from ..models.r2dm import R2DMDiffusion
 from .ae_trainer import AETrainState, create_ae_state
 from .cube_trainer import _update, create_simple_state
-from .diffusion_trainer import DiffusionTrainState
+from .diffusion_trainer import DiffusionTrainState, _autocast
 
 
 # ------------------------------------------------------------------ R2DM
@@ -121,9 +121,13 @@ def _nchw(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def make_kl_train_step(model: AutoencoderKL, disc: torch.nn.Module,
-                       loss_cfg: KLLossConfig) -> Callable:
+                       loss_cfg: KLLossConfig,
+                       autocast_dtype: Optional[torch.dtype] = None) -> Callable:
     """step(state, batch, generator, noise=None) -> (state, logs): the loss
-    parts, ``g_loss``, ``total_loss`` and ``disc_loss`` (0-d tensors)."""
+    parts, ``g_loss``, ``total_loss`` and ``disc_loss`` (0-d tensors). With
+    ``autocast_dtype`` the model's forward runs under autocast, as the
+    VQ-GAN's (``train/ae_trainer``); the loss and the discriminator see the
+    reconstruction in float32."""
     params_g, params_d = list(model.parameters()), list(disc.parameters())
 
     def step(state: AETrainState, batch: Dict[str, torch.Tensor],
@@ -131,7 +135,9 @@ def make_kl_train_step(model: AutoencoderKL, disc: torch.nn.Module,
         model.train()
         disc.train()
         x = _nchw(batch)
-        dec, posterior = model(x, generator, noise=noise)
+        with _autocast(model, autocast_dtype):
+            dec, posterior = model(x, generator, noise=noise)
+        dec = dec.float()
         loss, parts = kl_autoencoder_loss(loss_cfg, x, dec, posterior, loss_cfg.logvar_init)
         g_loss = -torch.mean(disc(dec))
         total = loss + 0.5 * g_loss
@@ -148,14 +154,16 @@ def make_kl_train_step(model: AutoencoderKL, disc: torch.nn.Module,
     return step
 
 
-def make_kl_val_step(model: AutoencoderKL, loss_cfg: KLLossConfig) -> Callable:
+def make_kl_val_step(model: AutoencoderKL, loss_cfg: KLLossConfig,
+                     autocast_dtype: Optional[torch.dtype] = None) -> Callable:
     def val_step(state: AETrainState, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         model.eval()
         x = _nchw(batch)
         with torch.no_grad():
-            dec, posterior = model(x, generator)
-            _, parts = kl_autoencoder_loss(loss_cfg, x, dec, posterior, 0.0)
+            with _autocast(model, autocast_dtype):
+                dec, posterior = model(x, generator)
+            _, parts = kl_autoencoder_loss(loss_cfg, x, dec.float(), posterior, 0.0)
         return {"rec_loss": parts["rec_loss"], "kl_loss": parts["kl_loss"]}
 
     return val_step
@@ -163,11 +171,13 @@ def make_kl_val_step(model: AutoencoderKL, loss_cfg: KLLossConfig) -> Callable:
 
 # ------------------------------------------------------------- dispatcher
 def family_training(model: torch.nn.Module, model_cfg: Dict[str, Any], lr: float,
-                    accumulate: int = 1, lr_lambda: Optional[Callable[[int], float]] = None
+                    accumulate: int = 1, lr_lambda: Optional[Callable[[int], float]] = None,
+                    autocast_dtype: Optional[torch.dtype] = None
                     ) -> Tuple[Any, Callable, Callable, str]:
     """(state, step, val_step, monitored metric) of an R2DM, object-AE or
     KL-AE model, as JAX's ``build_family_trainer`` builds them; the KL
-    discriminator starts from torch's current generator."""
+    discriminator starts from torch's current generator. ``autocast_dtype``
+    reaches the KL AE alone (JAX's builders drop the dtype of the others)."""
     if isinstance(model, R2DMDiffusion):
         return (create_simple_state(model, dict(model.named_parameters()), lr, lr_lambda),
                 make_r2dm_train_step(model), make_r2dm_val_step(model), "val/loss_simple_ema")
@@ -179,6 +189,6 @@ def family_training(model: torch.nn.Module, model_cfg: Dict[str, Any], lr: float
         dev = next(model.parameters()).device
         disc = LiDARNLayerDiscriminator(model.cfg.out_ch).to(dev)
         state = create_ae_state(model, disc, lr, lr, accumulate, lr_lambda)
-        return (state, make_kl_train_step(model, disc, loss_cfg),
-                make_kl_val_step(model, loss_cfg), "val/rec_loss")
+        return (state, make_kl_train_step(model, disc, loss_cfg, autocast_dtype),
+                make_kl_val_step(model, loss_cfg, autocast_dtype), "val/rec_loss")
     raise TypeError(f"no family trainer for {type(model).__name__}")

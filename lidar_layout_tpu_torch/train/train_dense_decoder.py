@@ -158,6 +158,7 @@ def main(argv=None):
     args = parse_args(argv)
 
     from ..config import apply_dotlist, instantiate_from_config, load_yaml
+    from ..utils.init import jax_init_
     from ..data.factory import build_batches
     from ..ops.gaussian_raster import RasterConfig
     from ..ops.lidar import LidarGeometry
@@ -194,7 +195,8 @@ def main(argv=None):
     b0 = to_sample(next(raw), geom)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = instantiate_from_config(model_cfg, in_features=b0["feats"].shape[-1]).to(device)
+        model = jax_init_(instantiate_from_config(
+            model_cfg, in_features=b0["feats"].shape[-1]).to(device), args.seed)
     opt_cfg = cfg.get("optimizer", {})
     state = create_dense_state(model, opt_cfg.get("lr", 1e-4), opt_cfg.get("weight_decay", 1e-2))
     trainer = Trainer(make_dense_train_step(model, geom, raster_cfg), state,

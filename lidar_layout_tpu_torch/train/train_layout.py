@@ -64,6 +64,7 @@ def main(argv=None):
     args = parse_args(argv)
 
     from ..config import apply_dotlist, instantiate_from_config, load_yaml
+    from ..utils.init import jax_init_
     from ..data.factory import build_batches
     from ..utils.device import resolve_device
     from .checkpoint import restore_checkpoint
@@ -95,7 +96,7 @@ def main(argv=None):
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = instantiate_from_config(model_cfg).to(device)
+        model = jax_init_(instantiate_from_config(model_cfg).to(device), args.seed)
     lr = scale_lr(model_cfg.get("base_learning_rate", 1e-6), batch_scenes, 1)
     state = create_layout_train_state(model, lr)
     if args.resume:

@@ -13,16 +13,21 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
 
 - ``vq_model`` (``configs/autoencoder/*/autoencoder_c2_p4.yaml``,
   ``range_flow.yaml``, ``configs/ours/nuscenes/coarse_range/range_256x8.yaml``):
-  the VQ-GAN step of ``train/ae_trainer`` in float32, with JAX's
-  ``LiDARNLayerDiscriminator()`` (v1, 64 filters, 3 layers) whatever the
-  loss block's ``disc_version`` or ``disc_num_layers`` say, as the JAX CLI
-  builds it; monitored on ``val/rec_loss``. Its checkpoints hold a
+  the VQ-GAN step of ``train/ae_trainer`` in float32, or under bf16
+  autocast with ``--bf16`` (JAX's dtype policy, that module's doc), with
+  JAX's ``LiDARNLayerDiscriminator()`` (v1, 64 filters, 3 layers, float32)
+  whatever the loss block's ``disc_version`` or ``disc_num_layers`` say, as
+  the JAX CLI builds it, and the RangeNet perceptual loss
+  (``losses/perceptual``, a RangeNet-21 drawn from ``--seed``) when the loss
+  block's ``perceptual_factor`` is above 0; monitored on ``val/rec_loss``.
+  Its checkpoints hold a
   Lightning-style ``state_dict`` that a LiDM's
   ``first_stage_config.params.ckpt_path`` reads as it is.
 - ``vq_model_gaus`` (``configs/autoencoder/nuscenes/autoencoder_c2_p4_gaus.yaml``):
   the same step with the s2 branch (the Gaussian tower rendered in the
   YAML's geometry, ``make_ae_train_step(s2_render=True)``), as JAX's
-  ``build_family_trainer`` trains it; no image logger, as there.
+  ``build_family_trainer`` trains it, in float32 whatever ``--bf16`` says;
+  no image logger, as there.
 - LatentDiffusion, unconditional or layout-conditioned
   (``configs/lidar_diffusion/nuscenes/layout_cond_c2_p4.yaml``, whose
   encoder trains with the U-Net).
@@ -36,7 +41,8 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
   and ``autoencoder_kl`` (no YAML names it: e.g. the kitti AE's YAML with
   ``model.target=autoencoder_kl model.params.ddconfig.double_z=true``)
   through ``train/family_trainer``; R2DM and the object AE in float32
-  whatever ``--bf16`` says (JAX's builders drop the dtype).
+  whatever ``--bf16`` says (JAX's builders drop the dtype), the KL AE under
+  bf16 autocast with it.
 
 Every ``sample_every_steps`` (default a fifth of ``--steps``) the image
 logger (``train/sample_logger``) writes the AE's inputs and reconstructions,
@@ -45,8 +51,9 @@ or the LiDM's ``lidm_log_images`` with the EMA weights, under
 JAX. LayoutDiffusion trains with ``train_layout`` and the dense decoder
 with ``train_dense_decoder``.
 Dataset targets come from ``data/factory`` (synthetic with
-``--synthetic``). Weights start from torch's initialisers under ``--seed``
-unless a first stage names a ``ckpt_path``.
+``--synthetic``). Weights start as the JAX package's initialisers draw
+them (``utils/init.jax_init_``), under ``--seed``, the discriminator's
+too, unless a first stage names a ``ckpt_path``.
 """
 from __future__ import annotations
 
@@ -124,6 +131,7 @@ def main(argv=None):
     from ..data.factory import build_batches
     from ..pipeline import geometry_from_config
     from ..utils.device import resolve_device
+    from ..utils.init import jax_init_
     from .checkpoint import restore_checkpoint
     from .lr_schedule import scale_lr
     from .trainer import (BestCheckpointSaver, CheckpointSaver, InformationWriter,
@@ -155,9 +163,6 @@ def main(argv=None):
             "the JAX package: python -m lidar_layout_tpu_torch.train.train_dense_decoder")
     if not (is_ae or is_cube or family or model_cfg["target"] in LDM_TARGETS):
         raise NotImplementedError(f"no trainer for model family {model_cfg['target']!r}")
-    if (is_ae or model_cfg["target"] in KL_AE_TARGETS) and args.bf16:
-        raise NotImplementedError("the autoencoder trains in float32 (the JAX CLI's default); "
-                                  "--bf16 is not ported for it")
     data_cfg = cfg.get("data", {}).get("params", {})
     name = os.path.splitext(os.path.basename(args.base))[0]
     workdir = args.workdir or f"./runs/{name}"
@@ -199,19 +204,26 @@ def main(argv=None):
     lr_lambda = _lr_lambda(model_cfg, args.steps)
     # a cube model is built once the first batch gives its feature width
     kw = {"in_features": val_cache[0]["feats"].shape[-1]} if is_cube else {}
+    amp = torch.bfloat16 if args.bf16 else None
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        model = instantiate_from_config(model_cfg, **kw).to(device)
+        model = jax_init_(instantiate_from_config(model_cfg, **kw).to(device), args.seed)
         if is_ae:   # the discriminator starts from the seed too
+            if args.bf16 and model_cfg["target"] in GAUS_AE_TARGETS:
+                print("the Gaussian range AE trains in float32; --bf16 is not read for it")
+                amp = None
             state, step, val_step, monitor = _ae_training(model, model_cfg, geom, lr,
-                                                          accumulate, lr_lambda)
+                                                          accumulate, lr_lambda, amp,
+                                                          args.seed)
         elif family:
             from .family_trainer import family_training
 
             if args.bf16 and model_cfg["target"] not in KL_AE_TARGETS:
                 print("R2DM and the object AE train in float32; --bf16 is not read for them")
             state, step, val_step, monitor = family_training(model, model_cfg, lr, accumulate,
-                                                             lr_lambda)
+                                                             lr_lambda, amp)
+            if getattr(state, "disc", None) is not None:
+                jax_init_(state.disc, args.seed + 1)
     render_fn = None
     if is_cube:
         from .cube_trainer import cube_training
@@ -257,16 +269,19 @@ def main(argv=None):
 
 
 def _ae_training(model, model_cfg: Dict[str, Any], geom, lr: float, accumulate: int,
-                 lr_lambda):
+                 lr_lambda, amp=None, seed: int = 0):
     """(state, step, val_step, monitored metric) of the VQ-GAN: the loss
     block's config (the default ``VQLossConfig`` without one), JAX's
-    discriminator on the model's device, two Adams; the s2 branch for a
+    discriminator on the model's device, two Adams; the perceptual loss
+    when the config asks for it; autocast in ``amp``; the s2 branch for a
     ``VQModelGaus``."""
     from ..config import instantiate_from_config
     from ..losses.discriminator import LiDARNLayerDiscriminator
     from ..losses.geometric import GeoConverter
+    from ..losses.perceptual import make_perceptual_fn
     from ..losses.vq_loss import VQLossConfig
     from ..models.autoencoder_gaus import VQModelGaus
+    from ..utils.init import jax_init_
     from .ae_trainer import (create_ae_state, disc_in_channels, make_ae_train_step,
                              make_ae_val_step)
 
@@ -274,16 +289,21 @@ def _ae_training(model, model_cfg: Dict[str, Any], geom, lr: float, accumulate: 
     loss_cfg = (instantiate_from_config(lc)
                 if isinstance(lc, dict) and lc.get("target") not in (None, "torch.nn.Identity")
                 else VQLossConfig())
-    if loss_cfg.perceptual_factor > 0:
-        raise NotImplementedError('the perceptual loss is not ported yet (ROADMAP queue 1, '
-                                  '"First stage and AE training")')
     geo = GeoConverter(geom, curve_length=loss_cfg.curve_length)
     dev = next(model.parameters()).device
-    disc = LiDARNLayerDiscriminator(disc_in_channels(model.cfg.out_ch, loss_cfg, geo)).to(dev)
+    perceptual_fn = None
+    if loss_cfg.perceptual_factor > 0:
+        # no converted RangeNet weights here: a fixed RangeNet-21 from the seed
+        perceptual_fn = make_perceptual_fn(geom, rng_seed=seed, device=dev)
+        print(f"perceptual loss active (factor={loss_cfg.perceptual_factor}; a random "
+              f"RangeNet-21 from seed {seed})")
+    disc = jax_init_(LiDARNLayerDiscriminator(
+        disc_in_channels(model.cfg.out_ch, loss_cfg, geo)).to(dev), seed + 1)
     state = create_ae_state(model, disc, lr, lr, accumulate, lr_lambda)
     s2 = isinstance(model, VQModelGaus)
-    return (state, make_ae_train_step(model, disc, loss_cfg, geo, s2_render=s2, s2_geom=geom),
-            make_ae_val_step(model, loss_cfg, geo), "val/rec_loss")
+    return (state, make_ae_train_step(model, disc, loss_cfg, geo, s2_render=s2, s2_geom=geom,
+                                      perceptual_fn=perceptual_fn, autocast_dtype=amp),
+            make_ae_val_step(model, loss_cfg, geo, perceptual_fn, amp), "val/rec_loss")
 
 
 def _ae_render(model, val_cache):

@@ -363,10 +363,13 @@ def test_port_messages_point_at_roadmap_titles():
     roadmap = (ROOT / "ROADMAP.md").read_text()
     queue1 = roadmap.split("### 1. Modules to port")[1].split("### 2.")[0]
     titles = set(re.findall(r"^\d+\. \*\*(.+?)\.\*\*", queue1, re.M))
-    assert {"Conditioning", "Main-path remainder", "First stage and AE training",
-            "Remaining families and infrastructure"} <= titles
+    assert {"Conditioning", "Remaining families and infrastructure"} <= titles
+    # ported with their raises: no pointer names them, and ROADMAP drops them
+    dropped = {"Main-path remainder", "First stage and AE training"}
+    assert not dropped & titles
     text = "\n".join(p.read_text() for p in (ROOT / "lidar_layout_tpu_torch").rglob("*.py"))
     text = re.sub(r"\s*\n\s*", " ", text)
     pointers = re.findall(r'ROADMAP queue 1, "([^"]+)"', text)
-    assert len(pointers) >= 10 and set(pointers) <= titles, set(pointers) - titles
+    assert not dropped & set(pointers), dropped & set(pointers)
+    assert len(pointers) >= 6 and set(pointers) <= titles, set(pointers) - titles
     assert not re.search(r"ROADMAP queue 1, item", text)

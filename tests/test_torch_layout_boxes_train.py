@@ -271,7 +271,8 @@ def test_factory_nusc_layout_graph_as_jax(tmp_path, capsys):
 
 
 def test_factory_other_targets():
-    from lidar_layout_tpu_torch.data.synthetic import synthetic_layout_range_batch
+    from lidar_layout_tpu_torch.data.synthetic import (synthetic_layout_range_batch,
+                                                       synthetic_range_batch)
     from lidar_layout_tpu_torch.ops.lidar import LidarGeometry
 
     dset = {"size": [32, 1024], "fov": [10, -30]}
@@ -285,8 +286,12 @@ def test_factory_other_targets():
     got = next(PF.build_batches("nusc_object", {"num_samples": 8}, {}, None, 1, seed=2))
     want = next(jax_factory.build_batches("nusc_object", {"num_samples": 8}, {}, None, 1, seed=2))
     assert all(np.array_equal(got[k].numpy(), want[k]) for k in want)
-    with pytest.raises(NotImplementedError, match='"First stage and AE training"'):
-        next(PF.build_batches("lidm.data.kitti.SemanticKITTITrain", {}, {}, None, 1))
+    # the KITTI targets are ported: without a root, JAX's synthetic fallback
+    got = next(PF.build_batches("lidm.data.kitti.SemanticKITTITrain", {}, dset, None, 1, seed=2))
+    want = synthetic_range_batch(np.random.default_rng(2), 1,
+                                 LidarGeometry(size=(32, 1024), fov=(10, -30)))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
     with pytest.raises(KeyError, match="unknown"):
         next(PF.build_batches("nope", {}, {}, None, 1))
 

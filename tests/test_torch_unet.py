@@ -99,7 +99,8 @@ def test_unported_branches_raise():
                                        context_dim=16))
     assert isinstance(st.middle_block[1], SpatialTransformer)
     assert UNetModel(dataclasses.replace(UNetConfig(**TINY), num_classes=10)).label_emb.num_embeddings == 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LatentDiffusion(DiffusionConfig(split_ks=(4, 4)), UNetConfig(**TINY))
+    # split_ks is ported: a latent larger than it runs patched
+    patched = LatentDiffusion(DiffusionConfig(split_ks=(4, 4)), UNetConfig(**TINY))
+    assert patched._split_active(4, 8) and not patched._split_active(4, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         XTransformerBERTEmbedder()
