@@ -18,6 +18,7 @@
     python3 chip_smoke.py --phases device,build,kernels,families_slice,families
     python3 chip_smoke.py --phases device,build,kernels,split_slice,split
     python3 chip_smoke.py --phases device,build,kernels,ae_train,ae_bf16_slice,ae_bf16,data
+    python3 chip_smoke.py --phases device,build,zoo_slice,zoo,sonata,cond_train
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -220,6 +221,30 @@ Phases (any failure exits non-zero before the final "ok" line):
                requests of 4 samples on seeded weights, then range2pcd
                (samples/s, peak memory, 52 x 61 K3 launches a request); and
                run_tester with ReconTester on the kitti AE
+  zoo_slice    the point-backbone zoo card against CPU at the CPU tests' tiny
+               configs, f32, TF32 off: the six segmentation backbones' logits
+               and parameter gradients, Sonata's loss, center and gradients
+               from fixed seeds (relative L2 within 1e-4), cluster_points'
+               labels (equal); no kernel launched by the backbones
+  zoo          the six backbones at their reference widths (the ctor defaults;
+               OctFormer's and Swin3D's voxel tables raised to the cloud) on a
+               synthetic scene of 32,768 rows, 1024 of them padding: one
+               forward and one backward of a cross-entropy, f32; seconds, peak
+               memory, finite logits and gradients, padding rows 0, no kernel
+  sonata       K1 and K2 in f32 with key biases at PT-v3's default shapes
+               (head dim 16) on 32,768 rows; Sonata's pre-training step with
+               the reference head (4096 hidden, 512 embed, 4096 prototypes),
+               2 warm-ups and 5 timed steps with AdamW: steps/s, peak memory,
+               K1 44 and K2 22 a step against the structure and hooks, a
+               finite loss, the teacher and the center moving
+  cond_train   the flagship LiDM made crossattn over a trainable x-transformers
+               BERT (640 wide, 32 layers, 77 tokens; 2 warm-ups, 5 timed
+               steps) and map2lidar (c_concat, as sample_cond builds it; 3
+               timed steps), batch 4, f32: K2 in f32 at head dim 32 at the
+               three attention shapes and K3 forward and backward at every
+               group shape against their plain versions; steps/s, peak memory,
+               K1, K2 and K3 launches against the structure and hooks, the
+               trained set and EMA, the BERT's gradients non-zero and finite
   ae_eval      eval_ae on the ae_train phase's kitti run: 4 batches of 4,
                CD through K4 and JSD, launches against the structure
   timing       per-kernel device times at the main paths' shapes beside the
@@ -246,10 +271,16 @@ Phases (any failure exits non-zero before the final "ok" line):
                16 pairs (ae_eval's clouds); K1 and K3 in bf16 at the patched
                request's shapes over the split run; K3 forward and backward
                at the bf16 AE step's shapes (the autoencoder's in bf16, the
-               discriminator's in f32) over ae_bf16's timed steps. K3 is
+               discriminator's in f32) over ae_bf16's timed steps; K1 and K2
+               in f32 with a key bias at Sonata's shapes over its timed
+               steps; K1 and K2 in f32 at head dim 32 and K3 forward and
+               backward at the crossattn LiDM's shapes over its. K3 is
                timed on input copies taken in turn, more than twice the L2
                apart, so that each call reads from HBM as in a model; every
                kernel time that reads over 105% of its bound fails the phase
+  profile_zoo  (only when named) profile's rows of the zoo (one forward and
+               backward of each backbone), a Sonata step and both
+               conditional LiDM training steps
   profile      (only when named) device time of one DPM-20 request, of one
                guided layout request, of one training step, of one layout
                training step, of one LayoutDiffusion request, of one
@@ -283,8 +314,9 @@ PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "split_s
           "layout_train", "layout_boxes_slice", "layout_boxes", "layout_boxes_train_slice",
           "layout_boxes_train", "ae_train_slice", "ae_train", "ae_bf16_slice", "ae_bf16",
           "data", "coarse_slice", "coarse", "cube_slice", "cube", "dense_slice", "dense",
-          "cond_slice", "cond", "families_slice", "families", "ae_eval", "timing")
-EXTRA_PHASES = ("profile",)   # run only when named in --phases
+          "cond_slice", "cond", "families_slice", "families", "zoo_slice", "zoo", "sonata",
+          "cond_train", "ae_eval", "timing")
+EXTRA_PHASES = ("profile", "profile_zoo")   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16 = 989e12
@@ -395,6 +427,79 @@ AE_PERC_LOG_TOL, AE_PERC_DWEIGHT_TOL, AE_PERC_GRAD_TOL = 1e-4, 1e-3, 1e-3
 # the data phase: scans written as KITTI-360 velodyne files and read through
 # the native loader, and device_synthetic's scenes on the card
 DATA_SCANS, DATA_BATCH = 8, 4
+# the point-backbone zoo (no TPU kernel in JAX: LayerNorm, matmuls, gathers):
+# card against CPU at the CPU tests' tiny configs (tests/test_torch_zoo.py)
+# within ZOO_SLICE_TOL relative L2; each segmentation backbone at its
+# reference widths, one forward and backward on a synthetic scene of
+# ZOO_POINTS rows (the cube stage's cloud size), ZOO_PAD of them padding
+ZOO_SLICE_TOL = 1e-4
+ZOO_POINTS, ZOO_PAD = 32768, 1024
+ZOO_TINY = {  # name -> (module, class, config class, config, cloud)
+    "ptv1_seg26": ("ptv1", "PointTransformerSeg", "PTv1Config", dict(
+        in_channels=4, num_classes=5, blocks=(1,) * 5, planes=(8, 12, 16, 20, 24),
+        strides=(1, 2, 2, 2, 2), nsamples=(4,) * 5, share_planes=4),
+        dict(n=64, valid=56, in_ch=4, extent=None)),
+    "ptv2m2": ("ptv2", "PointTransformerV2", "PTv2Config", dict(
+        in_channels=4, num_classes=5, patch_embed_depth=1, patch_embed_channels=12,
+        patch_embed_groups=3, patch_embed_neighbours=4, enc_depths=(1, 1),
+        enc_channels=(24, 48), enc_groups=(6, 12), enc_neighbours=(4, 4), dec_depths=(1, 1),
+        dec_channels=(12, 24), dec_groups=(3, 6), dec_neighbours=(4, 4),
+        grid_sizes=(0.12, 0.24), pool_ratios=(0.5, 0.25)),
+        dict(n=64, valid=48, in_ch=4, extent=None)),
+    "spunet": ("spunet", "SpUNet", "SpUNetConfig", dict(
+        in_channels=4, num_classes=5, base_channels=8, channels=(8, 16, 16, 8),
+        layers=(1, 1, 1, 1), stem_kernel=3, voxel_size=0.2, capacity=256),
+        dict(n=128, valid=100, in_ch=4, extent=6.0)),
+    "stratified": ("stratified", "StratifiedTransformer", "StratifiedConfig", dict(
+        in_channels=4, num_classes=5, channels=(8, 16, 16, 16), depths=(1, 1, 1, 1),
+        num_heads=(2, 2, 2, 2), window_size=(0.8, 1.6, 3.2, 6.4),
+        quant_size=(0.2, 0.4, 0.8, 1.6), k=4, kp_neighbors=4, kp_kernel_points=5,
+        downsample_scale=4, n_windows=32, window_capacity=12, sample_capacity=4),
+        dict(n=128, valid=100, in_ch=4, extent=4.0)),
+    "swin3d": ("swin3d", "Swin3DUNet", "Swin3DConfig", dict(
+        in_channels=6, num_classes=5, channels=(8, 16, 16, 16, 16), depths=(1,) * 5,
+        num_heads=(2,) * 5, window_sizes=(3,) * 5, quant_size=2, base_grid_size=0.25, k=4,
+        capacity=512, n_windows=32, window_capacity=12),
+        dict(n=200, valid=170, in_ch=6, extent=6.0)),
+    "octformer": ("octformer", "OctFormer", "OctFormerConfig", dict(
+        in_channels=4, num_classes=5, fpn_channels=16, channels=(8, 16, 16, 16),
+        num_blocks=(1,) * 4, num_heads=(2,) * 4, patch_size=8, dilation=2, stem_down=1,
+        voxel_size=0.25, capacity=512, rpe_quant=4),
+        dict(n=256, valid=220, in_ch=4, extent=8.0)),
+}
+_ZOO_CLOUD = dict(n=ZOO_POINTS, valid=ZOO_POINTS - ZOO_PAD, extent="scene")
+ZOO_REFERENCE = {  # the ctor defaults, the widths of tests/test_zoo_reference_scale.py
+    "stratified": ("stratified", "StratifiedTransformer", "StratifiedConfig",
+                   dict(num_classes=13), {**_ZOO_CLOUD, "in_ch": 3}),
+    "octformer": ("octformer", "OctFormer", "OctFormerConfig",
+                  dict(num_classes=13, capacity=ZOO_POINTS), {**_ZOO_CLOUD, "in_ch": 4}),
+    "swin3d": ("swin3d", "Swin3DUNet", "Swin3DConfig",
+               dict(num_classes=13, capacity=ZOO_POINTS), {**_ZOO_CLOUD, "in_ch": 6}),
+    "ptv1_seg50": ("ptv1", "PointTransformerSeg", "PTv1Config", dict(),
+                   {**_ZOO_CLOUD, "in_ch": 6}),
+    "ptv2m2": ("ptv2", "PointTransformerV2", "PTv2Config", dict(), {**_ZOO_CLOUD, "in_ch": 4}),
+    "spunet": ("spunet", "SpUNet", "SpUNetConfig", dict(), {**_ZOO_CLOUD, "in_ch": 4}),
+}
+ZOO_NOTES = {"octformer": "ctor defaults, its voxel table raised from 8192 to the cloud's 32768 "
+                          "rows",
+             "swin3d": "ctor defaults, its voxel table raised from 8192 to the cloud's 32768 rows"}
+# Sonata: the CPU test's config in zoo_slice; pre-training at PT-v3's default
+# widths with the reference head (4096 hidden, 512 embed, 4096 prototypes) on
+# one synthetic scene, AdamW at the reference's lr 0.004 and weight decay 0.04
+SONATA_TINY_BB = dict(in_channels=4, patch_size=16, enc_depths=(1, 1), enc_channels=(8, 16),
+                      enc_heads=(2, 2), dec_depths=(1,), dec_channels=(8,), dec_heads=(2,),
+                      orders=("z", "hilbert"), grid_size=0.2)
+SONATA_TINY = dict(head_in_channels=8, head_hidden_channels=16, head_embed_channels=8,
+                   head_num_prototypes=32, total_steps=100)
+SONATA_REFERENCE = dict(head_in_channels=64, head_hidden_channels=4096, head_embed_channels=512,
+                        head_num_prototypes=4096)
+SONATA_POINTS, SONATA_STEPS, SONATA_LR = 32768, 5, 4e-3
+# conditional LiDM training, f32, batch 4: the flagship made crossattn over a
+# trainable x-transformers BERT (JAX's _lidm_cfg wiring at full width), and
+# map2lidar (c_concat); the YAML's lr (base 1e-6 x batch 4)
+COND_TRAIN_BATCH, COND_TRAIN_STEPS, COND_CONCAT_STEPS, COND_TRAIN_LR = 4, 5, 3, 4e-6
+COND_TRAIN_WORDS = ("a", "car", "on", "the", "wet", "road", "empty", "intersection", "heavy",
+                    "traffic", "at", "night", "parked", "truck", "pedestrian", "crossing")
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
@@ -741,6 +846,9 @@ class Smoke:
         self.ae_bf16_shapes = None   # K3's calls of one bf16 AE step: (AE, discriminator)
         self.ae_bf16_launches = {}   # over the bf16 AE's timed training steps
         self.k3_times = {}   # K3's timings by (shape, dtype, eps, backward), shared by paths
+        self.sonata_launches = {}   # over Sonata's timed pre-training steps
+        self.cond_train_shapes = {}   # K1 and K3 calls of one conditional training step
+        self.cond_train_launches = {}   # "crossattn", "concat" -> over their timed steps
         self._tmp = []   # directories the phases write, removed at the end
 
     def tmp_dir(self, prefix):
@@ -4327,21 +4435,11 @@ class Smoke:
     @staticmethod
     def _dense_shapes(points=DENSE_POINTS):
         """K1's (B, H, S, D) calls of one dense-decoder forward, from
-        gaus_10cm.yaml's PT-v3: level l holds points / 2**l rows and attends
-        in patches of min(1024, rows) (B patches, H heads, D = width / H);
-        each encoder and decoder block attends once."""
+        gaus_10cm.yaml's PT-v3 (_ptv3_shapes)."""
         from lidar_layout_tpu_torch.config import build_ptv3_cfg, load_yaml
 
         cfg = build_ptv3_cfg(load_yaml(DENSE_YAML)["model"]["params"]["backbone"]["params"])
-        out = collections.Counter()
-        levels = [(cfg.enc_depths, cfg.enc_channels, cfg.enc_heads),
-                  (cfg.dec_depths, cfg.dec_channels, cfg.dec_heads)]
-        for depths, widths, heads in levels:
-            for level, (depth, ch, h) in enumerate(zip(depths, widths, heads)):
-                rows = max(points >> level, 1)
-                patch = min(cfg.patch_size, rows)
-                out[(-(-rows // patch), h, patch, ch // h)] += depth
-        return out
+        return Smoke._ptv3_shapes(cfg, points)
 
     @staticmethod
     def _dense_hooks(model):
@@ -4381,29 +4479,31 @@ class Smoke:
             torch.cuda.empty_cache()
         return self.gaus_ae_shapes
 
-    def _check_dense(self, name, got, want, atol, rtol, what):
-        self._check(name, got, want, atol, rtol, what, record=False)
-        key = f"dense_{name}"
-        self.kernel_err[key] = max(self.kernel_err.get(key, 0.0), max_err(got, want)[0])
-
     def _kernels_dense(self):
-        """K1 and K2 in f32 at every attention shape of the dense decoder's
-        PT-v3 at 8192 points (head dim 16; 22 calls a forward), on q, k and
-        v laid out as PatchAttention hands them over (views of one (B, S, 3,
-        H, D) projection), each with two key biases: a ragged padding tail
-        (the last third of the last patch's keys at -1e9) and a patch of
-        padding alone (every key of the last patch at -1e9, whose softmax
-        is uniform, as _attend_ref's: the mean of v). K1 (and its
-        log-sum-exp) and K2 against the plain versions, each bit for bit
-        over two launches. Then K3 forward and backward in f32 at every
-        group shape of the Gaussian AE's training step."""
+        """K1 and K2 at the dense decoder's PT-v3 shapes at 8192 points (head
+        dim 16; 22 calls a forward; _kernels_ptv3_attention), then K3
+        forward and backward in f32 at every group shape of the Gaussian
+        AE's training step."""
+        self._kernels_ptv3_attention(self._dense_shapes(), "dense",
+                                     "the dense decoder's attention shapes", 13)
+        self._kernels_ae(self._gaus_ae_shapes(), "gaus_ae", "the Gaussian AE's training step")
+
+    def _kernels_ptv3_attention(self, shapes, key, label, seed):
+        """K1 and K2 in f32 at every PT-v3 attention shape of ``shapes``
+        ((B, H, S, D) -> calls a forward), on q, k and v laid out as
+        PatchAttention hands them over (views of one (B, S, 3, H, D)
+        projection), each with two key biases: a ragged padding tail (the
+        last third of the last patch's keys at -1e9) and a patch of padding
+        alone (every key of the last patch at -1e9, whose softmax is
+        uniform, as _attend_ref's: the mean of v). K1 (and its log-sum-exp)
+        and K2 against the plain versions, each bit for bit over two
+        launches; the errors go to ``<key>_<kernel>``."""
         import torch
         from lidar_layout_tpu_torch.ops import attention as A
 
         dev = torch.device("cuda")
-        gen = torch.Generator(device=dev).manual_seed(13)
-        shapes = self._dense_shapes()
-        log(f"K1 and K2 at the dense decoder's attention shapes (f32, kbias; calls a forward "
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        log(f"K1 and K2 at {label} (f32, kbias; calls a forward "
             f"{dict(sorted(shapes.items()))}):")
         for (b, h, s, d), count in sorted(shapes.items()):
             for case in ("ragged padding tail", "a patch of padding alone"):
@@ -4417,16 +4517,16 @@ class Smoke:
                     kb[-1] = -1e9
                 what = f"{(b, h, s, d)} f32, {case} (x{count} a forward)"
                 got = A.flash_attention(q, k, v, kb)
-                self._check_dense("flash_attention", got, A._attend_ref(q, k, v, kb), 2e-5,
-                                  1e-4, what)
+                self._check_key(key, "flash_attention", got, A._attend_ref(q, k, v, kb), 2e-5,
+                                1e-4, what)
                 o, lse = A._launch(q, k, v, kb, with_lse=True)
                 o2, lse2 = A._launch(q, k, v, kb, with_lse=True)
                 err, scale = max_err(lse, A._lse_ref(q, k, kb))
                 grads = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
                 for part, g_, w_ in zip(("dq", "dk", "dv"), grads,
                                         A._attend_bwd_ref(q, k, v, o, do, lse, kb)):
-                    self._check_dense("flash_attention_bwd", g_, w_, 1e-4, 1e-4,
-                                      f"{part} {what}")
+                    self._check_key(key, "flash_attention_bwd", g_, w_, 1e-4, 1e-4,
+                                    f"{part} {what}")
                 again = A.flash_attention_bwd(q, k, v, o, do, lse, kb)
                 torch.cuda.synchronize()
                 same = (torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -4442,7 +4542,11 @@ class Smoke:
                                          f"not uniform, or not deterministic")
                 del qkv, q, k, v, do, o, o2, grads, again
         torch.cuda.empty_cache()
-        self._kernels_ae(self._gaus_ae_shapes(), "gaus_ae", "the Gaussian AE's training step")
+
+    def _check_key(self, key, name, got, want, atol, rtol, what):
+        self._check(name, got, want, atol, rtol, what, record=False)
+        err_key = f"{key}_{name}"
+        self.kernel_err[err_key] = max(self.kernel_err.get(err_key, 0.0), max_err(got, want)[0])
 
     @staticmethod
     def _ptv3_ints(backbone, points, mask):
@@ -4769,7 +4873,6 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------------- ae_eval
     # ------------------------------------------------------------ conditioning
     def _cond_shapes(self):
         """Kernel calls by shape, from module hooks on the full-width
@@ -5372,11 +5475,13 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def _family_run(self, name, step, state, batches, structure, hooked_modules, steps,
-                    batch_size, loss_key):
+                    batch_size, loss_key, extra_hooked=None):
         """A family's timed steps: a warm-up under module hooks, another,
         then ``steps`` steps; steps/s, samples/s, peak memory, launches a
-        step against ``structure`` (and the hooks), no plain GroupNorm.
-        Returns the launches over the timed steps."""
+        step against ``structure`` (and the hooks: K3's here, and the
+        attention calls that ``extra_hooked`` counts, read after the
+        warm-up), no plain GroupNorm. Returns the launches over the timed
+        steps."""
         import torch
         from lidar_layout_tpu_torch.ops import groupnorm as G
         from torch_port_helpers import count_group_norms
@@ -5388,7 +5493,7 @@ class Smoke:
             torch.cuda.synchronize()
         first = read_counts()
         hooked = {**{k: 0 for k in counters()}, "group_norm": sum(shapes[0].values()),
-                  "group_norm_bwd": sum(shapes[1].values())}
+                  "group_norm_bwd": sum(shapes[1].values()), **dict(extra_hooked or {})}
         step(state, batches[1 % len(batches)], gen)
         torch.cuda.synchronize()
         gc.collect()
@@ -5645,6 +5750,544 @@ class Smoke:
         self.run_totals.setdefault("group_norm_bwd", {})["r2dm_train"] = train_bwd
         torch.cuda.empty_cache()
 
+    # -------------------------------------------------- the point-backbone zoo
+    @staticmethod
+    def _zoo_model(name, tiny, device="cuda", seed=0, **over):
+        """A zoo backbone (``ZOO_TINY`` or ``ZOO_REFERENCE``, ``over``
+        replacing config fields) built under ``seed``, and its cloud spec."""
+        import importlib
+
+        import torch
+
+        module, cls, cfg_cls, kw, cloud = (ZOO_TINY if tiny else ZOO_REFERENCE)[name]
+        mod = importlib.import_module(f"lidar_layout_tpu_torch.models.{module}")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = getattr(mod, cls)(getattr(mod, cfg_cls)(**{**kw, **over}))
+        return model.to(device), cloud
+
+    @staticmethod
+    def _zoo_cloud(n, valid, in_ch, extent, seed=0, device="cuda"):
+        """(coord, feat, mask) of one cloud: ``extent`` None draws N(0, 1)
+        points, a number U(0, extent) ones, "scene" a synthetic street scene
+        (``data/synthetic``); feats [xyz, U(-1, 1)...] cut to ``in_ch``; the
+        rows past ``valid`` are padding."""
+        import torch
+        from lidar_layout_tpu_torch.data.synthetic import synthetic_scene
+
+        rng = np.random.default_rng(seed)
+        coord = (synthetic_scene(rng, n) if extent == "scene" else
+                 rng.normal(size=(n, 3)) if extent is None else
+                 rng.uniform(0.0, extent, (n, 3))).astype(np.float32)
+        feat = np.concatenate([coord, rng.uniform(-1, 1, (n, max(in_ch - 3, 0)))], -1)[:, :in_ch]
+        mask = np.arange(n) < valid
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (coord, feat.astype(np.float32), mask))
+
+    def zoo_slice(self):
+        """The zoo card against CPU at the CPU tests' tiny configs, f32, TF32
+        off: each segmentation backbone's logits and every parameter's
+        gradient of a seeded weighted sum of them, Sonata's loss, center and
+        student gradients from fed seeds (relative L2 within ZOO_SLICE_TOL),
+        and cluster_points' labels (equal)."""
+        import copy
+
+        import torch
+        from lidar_layout_tpu_torch.models import ptv3 as P3
+        from lidar_layout_tpu_torch.models import sonata as PS
+        from lidar_layout_tpu_torch.ops import cluster as PC
+
+        def rel(got, want):
+            got, want = got.detach().double().cpu(), want.detach().double().cpu()
+            return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+        def flat_grads(model):
+            return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                              .reshape(-1).cpu() for _, p in sorted(model.named_parameters())])
+
+        reset_counts()
+        for name in ZOO_TINY:
+            cpu, cloud = self._zoo_model(name, True, device="cpu")
+            card = copy.deepcopy(cpu).cuda()
+            inputs = self._zoo_cloud(**cloud, device="cpu")
+            w = torch.randn((len(inputs[0]), cpu.cfg.num_classes),
+                            generator=torch.Generator().manual_seed(5))
+            outs = []
+            for model, dev in ((cpu, "cpu"), (card, "cuda")):
+                out = model(*(t.to(dev) for t in inputs))
+                (out * w.to(dev)).sum().backward()
+                outs.append(out)
+            torch.cuda.synchronize()
+            pad = float(outs[1].detach()[~inputs[2].cuda()].abs().max())
+            errs = (rel(outs[1], outs[0]), rel(flat_grads(card), flat_grads(cpu)))
+            log(f"zoo_slice {name}: logits {errs[0]:.3e}, parameter gradients {errs[1]:.3e} "
+                f"relative L2 card vs CPU (tol {ZOO_SLICE_TOL:g}); padding rows max |logit| "
+                f"{pad:g}")
+            if not (max(errs) <= ZOO_SLICE_TOL and pad == 0.0
+                    and bool(torch.isfinite(outs[1]).all())):
+                raise AssertionError(f"zoo_slice {name}: card against CPU {errs}, padding {pad}")
+        self._zoo_no_kernel("zoo_slice")
+        # Sonata (PT-v3: K1 and K2): the CPU test's config, the loss from fixed seeds
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            cpu = PS.Sonata(P3.PTv3Config(**SONATA_TINY_BB), PS.SonataConfig(**SONATA_TINY))
+        card = copy.deepcopy(cpu).cuda()
+        coord, feat, mask = self._zoo_cloud(128, 110, 4, 6.0, device="cpu")
+        seeds = torch.randperm(128, generator=torch.Generator().manual_seed(7))[:32]
+        res = []
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            loss, center, masked = model.loss(coord.to(dev), feat.to(dev), mask.to(dev), 2,
+                                              seed_idx=seeds.to(dev))
+            loss.backward()
+            res.append((loss, center, masked, flat_grads(model.student)))
+        torch.cuda.synchronize()
+        errs = (rel(res[1][0], res[0][0]), rel(res[1][1], res[0][1]), rel(res[1][3], res[0][3]))
+        same_mask = torch.equal(res[1][2].cpu(), res[0][2])
+        log(f"zoo_slice sonata: loss {errs[0]:.3e}, center {errs[1]:.3e}, student gradients "
+            f"{errs[2]:.3e} relative L2 card vs CPU; ball masks equal: {same_mask}")
+        if not (max(errs) <= ZOO_SLICE_TOL and same_mask):
+            raise AssertionError(f"zoo_slice sonata: card against CPU {errs}, {same_mask}")
+        pts, _, valid = self._zoo_cloud(2000, 1900, 3, 12.0, device="cpu")
+        want = PC.cluster_points(pts, valid, 0.3, 4096)
+        got = PC.cluster_points(pts.cuda(), valid.cuda(), 0.3, 4096)
+        same = all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want))
+        log(f"zoo_slice cluster_points (2000 points, 0.3 m, 4096 voxels): labels card vs CPU "
+            f"equal: {same}; {len(torch.unique(want[0][valid]))} components")
+        if not same:
+            raise AssertionError("cluster_points: card labels differ from the CPU's")
+
+    @staticmethod
+    def _zoo_no_kernel(what):
+        counts = read_counts()
+        if any(counts.values()):
+            raise AssertionError(f"{what}: the zoo launched a TPU kernel's port {counts}")
+
+    def zoo(self):
+        """The six segmentation backbones at their reference widths on one
+        synthetic street scene of ZOO_POINTS rows (ZOO_PAD of them padding),
+        f32: one forward and one backward of a cross-entropy over seeded
+        labels; finite logits and gradients, padding rows 0, seconds, peak
+        memory, and no kernel launched (none of these reaches a Pallas
+        kernel in JAX)."""
+        import torch
+        import torch.nn.functional as F
+
+        reset_counts()
+        for name, (_, _, _, kw, cloud) in ZOO_REFERENCE.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model, cloud = self._zoo_model(name, False)
+            coord, feat, mask = self._zoo_cloud(**cloud)
+            labels = torch.randint(0, model.cfg.num_classes, (len(coord),),
+                                   generator=torch.Generator(device="cuda").manual_seed(3),
+                                   device="cuda")
+            n_params = sum(p.numel() for p in model.parameters())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(coord, feat, mask)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            F.cross_entropy(logits[mask], labels[mask]).backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            grads_ok = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+                           if p.grad is not None)
+            pad = float(logits.detach()[~mask].abs().max())
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"zoo {name} ({n_params / 1e6:.2f} M parameters; {cloud['n']} rows, "
+                f"{cloud['valid']} valid; {ZOO_NOTES.get(name, 'the ctor defaults')}): forward "
+                f"{t1 - t0:.3f} s, backward {t2 - t1:.3f} s; peak memory {mem:.2f} GiB; logits "
+                f"finite {bool(torch.isfinite(logits).all())}, padding rows max |logit| {pad:g},"
+                f" gradients finite {grads_ok}; card {card_line()}")
+            if not (bool(torch.isfinite(logits).all()) and pad == 0.0 and grads_ok):
+                raise AssertionError(f"zoo {name}: logits or gradients not finite, or padding "
+                                     f"rows not 0")
+            del model, coord, feat, mask, labels, logits
+        self._zoo_no_kernel("zoo")
+
+    # ------------------------------------------------ Sonata pre-training
+    @staticmethod
+    def _ptv3_shapes(cfg, points):
+        """K1's (B, H, S, D) calls of one PT-v3 forward over ``points`` rows:
+        level l holds points / 2**l rows and attends in patches of
+        min(patch_size, rows) (B patches, H heads, D = width / H); each
+        encoder and decoder block attends once."""
+        out = collections.Counter()
+        for depths, widths, heads in ((cfg.enc_depths, cfg.enc_channels, cfg.enc_heads),
+                                      (cfg.dec_depths, cfg.dec_channels, cfg.dec_heads)):
+            for level, (depth, ch, h) in enumerate(zip(depths, widths, heads)):
+                rows = max(points >> level, 1)
+                patch = min(cfg.patch_size, rows)
+                out[(-(-rows // patch), h, patch, ch // h)] += depth
+        return out
+
+    def _sonata_model(self, device="cuda"):
+        import torch
+        from lidar_layout_tpu_torch.models import ptv3 as P3
+        from lidar_layout_tpu_torch.models import sonata as PS
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            return PS.Sonata(P3.PTv3Config(), PS.SonataConfig(**SONATA_REFERENCE)).to(device)
+
+    def sonata(self):
+        """Sonata's pre-training step at PT-v3's default widths (enc 32-512,
+        patch 1024, head dim 16) with the reference head (4096 hidden, 512
+        embed, 4096 prototypes) on one synthetic scene of SONATA_POINTS rows,
+        f32: K1 and K2 at its attention shapes against their plain versions
+        (with a ragged key-padding tail and a patch of padding alone), then
+        2 warm-up and SONATA_STEPS timed steps of make_pretrain_step with
+        AdamW: steps/s, peak memory, K1 and K2 launches a step against the
+        structure (two forwards, one backward) and hooks, a finite loss, the
+        teacher and the center moving."""
+        import torch
+        from lidar_layout_tpu_torch.models.ptv3 import PTv3Config
+
+        shapes = self._ptv3_shapes(PTv3Config(), SONATA_POINTS)
+        self._kernels_ptv3_attention(shapes, "sonata", "Sonata's PT-v3", 17)
+        model = self._sonata_model()
+        opt = torch.optim.AdamW(model.student.parameters(), lr=SONATA_LR, weight_decay=0.04)
+        step = model.make_pretrain_step(opt)
+        coord, feat, mask = self._zoo_cloud(SONATA_POINTS, SONATA_POINTS - ZOO_PAD, 4, "scene")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        seen, hooks = self._dense_hooks(model)
+        reset_counts()
+        step(coord, feat, mask, 0, gen)
+        torch.cuda.synchronize()
+        first = read_counts()
+        for h_ in hooks:
+            h_.remove()
+        hooked = {**{k: 0 for k in counters()}, **{k: sum(v.values()) for k, v in seen.items()}}
+        structure = {**{k: 0 for k in counters()},
+                     "flash_attention": 2 * sum(shapes.values()),
+                     "flash_attention_bwd": sum(shapes.values())}
+        step(coord, feat, mask, 1, gen)
+        teacher0 = [p.detach().clone() for p in model.teacher.parameters()]
+        center0 = model.center.clone()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [step(coord, feat, mask, 2 + i, gen) for i in range(SONATA_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        self.sonata_launches = got
+        per_step = {k: v / SONATA_STEPS for k, v in got.items()}
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        moved = max(float((p - q).abs().max()) for p, q in zip(model.teacher.parameters(),
+                                                               teacher0))
+        center_moved = float((model.center - center0).abs().max())
+        finite = bool(torch.isfinite(torch.stack(losses)).all())
+        log(f"sonata ({SONATA_POINTS} rows, {ZOO_PAD} padding; {SONATA_STEPS} steps): "
+            f"{SONATA_STEPS / wall:.3f} steps/s, {1e3 * wall / SONATA_STEPS:.1f} ms a step; peak "
+            f"memory {mem:.2f} GiB; launches per step {per_step} (structure {structure}; hooks "
+            f"{hooked}; first step {first}); losses {[round(float(x), 5) for x in losses]}; "
+            f"the teacher moved by up to {moved:.3e}, the center by {center_moved:.3e}; card "
+            f"{card_line()}")
+        if (per_step != {k: float(v) for k, v in structure.items()} or first != structure
+                or hooked != structure):
+            raise AssertionError(f"sonata: launches {per_step} (first {first}, hooks {hooked}) "
+                                 f"!= structure {structure}")
+        if not (finite and moved > 0 and center_moved > 0):
+            raise AssertionError("sonata: a loss is not finite, or the teacher or the center "
+                                 "did not move")
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -------------------------------------- conditional LiDM training
+    @staticmethod
+    def _bert_lidm(device="cuda"):
+        """The flagship LiDM (uncond_c2_p4.yaml's widths) made conditional as
+        JAX's _lidm_cfg in tests/test_xt_consumer.py wires it: crossattn
+        through SpatialTransformers (context 640) from a trainable
+        x-transformers BERT at its defaults (640 wide, 32 layers, 8 heads, 77
+        tokens); seeded weights (torch's initialisation zeroes the
+        transformers' output projections, and with them the BERT's gradient)."""
+        import torch
+        from lidar_layout_tpu_torch.config import instantiate_from_config
+
+        cfg = yaml_config(LIDM_YAML)["model"]
+        p = cfg["params"]
+        p.update(conditioning_key="crossattn", cond_stage_trainable=True,
+                 cond_stage_config={"target": "bert_embedder",
+                                    "params": {"backend": "x_transformer"}})
+        p["unet_config"]["params"].update(use_spatial_transformer=True, transformer_depth=1,
+                                          context_dim=640)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = instantiate_from_config(cfg).to(device)
+        seed_weights(model.unet, 0)
+        seed_weights(model.first_stage_model, 1)
+        return model
+
+    @staticmethod
+    def _attention_modules(model):
+        """The modules whose forward launches K1 (and K2 in a backward): the
+        SpatialTransformers' attn1 and the SelfAttentionBlocks."""
+        from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+        from lidar_layout_tpu_torch.nn.attention import BasicTransformerBlock
+
+        return ([m.attn1 for m in model.modules() if isinstance(m, BasicTransformerBlock)]
+                + [m for m in model.modules() if isinstance(m, SelfAttentionBlock)])
+
+    def _cond_train_shapes(self, key, model=None):
+        """K1 calls of one training step of the ``key`` ("crossattn" or
+        "concat") LiDM at batch COND_TRAIN_BATCH by (B, H, S, D), and K3's
+        (forward, backward) calls by shape, from module hooks on one step of
+        ``model`` (built here when not given); its gradients are cleared."""
+        if key not in self.cond_train_shapes:
+            import torch
+            from torch_port_helpers import count_group_norms
+
+            made = model is None
+            model = self._cond_train_model(key) if made else model
+            model.first_stage_model.requires_grad_(False)
+            k1 = collections.Counter()
+
+            def hook(mod, args):
+                x = args[0]
+                if x.dim() == 4:              # a SelfAttentionBlock's (B, C, H, W)
+                    b, c, hh, ww = x.shape
+                    k1[(b, mod.num_heads, hh * ww, c // mod.num_heads)] += 1
+                else:
+                    k1[(x.shape[0], mod.heads, x.shape[1], mod.dim_head)] += 1
+            hooks = [m.register_forward_pre_hook(hook) for m in self._attention_modules(model)]
+            batch = self._cond_train_batches(key, 1)[0]
+            with count_group_norms(model) as k3:
+                model.training_loss(batch, torch.Generator(device="cuda").manual_seed(0)
+                                    )[0].backward()
+            torch.cuda.synchronize()
+            for h_ in hooks:
+                h_.remove()
+            model.zero_grad(set_to_none=True)
+            self.cond_train_shapes[key] = {"k1": k1, "k3": k3}
+            log(f"cond_train {key}: per step K1 {dict(k1)}, K3 forward {sum(k3[0].values())} "
+                f"over {len(k3[0])} shapes, backward {sum(k3[1].values())}")
+            if made:
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+        return self.cond_train_shapes[key]
+
+    def _cond_train_model(self, key):
+        """The crossattn LiDM with its BERT, or map2lidar's model as
+        sample_cond builds it (seeded weights)."""
+        from lidar_layout_tpu_torch import sample_cond
+
+        if key == "crossattn":
+            return self._bert_lidm()
+        model = sample_cond.build_task_model("map2lidar")
+        self._seed_cond(model)
+        return model
+
+    @staticmethod
+    def _cond_train_batches(key, n, seed=6):
+        """Flagship range batches (64x1024, batch COND_TRAIN_BATCH) with their
+        conditions: bert_tokenize's 77 tokens of seeded captions, or
+        map2lidar's one-hot semantic maps."""
+        import torch
+        from lidar_layout_tpu_torch import sample_cond
+        from lidar_layout_tpu_torch.encoders.modules import bert_tokenize
+
+        batches = Smoke._train_batches(False, n, seed=seed, batch=COND_TRAIN_BATCH)
+        rng = np.random.default_rng(seed)
+        for b in batches:
+            if key == "crossattn":
+                words = rng.choice(COND_TRAIN_WORDS, (COND_TRAIN_BATCH, 6))
+                b["cond"] = torch.from_numpy(bert_tokenize([" ".join(w) for w in words])).cuda()
+            else:
+                b["cond"] = torch.from_numpy(np.eye(sample_cond.NUM_SEM, dtype=np.float32)[
+                    rng.integers(0, sample_cond.NUM_SEM, (COND_TRAIN_BATCH, 64, 1024))]).cuda()
+        return batches
+
+    def cond_train(self):
+        """Conditional LiDM training on the card, f32, for the crossattn
+        LiDM with the trainable BERT (2 warm-up and COND_TRAIN_STEPS timed
+        steps) and map2lidar (c_concat, built as sample_cond builds it, its
+        trained set JAX's: the U-Net; COND_CONCAT_STEPS timed steps). For
+        each: K3 forward and backward at its training shapes against the
+        plain versions, and for the crossattn model K2 in f32 at head dim 32
+        at its three attention shapes (bit for bit over two launches); then
+        steps/s, peak memory, K1, K2 and K3 launches a step against the
+        structure and hooks, finite losses, the trained set and its EMA, and
+        the BERT's gradients at the first step non-zero and finite."""
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(15)
+        for key, steps in (("crossattn", COND_TRAIN_STEPS), ("concat", COND_CONCAT_STEPS)):
+            model = self._cond_train_model(key)
+            shapes = self._cond_train_shapes(key, model)
+            if key == "crossattn":
+                log(f"K2 in f32 at the crossattn U-Net's attention shapes "
+                    f"{sorted(shapes['k1'])}:")
+                for (b, h, s, d) in sorted(shapes["k1"]):
+                    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                                   for _ in range(4))
+                    o, lse = A._launch(q, k, v, None, with_lse=True)
+                    grads = A.flash_attention_bwd(q, k, v, o, do, lse)
+                    for part, g_, w_ in zip(("dq", "dk", "dv"), grads,
+                                            A._attend_bwd_ref(q, k, v, o, do, lse)):
+                        self._check("flash_attention_bwd", g_, w_, 1e-4, 1e-4,
+                                    f"{part} {(b, h, s, d)} f32 (cond_train)", record=False)
+                        err_key = "cond_train_flash_attention_bwd"
+                        self.kernel_err[err_key] = max(self.kernel_err.get(err_key, 0.0),
+                                                       max_err(g_, w_)[0])
+                    again = A.flash_attention_bwd(q, k, v, o, do, lse)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a_, g_) for a_, g_ in zip(again, grads))
+                    log(f"  {(b, h, s, d)} f32: two launches of K2 bit for bit equal: {same}")
+                    if not same:
+                        raise AssertionError(f"K2 is not deterministic at {(b, h, s, d)} f32")
+                    del q, k, v, do, o, lse, grads, again
+            self._kernels_ae(shapes["k3"], "cond_train",
+                             f"the {key} LiDM's training step (batch {COND_TRAIN_BATCH})")
+            params = DT.trainable_params(model)
+            state = DT.create_train_state(model, DT.make_optimizer(params, COND_TRAIN_LR), params)
+            keys = DT.trainable_keys(model)
+            bert = [k for k in params if k.startswith("cond_stage_model.")]
+            grads_seen = {}
+            real = state.optimizer.step
+
+            def spy(real=real, grads_seen=grads_seen, bert=bert, params=params):
+                if not grads_seen:
+                    grads_seen.update({k: params[k].grad for k in bert})
+                    grads_seen["first"] = True
+                return real()
+            state.optimizer.step = spy
+            k1 = sum(shapes["k1"].values())
+            k3f, k3b = (sum(c.values()) for c in shapes["k3"])
+            structure = {**{k: 0 for k in counters()}, "flash_attention": k1,
+                         "flash_attention_bwd": k1, "group_norm": k3f, "group_norm_bwd": k3b}
+            seen = collections.Counter()
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, args, seen=seen: seen.update(["flash_attention",
+                                                          "flash_attention_bwd"]))
+                for m in self._attention_modules(model)]
+            got = self._family_run(f"cond_train {key}", DT.make_train_step(model), state,
+                                   self._cond_train_batches(key, 2), structure, [model], steps,
+                                   COND_TRAIN_BATCH, "loss", extra_hooked=seen)
+            for h_ in hooks:
+                h_.remove()
+            self.cond_train_launches[key] = got
+            live = {k: float(g.norm()) for k, g in grads_seen.items()
+                    if k != "first" and g is not None}
+            ema_ok = set(state.ema.params) == set(params)
+            log(f"cond_train {key}: trained set {keys} ({len(params)} tensors, {len(bert)} of "
+                f"the BERT); EMA over the trained set: {ema_ok}; BERT gradients at the first "
+                f"step: {len(live)} of {len(bert)} present, least norm "
+                f"{min(live.values()) if live else 0:.3e}, all finite "
+                f"{all(np.isfinite(v) for v in live.values())}")
+            want_keys = ("unet", "cond_stage") if key == "crossattn" else ("unet",)
+            bert_ok = (key != "crossattn"
+                       or (bert and len(live) == len(bert) and min(live.values()) > 0
+                           and all(np.isfinite(v) for v in live.values())))
+            if keys != want_keys or not ema_ok or not bert_ok:
+                raise AssertionError(f"cond_train {key}: trained set {keys}, EMA {ema_ok}, or "
+                                     f"the BERT's gradients {live}")
+            del model, state, params
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def _timing_sonata(self, gen):
+        """K1 and K2 in f32 with a key bias at Sonata's PT-v3 shapes, summed
+        over its SONATA_STEPS timed steps (two forwards, one backward a step)."""
+        from lidar_layout_tpu_torch.models.ptv3 import PTv3Config
+
+        shapes = self._ptv3_shapes(PTv3Config(), SONATA_POINTS)
+        fwd, bwd = self._time_attention(gen, shapes, 2 * SONATA_STEPS, SONATA_STEPS, True,
+                                        "sonata", "step")
+        self.run_totals.setdefault("flash_attention", {})["sonata"] = fwd
+        self.run_totals.setdefault("flash_attention_bwd", {})["sonata"] = bwd
+
+    def _timing_cond_train(self, gen):
+        """K1 and K2 in f32 at the crossattn U-Net's attention shapes (head
+        dim 32) beside SDPA's forward and backward, and K3 forward and
+        backward at its group shapes, summed over its COND_TRAIN_STEPS timed
+        steps."""
+        shapes = self._cond_train_shapes("crossattn")
+        fwd, bwd = self._time_attention(gen, shapes["k1"], COND_TRAIN_STEPS, COND_TRAIN_STEPS,
+                                        False, "cond_train", "step")
+        gn_f, gn_b = self._timing_ae(gen, shapes["k3"], "crossattn LiDM", COND_TRAIN_STEPS)
+        for name, tot in (("flash_attention", fwd), ("flash_attention_bwd", bwd),
+                          ("group_norm", gn_f), ("group_norm_bwd", gn_b)):
+            self.run_totals.setdefault(name, {})["cond_train"] = tot
+
+    def _time_attention(self, gen, shapes, fwd_runs, bwd_runs, kbias, label, unit):
+        """K1 and K2 in f32 at each (B, H, S, D) of ``shapes`` (calls a
+        forward) on PatchAttention's layout (views of one projection), with a
+        zero key bias when ``kbias``: the kernel and SDPA (the bias as an
+        additive float mask) in turns, the plain version, the bound
+        (operations at the f32 rate or the bytes) and the SFU floor; K1
+        summed over ``fwd_runs`` forwards, K2 over ``bwd_runs`` backwards.
+        Returns (K1 totals, K2 totals)."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import attention as A
+
+        dev = torch.device("cuda")
+        tots = {"fwd": collections.Counter(), "bwd": collections.Counter()}
+        log(f"  {label}, K1 and K2 at its attention shapes (f32"
+            f"{', zero kbias' if kbias else ''}):")
+        for (b, h, s, d), count in sorted(shapes.items()):
+            qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            do = torch.randn((b, h, s, d), generator=gen, device=dev)
+            kb = torch.zeros((b, s), device=dev) if kbias else None
+            mask = kb[:, None, None, :] if kbias else None
+            o, lse = A._launch(q, k, v, kb, with_lse=True)
+            ql, kl, vl = (t_.detach().clone().requires_grad_() for t_ in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+            for part, runs, kern, lib, plain in (
+                    ("fwd", fwd_runs, lambda: A.flash_attention(q, k, v, kb),
+                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                     lambda: A._attend_ref(q, k, v, kb)),
+                    ("bwd", bwd_runs, lambda: A.flash_attention_bwd(q, k, v, o, do, lse, kb),
+                     lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
+                     lambda: A._attend_bwd_ref(q, k, v, o, do, lse, kb))):
+                cost = A.attention_cost(b, h, s, d, 4, backward=part == "bwd")
+                nbytes = cost["bytes"] + (4 * b * s if kbias else 0)   # the bias row
+                kms, lms, krounds, lrounds = paired_ms(kern, lib, 10)
+                t = {"ms": kms, "events_ms": cuda_time(kern, 10),
+                     "plain_ms": device_ms(plain, 3), "library_ms": lms}
+                ops_ms, bytes_ms = cost["flops"] / PEAK_F32 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+                t["bound_ms"] = max(ops_ms, bytes_ms)
+                t["sfu_ms"] = cost["transcendentals"] / sfu_ex2_per_ms()
+                name = "K1" if part == "fwd" else "K2"
+                bound_gate(f"{name} {(b, h, s, d)} f32 ({label})", t["bound_ms"], t["ms"])
+                log(f"  {name} {(b, h, s, d)} f32 x{count}/{'forward' if part == 'fwd' else unit}"
+                    f": kernel {t['ms']:.4f} (events {t['events_ms']:.4f}) | plain "
+                    f"{t['plain_ms']:.4f} | sdpa{' backward' if part == 'bwd' else ''} "
+                    f"{t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x) | bound "
+                    f"{t['bound_ms']:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}; "
+                    f"{cost['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB; "
+                    f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of it) | SFU floor "
+                    f"{t['sfu_ms']:.4f} (kernel at {100 * t['sfu_ms'] / t['ms']:.1f}% of it) | "
+                    f"rounds kernel {[round(x, 4) for x in krounds]} library "
+                    f"{[round(x, 4) for x in lrounds]}")
+                for key, val in t.items():
+                    tots[part][key] += count * val * runs
+                    tots[part][f"one_{key}"] += count * val
+                tots[part]["bound_ops_ms"] += count * ops_ms * runs
+                tots[part]["bound_bytes_ms"] += count * bytes_ms * runs
+            del qkv, q, k, v, do, o, lse, ql, kl, vl, out
+        for part, runs in (("fwd", fwd_runs), ("bwd", bwd_runs)):
+            tot = tots[part]
+            log(f"  {label} {'K1' if part == 'fwd' else 'K2'} over {runs} "
+                f"{'forwards' if part == 'fwd' else 'backwards'}: kernel {tot['ms']:.3f} ms | "
+                f"plain {tot['plain_ms']:.3f} | library {tot['library_ms']:.3f} "
+                f"({tot['ms'] / tot['library_ms']:.3f}x) | bound {tot['bound_ms']:.3f} | SFU "
+                f"floor {tot['sfu_ms']:.3f}")
+        torch.cuda.empty_cache()
+        return tots["fwd"], tots["bwd"]
+
+    # ---------------------------------------------------------------- ae_eval
     def ae_eval(self):
         """eval_ae on the ae_train phase's kitti run (trained here through
         the CLI for 2 steps when that phase did not run): -n 4 batches of
@@ -5722,73 +6365,16 @@ class Smoke:
                 f"{tot['bound_ms']:.3f}")
 
     def _timing_dense(self, gen):
-        """The dense decoder's K1 and K2 in f32 with a key bias, at each of
-        its attention shapes: the kernel and SDPA (the bias as an additive
-        float mask) in turns, the plain version, the bound (operations at
-        the f32 rate, 67 TFLOP/s, or the bytes) and the SFU floor; K1 summed
-        over the dense phase's DECODE_CLOUDS decodes, K2 over its TRAIN_STEPS
-        timed steps. The bias is zero: every level of the synthetic 8192-
-        point clouds is full, so no padding reaches a key. Then K3 forward
-        and backward in f32 at the Gaussian AE step's shapes, summed over
-        its timed steps."""
-        import torch
-        import torch.nn.functional as F
-        from lidar_layout_tpu_torch.ops import attention as A
-
-        dev = torch.device("cuda")
-        tots = {"fwd": collections.Counter(), "bwd": collections.Counter()}
-        log("  dense decoder, K1 and K2 at its attention shapes (f32, zero kbias):")
-        for (b, h, s, d), count in sorted(self._dense_shapes().items()):
-            qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev)
-            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-            do = torch.randn((b, h, s, d), generator=gen, device=dev)
-            kb = torch.zeros((b, s), device=dev)
-            mask = kb[:, None, None, :]
-            o, lse = A._launch(q, k, v, kb, with_lse=True)
-            ql, kl, vl = (t_.detach().clone().requires_grad_() for t_ in (q, k, v))
-            out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
-            for part, runs, kern, lib, plain in (
-                    ("fwd", DECODE_CLOUDS, lambda: A.flash_attention(q, k, v, kb),
-                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-                     lambda: A._attend_ref(q, k, v, kb)),
-                    ("bwd", TRAIN_STEPS, lambda: A.flash_attention_bwd(q, k, v, o, do, lse, kb),
-                     lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True),
-                     lambda: A._attend_bwd_ref(q, k, v, o, do, lse, kb))):
-                cost = A.attention_cost(b, h, s, d, 4, backward=part == "bwd")
-                nbytes = cost["bytes"] + 4 * b * s   # the bias row
-                kms, lms, krounds, lrounds = paired_ms(kern, lib, 10)
-                t = {"ms": kms, "events_ms": cuda_time(kern, 10),
-                     "plain_ms": device_ms(plain, 3), "library_ms": lms}
-                ops_ms, bytes_ms = cost["flops"] / PEAK_F32 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-                t["bound_ms"] = max(ops_ms, bytes_ms)
-                t["sfu_ms"] = cost["transcendentals"] / sfu_ex2_per_ms()
-                name = "K1" if part == "fwd" else "K2"
-                bound_gate(f"{name} {(b, h, s, d)} f32 (dense)", t["bound_ms"], t["ms"])
-                log(f"  {name} {(b, h, s, d)} f32 x{count}/{'decode' if part == 'fwd' else 'step'}"
-                    f": kernel {t['ms']:.4f} (events {t['events_ms']:.4f}) | plain "
-                    f"{t['plain_ms']:.4f} | sdpa{' backward' if part == 'bwd' else ''} "
-                    f"{t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x) | bound "
-                    f"{t['bound_ms']:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}; "
-                    f"{cost['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB; "
-                    f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of it) | SFU floor "
-                    f"{t['sfu_ms']:.4f} (kernel at {100 * t['sfu_ms'] / t['ms']:.1f}% of it) | "
-                    f"rounds kernel {[round(x, 4) for x in krounds]} library "
-                    f"{[round(x, 4) for x in lrounds]}")
-                for key, val in t.items():
-                    tots[part][key] += count * val * runs
-                    tots[part][f"one_{key}"] += count * val
-                tots[part]["bound_ops_ms"] += count * ops_ms * runs
-                tots[part]["bound_bytes_ms"] += count * bytes_ms * runs
-            del qkv, q, k, v, do, o, lse, ql, kl, vl, out
-        for part, unit in (("fwd", "decode"), ("bwd", "training step")):
-            tot = tots[part]
-            log(f"  dense {'K1' if part == 'fwd' else 'K2'} per {unit} (22 launches): kernel "
-                f"{tot['one_ms']:.3f} ms | plain {tot['one_plain_ms']:.3f} | library "
-                f"{tot['one_library_ms']:.3f} ({tot['one_ms'] / tot['one_library_ms']:.3f}x) | "
-                f"bound {tot['one_bound_ms']:.3f} | SFU floor {tot['one_sfu_ms']:.3f}")
-        self.run_totals.setdefault("flash_attention", {})["dense"] = tots["fwd"]
-        self.run_totals.setdefault("flash_attention_bwd", {})["dense_train"] = tots["bwd"]
-        torch.cuda.empty_cache()
+        """The dense decoder's K1 and K2 in f32 with a key bias at each of
+        its attention shapes (_time_attention), K1 summed over the dense
+        phase's DECODE_CLOUDS decodes, K2 over its TRAIN_STEPS timed steps.
+        The bias is zero: every level of the synthetic 8192-point clouds is
+        full, so no padding reaches a key. Then K3 forward and backward in
+        f32 at the Gaussian AE step's shapes, summed over its timed steps."""
+        fwd, bwd = self._time_attention(gen, self._dense_shapes(), DECODE_CLOUDS, TRAIN_STEPS,
+                                        True, "dense decoder", "step")
+        self.run_totals.setdefault("flash_attention", {})["dense"] = fwd
+        self.run_totals.setdefault("flash_attention_bwd", {})["dense_train"] = bwd
         ae_f, ae_b = self._timing_ae(gen, self._gaus_ae_shapes(), "Gaussian AE", GAUS_STEPS)
         self.run_totals.setdefault("group_norm", {})["gaus_ae_train"] = ae_f
         self.run_totals.setdefault("group_norm_bwd", {})["gaus_ae_train"] = ae_b
@@ -5869,6 +6455,8 @@ class Smoke:
         self._timing_dense(gen)
         self._timing_cond(gen)
         self._timing_families(gen)
+        self._timing_sonata(gen)
+        self._timing_cond_train(gen)
         self._timing_split(gen)
         if self.ae_bf16_shapes is not None:
             self._timing_ae_bf16(gen)
@@ -6439,6 +7027,63 @@ class Smoke:
         torch.cuda.empty_cache()
         self._profile_ours(gen)
         self._profile_cond()
+        self.profile_zoo()
+
+    def profile_zoo(self):
+        """profile's rows of the zoo, Sonata and conditional training: one
+        forward and backward of each zoo backbone at its reference widths
+        (one warm-up), one Sonata pre-training step and one step of each
+        conditional LiDM (two warm-ups), under torch.profiler."""
+        import torch
+        import torch.nn.functional as F
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        def run(title, fn, warmups=2):
+            for _ in range(warmups):
+                fn()
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            self._families(prof, wall_ms, title)
+
+        for name in ZOO_REFERENCE:
+            model, cloud = self._zoo_model(name, False)
+            coord, feat, mask = self._zoo_cloud(**cloud)
+            labels = torch.randint(0, model.cfg.num_classes, (len(coord),), device="cuda")
+
+            def fwd_bwd(model=model, coord=coord, feat=feat, mask=mask, labels=labels):
+                model.zero_grad(set_to_none=True)
+                F.cross_entropy(model(coord, feat, mask)[mask], labels[mask]).backward()
+            run(f"zoo {name}: one forward and backward, {cloud['n']} rows, f32", fwd_bwd, 1)
+            del model, coord, feat, mask, labels
+            gc.collect()
+            torch.cuda.empty_cache()
+        model = self._sonata_model()
+        step = model.make_pretrain_step(torch.optim.AdamW(model.student.parameters(),
+                                                          lr=SONATA_LR, weight_decay=0.04))
+        coord, feat, mask = self._zoo_cloud(SONATA_POINTS, SONATA_POINTS - ZOO_PAD, 4, "scene")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        run(f"one Sonata pre-training step, {SONATA_POINTS} rows, f32",
+            lambda: step(coord, feat, mask, 0, gen))
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        for key in ("crossattn", "concat"):
+            model = self._cond_train_model(key)
+            params = DT.trainable_params(model)
+            state = DT.create_train_state(model, DT.make_optimizer(params, COND_TRAIN_LR), params)
+            train_step = DT.make_train_step(model)
+            batch = self._cond_train_batches(key, 1)[0]
+            run(f"one {key} LiDM training step, batch {COND_TRAIN_BATCH}, f32",
+                lambda: train_step(state, batch, gen))
+            del model, state, params
+            gc.collect()
+            torch.cuda.empty_cache()
 
     def _profile_ours(self, gen):
         """profile's rows of the "Ours" stages: one coarse DPM-20 request
@@ -6657,11 +7302,17 @@ class Smoke:
                 "split_max_abs_err": self.kernel_err.get(f"split_{name}"),
                 "ae_bf16_train_launches": self.ae_bf16_launches.get(name),
                 "ae_bf16_max_abs_err": self.kernel_err.get(f"ae_bf16_{name}"),
+                "sonata_train_launches": self.sonata_launches.get(name),
+                "sonata_max_abs_err": self.kernel_err.get(f"sonata_{name}"),
+                **{f"cond_train_{key}_launches": self.cond_train_launches.get(key, {}).get(name)
+                   for key in ("crossattn", "concat")},
+                "cond_train_max_abs_err": self.kernel_err.get(f"cond_train_{name}"),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
                    for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train",
                                "ae_train", "coarse", "coarse_train", "coarse_ae_train",
                                "dense", "dense_train", "gaus_ae_train", "ae_eval", "cond",
-                               "r2dm_request", "r2dm_train", "split", "ae_bf16_train")
+                               "r2dm_request", "r2dm_train", "split", "ae_bf16_train",
+                               "sonata", "cond_train")
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms", "warm_ms")}})
         return {"kernels": entries}
 

@@ -8,11 +8,13 @@ Counterpart of the ``latent_diffusion``, ``unet``, ``vq_model``,
 ``vq_model_object``, ``vq_loss_1d``, ``autoencoder_kl`` and ``identity``
 builders of ``lidar_layout_tpu/config.py`` (with the reference's
 target-name aliases), of its conditioning stages
-(``class_embedder``, ``spatial_rescaler``, ``bert_embedder``,
-``transformer_embedder``, ``clip_text``, ``clip_multi_text``,
-``clip_multi_image``) and of its ``load_yaml`` and ``apply_dotlist``.
-Targets not ported yet raise KeyError; ``bert_embedder``'s
-``x_transformer`` backend raises NotImplementedError.
+(``class_embedder``, ``spatial_rescaler``, ``bert_embedder`` with either
+backend, ``transformer_embedder``, ``clip_text``, ``clip_multi_text``,
+``clip_multi_image``), of the point-backbone zoo (``ptv2``,
+``ptv1_seg26``/``38``/``50``, ``spunet``, ``stratified``, ``octformer``,
+``swin3d``: each takes the keys its config dataclass has and drops the
+rest, as JAX's) and of its ``load_yaml`` and ``apply_dotlist``. Targets
+not ported yet raise KeyError.
 
 The point models (``ptv3``, ``dense_decoder``, ``ptv3_segmentor``) take
 the width of their input features as ``in_features`` when the caller
@@ -31,6 +33,7 @@ YAML's ``linear_start``, ``linear_end``, ``attn_num_heads``,
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -46,9 +49,15 @@ from .models.gs_decoder import DenseDecoder, GSDecoderConfig
 from .models.layout_diffusion import LayoutDiffusion, LayoutDiffusionConfig
 from .models.object_ae import ObjectAEConfig, VQModelObject
 from .models.object_cross_unet import LayoutDiffusionUNetModel, LayoutUNetConfig
+from .models.octformer import OctFormer, OctFormerConfig
+from .models.ptv1 import PointTransformerSeg, PTv1Config
+from .models.ptv2 import PointTransformerV2, PTv2Config
 from .models.ptv3 import PTv3, PTv3Config, PTv3Segmentor
 from .models.r2dm import R2DMConfig, R2DMDiffusion
 from .models.sparse_vae import SparseVAE, SparseVAEConfig
+from .models.spunet import SpUNet, SpUNetConfig
+from .models.stratified import StratifiedConfig, StratifiedTransformer
+from .models.swin3d import Swin3DConfig, Swin3DUNet
 from .models.unet import UNetConfig, UNetModel
 from .models.unet1d import UNet1DConfig
 
@@ -344,15 +353,30 @@ def _build_dense_decoder(params: Dict[str, Any], in_features: Optional[int] = No
 
 
 def _build_bert_embedder(params: Dict[str, Any], **_) -> torch.nn.Module:
-    """``backend``: "compact" (the default) or "x_transformer" (not ported
-    yet: it raises)."""
+    """``backend``: "compact" (the default) or "x_transformer" (``heads`` and
+    the x-transformers ``attn_flags`` read there)."""
     common = dict(n_embed=params.get("n_embed", 640), n_layer=params.get("n_layer", 32),
                   vocab_size=params.get("vocab_size", 30522),
                   max_seq_len=params.get("max_seq_len", 77),
                   embedding_dropout=params.get("embedding_dropout", 0.0))
     if params.get("backend", "compact") in ("x_transformer", "xt"):
-        return E.XTransformerBERTEmbedder(**common)
+        return E.XTransformerBERTEmbedder(heads=params.get("heads", 8),
+                                          attn_flags=params.get("attn_flags"), **common)
     return E.BERTEmbedder(**common)
+
+
+def _zoo(model_cls, cfg_cls, fixed: Optional[Dict[str, Any]] = None) -> Callable:
+    """The REGISTRY entry of a zoo backbone: it builds the model from
+    pointcept kwargs, the keys its config dataclass has (lists as tuples),
+    the rest dropped, as JAX's entries do; ``fixed`` overrides (PT-v1's
+    block counts)."""
+    keys = {f.name for f in dataclasses.fields(cfg_cls)} - set(fixed or {})
+
+    def build(params: Dict[str, Any], **_):
+        kw = {k: (tuple(v) if isinstance(v, list) else v)
+              for k, v in (params or {}).items() if k in keys}
+        return model_cls(cfg_cls(**kw, **(fixed or {})))
+    return build
 
 
 REGISTRY: Dict[str, Callable] = {}
@@ -407,6 +431,17 @@ for _names, _fn in (
              wh_factors=tuple(params.get("wh_factors", (0.5, 0.5))),
              in_channels=params.get("in_channels"))),
         (("bert_embedder", "lidm.modules.encoders.modules.BERTEmbedder"), _build_bert_embedder),
+        (("ptv2", "PT-v2m2"), _zoo(PointTransformerV2, PTv2Config)),
+        (("ptv1_seg26", "PointTransformer-Seg26"),
+         _zoo(PointTransformerSeg, PTv1Config, {"blocks": (1, 1, 1, 1, 1)})),
+        (("ptv1_seg38", "PointTransformer-Seg38"),
+         _zoo(PointTransformerSeg, PTv1Config, {"blocks": (1, 2, 2, 2, 2)})),
+        (("ptv1_seg50", "PointTransformer-Seg50"),
+         _zoo(PointTransformerSeg, PTv1Config, {"blocks": (1, 2, 3, 5, 2)})),
+        (("spunet", "SpUNet-v1m1"), _zoo(SpUNet, SpUNetConfig)),
+        (("stratified", "ST-v1m1"), _zoo(StratifiedTransformer, StratifiedConfig)),
+        (("octformer", "OctFormer-v1m1"), _zoo(OctFormer, OctFormerConfig)),
+        (("swin3d", "Swin3D-v1m1"), _zoo(Swin3DUNet, Swin3DConfig)),
         (("transformer_embedder", "lidm.modules.encoders.modules.TransformerEmbedder"),
          lambda params, **_: E.TransformerEmbedder(
              n_embed=params.get("n_embed", 640), n_layer=params.get("n_layer", 32),

@@ -1,6 +1,6 @@
 """LiDAR cloud augmentations for the transform pipeline, in numpy.
 
-Counterpart of ``random_flip`` and ``random_rotate`` of
+Counterpart of ``random_flip``, ``random_rotate`` and ``keypoint_drop`` of
 ``lidar_layout_tpu/data/aug.py`` (the reference's aug_utils): the same draws
 from the caller's ``numpy.random.Generator`` in the same order, with
 optional matching box transforms.
@@ -47,3 +47,17 @@ def random_rotate(points: np.ndarray, boxes: Optional[np.ndarray], rng: np.rando
         bxs[:, :2] = bxs[:, :2] @ rot.T
         bxs[:, 6] = bxs[:, 6] + a
     return pts, bxs
+
+
+def keypoint_drop(points: np.ndarray, rng: np.random.Generator,
+                  drop_range: Tuple[int, int] = (5, 20), radius: float = 2.0) -> np.ndarray:
+    """Drop random spherical neighbourhoods (occlusion holes): a count in
+    ``drop_range``, then for each a centre point and a radius of
+    ``radius`` times U(0.3, 1); the points farther than every radius stay."""
+    n_drop = int(rng.integers(*drop_range))
+    keep = np.ones(len(points), bool)
+    for _ in range(n_drop):
+        center = points[rng.integers(0, len(points))]
+        d = np.linalg.norm(points - center, axis=-1)
+        keep &= d > radius * rng.uniform(0.3, 1.0)
+    return points[keep]

@@ -27,10 +27,20 @@ towers start from torch's initialisation (ROADMAP queue 1, "Conditioning").
 
 ``bert_tokenize`` is the JAX function's hash-bucket fallback only (the
 WordPiece vocabulary needs ``transformers`` and a download; ROADMAP
-section 3). ``XTransformerBERTEmbedder`` is not ported yet.
+section 3). ``XTransformerBERTEmbedder`` is the BERT embedder over
+``encoders/x_transformer`` (its feature flags through ``attn_flags``).
+
+``resize`` is ``jax.image.resize``: "nearest" takes pixel centres, and
+every other method ("linear"/"bilinear"/"trilinear"/"triangle",
+"cubic"/"bicubic"/"tricubic" with Keys' a = -0.5, "lanczos3", "lanczos5")
+contracts each axis whose size changes with a weight matrix built on the
+device as ``jax.image.scale_and_translate`` builds it: the kernel widened by
+the shrink factor (antialiasing), columns normalised, samples outside the
+input zeroed.
 """
 from __future__ import annotations
 
+import math
 import zlib
 from typing import Optional, Sequence, Tuple
 
@@ -56,41 +66,91 @@ class ClassEmbedder(nn.Module):
         return self.embedding(y)
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _lanczos(radius: float):
+    def kernel(x: torch.Tensor) -> torch.Tensor:
+        y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
+        out = torch.where(x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x ** 2, 1.0), 1.0)
+        return torch.where(x > radius, 0.0, out)
+    return kernel
+
+
+RESIZE_KERNELS = {**dict.fromkeys(("linear", "bilinear", "trilinear", "triangle"), _triangle),
+                  **dict.fromkeys(("cubic", "bicubic", "tricubic"), _keys_cubic),
+                  "lanczos3": _lanczos(3.0), "lanczos5": _lanczos(5.0)}
+RESIZE_METHODS = ("nearest",) + tuple(RESIZE_KERNELS)
+
+
+def resize_weights(in_size: int, out_size: int, method: str, device=None) -> torch.Tensor:
+    """(in_size, out_size) f32 weights of one axis (``compute_weight_mat``
+    of ``jax.image.scale_and_translate`` at translation 0, antialiased)."""
+    inv_scale = torch.tensor(in_size / out_size, dtype=torch.float32, device=device)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=torch.float32, device=device)[:, None]
+         ).abs() / kernel_scale
+    w = RESIZE_KERNELS[method](x)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize(x: torch.Tensor, size: Tuple[int, int], method: str) -> torch.Tensor:
+    """``jax.image.resize`` of an NHWC map to (h, w); f32."""
+    if method not in RESIZE_METHODS:
+        raise ValueError(f"unknown resize method {method!r}; methods: {RESIZE_METHODS}")
+    x = x.float()
+    for axis, out in zip((1, 2), size):
+        n = x.shape[axis]
+        if n == out:
+            continue
+        if method == "nearest":
+            idx = torch.floor((torch.arange(out, dtype=torch.float32, device=x.device) + 0.5)
+                              * n / out).long()
+            x = x.index_select(axis, idx)
+        else:
+            w = resize_weights(n, out, method, x.device)
+            x = torch.einsum("bhwc,hk->bkwc" if axis == 1 else "bhwc,wk->bhkc", x, w)
+    return x
+
+
 class SpatialRescaler(nn.Module):
     """Downsample an NHWC map ``n_stages`` times by ``wh_factors`` (the size
-    is ``max(int(h * f), 1)``, as JAX computes it), then an optional 1x1
-    ``channel_mapper`` without bias. Bilinear resizing antialiases when it
-    shrinks, as ``jax.image.resize`` does; "nearest" takes pixel centres
-    (torch's "nearest-exact"). ``in_channels`` is the map's width, which
-    flax infers (by default ``out_channels``)."""
-
-    _MODES = {"bilinear": "bilinear", "linear": "bilinear", "nearest": "nearest-exact"}
+    is ``max(int(h * f), 1)``, as JAX computes it) with ``resize``, then an
+    optional 1x1 ``channel_mapper`` without bias. ``method`` is any of
+    ``RESIZE_METHODS``. ``in_channels`` is the map's width, which flax infers
+    (by default ``out_channels``)."""
 
     def __init__(self, n_stages: int = 1, method: str = "bilinear",
                  out_channels: Optional[int] = None, wh_factors: Tuple[float, float] = (0.5, 0.5),
                  in_channels: Optional[int] = None):
         super().__init__()
-        if method not in self._MODES:
-            raise NotImplementedError(f"SpatialRescaler method {method!r}: the port resizes "
-                                      f"with {sorted(self._MODES)} "
-                                      '(ROADMAP queue 1, "Conditioning")')
+        if method not in RESIZE_METHODS:
+            raise ValueError(f"SpatialRescaler method {method!r}; methods: {RESIZE_METHODS}")
         self.n_stages, self.method, self.wh_factors = n_stages, method, tuple(wh_factors)
         self.channel_mapper = (nn.Conv2d(in_channels or out_channels, out_channels, 1, bias=False)
                                if out_channels is not None else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = x.shape
-        y = x.float().permute(0, 3, 1, 2)
-        mode = self._MODES[self.method]
         for _ in range(self.n_stages):
             h = max(int(h * self.wh_factors[0]), 1)
             w = max(int(w * self.wh_factors[1]), 1)
-            y = F.interpolate(y, size=(h, w), mode=mode,
-                              **({"antialias": True, "align_corners": False}
-                                 if mode == "bilinear" else {}))
+            x = resize(x, (h, w), self.method)
         if self.channel_mapper is not None:
-            y = self.channel_mapper(y)
-        return y.permute(0, 2, 3, 1)
+            x = self.channel_mapper(x.float().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return x.float()
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -222,12 +282,26 @@ class BERTEmbedder(nn.Module):
 
 
 class XTransformerBERTEmbedder(nn.Module):
-    """The BERT embedder over the x-transformers library: not ported yet."""
+    """``bert_tokenize``'s tokens through ``x_transformer.TransformerWrapper``
+    over an ``Encoder`` of ``n_layer`` layers, ``heads`` heads of 64 and
+    the x-transformers flags in ``attn_flags``: per-token embeddings. The
+    stack is ``transformer.attn_layers`` (``Encoder_0`` in JAX's tree)."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, n_embed: int = 640, n_layer: int = 32, vocab_size: int = 30522,
+                 max_seq_len: int = 77, embedding_dropout: float = 0.0, heads: int = 8,
+                 attn_flags: Optional[dict] = None):
         super().__init__()
-        raise NotImplementedError("XTransformerBERTEmbedder (backend x_transformer) waits for "
-                                  'encoders/x_transformer.py (ROADMAP queue 1, "Conditioning")')
+        from .x_transformer import Encoder, TransformerWrapper
+
+        layers = Encoder(dim=n_embed, depth=n_layer, heads=heads, **(attn_flags or {}))
+        # no logits head: JAX calls the wrapper for embeddings, so flax never
+        # makes its to_logits
+        self.transformer = TransformerWrapper(num_tokens=vocab_size, max_seq_len=max_seq_len,
+                                              attn_layers=layers, emb_dropout=embedding_dropout,
+                                              return_logits=False)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.transformer(tokens, return_embeddings=True)
 
 
 class FrozenCLIPTextEmbedder(nn.Module):

@@ -32,18 +32,20 @@ def _sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def farthest_point_sample(points: torch.Tensor, n_samples: int,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, 3) -> (n_samples,) int64 indices by iterative FPS, starting at the
-    first valid point; invalid points are never selected."""
+    first valid point; invalid points are never selected. The selected row
+    is read with ``index_select``: indexing with a 0-d tensor would copy the
+    index to the host, a synchronisation each iteration on the card."""
     n = points.shape[0]
     valid = mask if mask is not None else torch.ones(n, dtype=torch.bool, device=points.device)
     dist = torch.where(valid, BIG, -1.0).to(points.dtype)
-    last = torch.argmax(valid.to(torch.int8))
+    last = torch.argmax(valid.to(torch.int8)).view(1)
     idx = torch.zeros(n_samples, dtype=torch.long, device=points.device)
-    idx[0] = last
+    idx[0] = last[0]
     for i in range(1, n_samples):
-        d = ((points - points[last]) ** 2).sum(dim=-1)
+        d = ((points - points.index_select(0, last)) ** 2).sum(dim=-1)
         dist = torch.minimum(dist, torch.where(valid, d, -1.0))
-        last = torch.argmax(dist)
-        idx[i] = last
+        last = torch.argmax(dist).view(1)
+        idx[i] = last[0]
     return idx
 
 

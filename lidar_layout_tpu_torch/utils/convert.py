@@ -52,6 +52,12 @@ its ``gaus_decoder.tower`` (a Decoder that ends before its norm), the
 ``norm_out`` GroupNorm and the ``CircularConv`` heads (``rot_out.conv1``,
 ...) follow the autoencoder's rules.
 
+The point-backbone zoo (``models/ptv1``, ``ptv2``, ``spunet``,
+``stratified``, ``swin3d``, ``octformer``) keeps the flax names:
+``dense_tree_state_dict`` carries each (tables, ``rpe_table`` and the
+depthwise ``w`` as they are); ``sonata_state_dict`` a ``Sonata`` state's
+two towers and its center.
+
 The cube stage keeps every flax name too: ``cube_diffusion_state_dict``
 carries a JAX ``CubeDiffusion`` tree (``{"unet": ...}``, under ``unet.``)
 with, when given, its first stage's ``SparseVAE`` tree (under
@@ -195,9 +201,13 @@ def _module_leaf(mods: Tuple[str, ...], leaf: str, value: np.ndarray
 def cond_stage_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX conditioning stage's params (``ClassEmbedder``,
     ``SpatialRescaler``, a CLIP tower or wrapper, ``TransformerEmbedder``,
-    ``BERTEmbedder``) -> the port module's state_dict."""
+    ``BERTEmbedder``, ``XTransformerBERTEmbedder``, whose ``Encoder_0``
+    becomes ``transformer.attn_layers``, or an ``x_transformer`` module)
+    -> the port module's state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params.get("params", params)):
+        if path[0] == "Encoder_0":       # XTransformerBERTEmbedder's stack
+            path = ("transformer", "attn_layers") + path[1:]
         name, value = _module_leaf(path[:-1], path[-1], value)
         out[".".join(name)] = torch.from_numpy(np.array(value))
     return out
@@ -452,6 +462,15 @@ def dense_tree_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {".".join(name): torch.from_numpy(np.array(value))
             for name, value in (_leaf(p[:-1], p[-1], v)
                                 for p, v in _flatten(params.get("params", params)))}
+
+
+def sonata_state_dict(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``Sonata`` state (``{"student", "teacher", "center"}``) -> the
+    port's ``Sonata`` state_dict (``student.*``, ``teacher.*``, ``center``)."""
+    out = {f"{tower}.{k}": v for tower in ("student", "teacher")
+           for k, v in dense_tree_state_dict(state[tower]).items()}
+    out["center"] = torch.from_numpy(np.array(state["center"]))
+    return out
 
 
 def cube_diffusion_state_dict(params: Dict[str, Any], first_stage: Any = None

@@ -328,9 +328,10 @@ def test_registry_builds_the_conditioning_stages():
     for target in ("clip_text", "clip_multi_text", "clip_multi_image"):
         assert target in PC.REGISTRY and \
             "lidm.modules.encoders.modules.FrozenClipMultiImageEmbedder" in PC.REGISTRY
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Conditioning"'):
-        PC.instantiate_from_config({"target": "bert_embedder",
-                                    "params": {"backend": "x_transformer"}})
+    xt = PC.instantiate_from_config({"target": "bert_embedder", "params": {
+        "backend": "x_transformer", "n_embed": 16, "n_layer": 1, "heads": 2,
+        "attn_flags": {"macaron": True}}})
+    assert isinstance(xt, PE.XTransformerBERTEmbedder) and xt.transformer.attn_layers.macaron
     ldm = PC.instantiate_from_config({"target": "latent_diffusion", "params": {
         "image_size": [4, 16], "channels": 2, "conditioning_key": "adm",
         "unet_config": {"target": "unet", "params": dict(UNET, in_channels=2, num_classes=3)},

@@ -224,8 +224,9 @@ def test_dense_decoder_train_step_matches_jax():
         return JG.gs_loss(r, gt, gt_mask)
     (jl, jlogs), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
     tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(LR, weight_decay=WD))
-    upd, _ = tx.update(jgrads, tx.init(params), params)
-    jafter = optax.apply_updates(params, upd)
+    # jitted: op by op, the update compiles each leaf's few ops apart (20 s)
+    jafter = jax.jit(lambda g, p: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))(
+        jgrads, params)
 
     from lidar_layout_tpu_torch.models.ptv3 import PTv3Config as PCfg
     pm = PG.DenseDecoder(PCfg(in_channels=4, **TINY), PG.GSDecoderConfig(feat_dim=16))

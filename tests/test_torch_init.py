@@ -40,17 +40,22 @@ from lidar_layout_tpu_torch.utils.convert import (discriminator_state_dict,
 from lidar_layout_tpu_torch.utils.init import jax_init_
 
 
+def _init(init, *args):
+    """JAX's ``init`` jitted at optimisation level 0: the same draws, its
+    compile a third shorter on the CPU."""
+    return jax.jit(init).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
+
+
 def _flagship_pair():
     port, _ = flagship(tiny=True, device="cpu")
     jmodel, image_shape = jax_flagship(tiny=True)
-    params = jax.jit(jmodel.init, static_argnames="image_shape")(jax.random.key(0),
-                                                                 image_shape=image_shape)
+    params = _init(lambda k: jmodel.init(k, image_shape=image_shape), jax.random.key(0))
     return port, latent_diffusion_state_dict(jax.tree.map(np.asarray, params), port.unet.cfg)
 
 
 def _disc_pair():
     jdisc = JD.LiDARNLayerDiscriminator()
-    params = jax.jit(jdisc.init)(jax.random.key(0), jnp.zeros((1, 64, 256, 4)))
+    params = _init(jdisc.init, jax.random.key(0), jnp.zeros((1, 64, 256, 4)))
     return PD.LiDARNLayerDiscriminator(4), discriminator_state_dict(
         jax.tree.map(np.asarray, params))
 
@@ -59,7 +64,7 @@ def _r2dm_pair():
     cfg = dict(image_size=(16, 64), base_channels=32, channel_mult=(1, 2, 4),
                num_res_blocks=1, coords_encoding="fourier_features", timesteps=100)
     jmodel = JR.R2DMDiffusion(JR.R2DMConfig(**cfg))
-    params = jax.jit(jmodel.init)(jax.random.key(0))
+    params = _init(jmodel.init, jax.random.key(0))
     return PR.R2DMDiffusion(PR.R2DMConfig(**cfg)), r2dm_state_dict(
         jax.tree.map(np.asarray, params))
 
@@ -72,7 +77,7 @@ def _scene_graph_pair():
     g = {k: jnp.asarray(v) for k, v in synthetic_graph_batch(
         np.random.default_rng(0), n_scenes=2, max_objs_per_scene=4,
         max_triples_per_scene=6).items()}
-    params = jax.jit(jenc.init)({"params": jax.random.key(0), "change": jax.random.key(1)}, g)
+    params = _init(jenc.init, {"params": jax.random.key(0), "change": jax.random.key(1)}, g)
     sd = layout_diffusion_state_dict({"unet": {}, "cond_stage": jax.tree.map(
         np.asarray, params["params"])})
     return SceneGraphEncoder(**kw), {k[len("cond_stage."):]: v for k, v in sd.items()}

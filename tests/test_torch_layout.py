@@ -63,8 +63,9 @@ def _perturbed(params, seed=3):
 @pytest.fixture(scope="module")
 def pair():
     jmodel = jax_instantiate(CFG["model"])
-    params = jax.jit(lambda k: jmodel.init(k, IMAGE, cond_example=jnp.asarray(LAYOUTS)))(
-        jax.random.key(0))
+    # compiled at optimisation level 0: a third less time on the CPU, the same draws
+    params = jax.jit(lambda k: jmodel.init(k, IMAGE, cond_example=jnp.asarray(LAYOUTS))).lower(
+        jax.random.key(0)).compile({"xla_backend_optimization_level": 0})(jax.random.key(0))
     params = _perturbed(params)
     port, image_shape = layout_flagship(tiny=True, device="cpu")
     assert image_shape == IMAGE
@@ -371,5 +372,6 @@ def test_port_messages_point_at_roadmap_titles():
     text = re.sub(r"\s*\n\s*", " ", text)
     pointers = re.findall(r'ROADMAP queue 1, "([^"]+)"', text)
     assert not dropped & set(pointers), dropped & set(pointers)
-    assert len(pointers) >= 6 and set(pointers) <= titles, set(pointers) - titles
+    # the four left wait for files: the BERT and CLIP vocabularies, the CLIP weights
+    assert len(pointers) == 4 and set(pointers) <= titles, set(pointers) - titles
     assert not re.search(r"ROADMAP queue 1, item", text)

@@ -78,7 +78,9 @@ def test_loss_and_unet_and_encoder_gradients_match_jax(pair):
         return jmodel.p_losses(p, key, jnp.asarray(z), cond, jnp.asarray(t),
                                deterministic=True)[0]
 
-    want_loss, want = jax.jit(jax.value_and_grad(loss_fn))({k: params[k] for k in keys})
+    train = {k: params[k] for k in keys}
+    want_loss, want = jax.jit(jax.value_and_grad(loss_fn)).lower(train).compile(
+        {"xla_backend_optimization_level": 0})(train)
     port.eval()                        # dropout off, as deterministic=True
     port.zero_grad(set_to_none=True)
     cond = port.get_learned_conditioning(LAYOUTS)

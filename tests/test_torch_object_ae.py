@@ -197,10 +197,13 @@ def test_object_ae_forward_and_loss_match_jax(object_pair):
         cdw = port.encode(T(pts))
         rec, qloss, _ = port(T(pts))
         loss, parts = PO.object_ae_loss(rec, T(pts), qloss)
+    # jitted: op by op, the first forward of a process compiles each primitive
+    encode = jax.jit(lambda p, v: jmodel.apply(p, v, method=jmodel.encode))
+    apply = jax.jit(jmodel.apply)
     for b in range(B):
         x = jnp.asarray(pts[b])
-        want_cdw = jmodel.apply(params, x, method=jmodel.encode)
-        want_rec, want_q, _ = jmodel.apply(params, x)
+        want_cdw = encode(params, x)
+        want_rec, want_q, _ = apply(params, x)
         assert rel_l2(cdw[b].numpy(), want_cdw) <= OUT_TOL
         assert rel_l2(rec[b].numpy(), want_rec) <= OUT_TOL
         want_loss, want_parts = JO.object_ae_loss(want_rec, x, want_q)
@@ -272,7 +275,7 @@ def test_object_ae_quantizer_path_matches_jax():
     with torch.no_grad():
         rec, qloss, ind = port(T(pts))
     for b in range(2):
-        want_rec, want_q, want_ind = jmodel.apply(params, jnp.asarray(pts[b]))
+        want_rec, want_q, want_ind = jax.jit(jmodel.apply)(params, jnp.asarray(pts[b]))
         assert rel_l2(rec[b].numpy(), want_rec) <= OUT_TOL
         np.testing.assert_allclose(float(qloss[b]), float(want_q), rtol=OUT_TOL)
         np.testing.assert_array_equal(ind[b].numpy(), np.asarray(want_ind))

@@ -85,7 +85,8 @@ def test_nearest_upsampling_matches_jax_image_resize():
 def test_efficient_unet_matches_jax(encoding):
     jmodel, params, port = _pair(encoding)
     x, t = _images(), np.array([3, 71])
-    want = jmodel.apply_model(params, jnp.asarray(x), jnp.asarray(t))
+    # jitted: op by op, the first eval of a process takes 24 s on the CPU
+    want = jax.jit(jmodel.apply_model)(params, jnp.asarray(x), jnp.asarray(t))
     with torch.no_grad():
         got = port.apply_model(T(x), T(t))
     assert float(np.abs(np.asarray(want)).mean()) > 1e-3      # conv_out is live
@@ -108,7 +109,7 @@ def test_p_losses_with_jax_draws_matches_jax():
     jmodel, params, port = _pair("fourier_features", seed=3)
     x0 = _images(4)
     key = jax.random.key(11)
-    want, _ = jmodel.p_losses(params, key, jnp.asarray(x0))
+    want, _ = jax.jit(jmodel.p_losses)(params, key, jnp.asarray(x0))
     r_t, r_n = jax.random.split(key)
     t = np.asarray(jax.random.randint(r_t, (B,), 0, 100))
     noise = np.asarray(jax.random.normal(r_n, x0.shape))

@@ -89,8 +89,9 @@ def test_weight_carrier_round_trip_is_exact():
 
 def test_unported_branches_raise():
     # the SpatialTransformer and class-label branches are ported (their
-    # parity tests are in test_torch_cond.py); what is left of the U-Net's
-    # neighbourhood raises with a ROADMAP pointer
+    # parity tests are in test_torch_cond.py), and the x-transformers BERT
+    # (test_torch_xt.py); a conditioning key that is not ported raises with
+    # a ROADMAP pointer
     from lidar_layout_tpu_torch.encoders.modules import XTransformerBERTEmbedder
     from lidar_layout_tpu_torch.models.diffusion import DiffusionConfig, LatentDiffusion
     from lidar_layout_tpu_torch.nn.attention import SpatialTransformer
@@ -102,5 +103,7 @@ def test_unported_branches_raise():
     # split_ks is ported: a latent larger than it runs patched
     patched = LatentDiffusion(DiffusionConfig(split_ks=(4, 4)), UNetConfig(**TINY))
     assert patched._split_active(4, 8) and not patched._split_active(4, 4)
+    xt = XTransformerBERTEmbedder(n_embed=16, n_layer=1, heads=2, max_seq_len=8)
+    assert xt(torch.zeros((1, 8), dtype=torch.long)).shape == (1, 8, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        XTransformerBERTEmbedder()
+        LatentDiffusion(DiffusionConfig(conditioning_key="not_a_key"), UNetConfig(**TINY))
