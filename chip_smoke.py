@@ -19,6 +19,7 @@
     python3 chip_smoke.py --phases device,build,kernels,split_slice,split
     python3 chip_smoke.py --phases device,build,kernels,ae_train,ae_bf16_slice,ae_bf16,data
     python3 chip_smoke.py --phases device,build,zoo_slice,zoo,sonata,cond_train
+    python3 chip_smoke.py --phases device,build,kernels,ddp
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -245,6 +246,22 @@ Phases (any failure exits non-zero before the final "ok" line):
                group shape against their plain versions; steps/s, peak memory,
                K1, K2 and K3 launches against the structure and hooks, the
                trained set and EMA, the BERT's gradients non-zero and finite
+  ddp          parallel/ on torch.distributed, the ranks started as torchrun
+               starts them: (a) train_lidm on the flagship YAML at full width,
+               --synthetic --bf16, global batch 16, 2 steps, through NCCL at
+               world = card count: one copy of the run's files (rank 0's), the
+               parameters against a one-process train_lidm run (cuDNN's
+               deterministic algorithms in both), timed steps a rank against
+               the one-process steps, launches a step against the structure,
+               the all-reduce's time, and one FSDP step (fully_shard_module)
+               against the plain step; (b) the rehearsal, two ranks sharing
+               one card over gloo: one bf16 step at global batch 16, 8 a
+               rank, replicas bit-equal, against the one-process step; each
+               rank's launches against the structure; dp-sharded DPM-20
+               generate(16) gathered through the host against one process's;
+               the dry run (parallel.dryrun) in (a)'s ranks (its DDIM against
+               one process's); with more than one card, K1-K4 on the last card
+               while card 0 is current
   ae_eval      eval_ae on the ae_train phase's kitti run: 4 batches of 4,
                CD through K4 and JSD, launches against the structure
   timing       per-kernel device times at the main paths' shapes beside the
@@ -315,7 +332,7 @@ PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "split_s
           "layout_boxes_train", "ae_train_slice", "ae_train", "ae_bf16_slice", "ae_bf16",
           "data", "coarse_slice", "coarse", "cube_slice", "cube", "dense_slice", "dense",
           "cond_slice", "cond", "families_slice", "families", "zoo_slice", "zoo", "sonata",
-          "cond_train", "ae_eval", "timing")
+          "cond_train", "ddp", "ae_eval", "timing")
 EXTRA_PHASES = ("profile", "profile_zoo")   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
@@ -806,6 +823,280 @@ def yaml_config(path, overrides=()):
     return apply_dotlist(load_yaml(path), list(overrides))
 
 
+# ------------------------------------------------------------------ ddp ranks
+# The ddp phase's rank bodies: each runs in a process of its own, started by
+# parallel.dryrun.spawn as torchrun starts ranks (RANK, WORLD_SIZE, LOCAL_RANK
+# set), and returns numbers, not tensors.
+# global batch, train_lidm steps, timed steps in (a) and in (b) (two ranks on one card)
+DDP_BATCH, DDP_STEPS, DDP_TIMED, DDP_TIMED_SHARED = 16, 2, 5, 1
+# (b)'s check of train_lidm's per-rank seeding: the flagship YAML shrunk as
+# tests/test_torch_parallel_train.py shrinks it (the seeding does not depend
+# on the model's size)
+DDP_SEED_TINY = ("model.params.timesteps=64", "model.params.image_size=[4,16]",
+                 "model.params.unet_config.params.model_channels=32",
+                 "model.params.unet_config.params.num_res_blocks=1",
+                 "model.params.unet_config.params.attention_resolutions=[2]",
+                 "model.params.unet_config.params.channel_mult=[1,2]",
+                 "model.params.unet_config.params.num_head_channels=8",
+                 "model.params.first_stage_config.params.n_embed=256",
+                 "model.params.first_stage_config.params.ddconfig.ch=16",
+                 "model.params.first_stage_config.params.ddconfig.num_res_blocks=1",
+                 "data.params.dataset.size=[16,128]", "data.params.batch_size=2",
+                 "data.params.num_val_batches=1")
+
+
+def ddp_cli_args(workdir):
+    """train_lidm on the flagship YAML at full width: synthetic scenes, bf16,
+    global batch 16, DDP_STEPS steps, one checkpoint (at the last step; the
+    best one links it); validation on one batch at the last step, no image
+    logger."""
+    return ["-b", LIDM_YAML, "--synthetic", "--bf16", "--steps", str(DDP_STEPS),
+            "--workdir", workdir, f"data.params.batch_size={DDP_BATCH}",
+            f"data.params.ckpt_every_steps={DDP_STEPS}",
+            "data.params.num_val_batches=1", "data.params.val_every_steps=1000",
+            "data.params.sample_every_steps=1000"]
+
+
+def ddp_flagship(state_dict=None, dtype=None):
+    """The full-width flagship built on the card (its modules' own
+    initialisation runs there, not on the host), with ``state_dict``
+    loaded when given."""
+    import torch
+    from lidar_layout_tpu_torch.flagship import flagship
+
+    with torch.device("cuda"):
+        model, _ = flagship(dtype=dtype or torch.float32, device="cuda")
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return model
+
+
+def _ddp_exact():
+    """The card's arithmetic as the comparisons need it: TF32 off, cuDNN's
+    deterministic algorithms (its default ones may sum a weight gradient
+    with atomics, in an order that changes from run to run)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _step_structure(model):
+    """K1, K2, K3 forward and backward launches of one flagship training
+    step: a self-attention block's forward and backward, every U-Net norm's
+    forward and backward, the frozen encoder's norms forward only."""
+    unet_norms = sum(type(m).__name__ == "Normalize" for m in model.unet.modules())
+    enc_norms = sum(type(m).__name__ == "Normalize"
+                    for m in model.first_stage_model.encoder.modules())
+    attn = sum(type(m).__name__ == "SelfAttentionBlock" for m in model.unet.modules())
+    return {"flash_attention": attn, "flash_attention_bwd": attn,
+            "group_norm": unet_norms + enc_norms, "group_norm_bwd": unet_norms,
+            "chamfer_nn": 0}
+
+
+def _checksums(module):
+    """Per-parameter (sum, position-weighted sum) of the bit patterns, int64:
+    equal on two ranks when the parameters are bit for bit equal (but for a
+    collision)."""
+    import torch
+
+    out = []
+    for p in module.parameters():
+        bits = p.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(1, bits.numel() + 1, device=bits.device)
+        out.append([int(bits.sum()), int((bits * w).sum())])
+    return np.asarray(out, np.int64)
+
+
+def _adam_diff(a, b, lr):
+    """Largest difference of two parameter sets after one AdamW step, in lr,
+    and the share of elements off by more than 0.01 lr."""
+    import torch
+
+    d = torch.cat([(x.float() - y.float()).abs().reshape(-1) for x, y in zip(a, b)])
+    return float(d.max()) / lr, float((d > 0.01 * lr).float().mean())
+
+
+def _halves_step(model, state, batch, gen):
+    """One process doing what two ranks of half the batch do in one bf16
+    training step: the global batch's t and noise, each half's loss and
+    gradient at half the batch, their mean, one update. (loss, grad_norm)."""
+    import torch
+    from lidar_layout_tpu_torch.train.diffusion_trainer import _autocast
+
+    model.train()
+    model.first_stage_model.eval()
+    img = batch["image"]
+    halves = img.split(img.shape[0] // 2)
+    t = noise = None
+    losses = []
+    for i, part in enumerate(halves):
+        with _autocast(model, torch.bfloat16):
+            z = model.encode_first_stage(part)
+        if t is None:
+            t, noise = model.draw_t_noise(z.new_empty((img.shape[0], *z.shape[1:])), gen)
+        sl = slice(i * z.shape[0], (i + 1) * z.shape[0])
+        with _autocast(model, torch.bfloat16):
+            loss, _ = model.p_losses(z, t[sl], noise[sl], None)
+        loss.backward()
+        losses.append(loss.detach())
+    grads = [(torch.zeros_like(p) if p.grad is None else p.grad) / len(halves)
+             for p in state.optimizer.params]
+    norm = state.optimizer.step(grads)
+    return float(sum(losses) / len(losses)), float(norm)
+
+
+def ddp_nccl_rank(workdir):
+    """(a): train_lidm at full width through NCCL at world = card count, then
+    DDP_TIMED timed steps of its state, the all-reduce's own time, one FSDP
+    step (world size 1 when one card) against the plain step, and the dry
+    run (``parallel.dryrun.dryrun_body``) in the same ranks."""
+    import gc
+
+    import torch
+    from lidar_layout_tpu_torch.parallel import collectives as C
+    from lidar_layout_tpu_torch.parallel.dryrun import dryrun_body
+    from lidar_layout_tpu_torch.parallel.mesh import fully_shard_module, make_mesh, shard_batch
+    from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+    from lidar_layout_tpu_torch.train.checkpoint import full_tensors
+    from lidar_layout_tpu_torch.train.train_lidm import main as train_lidm
+
+    entered = time.time()   # on the host's clock, as the parent's spawn
+    _ddp_exact()
+    t0 = time.perf_counter()
+    trainer = train_lidm(ddp_cli_args(workdir))
+    torch.cuda.synchronize()
+    out = {"cli_s": time.perf_counter() - t0, "world": C.get_world_size(),
+           "backend": torch.distributed.get_backend()}
+    state, step, gen = trainer.state, trainer.step_fn, trainer.generator
+    batches = [next(trainer.data_iter) for _ in range(DDP_TIMED)]
+    state, _ = step(state, batches[0], gen)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, logs = step(state, b, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update(steps_per_s=DDP_TIMED / wall, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={k: v / DDP_TIMED for k, v in read_counts().items()},
+               structure=_step_structure(state.model), loss=float(logs["loss"]))
+    grads = [torch.randn_like(p) for p in state.params.values()]
+    C.all_reduce_grads(grads)   # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(3):
+        C.all_reduce_grads(grads)
+    ev[1].record()
+    torch.cuda.synchronize()
+    out["all_reduce_ms"] = ev[0].elapsed_time(ev[1]) / 3
+    out["timed_s"] = time.perf_counter() - t0
+    plain = state.model   # the trained weights serve as they are
+    del trainer, state, step, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one FSDP step against the plain step, same weights, batch and draws
+    t0 = time.perf_counter()
+    sharded = ddp_flagship(plain.state_dict())
+    spec = fully_shard_module(make_mesh(fsdp=C.get_world_size()), sharded.unet)
+    batch = Smoke._train_batches(False, 1, seed=6, batch=DDP_BATCH)[0]
+    mine = shard_batch(batch, DDP_BATCH)
+    lr = 1e-4
+    after = {}
+    for name, model in (("plain", plain), ("fsdp", sharded)):
+        params = DT.trainable_params(model)
+        st = DT.create_train_state(model, DT.make_optimizer(params, lr), params)
+        reset_counts()
+        st, logs = DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
+            st, mine, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        after[name] = list(full_tensors({k: p.detach() for k, p in params.items()}).values())
+        out[f"{name}_launches"] = read_counts()
+        out[f"{name}_loss"] = float(logs["loss"])
+        out[f"{name}_norm"] = float(logs["grad_norm"])
+    out["fsdp_sharded"] = sum(ax is not None for ax in spec.values())
+    out["fsdp_params"] = len(spec)
+    out["fsdp_bit_equal"] = all(torch.equal(a, b) for a, b in zip(after["plain"], after["fsdp"]))
+    out["fsdp_diff_lr"], out["fsdp_share_off"] = _adam_diff(after["plain"], after["fsdp"], lr)
+    out["fsdp_s"] = time.perf_counter() - t0
+    del plain, sharded, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()   # the dry run in the same ranks
+    out["dryrun"] = dryrun_body("cuda")
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["entered"], out["left"] = entered, time.time()
+    return out
+
+
+def ddp_gloo_rank(ref_dir):
+    """(b): the rehearsal, two ranks on one card over gloo: train_lidm's
+    set-up (``prepare``) of a tiny run, then a draw from each rank's default
+    CUDA generator (dropout's; seeded with seed + rank); one bf16 step of the
+    full-width flagship at global batch 16 (8 a rank), DDP_TIMED_SHARED
+    timed steps, then a dp-sharded DPM-20 generate(16) gathered through the
+    host."""
+    import torch
+    from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+    from lidar_layout_tpu_torch.parallel import collectives as C
+    from lidar_layout_tpu_torch.parallel.mesh import shard_batch
+    from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+    from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+    from lidar_layout_tpu_torch.train.train_lidm import prepare
+
+    entered = time.time()
+    run = prepare(["-b", LIDM_YAML, "--synthetic", "--steps", "1",
+                   "--workdir", os.path.join(ref_dir, "seeding"), *DDP_SEED_TINY])
+    del run
+    draws = C.host_all_gather(torch.randn(8, device="cuda").cpu().numpy())
+    _ddp_exact()
+    seeded = torch.load(os.path.join(ref_dir, "seeded.pt"), map_location="cuda")
+    model = ddp_flagship(seeded)
+    params = DT.trainable_params(model)
+    state = DT.create_train_state(model, DT.make_optimizer(params, 1e-4), params)
+    batches = Smoke._train_batches(False, 1 + DDP_TIMED_SHARED, seed=6, batch=DDP_BATCH)
+    step = DT.make_train_step(model, autocast_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    reset_counts()
+    state, logs = step(state, shard_batch(batches[0], DDP_BATCH), gen)
+    torch.cuda.synchronize()
+    out = {"launches": read_counts(), "structure": _step_structure(model),
+           "loss": float(C.reduce_mean(logs["loss"])), "grad_norm": float(logs["grad_norm"]),
+           "rank": C.get_rank(), "backend": torch.distributed.get_backend(),
+           "dropout_draws_differ": not np.array_equal(draws[0], draws[1])}
+    sums = C.host_all_gather(_checksums(model.unet))
+    out["replicas_equal"] = bool((sums == sums[0]).all())
+    if C.get_rank() == 0:   # against the one-process batch-16 step and its halves
+        mine = [p.detach() for _, p in model.unet.named_parameters()]
+        for key in ("16", "halves"):
+            ref = torch.load(os.path.join(ref_dir, f"unet_{key}.pt"), map_location="cuda")
+            ref = [ref[n] for n, _ in model.unet.named_parameters()]
+            out[f"equal_{key}"] = all(torch.equal(a, b) for a, b in zip(mine, ref))
+            out[f"diff_lr_{key}"], out[f"share_off_{key}"] = _adam_diff(mine, ref, 1e-4)
+            del ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, _ = step(state, shard_batch(b, DDP_BATCH), gen)
+    torch.cuda.synchronize()
+    out["steps_per_s"] = DDP_TIMED_SHARED / (time.perf_counter() - t0)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step, params, model
+    torch.cuda.empty_cache()
+    model = ddp_flagship(seeded, torch.bfloat16)
+    res = GenerationPipeline(model, KITTI_GEOMETRY, sampler="dpm", steps=20).generate(
+        DDP_BATCH, seed=0, batch=DDP_BATCH)
+    if C.get_rank() == 0:
+        np.save(os.path.join(ref_dir, "dp_images.npy"), res.images)
+    out["entered"], out["left"] = entered, time.time()
+    return out
+
+
 class Smoke:
     def __init__(self):
         self.kernel_err = {name: 0.0 for name, _, _ in KERNELS}
@@ -849,6 +1140,8 @@ class Smoke:
         self.sonata_launches = {}   # over Sonata's timed pre-training steps
         self.cond_train_shapes = {}   # K1 and K3 calls of one conditional training step
         self.cond_train_launches = {}   # "crossattn", "concat" -> over their timed steps
+        self.ddp_launches = {}   # a rank's launches over ddp (a)'s timed steps
+        self.ddp_dryrun = None   # the dry run's results from ddp (a)'s rank 0
         self._tmp = []   # directories the phases write, removed at the end
 
     def tmp_dir(self, prefix):
@@ -6379,6 +6672,299 @@ class Smoke:
         self.run_totals.setdefault("group_norm", {})["gaus_ae_train"] = ae_f
         self.run_totals.setdefault("group_norm_bwd", {})["gaus_ae_train"] = ae_b
 
+    # --------------------------------------------------------------------- ddp
+    def ddp(self):
+        """parallel/ on the card. (a) train_lidm at full width through NCCL at
+        world = card count, ranks started as torchrun starts them: one copy
+        of the run's files, rank 0's; the parameters after DDP_STEPS steps
+        against a one-process train_lidm run; timed steps, launches a step
+        against the structure, the all-reduce's time; one FSDP step against
+        the plain step. (b) the rehearsal of two ranks on one card over gloo:
+        one bf16 step at global batch 16 (8 a rank), replicas bit-equal,
+        against the one-process batch-16 step; launches a rank; a dp-sharded
+        DPM-20 generate(16) against the one-process one. The dry run
+        (``parallel.dryrun``) runs in (a)'s ranks. With more than one card,
+        K1-K4 on the last card while card 0 is current."""
+        import torch
+
+        card, n = card_line(), torch.cuda.device_count()
+        self._ddp_nccl(card, n)
+        self._ddp_gloo(card)
+        self._ddp_dryrun(n)
+        self._ddp_other_device(n)
+        torch.backends.cudnn.deterministic = False
+
+    def _ddp_dryrun(self, n):
+        """The dry run that ran in (a)'s ranks (``dryrun_body``: the tiny
+        flagship step on its dp x fsdp mesh, a falling trajectory, the cube,
+        layout and dense families), held by ``check_dryrun``, and its
+        gathered DDIM-8 against one process's within 2e-4."""
+        import torch
+        from lidar_layout_tpu_torch.flagship import flagship
+        from lidar_layout_tpu_torch.models.samplers import ddim_sample
+        from lidar_layout_tpu_torch.parallel.dryrun import check_dryrun
+        from lidar_layout_tpu_torch.utils.init import jax_init_
+
+        out = check_dryrun(self.ddp_dryrun)
+        model, _ = flagship(tiny=True, device="cuda")
+        jax_init_(model, 3)
+        want = ddim_sample(model, (2 * n, *model.cfg.latent_shape), steps=8,
+                           generator=torch.Generator(device="cuda").manual_seed(7),
+                           device="cuda").detach().float().cpu().numpy()
+        err = float(np.abs(out["ddim"] - want).max())
+        log(f"ddp dry run in (a)'s {n} rank(s) (NCCL): mesh {out['mesh']}, loss "
+            f"{out['loss']:.4f}, trajectory {out['trajectory'][0]:.4f} -> "
+            f"{out['trajectory'][-1]:.4f}, cube {out['cube_losses'][0]:.4f} -> "
+            f"{out['cube_losses'][-1]:.4f}, layout overfit {out['layout_overfit'][0]:.4f} -> "
+            f"{out['layout_overfit'][-1]:.4f}, dense losses {out['dense_losses']}; sharded "
+            f"DDIM-8 against one process: max_abs_err {err:.3e} (tol 2e-4)")
+        if err > 2e-4 * max(1.0, float(np.abs(want).max())):
+            raise AssertionError("ddp: the dry run's sharded DDIM differs from one process's")
+
+    def _ddp_nccl(self, card, n):
+        import torch
+        from lidar_layout_tpu_torch.parallel.dryrun import spawn
+        from lidar_layout_tpu_torch.train import trainer as TR
+        from lidar_layout_tpu_torch.train.train_lidm import main as train_lidm
+
+        work = self.tmp_dir("ddp_nccl_")
+        t0, started = time.perf_counter(), time.time()
+        r = spawn(ddp_nccl_rank, n, (work,), device="cuda", env_store=True, timeout=900)[0]
+        wall = time.perf_counter() - t0
+        ends = r["entered"] - started, time.time() - r["left"]   # the ranks' start, exit
+        files = sorted(os.path.relpath(os.path.join(d, f), work)
+                       for d, _, fs in os.walk(work) for f in fs)
+        last = f"step_{DDP_STEPS:08d}.pt"
+        want_files = [f"ckpt/{last}", f"ckpt_best/{last}", "config.yaml", "metrics.jsonl"]
+        # one checkpoint written: the best one is a link to it
+        one_copy = files == want_files and os.path.samefile(
+            os.path.join(work, "ckpt", last), os.path.join(work, "ckpt_best", last))
+        inodes = {os.stat(os.path.join(d, f)).st_ino: os.path.getsize(os.path.join(d, f))
+                  for d, _, fs in os.walk(work) for f in fs}
+        ckpt_gb = sum(inodes.values()) / 1e9
+        # the one-process run of the same command, then its timed steps
+        _ddp_exact()
+        ref_work = self.tmp_dir("ddp_ref_")
+        t_ref = time.perf_counter()
+        real = TR.save_checkpoint, TR.link_checkpoint   # the reference's weights stay in memory
+        TR.save_checkpoint = TR.link_checkpoint = lambda *a, **k: None
+        try:
+            ref = train_lidm(ddp_cli_args(ref_work))
+        finally:
+            TR.save_checkpoint, TR.link_checkpoint = real
+        t_ref = time.perf_counter() - t_ref
+        ckpt = torch.load(os.path.join(work, "ckpt", last), map_location="cuda",
+                          weights_only=True)
+        mine = ref.state.model.state_dict()
+        n_tensors = len(ckpt["model"])
+        unequal = [k for k, v in ckpt["model"].items() if not torch.equal(v, mine[k])]
+        rel = max((float((ckpt["model"][k].float() - mine[k].float()).abs().max())
+                   / max(float(mine[k].float().abs().max()), 1e-30) for k in unequal),
+                  default=0.0)
+        state, step, gen = ref.state, ref.step_fn, ref.generator
+        batches = [next(ref.data_iter) for _ in range(DDP_TIMED)]
+        state, _ = step(state, batches[0], gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in batches:
+            state, _ = step(state, b, gen)
+        torch.cuda.synchronize()
+        plain = DDP_TIMED / (time.perf_counter() - t1)
+        del ref, state, step, ckpt, mine
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        overhead_ms = 1e3 * (1 / r["steps_per_s"] - 1 / plain)
+        log(f"ddp (a) NCCL: {r['world']} rank(s) of {n} card(s), backend {r['backend']}; "
+            f"train_lidm {os.path.relpath(LIDM_YAML, HERE)} --synthetic --bf16, global batch "
+            f"{DDP_BATCH}, {DDP_STEPS} steps in {r['cli_s']:.1f} s ({wall:.1f} s with the "
+            f"ranks' start {ends[0]:.1f} s and exit {ends[1]:.1f} s, timed steps {r['timed_s']:.1f} s, FSDP {r['fsdp_s']:.1f} s, the dry "
+            f"run {r['dryrun_s']:.1f} s; {ckpt_gb:.2f} GB written; the one-process run, its "
+            f"checkpoints not written, {t_ref:.1f} s); files {files}, the best checkpoint a "
+            f"link to the step's {one_copy}; "
+            f"parameters after {DDP_STEPS} steps against the "
+            f"one-process run: {len(unequal)} of {n_tensors} tensors differ "
+            f"(largest relative {rel:.3e}); {DDP_TIMED} timed steps {r['steps_per_s']:.3f} "
+            f"steps/s a rank against {plain:.3f} one-process ({overhead_ms:+.2f} ms a step), "
+            f"all-reduce of the U-Net's gradients {r['all_reduce_ms']:.3f} ms "
+            f"({r['all_reduce_ms'] * r['steps_per_s'] / 10:.2f}% of a step); peak "
+            f"{r['peak_gib']:.2f} GiB a rank; launches a step {r['launches']} (structure "
+            f"{r['structure']}); card {card}")
+        log(f"ddp (a) FSDP at world {r['world']}: {r['fsdp_sharded']} of {r['fsdp_params']} "
+            f"U-Net parameters sharded; loss {r['fsdp_loss']:.6f} (plain {r['plain_loss']:.6f}), "
+            f"grad_norm {r['fsdp_norm']:.6f} (plain {r['plain_norm']:.6f}); parameters after "
+            f"AdamW bit-equal {r['fsdp_bit_equal']}, largest difference "
+            f"{r['fsdp_diff_lr']:.3f} lr, {r['fsdp_share_off']:.2e} off by 0.01 lr; launches "
+            f"{r['fsdp_launches']} (plain {r['plain_launches']})")
+        bad = []
+        if r["backend"] != "nccl" or r["world"] != n:
+            bad.append("not NCCL at world = card count")
+        if not one_copy:
+            bad.append(f"files {files} != {want_files}, the best a link to the step's")
+        if unequal:
+            bad.append(f"{len(unequal)} tensors differ from the one-process run")
+        if r["launches"] != {k: float(v) for k, v in r["structure"].items()}:
+            bad.append("launches a step differ from the structure")
+        if r["fsdp_launches"] != r["structure"] or r["plain_launches"] != r["structure"]:
+            bad.append("the FSDP step's launches differ from the structure")
+        if not (r["fsdp_bit_equal"] or (r["fsdp_diff_lr"] <= 2.01
+                                        and r["fsdp_share_off"] <= 1e-3)):
+            bad.append("the FSDP step's parameters differ from the plain step's")
+        if abs(r["fsdp_norm"] - r["plain_norm"]) > 1e-5 * r["plain_norm"]:
+            bad.append("the FSDP step's gradient norm differs")
+        if bad:
+            raise AssertionError("ddp (a): " + "; ".join(bad))
+        self.ddp_launches = {k: int(v * DDP_TIMED) for k, v in r["launches"].items()}
+        self.ddp_dryrun = r["dryrun"]
+
+    def _ddp_gloo(self, card):
+        import torch
+        from lidar_layout_tpu_torch.models import samplers as S
+        from lidar_layout_tpu_torch.ops.lidar import KITTI_GEOMETRY
+        from lidar_layout_tpu_torch.parallel.dryrun import spawn
+        from lidar_layout_tpu_torch.pipeline import GenerationPipeline
+        from lidar_layout_tpu_torch.train import diffusion_trainer as DT
+
+        ref_dir = self.tmp_dir("ddp_gloo_")
+        _ddp_exact()
+        t_ref = time.perf_counter()
+        batch = self._train_batches(False, 1, seed=6, batch=DDP_BATCH)[0]
+        seeded = seed_weights(ddp_flagship(), 0).state_dict()   # every model here starts so
+        torch.save(seeded, os.path.join(ref_dir, "seeded.pt"))
+        ref = {}
+        for key in ("16", "halves"):   # one process at batch 16, and as two ranks of 8 do
+            model = ddp_flagship(seeded)
+            params = DT.trainable_params(model)
+            state = DT.create_train_state(model, DT.make_optimizer(params, 1e-4), params)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            if key == "16":
+                state, logs = DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
+                    state, batch, gen)
+                ref[key] = (float(logs["loss"]), float(logs["grad_norm"]))
+            else:
+                ref[key] = _halves_step(model, state, batch, gen)
+            torch.save({k: p.detach() for k, p in model.unet.named_parameters()},
+                       os.path.join(ref_dir, f"unet_{key}.pt"))
+            del model, state, params
+        model = ddp_flagship(seeded, torch.bfloat16)
+        del seeded
+        want = GenerationPipeline(model, KITTI_GEOMETRY, sampler="dpm", steps=20).generate(
+            DDP_BATCH, seed=0, batch=DDP_BATCH).images
+        x_T = torch.randn((DDP_BATCH, *model.cfg.latent_shape), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+        with torch.inference_mode():   # the same noise in two batches of 8, as the ranks run it
+            want8 = np.concatenate([model.decode_first_stage(S.dpm_solver_sample(
+                model, x.shape, steps=20, x_T=x, device="cuda")).float().cpu().numpy()
+                for x in x_T.split(DDP_BATCH // 2)])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_ref
+        t0, started = time.perf_counter(), time.time()
+        ranks = spawn(ddp_gloo_rank, 2, (ref_dir,), device="cuda", backend="gloo", timeout=900)
+        wall = time.perf_counter() - t0
+        ends = (max(r["entered"] for r in ranks) - started,
+                time.time() - min(r["left"] for r in ranks))
+        torch.backends.cudnn.deterministic = False
+        r0 = ranks[0]
+        got = np.load(os.path.join(ref_dir, "dp_images.npy")).astype(np.float32)
+        mask_g, mask_w = got[..., 0] > -1.0, want[..., 0] > -1.0   # ray-drop applied
+        mask_agree = float((mask_g == mask_w).mean())
+        both = mask_g & mask_w
+        img_err = float(np.abs(got[..., 0] - want[..., 0])[both].max()) if both.any() else 0.0
+        img_mean = float(np.abs(got[..., 0] - want[..., 0])[both].mean()) if both.any() else 0.0
+        same8 = bool(np.array_equal(got, want8.astype(np.float32)))
+        err8 = float(np.abs(got - want8).max())
+        (loss16, norm16), (loss8, norm8) = ref["16"], ref["halves"]
+        log(f"ddp (b) rehearsal: 2 ranks share one device over {r0['backend']} "
+            f"({wall:.1f} s with the ranks' start {ends[0]:.1f} s and exit {ends[1]:.1f} s; one "
+            f"process's steps and requests "
+            f"{t_ref:.1f} s); bf16 step at global batch {DDP_BATCH} "
+            f"(8 a rank): loss {r0['loss']:.6f} (one process at batch 16 {loss16:.6f}, as two "
+            f"halves of 8 {loss8:.6f}), grad_norm {r0['grad_norm']:.6f} ({norm16:.6f}, "
+            f"{norm8:.6f}); replicas bit-equal {[r['replicas_equal'] for r in ranks]}; the "
+            f"U-Net after the step bit-equal to one process's halves "
+            f"{r0['equal_halves']} (largest difference {r0['diff_lr_halves']:.3f} lr), "
+            f"against one process's batch-16 step: largest difference "
+            f"{r0['diff_lr_16']:.3f} lr, {r0['share_off_16']:.3e} of the elements off by "
+            f"0.01 lr; launches a rank {[r['launches'] for r in ranks]} (structure "
+            f"{r0['structure']}); train_lidm's set-up seeds each rank's default CUDA generator "
+            f"apart (a draw differs across the ranks): {r0['dropout_draws_differ']}; "
+            f"{DDP_TIMED_SHARED} timed step(s) "
+            f"{[round(r['steps_per_s'], 3) for r in ranks]} "
+            f"steps/s, peak {[round(r['peak_gib'], 2) for r in ranks]} GiB a rank (two processes "
+            f"on one card: not a scaling figure); DPM-20 generate({DDP_BATCH}) sharded over the "
+            f"ranks: images {got.shape}, bit-equal to one process sampling the same noise in "
+            f"two batches of 8 {same8} (max_abs_err {err8:.3e}); against one process's "
+            f"generate({DDP_BATCH}) at batch {DDP_BATCH}: ray-drop mask agreement "
+            f"{mask_agree:.6f}, kept-pixel max_abs_err {img_err:.3e}, mean {img_mean:.3e}; "
+            f"card {card}")
+        bad = []
+        if not all(r["replicas_equal"] for r in ranks):
+            bad.append("the replicas differ after the step")
+        if not r0["dropout_draws_differ"]:
+            bad.append("after train_lidm's set-up the ranks draw the same dropout masks")
+        if any(r["launches"] != r0["structure"] for r in ranks):
+            bad.append("a rank's launches differ from the step's structure")
+        if got.shape != want.shape or not np.isfinite(got).all():
+            bad.append("bad generated images")
+        if not (r0["equal_halves"] and same8):
+            bad.append("the sharded step or request differs from one process running the "
+                       "ranks' halves")
+        # against batch 16: cuDNN takes other algorithms at batch 8, whose bf16
+        # roundings flip Adam's first update (about lr * sign(g)) where g is
+        # near 0, and which DPM-20 carries into the images (measured ranges,
+        # PERF.md section 6)
+        if not (r0["diff_lr_16"] <= 2.01 and r0["share_off_16"] <= 1e-2
+                and abs(r0["loss"] - loss16) <= 1e-3 * loss16
+                and abs(r0["grad_norm"] - norm16) <= 2e-3 * norm16 and mask_agree >= 0.98):
+            bad.append("the sharded step or request is too far from one process's at batch 16")
+        if bad:
+            raise AssertionError("ddp (b): " + "; ".join(bad))
+
+    def _ddp_other_device(self, n):
+        """K1-K4 on the last card while card 0 is current, against their
+        plain versions (every launch enters its tensors' device)."""
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import chamfer as CH
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        if n < 2:
+            log("ddp: one card, so K1-K4 on a card other than the current one are not run "
+                "(unverified here)")
+            return
+        dev = torch.device("cuda", n - 1)
+        torch.cuda.set_device(0)
+        g = torch.Generator(device=dev).manual_seed(5)
+        q, k, v, do = (torch.randn((2, 8, 512, 32), generator=g, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        o, lse = A._launch(q, k, v, None, with_lse=True)
+        self._check("flash_attention", o, A._attend_ref(q, k, v, None), 2e-2, 2e-2,
+                    f"on cuda:{n - 1} while cuda:0 is current", record=False)
+        dq, dk, dv = A.flash_attention_bwd(q, k, v, o, do, lse)
+        x = torch.randn((2, 256, 16, 128), generator=g, device=dev)
+        gamma = torch.rand(256, generator=g, device=dev) + 0.5
+        beta = torch.randn(256, generator=g, device=dev)
+        self._check("group_norm", G._launch(x, gamma, beta, 32, 1e-6, True),
+                    G._ref(x, gamma, beta, 32, 1e-6, True), 1e-4, 1e-4,
+                    f"on cuda:{n - 1} while cuda:0 is current", record=False)
+        dy = torch.randn_like(x)
+        got = G._launch_bwd(x, gamma, beta, dy, 32, 1e-6, True)[0]
+        want = G.group_norm_bwd(x.cpu(), gamma.cpu(), beta.cpu(), dy.cpu(), 32, 1e-6, True)[0]
+        self._check("group_norm_bwd", got, want.to(dev), 1e-4, 1e-4,
+                    f"on cuda:{n - 1} while cuda:0 is current", record=False)
+        xs, ys = (torch.rand((4096, 3), generator=g, device=dev) for _ in range(2))
+        self._check("chamfer_nn", CH.nn_dist_one_way(xs, ys),
+                    CH.nn_dist_one_way(xs.cpu(), ys.cpu()).to(dev), 1e-6, 1e-5,
+                    f"on cuda:{n - 1} while cuda:0 is current", record=False)
+        ref = [t.float().cpu().requires_grad_() for t in (q, k, v)]
+        A._attend_ref(*ref, None).backward(do.float().cpu())
+        for name_, a, b in (("dq", dq, ref[0].grad), ("dk", dk, ref[1].grad),
+                            ("dv", dv, ref[2].grad)):
+            self._check("flash_attention_bwd", a.float(), b.to(dev), 5e-2, 5e-2,
+                        f"{name_} on cuda:{n - 1} while cuda:0 is current", record=False)
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
@@ -7307,6 +7893,7 @@ class Smoke:
                 **{f"cond_train_{key}_launches": self.cond_train_launches.get(key, {}).get(name)
                    for key in ("crossattn", "concat")},
                 "cond_train_max_abs_err": self.kernel_err.get(f"cond_train_{name}"),
+                "ddp_rank_launches": self.ddp_launches.get(name),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
                    for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train",
                                "ae_train", "coarse", "coarse_train", "coarse_ae_train",

@@ -106,6 +106,7 @@ using mma_tiles::cp_async_wait;
 using mma_tiles::smem_addr;
 
 constexpr int kThreads = 256;                        // 8 warps
+constexpr int kMaxDevices = 64;  // devices whose launch set-up is remembered
 constexpr int kRowsWarp = 32;                        // two m16 tiles a warp
 constexpr int kXBlock = kThreads / 32 * kRowsWarp;   // x points a block
 constexpr int kTileY = 512;                          // y records a stage (16 KB)
@@ -456,10 +457,10 @@ extern "C" int llt_chamfer_nn(const void* x, const void* y, const void* y_mask, 
   if (err != cudaSuccess) return (int)err;
 
   constexpr int smem = kStages * kTileY * (int)sizeof(Rec) + 4 * kThreads * (8 * kList + 4);
-  static bool ready = false;
-  if (!ready) {
+  static bool ready[kMaxDevices] = {};   // the attribute is set on each device apart
+  if (dev >= kMaxDevices || !ready[dev]) {
     cudaFuncSetAttribute(nn_main, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    ready = true;
+    if (dev < kMaxDevices) ready[dev] = true;
   }
   const int blocks_x = (n + kXBlock - 1) / kXBlock;
   const int tiles = m_pad / kTileY;

@@ -99,6 +99,7 @@ namespace {
 
 using namespace mma_tiles;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxDevices = 64;  // devices whose launch set-up is remembered
 
 struct Params {
   const void* q;
@@ -594,12 +595,15 @@ __global__ void __launch_bounds__(128) bwd_dq_f32(Params p) {
 template <int DP, bool BIAS>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   constexpr int smem = BwdTile<DP>::kSmem;
-  static bool ready = false;
-  if (!ready) {  // opt in to more than 48 KB of shared memory, all of it shared
-    cudaFuncSetAttribute(bwd_bf16<DP, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool ready[kMaxDevices] = {};   // an attribute is set on each device apart
+  int cur = 0;
+  cudaGetDevice(&cur);
+  if (cur >= kMaxDevices || !ready[cur]) {  // opt in to more than 48 KB of shared memory,
+    cudaFuncSetAttribute(bwd_bf16<DP, BIAS>,  // all of it shared
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     cudaFuncSetAttribute(bwd_bf16<DP, BIAS>, cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
-    ready = true;
+    if (cur < kMaxDevices) ready[cur] = true;
   }
   bwd_bf16<DP, BIAS><<<p.kblocks * B * p.H, kNWB * 32, smem, stream>>>(p);  // B*H on x
   return cudaGetLastError();

@@ -108,6 +108,7 @@ using llt_attn_fwd::Params;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kMaxDevices = 64;  // devices whose launch set-up is remembered
 
 // ---------------------------------------------------------------- bf16 path
 
@@ -425,14 +426,16 @@ namespace llt_attn_fwd {
 template <int DP, bool BIAS>
 void launch_bf16(const Params& p, int B, cudaStream_t stream) {
   using T = FwdTile<DP>;
-  static bool ready = false;
-  if (!ready) {  // opt in to more than 48 KB of shared memory, all of it shared
-    cudaFuncSetAttribute(attn_fwd_bf16<DP, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         T::kSmem);
+  static bool ready[kMaxDevices] = {};   // an attribute is set on each device apart
+  int cur = 0;
+  cudaGetDevice(&cur);
+  if (cur >= kMaxDevices || !ready[cur]) {  // opt in to more than 48 KB of shared memory,
+    cudaFuncSetAttribute(attn_fwd_bf16<DP, BIAS>,  // all of it shared
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
     cudaFuncSetAttribute(attn_fwd_bf16<DP, BIAS>,
                          cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
-    ready = true;
+    if (cur < kMaxDevices) ready[cur] = true;
   }
   const dim3 grid((p.S + kBQ - 1) / kBQ * B * p.H);
   attn_fwd_bf16<DP, BIAS><<<grid, T::NW * 32, T::kSmem, stream>>>(p);

@@ -65,7 +65,7 @@ class RangeImageDataset:
                  geom: Optional[LidarGeometry] = None, seed: int = 0,
                  max_points: int = 130000, degradation: Optional[str] = None,
                  scale_factors: Optional[tuple] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cpu", rows: Optional[slice] = None):
         self.geom = geom or (NUSCENES_GEOMETRY if dataset.startswith("nusc")
                              else KITTI_GEOMETRY)
         self.degradation_transform = None
@@ -76,6 +76,9 @@ class RangeImageDataset:
                 self.geom.size, scale_factors, degradation)
         self.reader = None   # "native" or "python" once batches() has started
         self.batch_size = batch_size
+        # the rows of each batch this reader reads (a rank's share of the
+        # global batch): the order and the draws stay the whole batch's
+        self.rows = slice(None) if rows is None else rows
         self.max_points = max_points
         self.device = device
         self.rng = np.random.default_rng(seed)
@@ -105,11 +108,11 @@ class RangeImageDataset:
         """Endless batches: each pass shuffles the scans with the dataset's
         generator and drops the ragged tail. The native loader returns
         scans as its threads finish them; each lands in its own slot, so a
-        batch is the Python reader's."""
+        batch is the Python reader's. Only ``rows`` of each batch are read."""
         if self.synthetic:
             while True:
                 yield self._attach_degraded(synthetic_range_batch(
-                    self.rng, self.batch_size, self.geom, device=self.device))
+                    self.rng, self.batch_size, self.geom, device=self.device, rows=self.rows))
         loader = None
         if use_native:
             try:
@@ -124,9 +127,9 @@ class RangeImageDataset:
             if shuffle:
                 self.rng.shuffle(order)
             for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
-                clouds = np.zeros((self.batch_size, self.max_points, 3), np.float32)
-                masks = np.zeros((self.batch_size, self.max_points), bool)
-                idxs = [int(k) for k in order[i:i + self.batch_size]]
+                idxs = [int(k) for k in order[i:i + self.batch_size][self.rows]]
+                clouds = np.zeros((len(idxs), self.max_points, 3), np.float32)
+                masks = np.zeros((len(idxs), self.max_points), bool)
                 if loader is not None:
                     for k in idxs:
                         loader.enqueue(k)

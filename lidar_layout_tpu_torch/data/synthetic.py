@@ -10,7 +10,7 @@ and ``synthetic_latent_batch``, standard-normal latents with JAX's draws.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,12 +67,16 @@ def project_batch(points: torch.Tensor, geom: LidarGeometry,
 
 def synthetic_range_batch(rng: np.random.Generator, batch: int,
                           geom: LidarGeometry = KITTI_GEOMETRY, with_pcd: bool = False,
-                          device: Union[str, torch.device] = "cpu"
-                          ) -> Dict[str, torch.Tensor]:
+                          device: Union[str, torch.device] = "cpu",
+                          rows: Optional[slice] = None) -> Dict[str, torch.Tensor]:
     """A batch in the reference dataset contract: image (B, H, W, 1) in
     [-1, 1] and mask (B, H, W, 1) in {-1, +1}, projected on ``device``; with
-    ``with_pcd`` also the (B, N, 3) numpy points."""
+    ``with_pcd`` also the (B, N, 3) numpy points. ``rows`` keeps those rows of
+    the batch (a rank's share): every scene is drawn, so the generator moves
+    on as for the whole batch, and only these are projected."""
     pts = np.stack([synthetic_scene(rng) for _ in range(batch)])
+    if rows is not None:
+        pts = pts[rows]
     out: Dict = project_batch(torch.from_numpy(pts).to(device), geom)
     if with_pcd:
         out["points"] = pts

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..nn.graph import GraphTripleConvNet
+from ..parallel.collectives import rank_rows
 
 Graph = Dict[str, Union[np.ndarray, torch.Tensor]]
 CLIP_DIM = 512   # the precomputed text features' width
@@ -94,9 +95,9 @@ class SceneGraphEncoder(nn.Module):
         m = latent_aligned.shape[0]
         if change_noise is not None:
             noise = torch.as_tensor(change_noise, dtype=torch.float32).to(dev)
-        elif generator is not None:
-            noise = torch.randn((m, self.embedding_dim), generator=generator,
-                                device=generator.device).to(dev)
+        elif generator is not None:   # under dp: this rank's rows of the global draw
+            noise = rank_rows(lambda n: torch.randn((n, self.embedding_dim), generator=generator,
+                                                    device=generator.device), m).to(dev)
         else:
             noise = torch.zeros((m, self.embedding_dim), device=dev)
         change_repr = torch.where(touched[:, None], noise, 0.0)

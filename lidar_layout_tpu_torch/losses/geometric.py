@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.lidar import LidarGeometry
+from ..parallel.collectives import global_denominator
 
 
 @functools.lru_cache(maxsize=16)
@@ -84,7 +85,9 @@ def smoothness_loss(pred_depth: torch.Tensor, gt_depth: torch.Tensor,
                     grad_clip: float = 0.01) -> torch.Tensor:
     """Masked first-difference L1 on metric depth: only pixel pairs whose
     ground-truth difference is under ``grad_clip`` and which both have
-    returns count."""
+    returns count. Under an initialised process group it is a collective
+    (``global_denominator`` all-reduces the counts): every rank must call
+    it, and each returns its share of the global masked mean."""
     p, g = pred_depth[:, 0], gt_depth[:, 0]
     gx = g[:, :, :-1] - g[:, :, 1:]
     gy = g[:, :-1, :] - g[:, 1:, :]
@@ -92,8 +95,8 @@ def smoothness_loss(pred_depth: torch.Tensor, gt_depth: torch.Tensor,
     my = (g[:, :-1, :] > 0) & (g[:, 1:, :] > 0) & (gy.abs() < grad_clip)
     px = p[:, :, :-1] - p[:, :, 1:]
     py = p[:, :-1, :] - p[:, 1:, :]
-    lx = torch.sum((px - gx).abs() * mx) / torch.clamp(mx.sum(), min=1)
-    ly = torch.sum((py - gy).abs() * my) / torch.clamp(my.sum(), min=1)
+    lx = torch.sum((px - gx).abs() * mx) / global_denominator(mx.sum(), minimum=1)
+    ly = torch.sum((py - gy).abs() * my) / global_denominator(my.sum(), minimum=1)
     return lx + ly
 
 

@@ -21,6 +21,7 @@ import torch.nn as nn
 from ..nn.blocks import Downsample, Normalize, ResnetBlock, Upsample, make_attn
 from ..nn.conv import CircularConv, Conv1x1
 from ..nn.quantize import VectorQuantizer
+from ..parallel.collectives import rank_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,8 +230,9 @@ class DiagonalGaussian:
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """mean + std * noise; the noise is drawn from ``generator`` unless given."""
         if noise is None:
-            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                                dtype=self.mean.dtype)
+            noise = rank_rows(lambda n: torch.randn(  # under dp: this rank's rows
+                (n, *self.mean.shape[1:]), generator=generator, device=self.mean.device,
+                dtype=self.mean.dtype), self.mean.shape[0])
         return self.mean + self.std * noise.to(self.mean.dtype)
 
     def kl(self) -> torch.Tensor:

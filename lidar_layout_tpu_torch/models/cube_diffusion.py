@@ -31,6 +31,7 @@ from torch import nn
 
 from ..nn.embeddings import timestep_embedding
 from ..ops.voxel import OFFSETS_27, VoxelGrid, neighbor_table
+from ..parallel.collectives import rank_rows
 from .schedules import DDIMSchedule, DiffusionSchedule, q_sample
 from .sparse_vae import SparseConvBlock, SparseVAE
 
@@ -146,13 +147,15 @@ class CubeDiffusion(nn.Module):
         """The masked MSE between the U-Net's output and the noise, over the
         valid rows and ``latent_dim``, per grid: (loss (B,), {"loss"}).
         ``t`` (B,) and ``noise`` (B, cap, latent_dim) are drawn from
-        ``generator`` unless given."""
+        ``generator`` unless given (under an initialised process group, this
+        rank's rows of the global batch's draws: ``rank_rows``)."""
         b, cap, c = z0.shape
-        if t is None:
-            t = torch.randint(0, self.cfg.timesteps, (b,), generator=generator,
-                              device=z0.device)
+        if t is None:   # under dp: this rank's rows of the global batch's draws
+            t = rank_rows(lambda n: torch.randint(0, self.cfg.timesteps, (n,),
+                                                  generator=generator, device=z0.device), b)
         if noise is None:
-            noise = torch.randn(z0.shape, generator=generator, device=z0.device)
+            noise = rank_rows(lambda n: torch.randn((n, cap, c), generator=generator,
+                                                    device=z0.device), b)
         t = t.to(z0.device)
         m = grid.mask[..., None].to(z0.dtype)
         z_noisy = q_sample(self.schedule, z0, t, noise) * m
@@ -168,7 +171,8 @@ class CubeDiffusion(nn.Module):
         """Deterministic DDIM (eta 0, JAX's default, which no caller
         changes) over the given grids (their topology is fixed): (B, cap,
         latent_dim) latents. ``x_T`` is the only draw (from ``generator``
-        unless given)."""
+        unless given; under an initialised process group, this rank's rows
+        of the global batch's draw: ``rank_rows``)."""
         b, cap = grid.mask.shape
         dev = grid.mask.device
         m = grid.mask[..., None].float()
@@ -176,7 +180,8 @@ class CubeDiffusion(nn.Module):
         f32 = [torch.tensor(a[::-1].copy(), dtype=torch.float32, device=dev)
                for a in (d.alphas, d.alphas_prev, d.sqrt_one_minus_alphas)]
         if x_T is None:
-            x_T = torch.randn((b, cap, self.cfg.latent_dim), generator=generator, device=dev)
+            x_T = rank_rows(lambda n: torch.randn((n, cap, self.cfg.latent_dim),
+                                                  generator=generator, device=dev), b)
         z = x_T.to(dev).float() * m
         for i, tt in enumerate(d.timesteps[::-1]):
             at, ap, s = (a[i] for a in f32)

@@ -46,6 +46,7 @@ import torch.nn as nn
 from ..nn.blocks import Normalize
 from ..nn.quantize import VectorQuantizer
 from ..ops.foldunfold import fold_patches, patched_apply_scaled, unfold_patches
+from ..parallel.collectives import all_gather, rank_rows
 from .autoencoder import AEConfig, VQModelInterface
 from .schedules import DiffusionSchedule, extract, q_sample
 from .unet import UNetConfig, UNetModel
@@ -306,7 +307,9 @@ class LatentDiffusion(nn.Module):
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One shared step: encode (frozen), draw t and the noise from
         ``generator`` (on its device, then moved to the batch's), encode the
-        batch's raw conditioning, p_losses."""
+        batch's raw conditioning, p_losses. Under an initialised process
+        group the draws are this rank's rows of the global batch's
+        (``draw_t_noise``): the same call in one process draws others."""
         z = self.encode_first_stage(batch["image"])
         return self.p_losses(z, *self.draw_t_noise(z, generator), self.batch_conditioning(batch))
 
@@ -321,11 +324,15 @@ class LatentDiffusion(nn.Module):
     def draw_t_noise(self, z: torch.Tensor, generator: torch.Generator
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Uniform timesteps, then Gaussian noise shaped like ``z``, both drawn
-        on the generator's device and moved to z's."""
-        t = torch.randint(0, self.cfg.timesteps, (z.shape[0],), generator=generator,
-                          device=generator.device)
-        noise = torch.randn(z.shape, generator=generator, device=generator.device,
-                            dtype=z.dtype)
+        on the generator's device and moved to z's. Under dp each rank draws
+        the global batch's t and noise and keeps its rows
+        (``parallel.collectives.rank_rows``), so a sharded step sees what one
+        process stepping the whole batch would."""
+        b, gd = z.shape[0], generator.device
+        t = rank_rows(lambda n: torch.randint(0, self.cfg.timesteps, (n,), generator=generator,
+                                              device=gd), b)
+        noise = rank_rows(lambda n: torch.randn((n, *z.shape[1:]), generator=generator,
+                                                device=gd, dtype=z.dtype), b)
         return t.to(z.device), noise.to(z.device)
 
     # ------------------------------------------------------------- sampling
@@ -344,7 +351,11 @@ class LatentDiffusion(nn.Module):
 
 
 def calibrate_scale_factor(z: torch.Tensor) -> float:
-    """scale_by_std calibration: 1 / std(z) (population std) over a batch."""
+    """scale_by_std calibration: 1 / std(z) (population std) over a batch.
+    Under dp ``z`` is this rank's part of the global batch: the parts are
+    gathered first, so every rank computes the global batch's factor from
+    the same numbers (a rank's own std would train a model of its own)."""
+    z = all_gather(z.detach()).flatten(0, 1)
     return float(1.0 / z.float().std(correction=0))
 
 

@@ -20,6 +20,7 @@ import torch.nn as nn
 from ..ops.gaussian_raster import RasterConfig, SurfelConfig, rasterize, rasterize_surfels
 from ..ops.gaussian_raster_tiled import BandedConfig, rasterize_banded
 from ..ops.lidar import LidarGeometry
+from ..parallel.collectives import global_denominator
 from .ptv3 import PTv3, PTv3Config
 
 
@@ -101,9 +102,12 @@ def gs_loss(render: Dict[str, torch.Tensor], gt_range: torch.Tensor, gt_mask: to
             range_weight: float = 1.0, raydrop_weight: float = 0.1
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked L1 on metric range plus the ray-drop BCE (target 1 where the
-    ray has no return); gt_mask is True where a return exists."""
+    ray has no return); gt_mask is True where a return exists. Under an
+    initialised process group it is a collective (``global_denominator``
+    all-reduces the count of returns): every rank must call it, and each
+    returns its share of the global masked mean."""
     m = gt_mask.float()
-    l_range = torch.sum((render["pred_range"] - gt_range).abs() * m) / m.sum().clamp(min=1.0)
+    l_range = torch.sum((render["pred_range"] - gt_range).abs() * m) / global_denominator(m.sum())
     rd = render["pred_raydrop"].clamp(1e-6, 1 - 1e-6)
     drop = 1.0 - m
     l_raydrop = -torch.mean(drop * torch.log(rd) + (1 - drop) * torch.log(1 - rd))

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..encoders.scene_graph import Graph, SceneGraphEncoder, graph_tensors
+from ..parallel.collectives import global_denominator, rank_rows
 from .schedules import DDIMSchedule, DiffusionSchedule, q_sample
 from .unet1d import UNet1DConfig, UNet1DModel
 
@@ -95,18 +96,24 @@ class LayoutDiffusion(nn.Module):
         """The box loss: every box of a scene (``dec_objs_to_scene``) shares
         the scene's t; padding boxes (``obj_mask`` False) are left out. t
         (per scene) and the noise are the given ones, else drawn from
-        ``generator`` after the change noise, in JAX's order."""
+        ``generator`` after the change noise, in JAX's order. Under an
+        initialised process group it is a collective: the valid boxes are
+        counted over every rank (``global_denominator``), so every rank must
+        call it, and the draws are this rank's rows of the global batch's
+        (``rank_rows``)."""
         g = graph_tensors(graph, self.device)
         latent, obj_embed = self.encode_graph(g, generator, change_noise)
         boxes = g["dec_boxes"]
         scene_ids = g["dec_objs_to_scene"]
         n_scenes = int(g["n_scenes"]) if "n_scenes" in g else int(scene_ids.max()) + 1
         x_start = torch.cat([boxes[:, :-1], angle_to_sincos(boxes[:, -1:])], dim=-1)
-        if t_scene is None:
-            t_scene = torch.randint(0, self.cfg.timesteps, (n_scenes,), generator=generator,
-                                    device=generator.device)
+        if t_scene is None:   # under dp: this rank's scenes of the global draws
+            t_scene = rank_rows(lambda n: torch.randint(
+                0, self.cfg.timesteps, (n,), generator=generator, device=generator.device),
+                n_scenes)
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator, device=generator.device)
+            noise = rank_rows(lambda n: torch.randn((n, *x_start.shape[1:]), generator=generator,
+                                                    device=generator.device), x_start.shape[0])
         t = torch.as_tensor(t_scene).to(self.device).long()[scene_ids]
         noise = torch.as_tensor(noise, dtype=torch.float32).to(self.device)
         x_noisy = q_sample(self.schedule, x_start, t, noise)
@@ -118,7 +125,7 @@ class LayoutDiffusion(nn.Module):
         mask = g.get("obj_mask")
         if mask is not None:
             m = mask.to(per.dtype)
-            loss_simple = (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+            loss_simple = (per * m).sum() / global_denominator(m.sum())
         else:
             loss_simple = per.mean()
         loss = self.cfg.l_simple_weight * loss_simple
@@ -131,8 +138,10 @@ class LayoutDiffusion(nn.Module):
                     change_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Deterministic DDIM (eta 0, the JAX default that its sampling
         script uses) over (N, box_dim) vectors; returns them in float32. The
-        change noise and x_T come from ``generator`` unless given; the
-        step's scalars are float32, as in the JAX scan."""
+        change noise and x_T come from ``generator`` unless given (under an
+        initialised process group, this rank's rows of the global batch's
+        draw: ``rank_rows``); the step's scalars are float32, as in the JAX
+        scan."""
         g = graph_tensors(graph, self.device)
         latent, obj_embed = self.encode_graph(g, generator, change_noise)
         triples, pred_mask = g["dec_triples"], g.get("dec_pred_mask")
@@ -142,8 +151,9 @@ class LayoutDiffusion(nn.Module):
         ts = d.timesteps[::-1]
         a_t, a_prev = _f32(d.alphas[::-1]), _f32(d.alphas_prev[::-1])
         s1ma = _f32(d.sqrt_one_minus_alphas[::-1])
-        if x_T is None:
-            x_T = torch.randn(shape, generator=generator, device=generator.device)
+        if x_T is None:   # under dp: this rank's boxes of the global draw
+            x_T = rank_rows(lambda k: torch.randn((k, shape[1]), generator=generator,
+                                                  device=generator.device), n)
         x = torch.as_tensor(x_T, dtype=torch.float32).to(self.device)
         if tuple(x.shape) != shape:
             raise ValueError(f"x_T has shape {tuple(x.shape)}, expected {shape}")

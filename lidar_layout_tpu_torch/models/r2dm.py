@@ -33,6 +33,7 @@ from ..encoders.modules import MultiHeadAttention
 from ..nn.blocks import Normalize
 from ..nn.conv import CircularConv
 from ..nn.embeddings import timestep_embedding
+from ..parallel.collectives import rank_rows
 from .schedules import DiffusionSchedule, q_sample
 
 
@@ -262,11 +263,13 @@ class R2DMDiffusion(nn.Module):
         """The simple loss (L2, or L1 with ``loss_type`` "l1") between the
         noise estimate and the noise. ``t`` (B,) and ``noise`` are drawn from
         ``generator``, in that order, unless given."""
-        if t is None:
-            t = torch.randint(0, self.cfg.timesteps, (x0.shape[0],), generator=generator,
-                              device=x0.device)
+        b = x0.shape[0]
+        if t is None:   # under dp: this rank's rows of the global batch's draws
+            t = rank_rows(lambda n: torch.randint(0, self.cfg.timesteps, (n,),
+                                                  generator=generator, device=x0.device), b)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=generator, device=x0.device)
+            noise = rank_rows(lambda n: torch.randn((n, *x0.shape[1:]), generator=generator,
+                                                    device=x0.device), b)
         t = t.to(x0.device)
         out = self.apply_model(q_sample(self.schedule, x0, t, noise), t)
         loss = ((out - noise) ** 2).mean() if self.cfg.loss_type == "l2" else \

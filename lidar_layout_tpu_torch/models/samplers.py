@@ -9,7 +9,10 @@ rounds as the JAX scan does. The loop is a Python loop over eager torch ops.
 Every sampler takes an optional ``x_T``, as the reference's
 ``DDIMSampler.sample(x_T=...)``; without it, and for the noise of DDIM with
 eta > 0 and of DDPM, it draws from the caller's ``torch.Generator`` through
-``_randn``.
+``_randn``. Under an initialised process group ``shape[0]`` is this rank's
+share and ``_randn`` keeps this rank's rows of the draw at the global batch's
+size (``parallel.collectives.rank_rows``): the same call in one process draws
+other noise, and every rank must sample in step with the others.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..parallel.collectives import rank_rows
 from .diffusion import LatentDiffusion
 from .schedules import DDIMSchedule, q_sample
 
@@ -46,8 +50,10 @@ def _cfg_apply(model: LatentDiffusion, x: torch.Tensor, t: torch.Tensor, cond: A
 
 def _randn(shape: Tuple[int, ...], generator: Optional[torch.Generator],
            device) -> torch.Tensor:
-    """Every Gaussian draw of the samplers, in order."""
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    """Every Gaussian draw of the samplers, in order; under dp, this rank's
+    rows of the draw at the global batch's size."""
+    return rank_rows(lambda n: torch.randn((n, *shape[1:]), generator=generator, device=device,
+                                           dtype=torch.float32), shape[0])
 
 
 def _initial(shape: Tuple[int, ...], x_T: Optional[torch.Tensor],

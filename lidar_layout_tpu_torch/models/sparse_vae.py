@@ -19,6 +19,7 @@ from torch import nn
 from ..ops.voxel import (OFFSETS_27, VoxelGrid, gather_rows, gather_table, lookup,
                          neighbor_table, occupancy_targets, pool_to_parent, scatter_mean,
                          voxelize_points)
+from ..parallel.collectives import rank_rows
 
 Table = Tuple[torch.Tensor, torch.Tensor]
 
@@ -117,7 +118,8 @@ class SparseVAE(nn.Module):
         mean, logvar = self.to_moments(x).chunk(2, dim=-1)
         logvar = logvar.clamp(-30.0, 20.0)
         if noise is None:
-            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+            noise = rank_rows(lambda n: torch.randn((n, *mean.shape[1:]), generator=generator,
+                                                    device=mean.device), mean.shape[0])
         z = (mean + torch.exp(0.5 * logvar) * noise) * top.mask[..., None]
 
         h = self.from_latent(z) * top.mask[..., None]

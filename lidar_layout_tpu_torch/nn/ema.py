@@ -25,10 +25,16 @@ class Ema:
         """ema <- ema - (1 - d) (ema - p), in place."""
         self.step += 1
         d = min(decay, (1.0 + self.step) / (10.0 + self.step))
-        shadow = [self.params[k] for k in new_params]
-        new = [p.detach().float() for p in new_params.values()]
-        diff = torch._foreach_sub(shadow, new)
-        torch._foreach_add_(shadow, diff, alpha=-(1.0 - d))
+        from torch.distributed.tensor import DTensor
+
+        for sharded in (False, True):   # FSDP's DTensors and plain tensors go apart
+            keys = [k for k, p in new_params.items() if isinstance(p, DTensor) == sharded]
+            if not keys:
+                continue
+            shadow = [self.params[k] for k in keys]
+            new = [new_params[k].detach().float() for k in keys]
+            diff = torch._foreach_sub(shadow, new)
+            torch._foreach_add_(shadow, diff, alpha=-(1.0 - d))
 
     @contextlib.contextmanager
     def swapped_in(self, params: Dict[str, torch.Tensor]) -> Iterator[None]:

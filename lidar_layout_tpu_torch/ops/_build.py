@@ -151,3 +151,14 @@ def check(status: int, what: str) -> None:
     """Raise if a C launcher returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def launch(fn: Callable[..., int], device: "torch.device", what: str, *args) -> None:
+    """Call the launcher ``fn`` (``launcher(name)``) with ``args`` while
+    ``device`` is the CUDA runtime's current device (a launcher launches on
+    the current one, whatever device its pointers lie on), and raise if it
+    fails. Every kernel wrapper launches through here."""
+    import torch
+
+    with torch.cuda.device(device):
+        check(fn(*args), what)

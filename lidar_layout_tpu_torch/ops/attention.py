@@ -160,13 +160,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if with_lse else None)
     kbias = _bias_ready(kbias, q)
     strides = _strides(q, k, v, o)
-    status = launch(
+    _build.launch(
+        launch, q.device, "flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kbias is None else kbias.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, d,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "flash_attention")
     flash_attention.launches += 1
     return o, lse
 
@@ -197,14 +197,14 @@ def _launch_bwd(q, k, v, o, do, lse, kbias):
     dq, dk, dv = _bshd_empty(q), _bshd_empty(q), _bshd_empty(q)
     kbias = _bias_ready(kbias, q)
     strides = _strides(q, k, v, o, do, dq, dk, dv)
-    status = launch(
+    _build.launch(
+        launch, q.device, "flash_attention_bwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         None if kbias is None else kbias.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         None if dqpart is None else dqpart.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(),
         ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, d,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

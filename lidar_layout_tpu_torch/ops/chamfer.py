@@ -179,11 +179,11 @@ def _launch(x: torch.Tensor, y: torch.Tensor, y_mask: Optional[torch.Tensor],
     m_pad = -(-m // _TILE_Y) * _TILE_Y
     rec = torch.empty((m_pad, 12), dtype=torch.float32, device=x.device)  # y's records, points
     centre = torch.empty(4, dtype=torch.float32, device=x.device)
-    status = launch(x.data_ptr(), y.data_ptr(), None if y_mask is None else y_mask.data_ptr(),
-                    out.data_ptr(), rec.data_ptr(), centre.data_ptr(),
-                    None if counts is None else counts.data_ptr(), n, m,
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "chamfer_nn")
+    _build.launch(launch, x.device, "chamfer_nn",
+                  x.data_ptr(), y.data_ptr(), None if y_mask is None else y_mask.data_ptr(),
+                  out.data_ptr(), rec.data_ptr(), centre.data_ptr(),
+                  None if counts is None else counts.data_ptr(), n, m,
+                  torch.cuda.current_stream(x.device).cuda_stream)
     nn_dist_one_way.launches += 1
     return out
 

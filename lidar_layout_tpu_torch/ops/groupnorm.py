@@ -110,11 +110,11 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     x = x.contiguous()
     gamma, beta = _f32_on(gamma, x), _f32_on(beta, x)
     y = torch.empty_like(x)
-    status = launch(
+    _build.launch(
+        launch, x.device, "group_norm",
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
         _DTYPES[x.dtype], b, c, num_groups, hw, eps, int(act),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "group_norm")
     group_norm.launches += 1
     return y
 
@@ -132,11 +132,11 @@ def _launch_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, dy: to
     part = torch.empty((2, b, c), device=xc.device, dtype=torch.float32)
     dgamma = torch.empty(c, device=xc.device, dtype=torch.float32)
     dbeta = torch.empty(c, device=xc.device, dtype=torch.float32)
-    status = launch(
+    _build.launch(
+        launch, xc.device, "group_norm_bwd",
         xc.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), _DTYPES[xc.dtype], b, c,
         num_groups, hw, eps, int(act), torch.cuda.current_stream(xc.device).cuda_stream)
-    _build.check(status, "group_norm_bwd")
     group_norm_bwd.launches += 1
     return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
 

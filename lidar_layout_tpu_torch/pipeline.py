@@ -32,6 +32,7 @@ from .config import instantiate_from_config, load_yaml
 from .models import samplers as S
 from .models.diffusion import LatentDiffusion
 from .ops.lidar import KITTI_GEOMETRY, NUSCENES_GEOMETRY, LidarGeometry, range2pcd
+from .parallel.collectives import get_rank, get_world_size, host_all_gather
 from .utils.device import resolve_device
 
 __all__ = ["GenerationPipeline", "GenerationResult", "geometry_from_config"]
@@ -155,26 +156,39 @@ class GenerationPipeline:
         with an ``uncond`` turns on classifier-free guidance. A pytree whose
         leaves hold ``batch`` rows serves every batch; one of ``n`` rows is
         cut into the batches in order (the last one wraps to the first rows
-        when ``batch`` does not divide ``n``)."""
+        when ``batch`` does not divide ``n``).
+
+        Under torch.distributed ``batch`` is the global batch: each rank
+        samples its rows of every batch from its slice of the global noise,
+        and the images and clouds are gathered through the host, so that
+        every rank returns what one process would."""
         b = min(batch, n)
+        world, rank = get_world_size(), get_rank()
+        if b % world:
+            raise ValueError(f"batch {b} does not divide over {world} ranks")
+        bl = b // world
+        mine = slice(rank * bl, (rank + 1) * bl)
         dev = self.device
-        draw = self._program(b, _shapes(cond), cfg_scale)
+        draw = self._program(bl, _shapes(cond), cfg_scale)
         gen = torch.Generator(device=dev).manual_seed(seed)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
         imgs_all, clouds = [], []
         phases = {"sample": 0.0, "decode": 0.0, "reproject": 0.0}
         with torch.inference_mode():
             for i in range((n + b - 1) // b):
-                rows = torch.arange(i * b, i * b + b, device=dev) % n
+                rows = (torch.arange(i * b, i * b + b, device=dev) % n)[mine]
                 t0 = time.perf_counter()
-                z = draw(gen, _rows(cond, rows, b, n, dev), _rows(uncond, rows, b, n, dev))
+                z = draw(gen, _rows(cond, rows, mine, b, n, dev),
+                         _rows(uncond, rows, mine, b, n, dev))
                 sync()
                 t1 = time.perf_counter()
                 imgs = self.model.decode_first_stage(z)
                 sync()
                 t2 = time.perf_counter()
                 xyz, valid = range2pcd(imgs[..., 0], self.geom)
-                imgs_np, xyz_np, valid_np = (t.cpu().numpy() for t in (imgs, xyz, valid))
+                imgs_np, xyz_np, valid_np = (
+                    host_all_gather(t.cpu().numpy()).reshape(b, *t.shape[1:])
+                    for t in (imgs, xyz, valid))
                 t3 = time.perf_counter()
                 phases["sample"] += t1 - t0
                 phases["decode"] += t2 - t1
@@ -194,16 +208,18 @@ def _shapes(tree: Any) -> Tuple:
     return tuple(tree.shape)
 
 
-def _rows(tree: Any, rows: torch.Tensor, b: int, n: int, dev: torch.device) -> Any:
-    """One batch of a batch-leading conditioning pytree, on ``dev``: the whole
-    leaf when it has ``b`` rows, the given rows when it has ``n``."""
+def _rows(tree: Any, rows: torch.Tensor, mine: slice, b: int, n: int,
+          dev: torch.device) -> Any:
+    """This rank's part of one batch of a batch-leading conditioning pytree,
+    on ``dev``: the leaf's ``mine`` rows when it has ``b`` (the batch's), the
+    given rows when it has ``n``."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _rows(v, rows, b, n, dev) for k, v in tree.items()}
+        return {k: _rows(v, rows, mine, b, n, dev) for k, v in tree.items()}
     leaf = torch.as_tensor(tree, device=dev)
     if leaf.shape[0] == b:
-        return leaf
+        return leaf[mine]
     if leaf.shape[0] == n:
         return leaf[rows]
     raise ValueError(f"a conditioning leaf has {leaf.shape[0]} rows; expected the batch "

@@ -55,6 +55,7 @@ from ..losses.vq_loss import (VQLossConfig, adaptive_weight_from_grads,
                               assemble_disc_input, disc_factor_at, reconstruction_nll)
 from ..models.autoencoder import VQModel
 from ..ops.lidar import LidarGeometry, depth_to_model
+from ..parallel.collectives import all_reduce_grads
 from .diffusion_trainer import Optimizer, _autocast
 
 DISC_PREFIX = "loss.discriminator."   # where a Lightning AE checkpoint keeps it
@@ -186,6 +187,7 @@ def make_ae_train_step(model: VQModel, disc: torch.nn.Module, loss_cfg: VQLossCo
         g_loss = -torch.mean(disc(assemble_disc_input(loss_cfg, geo, dec, masks, True)))
         (nll_g,) = torch.autograd.grad(nll, w_last, retain_graph=True)
         (gan_g,) = torch.autograd.grad(g_loss, w_last, retain_graph=True)
+        all_reduce_grads([nll_g, gan_g])   # the weight reads the global batch's gradients
         d_weight = adaptive_weight_from_grads(torch.linalg.vector_norm(nll_g),
                                               torch.linalg.vector_norm(gan_g),
                                               loss_cfg.disc_weight).detach()

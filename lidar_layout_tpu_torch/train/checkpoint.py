@@ -12,14 +12,22 @@ for a diffusion state; for an autoencoder state (``train/ae_trainer``) a
 Lightning-style ``state_dict`` of the model with the discriminator under
 ``loss.discriminator.``, and both optimizers, so that a LiDM's
 ``first_stage_config.params.ckpt_path`` can name the file as it is.
+
+Under torch.distributed every rank calls ``save_checkpoint`` (a state
+sharded by FSDP is gathered into full tensors, a collective) and rank 0
+alone writes, so a file written at any world size is the one-process file;
+every rank restores.
 """
 from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from ..parallel.collectives import is_main_process
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -34,16 +42,47 @@ def checkpoint_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}.pt")
 
 
+def full_tensors(tree: Any) -> Any:
+    """``tree`` with every DTensor (a parameter, moment or EMA shard under
+    FSDP) gathered into its full tensor: a collective, so every rank calls
+    it; the identity on a tree of plain tensors."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_map_only
+
+    return tree_map_only(DTensor, lambda t: t.full_tensor(), tree)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: Any, max_to_keep: int = 3) -> str:
     """Write ``state`` (a train state with ``state_dict()``) at ``step``;
-    drop the oldest files beyond ``max_to_keep``. Returns the path written."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    drop the oldest files beyond ``max_to_keep``. Returns the path written.
+    Every rank calls it; rank 0 alone writes."""
     path = checkpoint_path(ckpt_dir, step)
+    blob = {"step": step, **full_tensors(state.state_dict())}
+    if not is_main_process():
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"step": step, **state.state_dict()}, tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, path)
     for old in _steps(ckpt_dir)[:-max_to_keep] if max_to_keep > 0 else []:
         os.remove(checkpoint_path(ckpt_dir, old))
+    return path
+
+
+def link_checkpoint(src: str, ckpt_dir: str, step: int) -> str:
+    """``src``, a file ``save_checkpoint`` wrote at ``step``, under
+    ``ckpt_dir`` too: a hard link (a copy where the file system has none),
+    so one state is written once. Rank 0 alone links. Returns the path."""
+    path = checkpoint_path(ckpt_dir, step)
+    if not is_main_process():
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, path)
     return path
 
 

@@ -20,6 +20,7 @@ import torch
 
 from ..models.diffusion import LatentDiffusion
 from ..nn.ema import Ema
+from ..parallel.collectives import all_reduce_grads
 
 
 def trainable_keys(model: LatentDiffusion) -> Tuple[str, ...]:
@@ -50,9 +51,29 @@ def trainable_params(model: LatentDiffusion) -> Dict[str, torch.nn.Parameter]:
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, a 0-d f32 tensor (no sync)."""
+    """sqrt(sum of squares) over all tensors, a 0-d f32 tensor (no sync). A
+    DTensor's norm is over the whole tensor, every shard's part reduced,
+    not over this rank's shard."""
+    from torch.distributed.tensor import DTensor
+
+    norms = [torch.linalg.vector_norm(t).full_tensor() if isinstance(t, DTensor) else None
+             for t in tensors]
+    plain = [t for t, n in zip(tensors, norms) if n is None]
+    it = iter(torch._foreach_norm(plain) if plain else [])
     return torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(tensors)]))
+        [(n if n is not None else next(it)).float() for n in norms]))
+
+
+def _scaled(grads: List[torch.Tensor], scale: torch.Tensor) -> List[torch.Tensor]:
+    """Each gradient times the 0-d ``scale``; a DTensor's shard is scaled
+    on its own rank (a DTensor does not mix with a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    plain = [g for g in grads if not isinstance(g, DTensor)]
+    it = iter(torch._foreach_mul(plain, scale) if plain else [])
+    return [DTensor.from_local(g.to_local() * scale, g.device_mesh, g.placements,
+                               shape=g.shape, stride=g.stride())
+            if isinstance(g, DTensor) else next(it) for g in grads]
 
 
 class Optimizer:
@@ -65,15 +86,26 @@ class Optimizer:
     1e-6). With ``accumulate = k`` an update happens every k-th call, with
     the mean of the k gradients; the other calls leave the parameters as
     they are. ``lr_lambda`` multiplies ``lr`` by f(number of updates so far).
+
+    Under torch.distributed each step first averages its gradients over
+    the ranks (``parallel.collectives.all_reduce_grads``), so the norm, the
+    clipping and the update are the global batch's on every rank.
     """
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], lr: float,
                  weight_decay: float = 1e-2, grad_clip: Optional[float] = None,
                  accumulate: int = 1, lr_lambda: Optional[Callable[[int], float]] = None,
                  betas: Tuple[float, float] = (0.9, 0.999)):
+        from torch.distributed.tensor import DTensor
+
         self.params = list(params.values())
+        # a foreach update does not mix FSDP's DTensors with plain tensors:
+        # with both, AdamW updates one tensor at a time (one parameter group,
+        # so that the state_dict is the same at any world size)
+        mixed = 0 < sum(isinstance(p, DTensor) for p in self.params) < len(self.params)
         self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=betas, eps=1e-8,
-                                       weight_decay=weight_decay)
+                                       weight_decay=weight_decay,
+                                       foreach=False if mixed else None)
         self.scheduler = (torch.optim.lr_scheduler.LambdaLR(self.adamw, lr_lambda)
                           if lr_lambda is not None else None)
         self.grad_clip = grad_clip
@@ -89,6 +121,7 @@ class Optimizer:
         if grads is None:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in self.params]
+        all_reduce_grads(grads)
         norm = global_norm(grads)
         if self.accumulate > 1:
             if self._acc is None:
@@ -103,7 +136,7 @@ class Optimizer:
             torch._foreach_zero_(self._acc)
         if self.grad_clip:
             c = float(self.grad_clip)
-            grads = torch._foreach_mul(grads, c / torch.clamp(global_norm(grads), min=c))
+            grads = _scaled(grads, c / torch.clamp(global_norm(grads), min=c))
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adamw.step()

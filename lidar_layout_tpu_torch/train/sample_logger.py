@@ -18,6 +18,7 @@ import torch
 
 from ..models import samplers
 from ..models.schedules import q_sample
+from ..parallel.collectives import is_main_process
 from .trainer import HookBase
 
 
@@ -97,9 +98,13 @@ class SampleLogger(HookBase):
         step = self.trainer.global_step
         if step % self.every_steps != 0:
             return
+        # every rank renders, so that the step generator advances alike on
+        # each; rank 0 writes
+        images = self.render_fn(self.trainer.state, self.trainer.generator)
+        if not is_main_process():
+            return
         out_dir = os.path.join(self.trainer.workdir, "images")
         os.makedirs(out_dir, exist_ok=True)
-        images = self.render_fn(self.trainer.state, self.trainer.generator)
         for name, imgs in images.items():
             imgs = imgs[: self.max_images].detach().float().cpu().numpy()
             np.save(os.path.join(out_dir, f"{name}_{step:07d}.npy"), imgs)

@@ -1,5 +1,5 @@
 """Train a range autoencoder or a latent-diffusion model from a YAML config,
-on one CUDA card.
+on one CUDA card or, under ``torchrun``, on several.
 
     python -m lidar_layout_tpu_torch.train.train_lidm \\
         -b configs/lidar_diffusion/kitti/uncond_c2_p4.yaml --synthetic --steps 100 --bf16
@@ -9,7 +9,15 @@ on one CUDA card.
 Counterpart of ``scripts/train_lidm.py`` with the same flags:
 ``-b/--base -t/--train -r/--resume -d/--data-root -s/--seed --steps
 --workdir --synthetic --bf16`` and trailing ``a.b.c=value`` overrides;
-``--cpu`` runs on the CPU. Every family of JAX's ``train_lidm`` trains:
+``--cpu`` runs on the CPU. Under ``torchrun --nproc-per-node N -m
+lidar_layout_tpu_torch.train.train_lidm ...`` each rank joins the process
+group (NCCL on CUDA, gloo with ``--cpu``; ``parallel/mesh.init_from_env``),
+the global batch is ``max(batch_size, world)``, as JAX's one sample a chip,
+and each rank reads its share of every global batch; the learning rate is
+scaled by the global batch; ``scale_by_std`` is computed over the global
+first batch; each step averages its gradients over the ranks; rank 0 alone
+writes. Without ``torchrun``'s environment it is the one-process run.
+Every family of JAX's ``train_lidm`` trains:
 
 - ``vq_model`` (``configs/autoencoder/*/autoencoder_c2_p4.yaml``,
   ``range_flow.yaml``, ``configs/ours/nuscenes/coarse_range/range_256x8.yaml``):
@@ -44,6 +52,10 @@ Counterpart of ``scripts/train_lidm.py`` with the same flags:
   whatever ``--bf16`` says (JAX's builders drop the dtype), the KL AE under
   bf16 autocast with it.
 
+Every ``ckpt_every_steps`` of the data block (default a fifth of
+``--steps``) and at the end a checkpoint goes under ``<workdir>/ckpt``; a
+step whose validation loss is among the best three is kept under
+``ckpt_best`` (a link to the step's checkpoint where one was written).
 Every ``sample_every_steps`` (default a fifth of ``--steps``) the image
 logger (``train/sample_logger``) writes the AE's inputs and reconstructions,
 or the LiDM's ``lidm_log_images`` with the EMA weights, under
@@ -122,6 +134,23 @@ def _lr_lambda(model_cfg: Dict[str, Any], steps: int):
 
 
 def main(argv=None):
+    """Train (``prepare``, then ``Trainer.train``); returns the trainer."""
+    import torch.distributed as dist
+
+    joined = dist.is_available() and dist.is_initialized()
+    trainer = prepare(argv)
+    trainer.train()
+    print(f"done: {trainer.global_step} steps -> {trainer.workdir}")
+    if not joined and dist.is_initialized():   # the group this run made
+        dist.destroy_process_group()
+    return trainer
+
+
+def prepare(argv=None):
+    """Everything ``main`` does before the first step: join the process
+    group, build the data, the model, its train state and the hooks, seed
+    each rank's default generator, write the config. Returns the
+    ``Trainer``."""
     args = parse_args(argv)
 
     from ..config import (CUBE_AE_TARGETS, CUBE_LDM_TARGETS, GAUS_AE_TARGETS, KL_AE_TARGETS,
@@ -129,6 +158,9 @@ def main(argv=None):
                           instantiate_from_config, load_yaml)
     from ..data.datasets import RangeImageDataset
     from ..data.factory import build_batches
+    from ..parallel.collectives import get_world_size, is_main_process
+    from ..parallel.mesh import (init_from_env, local_batch_slice, replicate, seed_rank,
+                                 shard_batch)
     from ..pipeline import geometry_from_config
     from ..utils.device import resolve_device
     from ..utils.init import jax_init_
@@ -137,7 +169,8 @@ def main(argv=None):
     from .trainer import (BestCheckpointSaver, CheckpointSaver, InformationWriter,
                           IterationTimer, Trainer, ValidationHook)
 
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    device = init_from_env(resolve_device("cpu" if args.cpu else "cuda"))
+    world = get_world_size()
     cfg = load_yaml(args.base)
     if args.resume:   # a resumed run reloads its own config; -b overrides it
         saved = os.path.join(args.resume, "config.yaml")
@@ -167,22 +200,29 @@ def main(argv=None):
     name = os.path.splitext(os.path.basename(args.base))[0]
     workdir = args.workdir or f"./runs/{name}"
     geom = geometry_from_config(cfg)
-    batch_size = data_cfg.get("batch_size", 4)
+    # the global batch, at least one sample a rank; each rank takes its share
+    batch_size = max(int(data_cfg.get("batch_size", 4)), world)
+    rows = local_batch_slice(batch_size)   # asserts that the ranks share it evenly
     accumulate = int(data_cfg.get("accumulate_grad_batches", 1))
 
     def make_batches(split: str, seed: int):
+        """The rank's share of each global batch: the range datasets read
+        only its rows; the factory's targets build the global batch, then
+        keep them."""
         blk = data_cfg.get(split) or data_cfg.get("train") or {}
         if blk.get("target") in LAYOUT_RANGE_TARGETS:
-            return layout_batches(blk.get("params") or {}, split, seed)
-        if blk.get("target"):
+            raw = layout_batches(blk.get("params") or {}, split, seed)
+        elif blk.get("target"):
             params = dict(blk.get("params") or {})
             params.setdefault("split", "val" if split == "validation" else split)
-            return build_batches(blk["target"], params, data_cfg.get("dataset", {}),
-                                 args.data_root, batch_size, seed,
-                                 force_synthetic=args.synthetic, device=device)
-        ds = RangeImageDataset(None if args.synthetic else args.data_root,
-                               batch_size=batch_size, geom=geom, seed=seed, device=device)
-        return ds.batches()
+            raw = build_batches(blk["target"], params, data_cfg.get("dataset", {}),
+                                args.data_root, batch_size, seed,
+                                force_synthetic=args.synthetic, device=device)
+        else:
+            return RangeImageDataset(None if args.synthetic else args.data_root,
+                                     batch_size=batch_size, geom=geom, seed=seed, device=device,
+                                     rows=rows).batches()
+        return (shard_batch(b, batch_size) for b in raw)
 
     def layout_batches(params: Dict[str, Any], split: str, seed: int):
         """nuScenes layout batches from the data factory: synthetic scenes
@@ -208,6 +248,7 @@ def main(argv=None):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = jax_init_(instantiate_from_config(model_cfg, **kw).to(device), args.seed)
+        replicate(model)   # rank 0's weights on every rank, before the EMA copies them
         if is_ae:   # the discriminator starts from the seed too
             if args.bf16 and model_cfg["target"] in GAUS_AE_TARGETS:
                 print("the Gaussian range AE trains in float32; --bf16 is not read for it")
@@ -239,15 +280,20 @@ def main(argv=None):
                                                        accumulate, lr_lambda, args.bf16)
         if model.first_stage_model is not None:
             render_fn = _ldm_render(model, val_cache, args.bf16)
+    if getattr(state, "disc", None) is not None:
+        replicate(state.disc)
     if args.resume:
         restore_checkpoint(os.path.join(args.resume, "ckpt"), state)
         print(f"resumed from {args.resume} at step {state.step}")
+    if world > 1:   # dropout and other default-generator draws differ between ranks;
+        seed_rank(args.seed, device)   # after the seeded build, which reseeds every card
 
     # ValidationHook comes first: the writer and savers read its val/* metrics
     hooks = [IterationTimer(),
              ValidationHook(val_step, lambda: iter(val_cache), every_steps=val_every),
              InformationWriter(),
-             CheckpointSaver(every_steps=max(args.steps // 5, 1)),
+             CheckpointSaver(every_steps=int(data_cfg.get("ckpt_every_steps",
+                                                          max(args.steps // 5, 1)))),
              BestCheckpointSaver(monitor=monitor, top_k=3)]
     if render_fn is not None:
         from .sample_logger import SampleLogger
@@ -256,15 +302,14 @@ def main(argv=None):
             data_cfg.get("sample_every_steps", max(args.steps // 5, 1)))))
     trainer = Trainer(step, state, train_batches, workdir=workdir, max_steps=args.steps,
                       hooks=hooks, seed=args.seed)
-    try:
-        import yaml
+    if is_main_process():
+        try:
+            import yaml
 
-        with open(os.path.join(workdir, "config.yaml"), "w") as f:
-            yaml.safe_dump(cfg, f)
-    except ImportError as e:
-        print(f"config save skipped: {e}")
-    trainer.train()
-    print(f"done: {trainer.global_step} steps -> {workdir}")
+            with open(os.path.join(workdir, "config.yaml"), "w") as f:
+                yaml.safe_dump(cfg, f)
+        except ImportError as e:
+            print(f"config save skipped: {e}")
     return trainer
 
 

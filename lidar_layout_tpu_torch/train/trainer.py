@@ -7,6 +7,12 @@ generator)`` with before/after hooks, and the hooks ``IterationTimer``,
 ``ValidationHook``, ``BestCheckpointSaver`` and ``RuntimeProfiler`` (on
 ``torch.profiler``). SIGUSR1, an exception or an interrupt saves an
 emergency checkpoint (the reference's ``melk``).
+
+Under torch.distributed every rank runs the loop and the hooks; rank 0
+alone writes (``metrics.jsonl``, stdout, checkpoints, images, the emergency
+checkpoint). The logged scalars and the validation metrics are averaged
+over the ranks (``reduce_dict``), so ``BestCheckpointSaver`` ranks by the
+global validation loss on every rank.
 """
 from __future__ import annotations
 
@@ -14,12 +20,15 @@ import json
 import os
 import signal
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .checkpoint import checkpoint_path, save_checkpoint
+from torch.distributed.tensor import DTensor
+
+from ..parallel.collectives import is_main_process, reduce_dict
+from .checkpoint import checkpoint_path, link_checkpoint, save_checkpoint
 
 
 def _scalar(v: Any) -> Optional[float]:
@@ -76,6 +85,9 @@ class InformationWriter(HookBase):
         if step % self.log_every and not any(k.startswith("val/") for k in logs):
             return
         scal = {k: s for k, s in ((k, _scalar(v)) for k, v in logs.items()) if s is not None}
+        scal = {k: float(v) for k, v in reduce_dict(scal).items()}
+        if not is_main_process():
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"step": step, **scal}) + "\n")
         msg = " ".join(f"{k}={v:.4g}" for k, v in sorted(scal.items())
@@ -85,7 +97,8 @@ class InformationWriter(HookBase):
 
 
 class CheckpointSaver(HookBase):
-    """A checkpoint every ``every_steps`` steps and at the end."""
+    """A checkpoint every ``every_steps`` steps and at the end (once, when
+    the last step wrote one)."""
 
     def __init__(self, every_steps: int = 1000, max_to_keep: int = 3):
         self.every_steps = every_steps
@@ -99,8 +112,12 @@ class CheckpointSaver(HookBase):
         self._save()
 
     def _save(self):
-        save_checkpoint(os.path.join(self.trainer.workdir, "ckpt"), self.trainer.global_step,
-                        self.trainer.state, self.max_to_keep)
+        step = self.trainer.global_step
+        if self.trainer.last_checkpoint is not None and self.trainer.last_checkpoint[0] == step:
+            return
+        path = save_checkpoint(os.path.join(self.trainer.workdir, "ckpt"), step,
+                               self.trainer.state, self.max_to_keep)
+        self.trainer.last_checkpoint = (step, path)
 
 
 class ValidationHook(HookBase):
@@ -125,13 +142,15 @@ class ValidationHook(HookBase):
             for k, v in self.val_fn(self.trainer.state, batch, self.trainer.generator).items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
-        for k, v in sums.items():
-            logs[f"{self.prefix}/{k}"] = v / max(n, 1)
+        for k, v in reduce_dict({k: v / max(n, 1) for k, v in sums.items()}).items():
+            logs[f"{self.prefix}/{k}"] = float(v)
 
 
 class BestCheckpointSaver(HookBase):
     """Keep the ``top_k`` checkpoints that are best by ``monitor`` (saved
-    whenever the metric appears in the step's logs) in ``subdir``."""
+    whenever the metric appears in the step's logs) in ``subdir``; a step
+    whose checkpoint ``CheckpointSaver`` (an earlier hook) has just written
+    links that file."""
 
     def __init__(self, monitor: str = "val/loss_simple", top_k: int = 3, mode: str = "min",
                  subdir: str = "ckpt_best"):
@@ -146,10 +165,14 @@ class BestCheckpointSaver(HookBase):
             return
         d = os.path.join(self.trainer.workdir, self.subdir)
         step = self.trainer.global_step
-        save_checkpoint(d, step, self.trainer.state, max_to_keep=0)
+        last = self.trainer.last_checkpoint
+        if last is not None and last[0] == step:
+            link_checkpoint(last[1], d, step)
+        else:
+            save_checkpoint(d, step, self.trainer.state, max_to_keep=0)
         self.kept.append((self.sign * float(logs[self.monitor]), step))
         self.kept.sort()
-        for _, old in self.kept[self.top_k:]:
+        for _, old in self.kept[self.top_k:] if is_main_process() else ():
             os.remove(checkpoint_path(d, old))
         self.kept = self.kept[:self.top_k]
 
@@ -207,6 +230,7 @@ class Trainer:
         self.workdir = workdir
         self.max_steps = max_steps
         self.global_step = state.step
+        self.last_checkpoint: Optional[Tuple[int, str]] = None   # CheckpointSaver's (step, path)
         dev = next(state.model.parameters()).device
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.hooks = hooks if hooks is not None else [IterationTimer(), InformationWriter()]
@@ -220,7 +244,14 @@ class Trainer:
 
     def _melk(self, *_):
         """Emergency checkpoint: on SIGUSR1 (training goes on) and on any
-        exception or interrupt (re-raised)."""
+        exception or interrupt (re-raised). Rank 0 writes its own replica,
+        with no collective (the other ranks may be gone); a state sharded
+        by FSDP has no whole copy on one rank and is not written."""
+        if not is_main_process():
+            return
+        if any(isinstance(p, DTensor) for p in self.state.model.parameters()):
+            print("melk: an FSDP-sharded state is not written on one rank", flush=True)
+            return
         print("melk: saving emergency checkpoint", flush=True)
         save_checkpoint(os.path.join(self.workdir, "ckpt_interrupt"), self.global_step,
                         self.state)
