@@ -20,6 +20,7 @@
     python3 chip_smoke.py --phases device,build,kernels,ae_train,ae_bf16_slice,ae_bf16,data
     python3 chip_smoke.py --phases device,build,zoo_slice,zoo,sonata,cond_train
     python3 chip_smoke.py --phases device,build,kernels,ddp
+    python3 chip_smoke.py --phases device,build,kernels,sp
 
 Phases (any failure exits non-zero before the final "ok" line):
   device       require CUDA, print the card's name and power limit, turn TF32 off
@@ -115,7 +116,7 @@ Phases (any failure exits non-zero before the final "ok" line):
                16 scenes x 16 objects, card vs CPU: the scene-graph encoder's two
                outputs, one U-Net eval, a DDIM-4 request from the same x_T
   layout_boxes sample_layout's path at 16 scenes x 16 objects, DDIM-100, f32:
-               scenes/s and boxes/s over two requests, K1 launches (22 a U-Net
+               scenes/s and boxes/s over one request, K1 launches (22 a U-Net
                eval) against the structure and module hooks, no plain attention,
                finite (256, 7) boxes, different boxes from different graphs
   layout_boxes_train_slice  one LayoutDiffusion training step at full width,
@@ -173,8 +174,8 @@ Phases (any failure exits non-zero before the final "ok" line):
                point-to-voxel maps integer for integer, latents, logits,
                struct_loss and gradients; CubeDiffusion's p_losses, U-Net
                gradients and a DDIM-5 from fed draws
-  cube         train_lidm on voxel_1024.yaml (10 steps, batch 4), on
-               voxel_uncond_diffusion_256.yaml over that run (10 steps) and
+  cube         train_lidm on voxel_1024.yaml (5 steps, batch 4), on
+               voxel_uncond_diffusion_256.yaml over that run (5 steps) and
                on autoencoder_cube.yaml (2 steps); timed steps, the level
                fill per cloud, a DDIM-50 over the 4 encoded grids; no kernel
   dense_slice  "Ours" stage 3 card against CPU, f32, TF32 off: the dense
@@ -187,7 +188,7 @@ Phases (any failure exits non-zero before the final "ok" line):
                ae_train_slice's gates (32x256 images)
   dense        the dense decoder's decode of 8192-point clouds (clouds/s,
                PT-v3 / raster split, K1 22 a decode), the train_dense_decoder
-               CLI and 10 timed steps (K1 + K2 22 + 22 a step, the phase
+               CLI and 5 timed steps (K1 + K2 22 + 22 a step, the phase
                split, device against wall time, an overfit check), a
                dead-decoder check at the YAML's lr, the valid rows of every
                PT-v3 level; the Gaussian AE at batch 4,
@@ -199,7 +200,7 @@ Phases (any failure exits non-zero before the final "ok" line):
                and text wrappers over 2-layer towers), one U-Net eval under
                each of concat, crossattn, hybrid and adm, the classifier's
                loss and guidance_grad (relative L2 within 1e-5)
-  cond         the three CLIs' main() at full width, f32, DDIM-50: sample_cond
+  cond         the three CLIs' main() at full width, f32, DDIM-25: sample_cond
                map2lidar and cam2lidar (4 samples) and text2lidar (2 samples,
                cfg_scale 2.0): the .npy of the JAX scripts' names and shapes,
                K1 and K3 launches against the structure (and hooks), peak
@@ -215,7 +216,7 @@ Phases (any failure exits non-zero before the final "ok" line):
                1e-5, gradients within 1e-4, parameters and EMA after the
                update within 2 lr)
   families     r2dm_diffusion.yaml, g2sd_32.yaml and the KL override of the
-               kitti AE's YAML through train_lidm on the card; 10 timed steps
+               kitti AE's YAML through train_lidm on the card; 5 timed steps
                of each (steps/s, peak memory, K3 launches against the
                structure and hooks: 61 + 61 a step for R2DM, none for the
                object AE), an overfit check on one batch; two R2DM DDIM-50
@@ -262,6 +263,19 @@ Phases (any failure exits non-zero before the final "ok" line):
                the dry run (parallel.dryrun) in (a)'s ranks (its DDIM against
                one process's); with more than one card, K1-K4 on the last card
                while card 0 is current
+  sp           the spatial axis of parallel/: the full-width flagship (f32, TF32
+               off, the tests' seeded weights) W-sharded over 4 ranks sharing
+               one card over gloo (NCCL at world = card count with 4 cards or
+               more, sp as JAX's rule gives): the sharded first-stage encode
+               of a (2, 64, 1024, 1) image and apply_model at t = T/2,
+               gathered, against one process's unsharded forward at rtol =
+               atol = 2e-4; each rank's cross-length K1 and split K3 launches
+               against the structure (one a SelfAttentionBlock, one a
+               Normalize) and its hooks, no other kernel; then the cross-length
+               K1 (f32 and bf16) and the split K3's two kernels at every sp
+               shape against their plain versions, bit for bit over two
+               launches, and the split K3 merged over the shards against K3's
+               plain version on the whole width
   ae_eval      eval_ae on the ae_train phase's kitti run: 4 batches of 4,
                CD through K4 and JSD, launches against the structure
   timing       per-kernel device times at the main paths' shapes beside the
@@ -277,21 +291,24 @@ Phases (any failure exits non-zero before the final "ok" line):
                K1 (with its log-sum-exp) and K2 at (256, 8, 1, 64) f32 beside
                SDPA's forward and backward, summed over LayoutDiffusion's 10
                timed training steps; K3 forward and backward in f32 at the
-               autoencoder step's shapes, summed over ae_train's 10 timed steps;
+               autoencoder step's shapes, summed over ae_train's 5 timed steps;
                K1/K2/K3 at the coarse paths' shapes, summed over their runs;
                K1 and K2 in f32 with a key bias at the dense decoder's
                shapes, over its decodes and timed steps; K3 at the Gaussian
                AE's step shapes; K1 and K3 in f32 at the conditional path's
                shapes over a map2lidar and a cam2lidar request ("cond"); K3
                forward and backward in f32 at R2DM's shapes over a DDIM-50
-               request and over its 10 timed training steps; K4 at eval_ae's
+               request and over its 5 timed training steps; K4 at eval_ae's
                16 pairs (ae_eval's clouds); K1 and K3 in bf16 at the patched
                request's shapes over the split run; K3 forward and backward
                at the bf16 AE step's shapes (the autoencoder's in bf16, the
                discriminator's in f32) over ae_bf16's timed steps; K1 and K2
                in f32 with a key bias at Sonata's shapes over its timed
                steps; K1 and K2 in f32 at head dim 32 and K3 forward and
-               backward at the crossattn LiDM's shapes over its. K3 is
+               backward at the crossattn LiDM's shapes over its; the
+               cross-length K1 beside SDPA and the split K3's two kernels in
+               f32 at the sp shapes, over one sharded encode and apply_model
+               of a rank. K3 is
                timed on input copies taken in turn, more than twice the L2
                apart, so that each call reads from HBM as in a model; every
                kernel time that reads over 105% of its bound fails the phase
@@ -332,14 +349,14 @@ PHASES = ("device", "build", "kernels", "slice", "train_slice", "main", "split_s
           "layout_boxes_train", "ae_train_slice", "ae_train", "ae_bf16_slice", "ae_bf16",
           "data", "coarse_slice", "coarse", "cube_slice", "cube", "dense_slice", "dense",
           "cond_slice", "cond", "families_slice", "families", "zoo_slice", "zoo", "sonata",
-          "cond_train", "ddp", "ae_eval", "timing")
+          "cond_train", "ddp", "sp", "ae_eval", "timing")
 EXTRA_PHASES = ("profile", "profile_zoo")   # run only when named in --phases
 N_MAIN, BATCH = 32, 16      # the main path: generate(32) in batches of 16
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
-TRAIN_BATCH, TRAIN_STEPS = 16, 10   # the training path: timed steps at batch 16
+TRAIN_BATCH, TRAIN_STEPS = 16, 5   # the training path: timed steps at batch 16
 # the overfit checks: 20 steps (every curve had fallen below its step 0 by
 # step 20 on the H100; 30 took longer than the smoke's time allows)
 OVERFIT_STEPS, OVERFIT_LR = 20, 1e-4
@@ -350,7 +367,7 @@ DENSE_OVERFIT_STEPS = 15
 LAYOUT_CFG_SCALE = 2.0   # the guided layout run: DPM-20, generate(32) at batch 16
 # LayoutDiffusion serving: 16 scenes at the nuScenes layout dataset's capacity
 # of 16 objects and 32 triples a scene (N = 256 boxes), DDIM-100, f32
-BOX_SCENES, BOX_STEPS, BOX_CALLS = 16, 100, 2
+BOX_SCENES, BOX_STEPS, BOX_CALLS = 16, 100, 1
 BOX_LR = 1.6e-5   # layout_nusc.yaml's: base 1e-6 x 16 scenes
 # the range VQ autoencoder (VQ-GAN) in f32 at its YAML's batch of 4; the
 # flagship LiDM whose first stage it is loads the CLI run's checkpoint
@@ -383,7 +400,7 @@ CUBE_BATCH, CUBE_POINTS, CUBE_DDIM = 4, 32768, 50
 DENSE_YAML = os.path.join(OURS, "dense_decoder", "gaus_10cm.yaml")
 GAUS_AE_YAML = os.path.join(HERE, "configs", "autoencoder", "nuscenes",
                             "autoencoder_c2_p4_gaus.yaml")
-DENSE_POINTS, DENSE_SLICE_POINTS, DECODE_CLOUDS = 8192, 1024, 10
+DENSE_POINTS, DENSE_SLICE_POINTS, DECODE_CLOUDS = 8192, 1024, 5
 GAUS_SLICE = ("data.params.dataset.size=[32,256]",)
 GAUS_STEPS = 2   # the Gaussian AE's timed steps (3.4 s each)
 # the dead-decoder check at the YAML's lr: steps logged, steps gated, and
@@ -392,9 +409,9 @@ GAUS_STEPS = 2   # the Gaussian AE's timed steps (3.4 s each)
 # from step 3: both packages' decoders collapse at this lr)
 DENSE_LIVE_STEPS, DENSE_LIVE_GATED, DENSE_LIVE_SHARE = 4, 2, 0.5
 # conditional generation: the CLIs (sample_cond map2lidar / cam2lidar, 4
-# samples; text2lidar, 2 samples under guidance) at full width, f32, DDIM-50;
+# samples; text2lidar, 2 samples under guidance) at full width, f32, DDIM-25;
 # card against CPU at small widths within COND_SLICE_TOL relative L2
-COND_STEPS, COND_CFG_SCALE, COND_SLICE_TOL = 50, 2.0, 1e-5
+COND_STEPS, COND_CFG_SCALE, COND_SLICE_TOL = 25, 2.0, 1e-5
 # the last families of train_lidm: R2DM (r2dm_diffusion.yaml, 2-channel
 # 32x1024 pixel-space diffusion) trained at its YAML's batch of 4 and served
 # by DDIM-50 requests of 4 samples; the G2SD object AE (g2sd_32.yaml, 1024-
@@ -406,8 +423,8 @@ COND_STEPS, COND_CFG_SCALE, COND_SLICE_TOL = 50, 2.0, 1e-5
 R2DM_YAML = os.path.join(HERE, "configs", "r2dm", "r2dm_diffusion.yaml")
 G2SD_YAML = os.path.join(HERE, "configs", "autoencoder", "nuscenes_objects", "g2sd_32.yaml")
 KL_OVERRIDES = ("model.target=autoencoder_kl", "model.params.ddconfig.double_z=true")
-R2DM_BATCH, R2DM_STEPS, R2DM_DDIM, R2DM_REQUESTS, R2DM_SAMPLES = 4, 10, 50, 1, 4
-FAMILY_STEPS = 10   # the object and KL AEs' timed steps
+R2DM_BATCH, R2DM_STEPS, R2DM_DDIM, R2DM_REQUESTS, R2DM_SAMPLES = 4, 5, 50, 1, 4
+FAMILY_STEPS = 5   # the object and KL AEs' timed steps
 FAMILIES_SLICE_TOL, FAMILIES_GRAD_TOL = 1e-5, 1e-4
 # patched (split_ks) serving: the flagship at 64x2048, twice its training
 # azimuth, its 16x256 latent in crops of 16x128 at a stride of 16x64 (4 a
@@ -425,7 +442,7 @@ SPLIT_CROPS = 4   # 256 latent columns at a stride of 64
 AE_BF16_OVERRIDES = ("model.params.lossconfig.params.perceptual_factor=1.0",)
 AE_BF16_SLICE = AE_BF16_OVERRIDES + ("model.params.ddconfig.attn_type=linear",
                                      "data.params.dataset.size=[32,256]")
-AE_BF16_STEPS = 10
+AE_BF16_STEPS = 5
 AE_BF16_TOL, AE_BF16_ILL_TOL = 2e-2, 0.5
 AE_BF16_ILL = ("d_weight", "smooth_loss", "normal_loss", "total_loss")
 # the slice's bf16 gradients against the card's f32 ones, relative L2: the
@@ -520,6 +537,12 @@ COND_TRAIN_WORDS = ("a", "car", "on", "the", "wet", "road", "empty", "intersecti
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("flash_attention", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:87"),
+    ("flash_attention_xl", "lidar_layout_tpu_torch/csrc/flash_attn_fwd.cu",
+     "lidar_layout_tpu/ops/pallas_attention.py:87"),
+    ("group_norm_stats", "lidar_layout_tpu_torch/csrc/group_norm.cu",
+     "lidar_layout_tpu/ops/pallas_groupnorm.py:135"),
+    ("group_norm_apply", "lidar_layout_tpu_torch/csrc/group_norm.cu",
+     "lidar_layout_tpu/ops/pallas_groupnorm.py:135"),
     ("flash_attention_bwd", "lidar_layout_tpu_torch/csrc/flash_attn_bwd.cu",
      "lidar_layout_tpu/ops/pallas_attention.py:205"),
     ("group_norm", "lidar_layout_tpu_torch/csrc/group_norm.cu",
@@ -795,8 +818,18 @@ def counters():
             "chamfer_nn": C.nn_dist_one_way}
 
 
+def sp_counters():
+    """The launch counters of the sp axis's kernels (the cross-length K1 and
+    the split K3's two), by kernel name: no other path launches them."""
+    from lidar_layout_tpu_torch.ops import attention as A
+    from lidar_layout_tpu_torch.ops import groupnorm as G
+
+    return {"flash_attention_xl": A.flash_attention_xl, "group_norm_stats": G.group_norm_stats,
+            "group_norm_apply": G.group_norm_apply}
+
+
 def reset_counts():
-    for fn in counters().values():
+    for fn in (*counters().values(), *sp_counters().values()):
         fn.launches = 0
 
 
@@ -1097,6 +1130,85 @@ def ddp_gloo_rank(ref_dir):
     return out
 
 
+# ------------------------------------------------------------------ sp ranks
+# the sp phase: ranks sharing one card over gloo, the global batch (JAX's dry
+# run's), and JAX's tolerance for the W-sharded forward against the unsharded
+SP_RANKS, SP_BATCH, SP_TOL = 4, 2, 2e-4
+
+
+def sp_inputs(timesteps):
+    """The sp phase's (image, latent, t), drawn from seed 11 as numpy: a
+    (2, 64, 1024, 1) image, a (2, 16, 128, 8) latent, t = T/2. Each rank
+    draws them itself: a spawned rank's arguments go through a pipe that a
+    rank reads only once it has imported torch, so half a megabyte of them
+    started the ranks one at a time (6 s apart on the H100 host)."""
+    rng = np.random.default_rng(11)
+    image = rng.uniform(-1, 1, (SP_BATCH, 64, 1024, 1)).astype(np.float32)
+    latent = rng.standard_normal((SP_BATCH, 16, 128, 8)).astype(np.float32)
+    return image, latent, np.full((SP_BATCH,), timesteps // 2)
+
+
+def sp_rank():
+    """A rank of the sp phase: the full-width flagship in f32 on the tests'
+    seeded weights, on a (dp, 1, sp) mesh of every rank (``sp_size``): one
+    warm W-sharded encode of the image and ``apply_model`` of the latent at
+    t (``sp_inputs``, ``spatial_forward``), then a counted one, gathered;
+    its launches of every kernel, the structure (SelfAttentionBlocks,
+    Normalizes) and the hooks' calls by shape; seconds."""
+    import torch
+    from lidar_layout_tpu_torch.models.unet import SelfAttentionBlock
+    from lidar_layout_tpu_torch.nn.blocks import Normalize
+    from lidar_layout_tpu_torch.parallel import collectives as C
+    from lidar_layout_tpu_torch.parallel.dryrun import sp_size, spatial_forward
+    from lidar_layout_tpu_torch.parallel.mesh import make_mesh
+
+    entered = time.time()
+    _ddp_exact()
+    model = seed_weights(ddp_flagship(), 0)
+    n = C.get_world_size()
+    sp = sp_size(n)
+    mesh = make_mesh(sp=sp)
+    args = [torch.from_numpy(a).cuda() for a in sp_inputs(model.cfg.timesteps)]
+    t0 = time.perf_counter()
+    spatial_forward(model, mesh, *args)   # warm: cuDNN's choices, the groups' first use
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    mods = [*model.first_stage_model.encoder.modules(), *model.unet.modules()]
+    norms = [m for m in mods if isinstance(m, Normalize)]
+    attn = [m for m in mods if isinstance(m, SelfAttentionBlock)]
+    calls = collections.Counter()
+
+    def norm_hook(mod, a):
+        b, c, h, w = a[0].shape
+        calls["group_norm_split", (b, c, h, w, mod.num_groups, mod.act)] += 1
+
+    def attn_hook(mod, a):
+        b, c, h, w = a[0].shape
+        calls["flash_attention_xl", (b, mod.num_heads, h * w, h * w * sp,
+                                     c // mod.num_heads)] += 1
+    hooks = ([m.register_forward_pre_hook(norm_hook) for m in norms]
+             + [m.register_forward_pre_hook(attn_hook) for m in attn])
+    reset_counts()
+    t0 = time.perf_counter()
+    z, eps = spatial_forward(model, mesh, *args)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "warm_s": warm_s,
+           "launches": {k: fn.launches for k, fn in sp_counters().items()},
+           "others": read_counts(), "calls": dict(calls),
+           "structure": {"flash_attention_xl": len(attn), "group_norm_stats": len(norms),
+                         "group_norm_apply": len(norms)},
+           "mesh": {k: mesh[k].size() for k in mesh.mesh_dim_names},
+           "backend": torch.distributed.get_backend(), "rank": C.get_rank()}
+    every = C.host_all_gather(eps.cpu().numpy())   # every rank gathered the same output
+    out["same"] = all(np.array_equal(e, every[0]) for e in every)
+    for h in hooks:
+        h.remove()
+    if C.get_rank() == 0:
+        out["z"], out["eps"] = z.cpu().numpy(), eps.cpu().numpy()
+    out["entered"], out["left"] = entered, time.time()
+    return out
+
+
 class Smoke:
     def __init__(self):
         self.kernel_err = {name: 0.0 for name, _, _ in KERNELS}
@@ -1142,6 +1254,9 @@ class Smoke:
         self.cond_train_launches = {}   # "crossattn", "concat" -> over their timed steps
         self.ddp_launches = {}   # a rank's launches over ddp (a)'s timed steps
         self.ddp_dryrun = None   # the dry run's results from ddp (a)'s rank 0
+        self.sp_launches = {}   # a rank's launches over the sp phase's sharded forward
+        self.sp_shapes = None   # its cross-length K1 and split K3 calls by shape
+        self.sp_size = None   # its shards of the width
         self._tmp = []   # directories the phases write, removed at the end
 
     def tmp_dir(self, prefix):
@@ -1918,7 +2033,9 @@ class Smoke:
             import torch
             from lidar_layout_tpu_torch.train import diffusion_trainer as DT
 
-            model, state = self._train_setup(OVERFIT_LR, layout)
+            model = self._train_model(layout)   # shapes only: no seeded weights
+            params = DT.trainable_params(model)
+            state = DT.create_train_state(model, DT.make_optimizer(params, OVERFIT_LR), params)
             seen, hooks = self._train_hooks(model)
             DT.make_train_step(model, autocast_dtype=torch.bfloat16)(
                 state, self._train_batches(layout, 1)[0],
@@ -2844,7 +2961,7 @@ class Smoke:
     def layout_boxes_train(self):
         """train_layout's path at 16 scenes x 16 objects, f32: synthetic
         graphs at the dataset's capacity and one batch read from a tiny
-        infos pickle through the data factory; two warm-ups and 10 timed
+        infos pickle through the data factory; two warm-ups and TRAIN_STEPS timed
         steps (steps/s, scenes/s, phase split, peak memory), K1 and K2
         launches per step against the structure (every CrossAttention
         forward and backward) and module hooks, no plain attention, non-zero
@@ -3293,7 +3410,7 @@ class Smoke:
     def ae_train(self):
         """The autoencoder's training path: the kitti YAML at full width,
         batch 4, f32 with TF32 off, synthetic scenes. Two warm-ups (the
-        first under hooks), 10 timed steps: steps/s, samples/s, peak memory,
+        first under hooks), TRAIN_STEPS timed steps: steps/s, samples/s, peak memory,
         K3's launches a step against the structure and hooks, no plain
         GroupNorm; the phase split over 3 synchronised steps; a falling
         rec_loss over OVERFIT_STEPS steps on one batch; then the CLI on the kitti and
@@ -3713,6 +3830,89 @@ class Smoke:
                 f"{tot['bound_ms']:.3f} (kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}% "
                 f"of it)")
             self.run_totals.setdefault(name, {})["split"] = tot
+
+    def _timing_sp(self, gen, totals):
+        """The cross-length K1 (beside SDPA on the same cross-length inputs,
+        in turns) and the split K3's two kernels (no one library call
+        computes either alone) in f32 at the sp phase's shapes, each summed
+        over a rank's sharded encode and apply_model: kernel, plain version,
+        bound (K1: operations at the f32 peak; K3: x read once, y or the
+        statistics written once)."""
+        import torch
+        import torch.nn.functional as F
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+
+        if self.sp_shapes is None:
+            log("  the sp shapes come from the sp phase, which did not run")
+            return
+        dev = torch.device("cuda")
+        sp = self.sp_size
+        tot = {k: collections.Counter() for k in sp_counters()}
+        log(f"  the sp kernels in f32 at the sp phase's shapes ({sp} shards; per rank, one "
+            f"sharded encode and apply_model at batch {SP_BATCH}):")
+        for (name, key), count in sorted(self.sp_shapes.items()):
+            if name == "flash_attention_xl":
+                b, h, sq, skv, d = key
+                q = torch.randn((b, h, sq, d), generator=gen, device=dev)
+                k, v = (torch.randn((b, h, skv, d), generator=gen, device=dev) for _ in range(2))
+                cost = A.attention_cost(b, h, sq, d, 4, s_kv=skv)
+                kms, lms, _, _ = paired_ms(lambda: A._launch_xl(q, k, v),
+                                           lambda: F.scaled_dot_product_attention(q, k, v), 10)
+                bound = {"ops": cost["flops"] / PEAK_F32 * 1e3,
+                         "bytes": cost["bytes"] / HBM_BYTES_PER_S * 1e3}
+                t = {"ms": kms, "plain_ms": device_ms(lambda: A._attend_ref(q, k, v), 5),
+                     "library_ms": lms}
+                parts = {name: t}
+            else:
+                b, c, hh, ww, groups, act = key
+                n = b * c * hh * ww
+                call, copies = cold_ring(lambda: (torch.randn((b, c, hh, ww), generator=gen,
+                                                              device=dev),), 4 * n)
+                gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+                st = G.group_norm_stats(call(lambda x: x), groups)
+                cnt = c // groups * hh * ww * sp
+                bound = {"stats": {"ops": 3 * n / PEAK_F32 * 1e3,
+                                   "bytes": (4 * n + 8 * b * groups) / HBM_BYTES_PER_S * 1e3},
+                         "apply": {"ops": 10 * n / PEAK_F32 * 1e3,
+                                   "bytes": (8 * n + 8 * c + 8 * b * groups)
+                                   / HBM_BYTES_PER_S * 1e3}}
+                parts = {
+                    "group_norm_stats": {
+                        "ms": device_ms(lambda: call(lambda x: G.group_norm_stats(x, groups)), 20),
+                        "plain_ms": device_ms(lambda: call(lambda x: G._stats_ref(x, groups)), 5),
+                        "library_ms": 0.0},
+                    "group_norm_apply": {
+                        "ms": device_ms(lambda: call(lambda x: G.group_norm_apply(
+                            x, st, gamma, beta, groups, cnt, 1e-6, act)), 20),
+                        "plain_ms": device_ms(lambda: call(lambda x: G._apply_ref(
+                            x, st, gamma, beta, groups, cnt, 1e-6, act)), 5),
+                        "library_ms": 0.0}}
+                bound = {"group_norm_stats": bound["stats"], "group_norm_apply": bound["apply"]}
+            for kname, t in parts.items():
+                bd = bound if name == "flash_attention_xl" else bound[kname]
+                t["bound_ms"] = max(bd.values())
+                bound_gate(f"{kname} {key}", t["bound_ms"], t["ms"])
+                lib = (f" | sdpa {t['library_ms']:.4f} ({t['ms'] / t['library_ms']:.3f}x)"
+                       if kname == "flash_attention_xl" else "")
+                log(f"    {kname} {key} x{count}: kernel {t['ms']:.4f} | plain "
+                    f"{t['plain_ms']:.4f}{lib} | bound {t['bound_ms']:.4f} "
+                    f"({'operations' if bd['ops'] >= bd['bytes'] else 'bytes'}; kernel at "
+                    f"{100 * t['bound_ms'] / t['ms']:.1f}% of it)")
+                for k_, val in t.items():
+                    tot[kname][k_] += count * val
+                tot[kname]["bound_ops_ms"] += count * bd["ops"]
+                tot[kname]["bound_bytes_ms"] += count * bd["bytes"]
+        for kname, t in tot.items():
+            t["events_ms"] = t["ms"]
+            if kname != "flash_attention_xl":
+                t["library_ms"] = None   # no one PyTorch call computes a half of K3
+            totals[kname] = t
+            lib = (f" | sdpa {t['library_ms']:.3f} ({t['ms'] / t['library_ms']:.3f}x)"
+                   if t["library_ms"] else " | library: none")
+            log(f"  {kname} over a rank's sharded encode and apply_model: kernel "
+                f"{t['ms']:.3f} ms | plain {t['plain_ms']:.3f}{lib} | bound {t['bound_ms']:.3f} "
+                f"(kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of it)")
 
     # ------------------------------------------------- the AE in bf16
     @staticmethod
@@ -4548,10 +4748,10 @@ class Smoke:
 
     def cube(self):
         """The cube stage through train_lidm on the card: voxel_1024.yaml for
-        10 steps at batch 4 (32,768-point synthetic clouds), then
-        voxel_uncond_diffusion_256.yaml for 10 steps over that run (its
+        TRAIN_STEPS steps at batch 4 (32,768-point synthetic clouds), then
+        voxel_uncond_diffusion_256.yaml for TRAIN_STEPS steps over that run (its
         first stage from the run's checkpoint), autoencoder_cube.yaml for 2
-        steps. Then, on each trained state: 10 timed steps after 2 warm-ups
+        steps. Then, on each trained state: TRAIN_STEPS timed steps after 2 warm-ups
         (steps/s, clouds/s, peak memory), the level fill per cloud (rows
         used against capacity, and the distinct cells each level would
         need), a DDIM-50 over the 4 encoded grids (finite, zero at padding),
@@ -5175,7 +5375,7 @@ class Smoke:
         its attn1 and has the same ResBlocks, and its GroupNorm is plain),
         one VQ decode at batch 2 and 4 (K3), and the classifier's loss and
         guidance_grad at its default config over 4 latents (K3 forward and
-        backward); the U-Net evals of a DDIM-50 request."""
+        backward); the U-Net evals of a DDIM-25 request."""
         if self.cond_shapes is None:
             import torch
             from lidar_layout_tpu_torch import sample_cond
@@ -5397,7 +5597,7 @@ class Smoke:
 
     def cond(self):
         """The three CLIs at full width on the card, f32: sample_cond
-        --task map2lidar and --task cam2lidar (4 samples, DDIM-50) and
+        --task map2lidar and --task cam2lidar (4 samples, DDIM-25) and
         text2lidar at --cfg-scale 2.0 (2 samples, the doubled batch), each
         through its main(): the .npy of the JAX script's name and shape,
         finite, with ray-drop pixels; K1 and K3 launches against the
@@ -5872,14 +6072,14 @@ class Smoke:
 
     def families(self):
         """The last families at full width on the card, f32, TF32 off:
-        r2dm_diffusion.yaml through train_lidm, 10 timed steps at batch 4
+        r2dm_diffusion.yaml through train_lidm, R2DM_STEPS timed steps at batch 4
         (61 + 61 K3 launches a step against the structure and hooks), an
         overfit check on one batch with fixed t and noise, then, on seeded
         weights, two DDIM-50 requests of 4 samples and range2pcd on channel
         0 (samples/s, peak memory, 52 x 61 K3 launches a request);
-        g2sd_32.yaml through train_lidm, 10 timed steps at batch 4 on
+        g2sd_32.yaml through train_lidm, FAMILY_STEPS timed steps at batch 4 on
         1024-point synthetic objects (no kernel), an overfit check; the KL
-        override of the kitti AE's YAML through train_lidm, 10 timed steps
+        override of the kitti AE's YAML through train_lidm, FAMILY_STEPS timed steps
         (K3 against the structure and hooks), an overfit check; run_tester
         with ReconTester on the kitti AE (ae_train's run when it ran)."""
         import torch
@@ -6010,7 +6210,7 @@ class Smoke:
     def _timing_families(self, gen):
         """K3 in f32 at R2DM's shapes: the forward at each shape of a U-Net
         eval at batch 4, summed over a DDIM-50 request (52 evals) and over
-        the 10 timed training steps, and the backward over those steps,
+        the R2DM_STEPS timed training steps, and the backward over those steps,
         each beside F.group_norm + F.silu (and its autograd backward) and
         the bound."""
         import torch
@@ -6631,8 +6831,8 @@ class Smoke:
     def _timing_coarse(self, gen):
         """K1, K2 and K3 at the coarse paths' shapes: K1 and K3 forward
         summed over a coarse DPM-20 run (generate(32), batch 16), K2 and K3's
-        backward over the coarse LiDM's 10 timed training steps, K3 forward
-        and backward in f32 over the coarse AE's 10 timed steps."""
+        backward over the coarse LiDM's TRAIN_STEPS timed training steps, K3 forward
+        and backward in f32 over the coarse AE's TRAIN_STEPS timed steps."""
         shapes = self._coarse_shapes()
         log("  coarse LiDM, K1 at its request's shapes (bf16):")
         k1 = self._time_k1(gen, shapes["request"]["flash_attention"], N_MAIN // BATCH,
@@ -6965,6 +7165,147 @@ class Smoke:
             self._check("flash_attention_bwd", a.float(), b.to(dev), 5e-2, 5e-2,
                         f"{name_} on cuda:{n - 1} while cuda:0 is current", record=False)
 
+    # ---------------------------------------------------------------------- sp
+    def sp(self):
+        """The spatial (sp) axis: the full-width flagship (f32, TF32 off,
+        seeded weights) W-sharded in SP_RANKS ranks sharing one card over
+        gloo, or through NCCL at world = card count with 4 cards or more
+        (sp by JAX's rule); the gathered encode and apply_model against one
+        process's unsharded forward within SP_TOL; each rank's launches
+        against the structure and its hooks; then the kernels at the shapes
+        the ranks saw (``_sp_kernels``)."""
+        import torch
+        from lidar_layout_tpu_torch.parallel.dryrun import spawn
+
+        card, n_cards = card_line(), torch.cuda.device_count()
+        _ddp_exact()
+        t0 = time.perf_counter()
+        model = seed_weights(ddp_flagship(), 0)
+        image, latent, t = sp_inputs(model.cfg.timesteps)
+        with torch.no_grad():
+            want_z = model.encode_first_stage(torch.from_numpy(image).cuda()).cpu().numpy()
+            want_eps = model.apply_model(torch.from_numpy(latent).cuda(),
+                                         torch.from_numpy(t).cuda()).cpu().numpy()
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        nccl = n_cards >= 4
+        world = n_cards if nccl else SP_RANKS
+        t0, started = time.perf_counter(), time.time()
+        ranks = spawn(sp_rank, world, (), device="cuda",
+                      backend=None if nccl else "gloo", env_store=nccl, timeout=600)
+        wall = time.perf_counter() - t0
+        torch.backends.cudnn.deterministic = False
+        ends = (max(r["entered"] for r in ranks) - started,
+                time.time() - min(r["left"] for r in ranks))
+        r0 = ranks[0]
+        errs = {}
+        for key, got, want in (("encode", r0["z"], want_z), ("apply_model", r0["eps"], want_eps)):
+            errs[key] = (float(np.abs(got - want).max()), float(np.abs(want).max()),
+                         got.shape == want.shape and bool(np.isfinite(got).all())
+                         and bool(np.all(np.abs(got - want) <= SP_TOL + SP_TOL * np.abs(want))))
+        hooked = {k: sum(c for (name, _), c in r0["calls"].items()
+                         if name == ("group_norm_split" if k.startswith("group_norm")
+                                     else k)) for k in r0["structure"]}
+        log(f"sp: {world} ranks over {r0['backend']} on {n_cards} card(s), mesh {r0['mesh']} "
+            f"({wall:.1f} s with the ranks' start {ends[0]:.1f} s and exit {ends[1]:.1f} s; "
+            f"one process's unsharded forward {t_ref:.1f} s); the full-width flagship, f32, "
+            f"batch {SP_BATCH}, a (64, 1024) image and a (16, 128) latent at t = "
+            f"{int(t[0])}: W-sharded encode against the unsharded max_abs_err "
+            f"{errs['encode'][0]:.3e} (|ref| max {errs['encode'][1]:.3e}), apply_model "
+            f"max_abs_err {errs['apply_model'][0]:.3e} (|ref| max {errs['apply_model'][1]:.3e}); "
+            f"tol {SP_TOL:g} + {SP_TOL:g}|ref|; every rank gathered the same output "
+            f"{all(r['same'] for r in ranks)}; the sharded encode and apply_model "
+            f"{[round(r['seconds'], 3) for r in ranks]} s a rank (warm-up "
+            f"{[round(r['warm_s'], 3) for r in ranks]}; ranks sharing a card and talking "
+            f"through the host: a rehearsal, not a scaling figure); launches a rank "
+            f"{[r['launches'] for r in ranks]} (structure {r0['structure']}, hooks {hooked}); "
+            f"other kernels {[r['others'] for r in ranks]}; card {card}")
+        bad = []
+        for key, (_, _, ok) in errs.items():
+            if not ok:
+                bad.append(f"the W-sharded {key} differs from the unsharded forward")
+        if not all(r["same"] for r in ranks):
+            bad.append("the ranks gathered different outputs")
+        if any(r["launches"] != r0["structure"] for r in ranks) or hooked != r0["structure"]:
+            bad.append("a rank's launches differ from the structure")
+        if any(any(r["others"].values()) for r in ranks):
+            bad.append("a rank launched a kernel of the unsharded path")
+        if bad:
+            raise AssertionError("sp: " + "; ".join(bad))
+        self.sp_launches = dict(r0["launches"])
+        self.sp_shapes, self.sp_size = r0["calls"], r0["mesh"]["sp"]
+        self.kernel_err["sp_encode"], self.kernel_err["sp_apply_model"] = (
+            errs["encode"][0], errs["apply_model"][0])
+        self._sp_kernels()
+
+    def _sp_kernels(self):
+        """The cross-length K1 (f32 and bf16) and the split K3's two kernels
+        (f32) at every shape of the sp phase's ranks against their plain
+        versions, each bit for bit over two launches; the split K3's kernels
+        over the sp shards of a whole-width tensor, merged, against K3's
+        plain version on it."""
+        import torch
+        from lidar_layout_tpu_torch.ops import attention as A
+        from lidar_layout_tpu_torch.ops import groupnorm as G
+        from lidar_layout_tpu_torch.parallel.collectives import merge_shard_stats
+
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(12)
+        tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+        sp = self.sp_size
+        log(f"sp kernels at the ranks' shapes ({sp} shards; max_abs_err recorded in f32, the "
+            f"path's dtype):")
+
+        def check(name, got, want, atol, rtol, what, record=True):
+            self._check(name, got, want, atol, rtol, what, record=False)
+            if record:
+                self.kernel_err[name] = max(self.kernel_err[name], max_err(got, want)[0])
+        for (name, key), count in sorted(self.sp_shapes.items()):
+            if name == "flash_attention_xl":
+                b, h, sq, skv, d = key
+                for dtype in (torch.float32, torch.bfloat16):
+                    q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn((b, h, skv, d), generator=gen, device=dev).to(dtype)
+                            for _ in range(2))
+                    o1, o2 = A._launch_xl(q, k, v), A._launch_xl(q, k, v)
+                    check(name, o1, A._attend_ref(q, k, v), *tol[dtype],
+                          f"{key} {str(dtype)[6:]} x{count} a rank; two launches bit for bit "
+                          f"{bool(torch.equal(o1, o2))}", record=dtype == torch.float32)
+                    if not torch.equal(o1, o2):
+                        raise AssertionError("the cross-length K1 is not deterministic")
+                continue
+            b, c, hh, ww, groups, act = key
+            x = torch.randn((b, c, hh, ww * sp), generator=gen, device=dev) * 2 + 0.3
+            gamma = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+            shards = [s.contiguous() for s in x.split(ww, dim=-1)]
+            count_ = c // groups * hh * ww
+            st1, st2 = G.group_norm_stats(shards[0], groups), G.group_norm_stats(shards[0], groups)
+            want = G._stats_ref(shards[0], groups)
+            check("group_norm_stats", st1[..., 0], want[..., 0], 1e-5, 1e-5,
+                  f"{key} mean x{count} a rank")
+            check("group_norm_stats", st1[..., 1], want[..., 1], 1e-5, 1e-5,
+                  f"{key} M2 x{count} a rank", record=False)
+            merged = merge_shard_stats(torch.stack([G.group_norm_stats(s, groups)
+                                                    for s in shards]), count_)
+            y1 = G.group_norm_apply(shards[0], merged, gamma, beta, groups, count_ * sp, 1e-6,
+                                    act)
+            y2 = G.group_norm_apply(shards[0], merged, gamma, beta, groups, count_ * sp, 1e-6,
+                                    act)
+            check("group_norm_apply", y1, G._apply_ref(shards[0], merged, gamma, beta, groups,
+                                                       count_ * sp, 1e-6, act),
+                  1e-5, 1e-5, f"{key} x{count} a rank; two launches bit for bit (stats and "
+                  f"apply) {bool(torch.equal(st1, st2) and torch.equal(y1, y2))}")
+            if not (torch.equal(st1, st2) and torch.equal(y1, y2)):
+                raise AssertionError("the split K3 is not deterministic")
+            whole = torch.cat([G.group_norm_apply(s, merged, gamma, beta, groups, count_ * sp,
+                                                  1e-6, act) for s in shards], dim=-1)
+            check("group_norm_apply", whole, G._ref(x, gamma, beta, groups, 1e-6, act),
+                  1e-4, 1e-5, f"{key} over {sp} shards, merged, against K3's plain version on "
+                  f"the whole width", record=False)
+
     # ------------------------------------------------------------------ timing
     def timing(self):
         import torch
@@ -7071,6 +7412,9 @@ class Smoke:
                 f"{tot['plain_ms']:.3f} | library "
                 f"{tot['library_ms']:.3f} ({tot['ms'] / tot['library_ms']:.3f}x) | bound "
                 f"{tot['bound_ms']:.3f}{extra}")
+        self._timing_sp(gen, totals)
+        for name, fn in sp_counters().items():
+            fn.launches = self.sp_launches.get(name, 0)
         log(f"  timings taken with CUDA events because torch.profiler saw no device "
             f"time: {len(EVENT_TIMINGS)} {EVENT_TIMINGS}")
         self.totals = totals
@@ -7841,13 +8185,16 @@ class Smoke:
         patched 64x2048 DPM-20 run and ``ae_bf16_train_*`` over the bf16
         AE's timed steps."""
         entries = []
+        # the sp kernels' launches are a rank's over the sp phase's sharded
+        # encode and apply_model, and their times summed over it
         for name, source, replaces in KERNELS:
             tot = getattr(self, "totals", {}).get(name, {})
             bound_by = ("operations" if tot.get("bound_ops_ms", 0) >= tot.get("bound_bytes_ms", 0)
                         else "bytes")
             trained = name in ("flash_attention_bwd", "group_norm_bwd")
             launches = (self.train_launches if trained else
-                        self.eval_launches if name == "chamfer_nn" else self.launches).get(name)
+                        self.eval_launches if name == "chamfer_nn" else
+                        self.sp_launches if name in sp_counters() else self.launches).get(name)
             entries.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -7894,6 +8241,9 @@ class Smoke:
                    for key in ("crossattn", "concat")},
                 "cond_train_max_abs_err": self.kernel_err.get(f"cond_train_{name}"),
                 "ddp_rank_launches": self.ddp_launches.get(name),
+                **({"sp_encode_max_abs_err": self.kernel_err.get("sp_encode"),
+                    "sp_apply_model_max_abs_err": self.kernel_err.get("sp_apply_model")}
+                   if name in sp_counters() else {}),
                 **{f"{run}_{k}": self.run_totals.get(name, {}).get(run, {}).get(k)
                    for run in ("layout", "layout_train", "layout_boxes", "layout_boxes_train",
                                "ae_train", "coarse", "coarse_train", "coarse_ae_train",

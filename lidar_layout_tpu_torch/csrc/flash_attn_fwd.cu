@@ -62,6 +62,13 @@
 //     be views of one fused qkv projection and o can be written straight into
 //     the (B, S, H*D) layout the output projection reads.
 //   * Deterministic: every output is summed by one warp in a fixed order.
+//   * Cross-length (S_kv != S_q): under the spatial `sp` axis a shard's
+//     queries are its own positions and its keys every position of the
+//     level, gathered over the shards (512/2048, 128/512, 32/128 at the
+//     flagship's full width over 4 shards). The key count Sk only bounds
+//     the key loop, the ragged-tile masks and the bias row; the query
+//     tiles, the stores and the lse follow S. At Sk == S the kernels run
+//     the same instructions as before it was split.
 //   * ptxas (sm_90a, CUDA 12.8) at D = 32: 255 registers and 48 bytes of
 //     stack without a bias (255 and none with one), 73,216 bytes of dynamic
 //     shared memory a block; one MUFU.EX2 per logit in the SASS (132 a
@@ -92,10 +99,10 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  const float* kb;  // (B, S) f32 or nullptr
+  const float* kb;  // (B, Sk) f32 or nullptr
   float* lse;       // (B, H, S) f32 or nullptr
   long long qs[3], ks[3], vs[3], os[3];  // element strides of b, h, s
-  int H, S, D;
+  int H, S, Sk, D;   // S queries, Sk keys (S == Sk but for a W-sharded level's)
   float scale_log2;  // D^-1/2 * log2(e)
 };
 
@@ -141,7 +148,7 @@ __global__ void __launch_bounds__(FwdTile<DP>::NW * 32, DP <= 64 ? 2 : 1)
   bf16* Vs = Ks + NS * BK * LD;   // NS tiles of BK x LD
   float* Bs = reinterpret_cast<float*>(Vs + NS * BK * LD);  // NS rows of BK
 
-  const int S = p.S, D = p.D;
+  const int S = p.S, Sk = p.Sk, D = p.D;
   const int tiles = (p.S + kBQ - 1) / kBQ;  // B*H on x with the tiles: no 65535 limit
   const int bh = blockIdx.x / tiles, b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x % tiles * kBQ;
@@ -152,18 +159,18 @@ __global__ void __launch_bounds__(FwdTile<DP>::NW * 32, DP <= 64 ? 2 : 1)
   const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qs[0] + h * p.qs[1];
   const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ks[0] + h * p.ks[1];
   const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vs[0] + h * p.vs[1];
-  const float* kb = BIAS ? p.kb + (long long)b * S : nullptr;
-  const float bmax = BIAS ? block_max(kb, S) * kLog2e : 0.f;  // log2 units
-  const int ntiles = (S + BK - 1) / BK;
+  const float* kb = BIAS ? p.kb + (long long)b * Sk : nullptr;
+  const float bmax = BIAS ? block_max(kb, Sk) * kLog2e : 0.f;  // log2 units
+  const int ntiles = (Sk + BK - 1) / BK;
 
   auto issue = [&](int j) {  // copies of key tile j into slot j % NS
     if (j < ntiles) {
       const int slot = j % NS, k0 = j * BK;
-      load_tile<BK, DP, LD, NTH>(Ks + slot * BK * LD, kg, p.ks[2], k0, S, D);
-      load_tile<BK, DP, LD, NTH>(Vs + slot * BK * LD, vg, p.vs[2], k0, S, D);
+      load_tile<BK, DP, LD, NTH>(Ks + slot * BK * LD, kg, p.ks[2], k0, Sk, D);
+      load_tile<BK, DP, LD, NTH>(Vs + slot * BK * LD, vg, p.vs[2], k0, Sk, D);
       if (BIAS)
         for (int i = threadIdx.x; i < BK; i += NTH)
-          Bs[slot * BK + i] = k0 + i < S ? kb[k0 + i] * kLog2e : -INFINITY;
+          Bs[slot * BK + i] = k0 + i < Sk ? kb[k0 + i] * kLog2e : -INFINITY;
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };
@@ -233,12 +240,12 @@ __global__ void __launch_bounds__(FwdTile<DP>::NW * 32, DP <= 64 ? 2 : 1)
           s[mt][nt][3] = fmaf(s[mt][nt][3], sl2, bb.y);
         }
       }
-    } else if (k0 + BK > S) {  // the ragged last tile
+    } else if (k0 + BK > Sk) {  // the ragged last tile
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          if (k0 + nt * 8 + 2 * t + e >= S)
+          if (k0 + nt * 8 + 2 * t + e >= Sk)
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) s[mt][nt][e] = s[mt][nt][2 + e] = -INFINITY;
     }
@@ -344,15 +351,15 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
   __shared__ __align__(16) float Ks[kKF][DP];
   __shared__ __align__(16) float Vs[kKF][DP];
 
-  const int S = p.S, D = p.D;
+  const int S = p.S, Sk = p.Sk, D = p.D;
   const int tiles = (p.S + kQF - 1) / kQF;
   const int bh = blockIdx.x / tiles, b = bh / p.H, h = bh % p.H;
   const int qi = blockIdx.x % tiles * kQF + threadIdx.x;
   const float* qg = static_cast<const float*>(p.q) + b * p.qs[0] + h * p.qs[1];
   const float* kg = static_cast<const float*>(p.k) + b * p.ks[0] + h * p.ks[1];
   const float* vg = static_cast<const float*>(p.v) + b * p.vs[0] + h * p.vs[1];
-  const float* kb = p.kb ? p.kb + (long long)b * S : nullptr;
-  const float bmax = kb ? block_max(kb, S) * kLog2e : 0.f;  // log2 units
+  const float* kb = p.kb ? p.kb + (long long)b * Sk : nullptr;
+  const float bmax = kb ? block_max(kb, Sk) * kLog2e : 0.f;  // log2 units
 
   float qr[DP], o[DP];
 #pragma unroll
@@ -367,12 +374,12 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
   }
   float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += kKF) {
+  for (int k0 = 0; k0 < Sk; k0 += kKF) {
     __syncthreads();
     for (int i = threadIdx.x; i < kKF * VPR; i += kQF) {
       const int r = i / VPR, c = (i % VPR) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + r < S && c < D) {
+      if (k0 + r < Sk && c < D) {
         kv = *reinterpret_cast<const float4*>(kg + (k0 + r) * p.ks[2] + c);
         vv = *reinterpret_cast<const float4*>(vg + (k0 + r) * p.vs[2] + c);
       }
@@ -389,7 +396,7 @@ __global__ void __launch_bounds__(128) attn_fwd_f32(Params p) {
 #pragma unroll
       for (int d = 0; d < DP; ++d) acc = fmaf(qr[d], Ks[j][d], acc);
       const int key = k0 + j;
-      s[j] = key < S ? acc * p.scale_log2 + (kb ? kb[key] * kLog2e : 0.f) : -INFINITY;
+      s[j] = key < Sk ? acc * p.scale_log2 + (kb ? kb[key] * kLog2e : 0.f) : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float mn = fmaxf(m, mx);
@@ -480,17 +487,18 @@ LLT_LEAVES(extern template, 128)
 #if !defined(LLT_PART) || LLT_PART == 0
 using llt_attn_fwd::launch;
 
-// q, k, v: (B, H, S, D) with any b/h/s element strides and contiguous d;
-// strides holds 12 values, (b, h, s) for q, k, v, then o. kbias: (B, S)
-// float32 or null. lse: (B, H, S) float32 written when not null.
-// dtype: 0 = float32, 1 = bfloat16. D % 8 == 0, D <= 128.
+// q, o: (B, H, S, D); k, v: (B, H, Sk, D) (Sk == S for self-attention, the
+// keys of every shard for a W-sharded level's queries); any b/h/s element
+// strides and contiguous d; strides holds 12 values, (b, h, s) for q, k, v,
+// then o. kbias: (B, Sk) float32 or null. lse: (B, H, S) float32 written
+// when not null. dtype: 0 = float32, 1 = bfloat16. D % 8 == 0, D <= 128.
 // Returns cudaGetLastError() after the launch.
 extern "C" int llt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   const void* kbias, void* o, void* lse,
                                   const long long* strides, int dtype, int B,
-                                  int H, int S, int D, void* stream) {
+                                  int H, int S, int Sk, int D, void* stream) {
   // one block per (query tile, b*h), all on gridDim.x (at most 2^31 - 1)
-  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1) || S <= 0 ||
+  if (D <= 0 || D > 128 || D % 8 != 0 || (dtype != 0 && dtype != 1) || S <= 0 || Sk <= 0 ||
       (long long)B * H * ((S + kQF - 1) / kQF) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -508,6 +516,7 @@ extern "C" int llt_flash_attn_fwd(const void* q, const void* k, const void* v,
   }
   p.H = H;
   p.S = S;
+  p.Sk = Sk;
   p.D = D;
   p.scale_log2 = (1.f / sqrtf((float)D)) * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

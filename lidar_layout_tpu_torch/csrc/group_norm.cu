@@ -71,6 +71,24 @@
 //     larger clusters, 256 or 1024 threads a block, one warp waiting on the
 //     mbarrier, larger or smaller bulk copies, streaming stores. A shifted
 //     one-pass sum of squares was slightly faster but is not `_ref`'s formula.
+//
+// Split form, for a tensor whose azimuth (W) is sharded over ranks (the
+// spatial `sp` axis of parallel/): a group's statistics span every shard,
+// and GSPMD, which splits the TPU kernel's reductions across devices for
+// JAX, has no counterpart here. So the forward is two kernels around a
+// collective:
+//   * group_norm_stats: one block a (batch, group) span of this shard, 512
+//     threads; `_ref`'s two passes over the span from device memory (the
+//     sum gives the mean, then the sum of squares about it), each a block
+//     reduction in a fixed order; it writes the shard's f32 (mean, M2).
+//   * the ranks merge the shards' (mean, M2) exactly, in rank order, by
+//     Chan's formula for equal counts (ops/groupnorm.py,
+//     parallel/collectives.all_reduce_group_stats).
+//   * group_norm_apply: normalise, affine and the optional SiLU from the
+//     merged (mean, M2) and the whole count, blocks over each span's packs.
+// Bytes bound both: stats reads x (twice, the second time mostly from L2
+// at the sp shapes), apply reads x and writes y. A simple form: no TMA, no
+// cluster; the span is read again by apply rather than kept on chip.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -636,6 +654,71 @@ __global__ void group_norm_param_sum(const float* __restrict__ part, float* __re
   dbeta[c] = sg;
 }
 
+// -------------------------------------------------------------- split form
+constexpr int kSplitThreads = 512;
+constexpr int kApplyPacks = 4 * kSplitThreads;   // packs a block of group_norm_apply
+
+// (mean, M2) of each (batch, group) span of this shard: `_ref`'s two passes
+template <typename T, int V>
+__global__ void __launch_bounds__(kSplitThreads)
+group_norm_stats(const T* __restrict__ x, float* __restrict__ stats, int C, int G, int hw) {
+  const int bg = blockIdx.x;
+  const long long span = (long long)(C / G) * hw;
+  const int npack = (int)(span / V);
+  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(x + bg * span);
+  __shared__ float red[2][32];
+  float a[1] = {0.f};
+  for (int i = threadIdx.x; i < npack; i += kSplitThreads) {
+    const Pack<T, V> p = xp[i];
+#pragma unroll
+    for (int j = 0; j < V; ++j) a[0] += to_f(p.v[j]);
+  }
+  block_sum(a, red[0]);
+  const float mean = a[0] / (float)span;
+  float q[1] = {0.f};
+  for (int i = threadIdx.x; i < npack; i += kSplitThreads) {
+    const Pack<T, V> p = xp[i];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = to_f(p.v[j]) - mean;
+      q[0] += d * d;
+    }
+  }
+  block_sum(q, red[1]);
+  if (threadIdx.x == 0) {
+    stats[2 * bg] = mean;
+    stats[2 * bg + 1] = q[0];
+  }
+}
+
+// y = (x - mean) * rstd * gamma + beta (then SiLU), rstd = (M2 / n + eps)^-1/2
+// from the whole width's (mean, M2); grid (packs / kApplyPacks, B * G)
+template <typename T, int V>
+__global__ void __launch_bounds__(kSplitThreads)
+group_norm_apply(const T* __restrict__ x, const float* __restrict__ stats,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 T* __restrict__ y, int C, int G, int hw, float n, float eps, int act) {
+  const int bg = blockIdx.y, g = bg % G, cpg = C / G, cpk = hw / V;
+  const long long span = (long long)cpg * hw;
+  const int npack = (int)(span / V);
+  const float mean = stats[2 * bg], rstd = rsqrtf(stats[2 * bg + 1] / n + eps);
+  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(x + bg * span);
+  Pack<T, V>* yp = reinterpret_cast<Pack<T, V>*>(y + bg * span);
+  const int end = min(npack, (int)(blockIdx.x + 1) * kApplyPacks);
+  for (int i = blockIdx.x * kApplyPacks + threadIdx.x; i < end; i += kSplitThreads) {
+    const int c = g * cpg + i / cpk;
+    const float ga = gamma[c], be = beta[c];
+    const Pack<T, V> p = xp[i];
+    Pack<T, V> o;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float v = fmaf((to_f(p.v[j]) - mean) * rstd, ga, be);
+      o.v[j] = from_f<T>(act ? silu(v) : v);
+    }
+    yp[i] = o;
+  }
+}
+
 // ------------------------------------------------------------------- host
 struct Plan {
   int k = 0, threads = 0, parts = 1;
@@ -783,6 +866,72 @@ extern "C" int llt_group_norm_bwd(const void* x, const void* gamma,
   if (dtype == 1)
     return bwd<__nv_bfloat16>(x, gamma, beta, dy, dx, part, dgamma, dbeta, B, C, G, hw, eps,
                               act, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <typename T>
+int split_stats(const void* x, void* stats, int B, int C, int G, int hw, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  float* out = static_cast<float*>(stats);
+  if (hw % V == 0 && aligned16(x))
+    group_norm_stats<T, V><<<B * G, kSplitThreads, 0, st>>>(xt, out, C, G, hw);
+  else
+    group_norm_stats<T, 1><<<B * G, kSplitThreads, 0, st>>>(xt, out, C, G, hw);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int split_apply(const void* x, const void* stats, const void* gamma, const void* beta, void* y,
+                int B, int C, int G, int hw, float n, float eps, int act, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  const float* s = static_cast<const float*>(stats);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  T* yt = static_cast<T*>(y);
+  const long long span = (long long)(C / G) * hw;
+  if (hw % V == 0 && aligned16(x) && aligned16(y)) {
+    const dim3 grid((unsigned)((span / V + kApplyPacks - 1) / kApplyPacks), B * G);
+    group_norm_apply<T, V><<<grid, kSplitThreads, 0, st>>>(xt, s, ga, be, yt, C, G, hw, n, eps,
+                                                           act);
+  } else {
+    const dim3 grid((unsigned)((span + kApplyPacks - 1) / kApplyPacks), B * G);
+    group_norm_apply<T, 1><<<grid, kSplitThreads, 0, st>>>(xt, s, ga, be, yt, C, G, hw, n, eps,
+                                                           act);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The split form's statistics: x contiguous (B, C, H*W), this shard's
+// columns; stats a float32 (B, G, 2) of each span's (mean, M2). Returns
+// cudaGetLastError() after the launch.
+extern "C" int llt_group_norm_stats(const void* x, void* stats, int dtype, int B, int C, int G,
+                                    int hw, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((long long)B * G > 0x7fffffffLL || (long long)(C / G) * hw >= 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return split_stats<float>(x, stats, B, C, G, hw, st);
+  if (dtype == 1) return split_stats<__nv_bfloat16>(x, stats, B, C, G, hw, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split form's normalisation: x, y contiguous (B, C, H*W) of one dtype;
+// stats float32 (B, G, 2), the whole width's (mean, M2) over n elements a
+// span; gamma, beta float32 (C,). Returns cudaGetLastError() after the launch.
+extern "C" int llt_group_norm_apply(const void* x, const void* stats, const void* gamma,
+                                    const void* beta, void* y, int dtype, int B, int C, int G,
+                                    int hw, float n, float eps, int act, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B * G > 65535 || (long long)(C / G) * hw >= 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return split_apply<float>(x, stats, gamma, beta, y, B, C, G, hw, n, eps, act, st);
+  if (dtype == 1)
+    return split_apply<__nv_bfloat16>(x, stats, gamma, beta, y, B, C, G, hw, n, eps, act, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,10 @@ latent and the context and labels shared; encode and decode on crops
 scaled by the first stage's factor, stitched back circularly along the
 azimuth.
 Latents at this API are NHWC (B, 16, 128, 8) and images (B, H, W, 1), as in
-the JAX package; the modules inside are NCHW.
+the JAX package; the modules inside are NCHW. Inside a ``with plan:`` block
+of the spatial (``sp``) axis (``parallel/mesh.spatial_sharding``)
+``encode_first_stage`` and ``apply_model`` take and return this rank's W
+shard, as JAX's take a W-sharded array (``parallel/dryrun``), forward only.
 
 With ``conditioning_key: layout_crossattn`` the U-Net is the object-aware
 cross-attention one (``models/object_cross_unet.py``, passed as ``unet``) and
@@ -46,7 +49,7 @@ import torch.nn as nn
 from ..nn.blocks import Normalize
 from ..nn.quantize import VectorQuantizer
 from ..ops.foldunfold import fold_patches, patched_apply_scaled, unfold_patches
-from ..parallel.collectives import all_gather, rank_rows
+from ..parallel.collectives import all_gather, rank_rows, spatial_plan
 from .autoencoder import AEConfig, VQModelInterface
 from .schedules import DiffusionSchedule, extract, q_sample
 from .unet import UNetConfig, UNetModel
@@ -154,8 +157,12 @@ class LatentDiffusion(nn.Module):
 
     def _split_active(self, h: int, w: int) -> bool:
         """The patched path runs iff ``split_ks`` is set and a latent of (h, w)
-        is larger than it."""
+        is larger than it. It does not combine with the sp axis (a W shard's
+        crops would wrap inside the shard): a model with ``split_ks`` raises
+        there."""
         ks = self.cfg.split_ks
+        if ks is not None and spatial_plan() is not None:
+            raise ValueError("the patched split_ks path does not combine with the sp axis")
         return ks is not None and (h > ks[0] or w > ks[1])
 
     def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,14 @@ self-attention goes to K1 and whose cross-attention to the ``context``
 tokens goes to plain attention, as JAX's ``attend`` sends a cross length to
 XLA. With ``num_classes`` the label embedding ``label_emb`` is added to the
 timestep embedding.
+
+Under the spatial (``sp``) axis (``parallel/mesh.spatial_sharding``) the
+U-Net runs on a W shard of the latent: its circular convs exchange halos,
+its norms take K3's split form, each ``SelfAttentionBlock`` attends from
+its shard's positions to every shard's keys (gathered) through the
+cross-length K1 (``flash_attention_xl``), and the timestep embedding, the
+skip concatenations and the nearest x2 upsampling stay local. A U-Net
+with plain (non-circular) convs or SpatialTransformers has no sp path.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ from ..nn.attention import SpatialTransformer
 from ..nn.blocks import Normalize
 from ..nn.conv import CircularConv, Conv1x1
 from ..nn.embeddings import timestep_embedding
-from ..ops.attention import attend
+from ..ops.attention import attend, flash_attention_xl
+from ..parallel.collectives import all_gather_along, spatial_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +172,14 @@ class SelfAttentionBlock(nn.Module):
         qkv = F.linear(y, self.qkv.weight[:, :, 0], self.qkv.bias)     # (B, S, 3C)
         qkv = qkv.view(b, h * w, heads, 3, dh)
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]   # BSHD views
-        out = attend(q, k, v).reshape(b, h * w, c)
+        plan = spatial_plan()
+        if plan is None:
+            out = attend(q, k, v)
+        else:   # this shard's queries against every shard's keys
+            kv = all_gather_along(qkv[:, :, :, 1:], 1, plan.group)
+            out = flash_attention_xl(q.transpose(1, 2), kv[:, :, :, 0].transpose(1, 2),
+                                     kv[:, :, :, 1].transpose(1, 2)).transpose(1, 2)
+        out = out.reshape(b, h * w, c)
         out = F.linear(out, self.proj_out.weight[:, :, 0], self.proj_out.bias)
         return x + out.transpose(1, 2).reshape(b, c, h, w)
 
@@ -278,6 +294,10 @@ class UNetModel(nn.Module):
         """x (B, C, H, W); context (B, S, context_dim) tokens for the
         SpatialTransformers, context_mask (B, S) True = attend; y (B,)
         class labels when ``num_classes`` is set."""
+        if spatial_plan() is not None and (not self.cfg.cconv
+                                           or self.cfg.use_spatial_transformer):
+            raise NotImplementedError("the sp axis shards a U-Net of circular convs and "
+                                      "self-attention blocks only")
         dtype = self.out[2].weight.dtype
         emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels)
                               .to(dtype))

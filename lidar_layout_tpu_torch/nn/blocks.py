@@ -5,6 +5,12 @@ GroupNorm (kernel K3), asymmetric-stride ResNet blocks with circular convs,
 bilinear(align_corners)+conv upsampling, strided-conv downsampling, the
 single-head spatial self-attention and its linear variant. Parameter names follow the reference
 state_dict (``norm1``, ``conv1``, ``nin_shortcut``, ``q``/``k``/``v``, ...).
+
+Under the spatial (``sp``) axis (``parallel/mesh.spatial_sharding``) a
+``Normalize`` takes K3's split form over the shards and an ``AttnBlock``
+attends from its shard's positions to the gathered keys of every shard;
+the bilinear ``Upsample`` and ``LinearAttnBlock``, which no sharded path
+runs, raise there.
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.groupnorm import group_norm
+from ..ops.groupnorm import group_norm, group_norm_split
+from ..parallel.collectives import all_gather_along, spatial_plan
 from .conv import CircularConv, Conv1x1
 
 # stride-specific kernels/pads (reference model_lidm.py); pads are
@@ -49,6 +56,10 @@ class Normalize(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        plan = spatial_plan()
+        if plan is not None:
+            return group_norm_split(x, self.weight, self.bias, self.num_groups, self.eps,
+                                    self.act, plan.group)
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
 
 
@@ -73,6 +84,9 @@ class Upsample(nn.Module):
                      if with_conv else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial_plan() is not None and self.stride != (1, 1):
+            raise NotImplementedError("a bilinear (align_corners) upsample reads the whole "
+                                      "width: no sp path runs it")
         x = resize_align_corners(x, self.stride)
         return self.conv(x) if self.conv is not None else x
 
@@ -156,6 +170,9 @@ class AttnBlock(nn.Module):
         y = self.norm(x)
         q, k, v = (m(y).reshape(b, c, h * w).transpose(1, 2)
                    for m in (self.q, self.k, self.v))
+        plan = spatial_plan()
+        if plan is not None:   # this shard's queries, every shard's keys
+            k, v = all_gather_along(torch.stack([k, v]), 2, plan.group).unbind(0)
         out = plain_attention(q, k, v).transpose(1, 2).reshape(b, c, h, w)
         return x + self.proj_out(out)
 
@@ -172,6 +189,9 @@ class LinearAttnBlock(nn.Module):
         self.to_out = Conv1x1(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial_plan() is not None:
+            raise NotImplementedError("linear attention's softmax over positions reads the "
+                                      "whole width: no sp path runs it")
         b, c, h, w = x.shape
         q, k, v = self.to_qkv(x).reshape(b, 3 * c, h * w).split(c, dim=1)
         q = torch.softmax(q, dim=1)

@@ -4,6 +4,12 @@ Counterpart of ``lidar_layout_tpu/nn/conv.py``: wrap padding on W (the 360
 degree azimuth) and zero padding on H, then a VALID convolution. Padding
 tuples are ``(left, right, top, bottom)``. The modules are ``nn.Conv2d``s, so
 their state_dict holds ``weight`` (OIHW) and ``bias`` as the reference's.
+
+Under the spatial (``sp``) axis (``parallel/mesh.spatial_sharding``) a
+``CircularConv`` sees one W shard: its W padding becomes the halo ring of
+its neighbours' edge columns (``collectives.halo_exchange``), of the widths
+``halo_widths`` derives from its kernel, stride and padding; H keeps its
+zero padding, locally.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ from typing import Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.collectives import halo_exchange, spatial_plan
 
 PadSpec = Union[int, Tuple[int, int, int, int]]
 
@@ -34,6 +42,25 @@ def _norm_pad(padding: PadSpec) -> Tuple[int, int, int, int]:
     return tuple(padding)  # type: ignore[return-value]
 
 
+def halo_widths(kernel: int, stride: int, left: int, right: int, width: int,
+                shards: int) -> Tuple[int, int]:
+    """(left, right) halo columns of one of ``shards`` W shards of ``width``
+    columns for a conv of ``kernel`` columns, ``stride`` and W padding
+    (``left``, ``right``) over the whole width: the shard's outputs are the
+    whole output's columns width / stride * [index, index + 1), which read
+    the ``left`` columns before the shard and ``kernel - stride - left``
+    after it (0 for JAX's stride-2 tables with a left pad of 1, 1 for
+    ``DOWNSAMPLE_PAD[(2, 2)]``'s (0, 1)). Raises unless the stride divides
+    the shard and the whole output is width * shards / stride wide."""
+    total = width * shards
+    out = (total + left + right - kernel) // stride + 1
+    if width % stride or out * stride != total:
+        raise ValueError(f"a W-sharded conv needs a shard width ({width}) its stride "
+                         f"({stride}) divides and an output of the whole width / stride "
+                         f"({total} wide, kernel {kernel}, pad ({left}, {right}): {out})")
+    return left, kernel - stride - left
+
+
 class CircularConv(nn.Conv2d):
     """2D conv with horizontal circular + vertical zero padding; kernel and
     stride in (kh, kw) order, as the reference's stride/kernel tables."""
@@ -48,7 +75,22 @@ class CircularConv(nn.Conv2d):
         self.wrap = wrap
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(circular_pad(x, self.pad, self.wrap))
+        plan = spatial_plan()
+        if plan is None:
+            return super().forward(circular_pad(x, self.pad, self.wrap))
+        halo = self.halo(x.shape[-1], plan.sp)
+        return self.forward_halo(halo_exchange(x, *halo, plan.group, self.wrap))
+
+    def halo(self, width: int, shards: int) -> Tuple[int, int]:
+        """(left, right) halo columns of a shard ``width`` wide of ``shards``."""
+        left, right = self.pad[:2]
+        return halo_widths(self.kernel_size[1], self.stride[1], left, right, width, shards)
+
+    def forward_halo(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv of a W shard given with its halo columns (``halo``) on
+        either side: H zero-padded, W as it is."""
+        top, bottom = self.pad[2:]
+        return super().forward(F.pad(x, (0, 0, top, bottom)) if top or bottom else x)
 
 
 class Conv1x1(nn.Conv2d):

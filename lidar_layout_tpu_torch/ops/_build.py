@@ -29,14 +29,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p, so ctypes never truncates them to 32 bits); an entry lives in
 # csrc/<name>.cu unless SOURCE_OF names another source
 SIGNATURES = {
-    "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 7 + [_I] * 5 + [_P]),
+    "flash_attn_fwd": ("llt_flash_attn_fwd", [_P] * 7 + [_I] * 6 + [_P]),
     "flash_attn_bwd": ("llt_flash_attn_bwd", [_P] * 13 + [_I] * 5 + [_P]),
     "group_norm": ("llt_group_norm_fwd", [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "group_norm_bwd": ("llt_group_norm_bwd", [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "group_norm_path": ("llt_group_norm_path", [_I] * 5),
+    "group_norm_stats": ("llt_group_norm_stats", [_P] * 2 + [_I] * 5 + [_P]),
+    "group_norm_apply": ("llt_group_norm_apply",
+                         [_P] * 5 + [_I] * 5 + [ctypes.c_float] * 2 + [_I, _P]),
     "chamfer_nn": ("llt_chamfer_nn", [_P] * 7 + [_I] * 2 + [_P]),
 }
-SOURCE_OF = {"group_norm_bwd": "group_norm", "group_norm_path": "group_norm"}
+SOURCE_OF = {"group_norm_bwd": "group_norm", "group_norm_path": "group_norm",
+             "group_norm_stats": "group_norm", "group_norm_apply": "group_norm"}
 
 
 def source(name: str) -> str:

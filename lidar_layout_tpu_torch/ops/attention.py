@@ -17,6 +17,11 @@ recomputed probabilities would not be the forward's. The key bias is a
 padding mask and gets no gradient (the JAX package returns zeros for it). ``attend`` routes the same cases as
 the JAX package: self-attention with no mask or with a key-padding mask goes
 to ``flash_attention``; anything else goes to plain attention.
+
+``flash_attention_xl`` is K1 with a key count of its own (S_kv != S_q):
+the queries of one W shard of an attention level against the keys of every
+shard (the spatial ``sp`` axis, ``models/unet.SelfAttentionBlock``). It is
+called directly and forward only; ``attend`` does not route to it.
 """
 from __future__ import annotations
 
@@ -92,13 +97,18 @@ def _attend_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_cost(b: int, h: int, s: int, d: int, itemsize: int,
-                   backward: bool = False) -> dict:
+                   backward: bool = False, s_kv: Optional[int] = None) -> dict:
     """Work of one call of K1 (or K2 when ``backward``) on (B, H, S, D) in a
     dtype of ``itemsize`` bytes, counted as the JAX package's
     ``pl.CostEstimate`` counts it: ``flops`` (4 B H S^2 D forward, 10 backward),
     ``transcendentals`` (B H S^2 exponentials) and ``bytes`` (q, k, v read and
     o written; backward q, k, v, o, dO read and dq, dk, dv written, here in
-    the input dtype where the TPU kernel wrote f32)."""
+    the input dtype where the TPU kernel wrote f32). ``s_kv``: the forward
+    over S_kv keys (``flash_attention_xl``), S^2 becoming S S_kv and k and
+    v counted at S_kv rows."""
+    if s_kv is not None:
+        return {"flops": 4 * b * h * s * s_kv * d, "transcendentals": b * h * s * s_kv,
+                "bytes": 2 * b * h * (s + s_kv) * d * itemsize}
     bhsd = b * h * s * d
     return {"flops": (10 if backward else 4) * bhsd * s,
             "transcendentals": b * h * s * s,
@@ -115,25 +125,30 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cross: bool = False) -> None:
+    """Raise on what K1/K2 do not take; ``cross``: k and v may hold another
+    number of keys than q holds queries (K1 only)."""
     if not q.is_cuda:
         raise ValueError(f"flash attention kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel takes float32/bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"self-attention needs equal q/k/v shapes, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    kv_shape = (*q.shape[:2], k.shape[2], q.shape[3]) if cross else q.shape
+    if k.shape != kv_shape or v.shape != kv_shape:
+        raise ValueError(f"{'cross-length' if cross else 'self-'}attention needs "
+                         f"{'(B, H, S_kv, D) k and v beside q' if cross else 'equal q/k/v shapes'}"
+                         f", got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, s, d = q.shape
-    if d % 8 or d > 128 or s == 0 or b * h * -(-s // 128) > 2**31 - 1:
+    if d % 8 or d > 128 or s == 0 or k.shape[2] == 0 or b * h * -(-s // 128) > 2**31 - 1:
         raise ValueError(f"unsupported attention shape {tuple(q.shape)}")
 
 
-def _bias_ready(kbias: Optional[torch.Tensor], q: torch.Tensor) -> Optional[torch.Tensor]:
+def _bias_ready(kbias: Optional[torch.Tensor], k: torch.Tensor) -> Optional[torch.Tensor]:
     if kbias is None:
         return None
-    b, _, s, _ = q.shape
-    return kbias.to(device=q.device, dtype=torch.float32).expand(b, s).contiguous()
+    b, _, s, _ = k.shape
+    return kbias.to(device=k.device, dtype=torch.float32).expand(b, s).contiguous()
 
 
 def _bshd_empty(q: torch.Tensor) -> torch.Tensor:
@@ -147,28 +162,45 @@ def _strides(*ts: torch.Tensor):
     return (ctypes.c_longlong * (3 * len(ts)))(*(st for t in ts for st in t.stride()[:3]))
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            kbias: Optional[torch.Tensor], with_lse: bool = False
-            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K1: (o, the f32 (B, H, S) log-sum-exp when ``with_lse`` else None)."""
-    _check_inputs(q, k, v)
+def _fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kbias: Optional[torch.Tensor],
+         with_lse: bool, cross: bool, what: str
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of K1: (o, the f32 (B, H, S) log-sum-exp when ``with_lse``
+    else None)."""
+    _check_inputs(q, k, v, cross)
     launch = _build.launcher("flash_attn_fwd")
     b, h, s, d = q.shape
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
     o = _bshd_empty(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    kbias = _bias_ready(kbias, q)
+    kbias = _bias_ready(kbias, k)
     strides = _strides(q, k, v, o)
     _build.launch(
-        launch, q.device, "flash_attention",
+        launch, q.device, what,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if kbias is None else kbias.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, d,
+        ctypes.cast(strides, ctypes.c_void_p), _DTYPES[q.dtype], b, h, s, k.shape[2], d,
         torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention.launches += 1
     return o, lse
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kbias: Optional[torch.Tensor], with_lse: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1 on self-attention: (o, the f32 (B, H, S) log-sum-exp when
+    ``with_lse`` else None)."""
+    out = _fwd(q, k, v, kbias, with_lse, False, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def _launch_xl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1 on cross-length shapes: q (B, H, S_q, D), k and v (B, H, S_kv, D)."""
+    o, _ = _fwd(q, k, v, None, False, True, "flash_attention_xl")
+    flash_attention_xl.launches += 1
+    return o
 
 
 _KEY_BLOCK = 128   # keys a K2 block owns (kBKV in flash_attn_bwd.cu)
@@ -195,7 +227,7 @@ def _launch_bwd(q, k, v, o, do, lse, kbias):
     dqpart = (torch.empty((blocks, b, h, s, d), dtype=torch.float32, device=q.device)
               if q.dtype == torch.bfloat16 and blocks > 1 else None)
     dq, dk, dv = _bshd_empty(q), _bshd_empty(q), _bshd_empty(q)
-    kbias = _bias_ready(kbias, q)
+    kbias = _bias_ready(kbias, k)
     strides = _strides(q, k, v, o, do, dq, dk, dv)
     _build.launch(
         launch, q.device, "flash_attention_bwd",
@@ -264,6 +296,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_xl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention of q (B, H, S_q, D) over k and v (B, H, S_kv, D) with S_kv
+    free, (B, H, S_q, D), forward only: K1 for CUDA tensors, the plain
+    version (``_attend_ref``, any S_kv) for CPU tensors. The queries of one
+    W shard of an attention level against the gathered keys of every shard
+    (the ``sp`` axis). D % 8 == 0, D <= 128. Under autocast q, k and v run
+    in the autocast dtype."""
+    if torch.is_autocast_enabled(q.device.type):
+        dt = torch.get_autocast_dtype(q.device.type)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("cross-length attention (the sp axis) is forward-only: run it "
+                           "under torch.no_grad()")
+    if q.device.type == "cpu":
+        return _attend_ref(q, k, v)
+    return _launch_xl(q, k, v)
+
+
+flash_attention_xl.launches = 0
 
 
 def _supports_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:

@@ -11,11 +11,19 @@ runs through ``_GroupNorm``, whose backward is ``group_norm_bwd``: the
 analytic GroupNorm(+SiLU) backward that the JAX package writes in plain jnp
 (``_fused_vjp_bwd``), a kernel in the same source on the card, and its plain
 version ``_group_norm_bwd_ref`` on the CPU.
+
+``group_norm_split`` is K3 in split form for a W shard (the spatial ``sp``
+axis), whose groups span every shard: this shard's statistics
+(``group_norm_stats``), merged across the shards
+(``collectives.all_reduce_group_stats``), then the normalisation from them
+(``group_norm_apply``); two kernels of the same source, each with its plain
+version. Forward only.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import all_reduce_group_stats, get_world_size
 from . import _build
 
 def _ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -196,3 +204,86 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 group_norm.launches = 0
 group_norm_bwd.launches = 0
+
+
+# ---------------------------------------------------- split form (the sp axis)
+def _stats_ref(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """(B, G, 2) f32: each (batch, group)'s mean and M2 (the sum of squares
+    about that mean) over this shard, ``_ref``'s two passes."""
+    xf = x.float().reshape(x.shape[0], num_groups, -1)
+    mean = xf.mean(dim=2)
+    return torch.stack([mean, (xf - mean[..., None]).square().sum(dim=2)], dim=-1)
+
+
+def _apply_ref(x: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               num_groups: int, count: int, eps: float, act: bool) -> torch.Tensor:
+    """GroupNorm(+SiLU) of ``x`` from the (B, G, 2) (mean, M2) of ``count``
+    elements a group (the whole width's), f32 arithmetic, in x's dtype."""
+    b, c = x.shape[:2]
+    xf = x.float().reshape(b, num_groups, -1)
+    mean, m2 = stats[..., :1].float(), stats[..., 1:].float()
+    xhat = ((xf - mean) * torch.rsqrt(m2 / count + eps)).reshape(b, c, -1)
+    y = xhat * gamma.float()[None, :, None] + beta.float()[None, :, None]
+    if act:
+        y = y * torch.sigmoid(y)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def group_norm_stats(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """(B, G, 2) f32 (mean, M2) of each (batch, group) of ``x`` (B, C, H,
+    W): the kernel for a CUDA tensor, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return _stats_ref(x, num_groups)
+    b, c, hw = _shape(x, num_groups)
+    launch = _build.launcher("group_norm_stats")
+    x = x.contiguous()
+    stats = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
+    _build.launch(launch, x.device, "group_norm_stats", x.data_ptr(), stats.data_ptr(),
+                  _DTYPES[x.dtype], b, c, num_groups, hw,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    group_norm_stats.launches += 1
+    return stats
+
+
+def group_norm_apply(x: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, num_groups: int, count: int, eps: float = 1e-6,
+                     act: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU) of ``x`` from ``stats`` (B, G, 2), the (mean, M2) of
+    ``count`` elements a group: the kernel for a CUDA tensor, the plain
+    version on the CPU; output in x's dtype."""
+    if x.device.type == "cpu":
+        return _apply_ref(x, stats, gamma, beta, num_groups, count, eps, act)
+    b, c, hw = _shape(x, num_groups)
+    if stats.shape != (b, num_groups, 2):
+        raise ValueError(f"stats {tuple(stats.shape)} is not ({b}, {num_groups}, 2)")
+    launch = _build.launcher("group_norm_apply")
+    x = x.contiguous()
+    stats = stats.to(device=x.device, dtype=torch.float32).contiguous()
+    gamma, beta = _f32_on(gamma, x), _f32_on(beta, x)
+    y = torch.empty_like(x)
+    _build.launch(launch, x.device, "group_norm_apply", x.data_ptr(), stats.data_ptr(),
+                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, c,
+                  num_groups, hw, float(count), eps, int(act),
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    group_norm_apply.launches += 1
+    return y
+
+
+def group_norm_split(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     num_groups: int, eps: float, act: bool, group=None) -> torch.Tensor:
+    """GroupNorm(+SiLU) of a W shard ``x`` whose groups span the shards of
+    the ranks of ``group``, forward only: this shard's (mean, M2), merged
+    with the others' in rank order, then the normalisation with the merge.
+    Every shard holds as many columns."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        raise RuntimeError("the split GroupNorm (the sp axis) is forward-only: run it "
+                           "under torch.no_grad()")
+    count = x[0].numel() // num_groups
+    stats = all_reduce_group_stats(group_norm_stats(x, num_groups), count, group)
+    return group_norm_apply(x, stats, gamma, beta, num_groups, count * get_world_size(group),
+                            eps, act)
+
+
+group_norm_stats.launches = 0
+group_norm_apply.launches = 0

@@ -15,6 +15,14 @@ never sees). ``global_denominator`` makes a masked mean the global sum over
 the global count; ``rank_rows`` gives each rank its rows of a draw made at
 the global batch's size, so that a sharded run draws what one process
 would.
+
+The spatial (``sp``) axis: ``spatial_plan`` is the W-shard plan of the
+enclosing ``with plan:`` block (``mesh.spatial_sharding``), which the
+modules that cross the azimuth consult; ``halo_exchange`` is the circular
+ring of a W-sharded conv's edge columns, ``all_gather_along`` the K and V
+of a sharded attention level, and ``all_reduce_group_stats`` the merge of
+GroupNorm's per-shard statistics. A CUDA tensor under gloo goes through
+the host in each (gloo moves host tensors only: ranks sharing one card).
 """
 from __future__ import annotations
 
@@ -56,14 +64,24 @@ def synchronize(group=None) -> None:
         dist.barrier(group)
 
 
+def _via_host(x: torch.Tensor, group=None) -> bool:
+    """Whether ``x`` travels through the host: a CUDA tensor under gloo,
+    which moves host tensors only (the rehearsal of several ranks on one
+    card). Raises for a tensor that the group's backend cannot move."""
+    backend = dist.get_backend(group)
+    if backend == "nccl" and not x.is_cuda:
+        raise ValueError(f"NCCL moves CUDA tensors only, got one on {x.device}")
+    if backend == "gloo" and x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gloo cannot move a tensor on {x.device}")
+    return x.is_cuda and backend == "gloo"
+
+
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` stacked along a new leading axis of ranks
     (``jax.lax.all_gather``); ``x[None]`` in one process."""
     if not _active():
         return x[None]
-    # gloo gathers host tensors only: a CUDA tensor under gloo (the
-    # rehearsal of several ranks on one card) goes through the host
-    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    host = _via_host(x, group)
     src = x.detach().to("cpu" if host else x.device).reshape(-1).clone()
     world = get_world_size(group)
     out = torch.empty((world, x.numel()), dtype=x.dtype, device=src.device)
@@ -170,3 +188,81 @@ def rank_rows(draw: Callable[[int], torch.Tensor], rows: int) -> torch.Tensor:
         return draw(rows)
     r = get_rank()
     return draw(rows * world)[r * rows:(r + 1) * rows]
+
+
+# ----------------------------------------------------------- the sp axis
+_SPATIAL: List[Any] = []   # the plans of the enclosing ``with plan:`` blocks
+
+
+def spatial_plan():
+    """The W-shard plan (``mesh.SpatialPlan``) of the innermost ``with
+    plan:`` block, or None outside one."""
+    return _SPATIAL[-1] if _SPATIAL else None
+
+
+def halo_exchange(x: torch.Tensor, left: int, right: int, group=None,
+                  wrap: bool = True) -> torch.Tensor:
+    """``x`` (..., W), a W shard, with ``left`` columns of its left
+    neighbour's end before it and ``right`` of its right neighbour's start
+    after it: the ring of the ranks of ``group`` in order, the last shard's
+    right neighbour the first (a circular pad of the whole width). Without
+    ``wrap`` the first shard's left halo and the last shard's right halo are
+    zeros (a zero pad). One ``batch_isend_irecv`` of the edge columns."""
+    w = x.shape[-1]
+    if left > w or right > w:
+        raise ValueError(f"a halo of ({left}, {right}) columns is wider than the shard's {w}")
+    n, i = get_world_size(group), get_rank(group)
+    if n == 1:
+        halos = [x[..., w - left:], x[..., :right]]
+    else:
+        host = _via_host(x, group)
+        dev = torch.device("cpu") if host else x.device
+
+        def peer(r):
+            return dist.get_global_rank(group, r % n) if group is not None else r % n
+
+        halos = [x.new_empty((*x.shape[:-1], c), device=dev) for c in (left, right)]
+        sends, recvs = [], []
+        # the same pair may be both neighbours (two shards): sends and
+        # receives are listed in one order on every rank, and tagged
+        for tag, (edge, to, buf, frm) in enumerate(((x[..., w - left:], i + 1, halos[0], i - 1),
+                                                     (x[..., :right], i - 1, halos[1], i + 1))):
+            if buf.shape[-1]:
+                sends.append(dist.P2POp(dist.isend, edge.to(dev).contiguous(), peer(to), group,
+                                        tag))
+                recvs.append(dist.P2POp(dist.irecv, buf, peer(frm), group, tag))
+        if sends:
+            for req in dist.batch_isend_irecv(sends + recvs):
+                req.wait()
+        halos = [h.to(x.device) for h in halos]
+    if not wrap:
+        if i == 0:
+            halos[0] = torch.zeros_like(halos[0])
+        if i == n - 1:
+            halos[1] = torch.zeros_like(halos[1])
+    return torch.cat([halos[0], x, halos[1]], dim=-1)
+
+
+def all_gather_along(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order: the keys and values of every position of a W-sharded level."""
+    return torch.cat(all_gather(x, group).unbind(0), dim=dim)
+
+
+def merge_shard_stats(parts: torch.Tensor, count: int) -> torch.Tensor:
+    """Chan's merge of shards of equal size: ``parts`` (n, ..., 2) holds each
+    shard's (mean, M2) over ``count`` elements; returns (..., 2), the
+    (mean, M2) over all n * count: the mean of the means, and M2 = sum M2_r
+    + count * sum (mean_r - mean)^2, summed over the shards in order."""
+    means, m2s = parts[..., 0], parts[..., 1]
+    mean = means.sum(0) / parts.shape[0]
+    m2 = m2s.sum(0) + count * (means - mean).square().sum(0)
+    return torch.stack([mean, m2], dim=-1)
+
+
+def all_reduce_group_stats(stats: torch.Tensor, count: int, group=None) -> torch.Tensor:
+    """GroupNorm's statistics over the whole width from each shard's
+    (``stats`` (..., 2): the shard's (mean, M2) over ``count`` elements a
+    group): gathered over ``group`` and merged (``merge_shard_stats``) in
+    rank order, so every rank holds the same bits."""
+    return merge_shard_stats(all_gather(stats, group), count)

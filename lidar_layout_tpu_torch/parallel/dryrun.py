@@ -1,14 +1,20 @@
 """Multi-process dry run of the sharded paths, and the spawner it runs on.
 
 Counterpart of ``__graft_entry__.dryrun_multichip`` / ``_dryrun_body`` in
-the JAX package, without its spatial (``sp``) part. ``dryrun_multichip(n,
-device)`` starts ``n`` ranks (``spawn``) and checks, on the tiny flagship
-and the families' small configs:
+the JAX package. ``dryrun_multichip(n, device)`` starts ``n`` ranks
+(``spawn``) and checks, on the tiny flagship and the families' small
+configs:
 
 - one flagship training step on a dp x fsdp mesh (fsdp 2 when n >= 4 and
   even, as JAX's), the sharded parameters as ``fsdp_param_sharding`` says,
   the updated parameters equal on every replica;
 - a fixed-batch trajectory whose loss falls;
+- the spatial (``sp``) part, JAX's rule: sp = 4 when 4 divides n, else 2
+  when n is even, else none. On a (dp, fsdp 1, sp) mesh, with the trained
+  weights, the W-sharded first-stage encode of a (2, 16, 128, 1) image
+  and ``apply_model`` at t = T/2 on a random (2, 4, 16, 8) latent
+  (``spatial_forward``), each gathered to the whole width and held against
+  the unsharded forward within rtol = atol = 2e-4;
 - dp-sharded DDIM gathered over the ranks, returned for the caller to hold
   against one process's DDIM;
 - the cube, layout (scene-sharded) and dense families under dp: a few
@@ -34,7 +40,7 @@ import torch.distributed as dist
 
 from .collectives import all_gather, get_rank, get_world_size, host_all_gather, reduce_mean
 from .mesh import (fully_shard_module, init_from_env, local_batch_slice, make_mesh, replicate,
-                   seed_rank, shard_batch)
+                   seed_rank, shard_batch, spatial_sharding)
 
 
 # ------------------------------------------------------------------ spawn
@@ -146,7 +152,7 @@ def dryrun_body(device: str) -> Dict[str, Any]:
 
     # the flagship step on the dp x fsdp mesh
     fsdp = 2 if n % 2 == 0 and n >= 4 else 1
-    mesh = make_mesh(fsdp, dev.type)
+    mesh = make_mesh(fsdp, device_type=dev.type)
     torch.manual_seed(0)
     model, image_shape = flagship(tiny=True, device=dev)
     jax_init_(model, 0)
@@ -170,6 +176,7 @@ def dryrun_body(device: str) -> Dict[str, Any]:
         state, logs = step(state, batch, torch.Generator(device=dev).manual_seed(10 + i % 2))
         losses.append(float(logs["loss"]))
     out["trajectory"] = losses
+    out.update(_spatial(dev, model))
 
     # dp-sharded DDIM (replicated weights), gathered in rank order
     ddim_model, _ = flagship(tiny=True, device=dev)
@@ -182,6 +189,54 @@ def dryrun_body(device: str) -> Dict[str, Any]:
     out.update(_layout_family(dev))
     out.update(_dense_family(dev))
     return out if rank == 0 else {}
+
+
+def sp_size(n: int) -> int:
+    """JAX's dry run's sp axis for n ranks: 4 when 4 divides n, else 2 when
+    n is even, else 1 (no sp part)."""
+    return 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+
+
+@torch.no_grad()
+def spatial_forward(model, mesh, image: torch.Tensor, latent: torch.Tensor,
+                    t: torch.Tensor):
+    """The flagship's first-stage encode of ``image`` (B, H, W, 1) and
+    ``apply_model`` of ``latent`` (B, h, w, C) at ``t`` (B,), each run on
+    this rank's W shard of ``mesh``'s sp axis (``spatial_sharding``) and
+    gathered to the whole width on every rank: (latent, model output),
+    NHWC. Every rank of the mesh calls it with the same whole tensors."""
+    plan = spatial_sharding(mesh)
+    with plan:
+        z = model.encode_first_stage(plan.shard(image, 2))
+        out = model.apply_model(plan.shard(latent, 2), plan.rows(t))
+    return plan.gather(z, 2), plan.gather(out, 2)
+
+
+def _spatial(dev, trained) -> Dict[str, Any]:
+    """The sp part on a copy of the trained flagship (its full tensors):
+    the sharded encode and ``apply_model`` gathered, and one process's
+    unsharded forward on the same inputs, as numpy."""
+    from ..flagship import flagship
+    from ..train.checkpoint import full_tensors
+
+    sp = sp_size(get_world_size())
+    weights = full_tensors(trained.state_dict())   # a collective: every rank
+    if sp == 1:
+        return {}
+    model, image_shape = flagship(tiny=True, device=dev)
+    model.load_state_dict(weights)
+    mesh = make_mesh(sp=sp, device_type=dev.type)
+    x = torch.tensor(np.random.default_rng(1).standard_normal((2, *image_shape)),
+                     dtype=torch.float32, device=dev)
+    z_in = torch.tensor(np.random.default_rng(3).standard_normal((2, *model.cfg.latent_shape)),
+                        dtype=torch.float32, device=dev)
+    t = torch.full((2,), model.cfg.timesteps // 2, dtype=torch.long, device=dev)
+    z, eps = spatial_forward(model, mesh, x, z_in, t)
+    with torch.no_grad():
+        z_ref, eps_ref = model.encode_first_stage(x), model.apply_model(z_in, t)
+    return {"sp_mesh": {k: mesh[k].size() for k in mesh.mesh_dim_names},
+            **{f"sp_{k}": v.float().cpu().numpy() for k, v in
+               (("z", z), ("z_ref", z_ref), ("eps", eps), ("eps_ref", eps_ref))}}
 
 
 CUBE = dict(cap=64, npts=96, ldim=8, steps=8)
@@ -360,6 +415,13 @@ def check_dryrun(out: Dict[str, Any]) -> Dict[str, Any]:
             raise AssertionError(f"dryrun_multichip({n}): {key} did not fall: {c}")
     if not np.all(np.isfinite(out["dense_losses"])):
         raise AssertionError(f"dryrun_multichip({n}): dense losses {out['dense_losses']}")
+    if ("sp_mesh" in out) != (sp_size(n) > 1):
+        raise AssertionError(f"dryrun_multichip({n}): no sp part where JAX's rule gives one")
+    for key in ("z", "eps") if "sp_mesh" in out else ():
+        got, want = out[f"sp_{key}"], out[f"sp_{key}_ref"]
+        if got.shape != want.shape or not np.allclose(got, want, rtol=2e-4, atol=2e-4):
+            raise AssertionError(f"dryrun_multichip({n}): the W-sharded {key} differs from "
+                                 f"the unsharded forward by {np.abs(got - want).max()}")
     return out
 
 
@@ -369,7 +431,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cpu")
     args = ap.parse_args(argv)
     out = dryrun_multichip(args.n, args.device)
-    print(f"dryrun_multichip({args.n}, {args.device}): mesh {out['mesh']}, loss "
+    sp = (f", sp mesh {out['sp_mesh']}: encode and apply_model W-sharded within "
+          f"{max(np.abs(out[f'sp_{k}'] - out[f'sp_{k}_ref']).max() for k in ('z', 'eps')):.2e} "
+          f"of the unsharded forward" if "sp_mesh" in out else "")
+    print(f"dryrun_multichip({args.n}, {args.device}): mesh {out['mesh']}{sp}, loss "
           f"{out['loss']:.4f}, trajectory {out['trajectory'][0]:.4f} -> "
           f"{out['trajectory'][-1]:.4f}, cube {out['cube_losses'][0]:.4f} -> "
           f"{out['cube_losses'][-1]:.4f}, layout overfit {out['layout_overfit'][0]:.4f} -> "

@@ -13,19 +13,28 @@ Axes, as JAX's:
         FSDP2's ``fully_shard``; the batch is cut over it too, as JAX's
         ``batch_sharding`` folds it into dp.
 
-The spatial axis ``sp`` (the range image's azimuth cut over devices) is not
-ported (``spatial_sharding``).
+  sp    the range image's azimuth (W) cut over ranks (``spatial_sharding``):
+        a ``with plan:`` block around the forward makes the same model code
+        run on this rank's columns. Where GSPMD writes JAX's collectives,
+        the modules write their own: the circular convs' halo ring
+        (``nn/conv``), GroupNorm's statistics merged across shards around a
+        split K3 (``nn/blocks.Normalize``), and the keys and values of an
+        attention level gathered for a cross-length K1 (``models/unet``) or
+        the plain attention (``nn/blocks.AttnBlock``). Forward only: JAX
+        shards the first-stage encode and the denoiser so, and nothing else.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .collectives import get_rank, get_world_size
+from . import collectives as C
+from .collectives import all_gather_along, get_rank, get_world_size
 
 FSDP_MIN_SIZE = 2 ** 16   # JAX's rule: a parameter this large or larger is sharded
 
@@ -84,15 +93,19 @@ def seed_rank(seed: int, device: torch.device) -> None:
         torch.manual_seed(s)
 
 
-def make_mesh(fsdp: int = 1, device_type: Optional[str] = None):
-    """A ``("dp", "fsdp")`` DeviceMesh over every rank (world / fsdp by
-    fsdp), of ``device_type`` (default: "cuda" under NCCL, else "cpu")."""
+def make_mesh(fsdp: int = 1, sp: int = 1, device_type: Optional[str] = None):
+    """A DeviceMesh over every rank, of ``device_type`` (default: "cuda"
+    under NCCL, else "cpu"): ``("dp", "fsdp", "sp")`` (world / (fsdp * sp)
+    by fsdp by sp) when sp > 1, else ``("dp", "fsdp")``, as JAX's."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     n = get_world_size()
-    assert n % fsdp == 0, f"{n} ranks not divisible by fsdp={fsdp}"
+    assert n % (fsdp * sp) == 0, f"{n} ranks not divisible by fsdp={fsdp} * sp={sp}"
+    if sp > 1:
+        return init_device_mesh(device_type, (n // (fsdp * sp), fsdp, sp),
+                                mesh_dim_names=("dp", "fsdp", "sp"))
     return init_device_mesh(device_type, (n // fsdp, fsdp), mesh_dim_names=("dp", "fsdp"))
 
 
@@ -201,7 +214,69 @@ def fully_shard_module(mesh, module: torch.nn.Module) -> Dict[str, Optional[int]
     return spec
 
 
-def spatial_sharding(*_args, **_kwargs):
-    """The azimuth-sharded ``sp`` axis: not ported yet."""
-    raise NotImplementedError('spatial (sp) sharding is not ported yet '
-                              '(ROADMAP queue 1, "Remaining families and infrastructure")')
+@dataclasses.dataclass
+class SpatialPlan:
+    """This rank's share of a W-sharded tensor (``spatial_sharding``): JAX's
+    ``P(batch_axes, None, "sp", None)`` on NHWC, the batch rows over dp and
+    fsdp and the columns over sp. ``with plan:`` makes it the region that
+    ``collectives.spatial_plan`` returns (when sp > 1)."""
+
+    sp: int                 # shards of the width
+    index: int              # this rank's shard of the width
+    group: Any              # the sp process group (None when sp == 1)
+    batch: int              # shards of the batch (dp * fsdp)
+    batch_index: int        # this rank's shard of the batch
+    batch_group: Any        # the group over the batch axes (None when batch == 1)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's batch rows (dim 0) of a whole tensor (the timesteps)."""
+        rows = x.shape[0] // self.batch
+        if rows * self.batch != x.shape[0]:
+            raise ValueError(f"a batch of {x.shape[0]} does not split into {self.batch} shards")
+        return x[self.batch_index * rows:(self.batch_index + 1) * rows]
+
+    def shard(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's batch rows (dim 0) and columns (``dim``: -1 for NCHW,
+        2 for NHWC) of a whole tensor."""
+        cols = x.shape[dim] // self.sp
+        if cols * self.sp != x.shape[dim]:
+            raise ValueError(f"{tuple(x.shape)} does not split into {self.sp} shards of "
+                             f"dim {dim}")
+        return self.rows(x).narrow(dim, self.index * cols, cols)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The whole tensor from every rank's shard (``shard``'s inverse)."""
+        if self.sp > 1:
+            x = all_gather_along(x, dim, self.group)
+        if self.batch > 1:
+            x = all_gather_along(x, 0, self.batch_group)
+        return x
+
+    def __enter__(self) -> "SpatialPlan":
+        if self.sp > 1:
+            C._SPATIAL.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.sp > 1:
+            C._SPATIAL.remove(self)
+
+
+def spatial_sharding(mesh) -> SpatialPlan:
+    """This rank's W-shard plan on ``mesh`` (``make_mesh``): columns over
+    its "sp" axis, batch rows over "dp" and "fsdp"; on a mesh without "sp"
+    the batch rows alone, as JAX's ``spatial_sharding`` degrades to batch
+    sharding. Every rank of the mesh calls it (it makes the batch groups)."""
+    names = mesh.mesh_dim_names
+    sp = mesh["sp"].size() if "sp" in names else 1
+    grid = mesh.mesh.reshape(-1, sp)   # rows: the batch shards; columns: the sp shards
+    me = get_rank()
+    row, col = (int(v) for v in (grid == me).nonzero()[0])
+    batch_group = None
+    if grid.shape[0] > 1:
+        for c in range(sp):   # every rank makes every group, in one order
+            g = dist.new_group(grid[:, c].tolist())
+            if c == col:
+                batch_group = g
+    return SpatialPlan(sp=sp, index=col, group=mesh.get_group("sp") if sp > 1 else None,
+                       batch=grid.shape[0], batch_index=row, batch_group=batch_group)

@@ -372,7 +372,6 @@ def test_port_messages_point_at_roadmap_titles():
     text = re.sub(r"\s*\n\s*", " ", text)
     pointers = re.findall(r'ROADMAP queue 1, "([^"]+)"', text)
     assert not dropped & set(pointers), dropped & set(pointers)
-    # four wait for files (the BERT and CLIP vocabularies, the CLIP weights),
-    # one for the spatial (sp) axis of parallel/
-    assert len(pointers) == 5 and set(pointers) <= titles, set(pointers) - titles
+    # four wait for files (the BERT and CLIP vocabularies, the CLIP weights)
+    assert len(pointers) == 4 and set(pointers) <= titles, set(pointers) - titles
     assert not re.search(r"ROADMAP queue 1, item", text)

@@ -221,9 +221,15 @@ def test_dryrun_two_ranks_samplers_and_families_match_one_process():
     """The dry run in 2 ranks: the flagship step's replicas, a falling
     trajectory, the cube, layout and dense families; its dp-sharded DDIM-8
     and cube DDIM-4, gathered, equal one process's within 2e-4, and the
-    sharded layout loss one process's."""
+    sharded layout loss one process's; its sp part at sp = 2 (JAX's rule
+    for 2 devices): the W-sharded encode and apply_model, gathered, within
+    2e-4 of the unsharded forward."""
     out = D.dryrun_multichip(2, "cpu")
     assert out["mesh"] == {"dp": 2, "fsdp": 1}
+    assert out["sp_mesh"] == {"dp": 1, "fsdp": 1, "sp": 2}
+    for key, shape in (("z", (2, 4, 16, 8)), ("eps", (2, 4, 16, 8))):
+        assert out[f"sp_{key}"].shape == shape and np.abs(out[f"sp_{key}_ref"]).max() > 0
+        np.testing.assert_allclose(out[f"sp_{key}"], out[f"sp_{key}_ref"], rtol=2e-4, atol=2e-4)
     model, _ = flagship(tiny=True, device="cpu")
     jax_init_(model, 3)
     want = ddim_sample(model, (4, *model.cfg.latent_shape), steps=8,

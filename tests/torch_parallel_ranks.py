@@ -184,3 +184,26 @@ def cli(argv, workdir):
     return {"step": trainer.global_step, "files": files,
             "replicas_equal": params_equal_across_ranks(trainer.state.model),
             "default_draw": torch.randn(4).numpy()}
+
+
+def spatial(seed, image, latent, t, ring):
+    """The sp axis in this rank of a (dp, 1, sp) mesh (sp = 4 in 4 ranks):
+    the tiny flagship's W-sharded encode of ``image`` and ``apply_model`` of
+    ``latent`` at ``t``, gathered; the circular and the zero-padded halo
+    ring of this rank's shard of ``ring`` (..., W); the plan's place."""
+    from lidar_layout_tpu_torch.parallel.dryrun import spatial_forward
+    from lidar_layout_tpu_torch.parallel.mesh import make_mesh, spatial_sharding
+
+    model = tiny_flagship(seed)
+    mesh = make_mesh(sp=4)
+    z, eps = spatial_forward(model, mesh, torch.from_numpy(image), torch.from_numpy(latent),
+                             torch.from_numpy(t))
+    plan = spatial_sharding(mesh)
+    mine = plan.shard(torch.from_numpy(ring))
+    return {"z": z.numpy(), "eps": eps.numpy(),
+            "ring": C.halo_exchange(mine, 2, 3, plan.group).numpy(),
+            "ring_zero": C.halo_exchange(mine, 3, 1, plan.group, wrap=False).numpy(),
+            "mesh": {k: mesh[k].size() for k in mesh.mesh_dim_names},
+            "plan": (plan.sp, plan.index, plan.batch, plan.batch_index),
+            "sp_ranks": torch.distributed.get_process_group_ranks(plan.group),
+            "region_after": C.spatial_plan() is None}
